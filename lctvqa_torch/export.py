@@ -19,7 +19,7 @@ Writing `torch.export` artifacts is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,6 +29,9 @@ from lctvqa.export import read_artifact
 from lctvqa_torch import convert
 from lctvqa_torch.data.pipeline import normalize_images
 from lctvqa_torch.models import vqa_ef, vqa_w
+from lctvqa_torch.ops import cuda_generate
+from lctvqa_torch.ops import nn as N
+from lctvqa_torch.ops.cuda_lstm import cell_weights
 
 FUNCTIONS = {"w": ("answer_logits",), "ef": ("answer_logits", "generate")}
 
@@ -54,6 +57,24 @@ def model_config(meta: Dict[str, Any], params, **overrides) -> ModelConfig:
         **overrides)
 
 
+def _prepare(tree, dtype: Optional[torch.dtype]):
+    """The weights cast for the compute dtype once, at load, so that no
+    call casts them again: linear weights rounded to it (kept fp32), conv
+    weights cast to it, and each LSTM layer's kernel weights under
+    "cell"."""
+    if isinstance(tree, list):
+        return [_prepare(t, dtype) for t in tree]
+    if not isinstance(tree, dict):
+        return tree
+    if "w_ih" in tree:
+        return {**tree, "cell": cell_weights(tree, dtype)}
+    if "w" in tree and tree["w"].dim() == 2:
+        return N.prepare_linear(tree, dtype)
+    if "w" in tree and dtype is not None:
+        return {**tree, "w": tree["w"].to(dtype)}
+    return {k: _prepare(v, dtype) for k, v in tree.items()}
+
+
 class ServingModel:
     """A loaded artifact on one device: params as tensors plus the model
     functions. `device` defaults to "cuda" and there is no fallback: on a
@@ -62,7 +83,7 @@ class ServingModel:
 
     Config overrides (`compute_dtype`, `use_pallas_lstm`,
     `pallas_seq_lstm`, `pallas_generate`) pick the numerics and the
-    kernels."""
+    kernels. The weights are cast for the compute dtype once, here."""
 
     def __init__(self, artifact: Dict[str, Any],
                  device: Union[str, torch.device] = "cuda", **overrides):
@@ -92,7 +113,11 @@ class ServingModel:
         self.meta = meta
         self.family = family
         self.config = model_config(meta, params, **overrides)
-        self.params = convert.from_jax(params, self.device)
+        dtype = N.torch_dtype(self.config.compute_dtype)
+        self.params = _prepare(convert.from_jax(params, self.device), dtype)
+        if family == "ef" and self.config.pallas_generate:
+            self.params["qst"]["decode"] = cuda_generate.decode_weights(
+                self.params["qst"], dtype)
 
     @property
     def functions(self):

@@ -43,11 +43,18 @@ def conv2d(params, x: torch.Tensor, stride: int = 1, padding: int = 0,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """NHWC conv. With a compute dtype the operands are rounded to it, the
     result is produced in it (fp32 accumulation inside), then widened to
-    fp32 before the bias: the JAX package's rounding."""
+    fp32 before the bias: the JAX package's rounding. An fp32 conv stays
+    fp32: cuDNN's TF32, on by default, is turned off for it."""
     x, w = _nchw(x), params["w"]
     if dtype is not None:
         x, w = x.to(dtype), w.to(dtype)
-    y = F.conv2d(x, w, stride=stride, padding=padding).to(f32)
+    cudnn = torch.backends.cudnn
+    tf32 = cudnn.allow_tf32
+    cudnn.allow_tf32 = tf32 and x.dtype != f32
+    try:
+        y = F.conv2d(x, w, stride=stride, padding=padding).to(f32)
+    finally:
+        cudnn.allow_tf32 = tf32
     if "b" in params:
         y = y + params["b"].to(f32).view(1, -1, 1, 1)
     return _nhwc(y)

@@ -42,8 +42,15 @@ class CellWeights(NamedTuple):
 
 def cell_weights(layer_params, dtype: Optional[torch.dtype]) -> CellWeights:
     """Cast one layer's params ({"w_ih", "w_hh", "b_ih", "b_hh"}) once,
-    outside the time loop. dtype None keeps fp32."""
+    outside the time loop. dtype None keeps fp32. A layer that holds its
+    cast weights under "cell" (a served model's) returns them."""
     dt = dtype or f32
+    if "cell" in layer_params:
+        cell = layer_params["cell"]
+        if cell.w_ih.dtype != dt:
+            raise ValueError(f"layer weights cast to {cell.w_ih.dtype}, "
+                             f"called with {dt}")
+        return cell
     return CellWeights(
         layer_params["w_ih"].to(dt).contiguous(),
         layer_params["w_hh"].to(dt).contiguous(),

@@ -55,13 +55,28 @@ def embedding_init(gen: torch.Generator, vocab_size: int, embed_dim: int):
                                  dtype=f32)}
 
 
+def prepare_linear(params, dtype: Optional[torch.dtype]):
+    """A linear layer's params for repeated calls: the weight rounded to
+    `dtype` once and kept fp32, so `linear` uses it as it is."""
+    w = params["w"] if dtype is None else params["w"].to(dtype)
+    return {"w": w.to(f32).contiguous(), "b": params["b"].to(f32),
+            "rounded_to": dtype}
+
+
 def linear(params, x: torch.Tensor,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ w + b with operands rounded to `dtype` and fp32 accumulation
-    (JAX: jnp.dot(..., preferred_element_type=float32))."""
+    (JAX: jnp.dot(..., preferred_element_type=float32)). A weight from
+    `prepare_linear` is rounded already."""
     w = params["w"]
+    if "rounded_to" in params:
+        if params["rounded_to"] != dtype:
+            raise ValueError(f"weight prepared for {params['rounded_to']}, "
+                             f"called with {dtype}")
+    elif dtype is not None:
+        w = w.to(dtype)
     if dtype is not None:
-        x, w = x.to(dtype), w.to(dtype)
+        x = x.to(dtype)
     return x.to(f32) @ w.to(f32) + params["b"].to(f32)
 
 

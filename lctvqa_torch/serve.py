@@ -186,21 +186,19 @@ def main(argv=None):
                    help="run every batch bucket before accepting traffic")
     p.add_argument("--trusted", action="store_true",
                    help="allow loading a LEGACY pickle artifact")
-    p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cpu' serves without a GPU (the kernels' plain "
+                        "versions)")
     p.add_argument("--compute_dtype", type=str,
                    default=ModelConfig().compute_dtype,
-                   choices=("bfloat16", "float32"))
-    p.add_argument("--pallas_seq_lstm", action="store_true",
-                   help="run the question LSTMs as whole-sequence kernels")
-    p.add_argument("--pallas_generate", action="store_true",
-                   help="run the greedy decode as one kernel")
+                   choices=("bfloat16", "float32"),
+                   help="matmul operand dtype; the artifact does not record "
+                        "the one it was trained with")
     args = p.parse_args(argv)
 
     srv = make_server(args.artifact, args.host, args.port, args.window_ms,
                       args.max_batch, trusted=args.trusted,
-                      device=args.device, compute_dtype=args.compute_dtype,
-                      pallas_seq_lstm=args.pallas_seq_lstm,
-                      pallas_generate=args.pallas_generate)
+                      device=args.device, compute_dtype=args.compute_dtype)
     host, port = srv.server_address[:2]
     svc: TorchVqaService = srv.RequestHandlerClass.service  # type: ignore
     if args.warmup:

@@ -10,7 +10,8 @@ conftest:
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda_kernels.py
 
-Tolerances: fp32 h/c 1e-5 (summation order), bf16 operands 2e-2,
+Tolerances: fp32 h/c 1e-5 (summation order), bf16 operands 1e-3 (the
+same, plus h values whose bf16 rounding a 1-ulp fp32 difference flips),
 greedy tokens exact in fp32.
 """
 
@@ -21,7 +22,7 @@ from lctvqa_torch.ops import _build, cuda_generate, cuda_lstm
 from lctvqa_torch.ops.lstm import lstm_init
 from lctvqa_torch.ops import nn as N
 
-TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 SHAPES = [(3, 5, 20, 48), (2, 4, 9, 80), (2, 3, 7, 1024),
           (1, 1, 300, 512)]  # B, T, E, H
 
@@ -43,6 +44,13 @@ def _weights(gen, e, h, dtype, device):
 
 def _close(got, want, dtype):
     torch.testing.assert_close(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def _flat(out):
+    """A kernel's outputs, nested tuples of tensors, as one flat tensor."""
+    if isinstance(out, torch.Tensor):
+        return out.flatten()
+    return torch.cat([_flat(o) for o in out])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -76,6 +84,40 @@ def test_lstm_kernels_match_plain(cuda, shape, dtype):
     after = _build.launch_counts()
     for name in ("lstm_cell", "lstm_seq_final", "lstm_seq_all"):
         assert after[name] == before[name] + 1
+
+
+@pytest.mark.parametrize("shape", [(3, 5, 20, 48), (2, 4, 300, 512)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lstm_kernels_round_h_to_bf16(cuda, shape):
+    """x = 0; h0 is 1 - 2^-10 on even units (bf16: 1) and -(0.5 + 2^-10)
+    on odd ones (bf16: -0.5); W_hh rows are 2s and 4s, s = 512 // H. With
+    h rounded to bf16 before the recurrent product every gate's recurrent
+    sum is exactly 0, with h unrounded about -1.5 (-3sH/1024): the
+    kernels must give the plain version's answer, which the unrounded
+    one misses by far more than the tolerance."""
+    b, t, e, h = shape
+    w = _weights(torch.Generator().manual_seed(3), e, h, torch.bfloat16,
+                 cuda)
+    even = torch.arange(h, device=cuda) % 2 == 0
+    h0 = torch.where(even, 1 - 2 ** -10, -(0.5 + 2 ** -10)).float()
+    h0 = h0.expand(b, h).contiguous()
+    c0 = torch.zeros_like(h0)
+    s = max(1, 512 // h)
+    w_hh = torch.where(even, 2.0 * s, 4.0 * s)[:, None].expand(h, 4 * h)
+    probe = cuda_lstm.CellWeights(w.w_ih, w_hh.bfloat16().contiguous(), w.b)
+    unrounded = cuda_lstm.CellWeights(w.w_ih.float(),
+                                      w_hh.float().contiguous(), w.b)
+    xs = torch.zeros(b, t, e, device=cuda)
+    for kern, plain, args in (
+            (cuda_lstm.lstm_cell, cuda_lstm.lstm_cell_plain,
+             (xs[:, 0], h0, c0)),
+            (cuda_lstm.lstm_seq_final, cuda_lstm.lstm_seq_final_plain,
+             (xs, h0, c0)),
+            (cuda_lstm.lstm_seq, cuda_lstm.lstm_seq_plain, (xs, h0, c0))):
+        want = _flat(plain(probe, *args))
+        _close(_flat(kern(probe, *args)), want, torch.bfloat16)
+        ctl = _flat(plain(unrounded, *args))
+        assert float((ctl - want).abs().max()) > 10 * TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("vocab,h", [(130, 48), (1000, 80)])

@@ -108,6 +108,47 @@ def test_seq_all_plain_matches_pallas(dtype):
     _close(got_c, want_c, tol)
 
 
+def test_plain_rounds_h_to_bf16_as_pallas_does():
+    """A probe on which rounding h to bf16 before the recurrent product
+    decides the result: x = 0; h0 is 1 - 2^-10 on even units (bf16: 1)
+    and -(0.5 + 2^-10) on odd ones (bf16: -0.5); W_hh rows are 2s and 4s,
+    s = 512 / H. Every gate's recurrent sum is exactly 0 with h rounded
+    and -3sH/1024 = -1.5 without. The plain versions give the Pallas
+    kernels' answer; the same with h left unrounded (fp32 weights, as
+    x = 0) does not."""
+    _, _, tol = DTYPES["bfloat16"]
+    rng = np.random.default_rng(6)
+    lp = _layer(rng)
+    even = np.arange(H) % 2 == 0
+    s = max(1, 512 // H)
+    lp["w_hh"] = np.repeat(np.where(even, 2.0 * s, 4.0 * s)[:, None], 4 * H,
+                           axis=1).astype(np.float32)
+    h0 = np.tile(np.where(even, 1 - 2 ** -10, -(0.5 + 2 ** -10)),
+                 (B, 1)).astype(np.float32)
+    xs = np.zeros((B, T, E), np.float32)
+    want_o, want_hc = PL.lstm_seq_pallas(
+        _jax(lp), jnp.asarray(xs), jnp.asarray(h0), jnp.zeros((B, H)),
+        dtype=jnp.bfloat16, force_interpret=True)
+    want_h, want_c = PL.lstm_cell_pallas(
+        _jax(lp), jnp.asarray(xs[:, 0]), jnp.asarray(h0), jnp.zeros((B, H)),
+        dtype=jnp.bfloat16, force_interpret=True)
+    t = _torch({"xs": xs, "h0": h0})
+    c0 = torch.zeros(B, H)
+    for dtype, match in ((torch.bfloat16, True), (None, False)):
+        w = cuda_lstm.cell_weights(_torch(lp), dtype)
+        got_o, got_hc = cuda_lstm.lstm_seq(w, t["xs"], t["h0"], c0)
+        got_h, got_c = cuda_lstm.lstm_cell(w, t["xs"][:, 0], t["h0"], c0)
+        pairs = [(got_o, want_o), (got_h, want_h), (got_c, want_c),
+                 *zip(got_hc, want_hc)]
+        errs = [float(np.abs(g.numpy() - np.asarray(v)).max())
+                for g, v in pairs]
+        if match:
+            for g, v in pairs:
+                _close(g, v, tol)
+        else:
+            assert min(errs[:3]) > 5 * tol, errs
+
+
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_generate_plain_matches_pallas(dtype):
     jdt, tdt, _ = DTYPES[dtype]

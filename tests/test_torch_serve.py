@@ -166,6 +166,43 @@ def test_warmup_covers_every_dispatched_bucket(artifacts):
         srv.server_close()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_weights_cast_at_load_change_no_result(artifacts, dtype):
+    """ServingModel casts its weights for the compute dtype once, at load;
+    its answers equal the model functions' on the artifact's own params,
+    which cast them on every call."""
+    from lctvqa.export import read_artifact
+    from lctvqa_torch import convert
+    from lctvqa_torch.data.pipeline import normalize_images as t_normalize
+    from lctvqa_torch.export import ServingModel
+    from lctvqa_torch.models import vqa_ef as t_ef
+    from lctvqa_torch.models import vqa_w as t_w
+
+    rng = np.random.default_rng(1)
+    u8 = rng.integers(0, 256, (2, MCFG.img_size, MCFG.img_size, 3),
+                      dtype=np.uint8)
+    qst = rng.integers(0, MCFG.qst_vocab_size, (2, MCFG.max_qst_len),
+                       dtype=np.int32)
+    img = t_normalize(torch.from_numpy(u8))
+    flags = {"compute_dtype": dtype, "pallas_seq_lstm": True,
+             "pallas_generate": True}
+    for family in ("w", "ef"):
+        art = read_artifact(artifacts[family][0])
+        model = ServingModel(art, "cpu", **flags)
+        raw = convert.from_jax(art["params"]["params"])
+        if family == "w":
+            want = t_w.w_forward(raw, model.config, img,
+                                 torch.from_numpy(qst))
+        else:
+            want = t_ef.ef_forward(raw, None, model.config, img,
+                                   torch.from_numpy(qst))[0]
+            tok, ans = t_ef.ef_generate(raw, None, model.config, img)
+            got_tok, got_ans = model.generate(u8)
+            assert torch.equal(got_tok, tok)
+            assert torch.equal(got_ans, torch.argmax(ans, dim=1))
+        assert torch.equal(model.answer_logits(u8, qst), want)
+
+
 def test_unservable_artifacts_raise(artifacts, monkeypatch):
     d = artifacts["dir"]
     ef = artifacts["ef"][1]
