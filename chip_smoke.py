@@ -329,12 +329,16 @@ def write_artifacts(mcfg, out_dir: Path):
 # phase 4: HTTP serving
 # ---------------------------------------------------------------------------
 
+# the servers are local: no proxy from the environment may carry a request
+_OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+
+
 def _post(port: int, path: str, payload=None):
     url = f"http://127.0.0.1:{port}{path}"
     data = None if payload is None else json.dumps(payload).encode()
     req = urllib.request.Request(url, data=data,
                                  headers={"Content-Type": "application/json"})
-    with urllib.request.urlopen(req, timeout=300) as r:
+    with _OPENER.open(req, timeout=300) as r:
         return r.status, json.loads(r.read())
 
 

@@ -4,7 +4,7 @@ lctvqa/serve.py over a JAX-exported artifact, run by `lctvqa_torch`.
 The endpoints, their JSON, the request decoding (images, question
 tokenization) and the HTTP handler are the JAX package's own
 (`lctvqa.serve.VqaService`, `_Handler`), which import no JAX. What
-differs is the batcher and the warmup:
+differs is the batcher, the warmup and the listen backlog:
 
 - `MicroBatcher` fuses concurrent requests into one batched call of the
   port's `ServingModel`, padded to a power-of-two bucket, and copies the
@@ -13,6 +13,9 @@ differs is the batcher and the warmup:
   warmup stops at `max_batch` while its batcher pads up to the next power
   of two, so a `max_batch` of 48 dispatches an unwarmed 64; here the two
   share `MicroBatcher.buckets`.
+- `VqaHTTPServer` queues up to 1024 pending connections, where
+  socketserver's default of 5 lets a burst of concurrent clients be
+  dropped or reset.
 
     python -m lctvqa_torch.serve --artifact w.lctx --warmup
 """
@@ -158,10 +161,20 @@ class TorchVqaService(VqaService):
         return n
 
 
+class VqaHTTPServer(ThreadingHTTPServer):
+    """socketserver listens with a backlog of 5. A burst of concurrent
+    clients larger than that, arriving while the accept thread waits for
+    the GIL, overflows the queue, and a network stack may then reset the
+    connections past it. The backlog here holds a full micro-batch
+    several times over (the kernel caps it at net.core.somaxconn)."""
+
+    request_queue_size = 1024
+
+
 def make_server(artifact_path: str, host: str = "127.0.0.1", port: int = 0,
                 window_ms: float = 5.0, max_batch: int = 64,
                 trusted: bool = False, device: str = "cuda",
-                **overrides) -> ThreadingHTTPServer:
+                **overrides) -> VqaHTTPServer:
     """Build (but don't start) the HTTP server; `.server_address[1]` is the
     bound port. `overrides` are ModelConfig fields (compute_dtype and the
     kernel flags)."""
@@ -170,7 +183,7 @@ def make_server(artifact_path: str, host: str = "127.0.0.1", port: int = 0,
     service = TorchVqaService(model, window_ms=window_ms,
                               max_batch=max_batch)
     handler = type("Handler", (_Handler,), {"service": service})
-    return ThreadingHTTPServer((host, port), handler)
+    return VqaHTTPServer((host, port), handler)
 
 
 def main(argv=None):

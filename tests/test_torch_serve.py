@@ -203,6 +203,34 @@ def test_weights_cast_at_load_change_no_result(artifacts, dtype):
         assert torch.equal(model.answer_logits(u8, qst), want)
 
 
+def test_burst_of_connections_waits_for_accept(artifacts):
+    """64 clients connect and send before the server accepts any of them:
+    each connection must be queued by the listen backlog and answered.
+    socketserver's default backlog of 5 queues 6; the rest are dropped or
+    reset by the network stack."""
+    import socket
+
+    srv = serve.make_server(artifacts["w"][0], port=0, device="cpu",
+                            compute_dtype="float32")
+    conns, serving = [], False
+    try:
+        for _ in range(64):
+            conns.append(socket.create_connection(srv.server_address,
+                                                  timeout=10))
+            conns[-1].sendall(b"GET /healthz HTTP/1.0\r\n\r\n")
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        serving = True
+        for c in conns:
+            head = c.makefile("rb").readline()
+            assert head.split()[1] == b"200", head
+    finally:
+        for c in conns:
+            c.close()
+        if serving:  # shutdown() waits for a serve_forever loop to end
+            srv.shutdown()
+        srv.server_close()
+
+
 def test_unservable_artifacts_raise(artifacts, monkeypatch):
     d = artifacts["dir"]
     ef = artifacts["ef"][1]
