@@ -1,11 +1,10 @@
 """EF model, the question-generating "test-creator" (port of
-lctvqa/models/vqa_ef.py) with the fixed VGG19 image encoder
-(`arch_type="fixed"`).
+lctvqa/models/vqa_ef.py). The image encoder is the PC-DARTS search
+network (`arch_type="darts"`, with its arch parameters in `arch`) or
+VGG19 (`arch_type="fixed"`, `arch` None).
 
-The PC-DARTS supernet (`arch_type="darts"`) and derived nets
-(`"derived"`) are not ported yet: they come with the later slice that
-ports the supernet and its kernels (ROADMAP.md, queue 1 items 2 and 4),
-and asking for them raises.
+Derived nets (`arch_type="derived"`) are not ported yet (ROADMAP.md,
+queue 1, "Derived"), and asking for them raises.
 """
 
 from __future__ import annotations
@@ -14,29 +13,36 @@ from typing import Optional, Tuple
 
 import torch
 
-from lctvqa.config import ModelConfig
-from lctvqa_torch.models import vgg
+from lctvqa_torch.config import ModelConfig
+from lctvqa_torch.models import search, vgg
 from lctvqa_torch.models.qst_encoder import (ef_qst_encoder,
                                              ef_qst_encoder_init,
                                              ef_qst_generate)
 from lctvqa_torch.ops import nn as N
 
 
-def check_fixed(arch_type: str) -> None:
-    if arch_type != "fixed":
+def check_arch_type(arch_type: str) -> None:
+    if arch_type not in ("fixed", "darts"):
         raise NotImplementedError(
-            f"EF arch_type={arch_type!r} is not ported yet: the PC-DARTS "
-            "supernet and derived nets come with the later port slice for "
-            "the supernet and its kernels 5-7 (ROADMAP.md, queue 1 items 2 "
-            "and 4); only arch_type='fixed' (VGG19) runs")
+            f"EF arch_type={arch_type!r} is not ported yet: derived nets "
+            "come with models/derived.py (ROADMAP.md, queue 1, 'Derived'); "
+            "arch_type='darts' (the supernet) and 'fixed' (VGG19) run")
 
 
 def init_ef_model(gen: torch.Generator, cfg: ModelConfig, vgg_params=None):
     """Returns (params, arch); arch is None for arch_type='fixed'."""
-    check_fixed(cfg.arch_type)
-    params = {"vgg": vgg_params if vgg_params is not None
-              else vgg.vgg19_init(gen, cfg.vgg_width_mult, cfg.vgg_fc_dim)}
-    params["img_fc"] = N.torch_linear_init(gen, vgg.feature_dim(params["vgg"]),
+    check_arch_type(cfg.arch_type)
+    params, arch = {}, None
+    if cfg.arch_type == "darts":
+        params["darts"] = search.network_init(gen, cfg)
+        in_features = search.network_out_features(cfg)
+        arch = search.arch_init(gen, cfg)
+    else:
+        params["vgg"] = (vgg_params if vgg_params is not None else
+                         vgg.vgg19_init(gen, cfg.vgg_width_mult,
+                                        cfg.vgg_fc_dim))
+        in_features = vgg.feature_dim(params["vgg"])
+    params["img_fc"] = N.torch_linear_init(gen, in_features,
                                            cfg.img_embed_size)
     params["qst"] = ef_qst_encoder_init(
         gen, cfg.qst_vocab_size, cfg.word_embed_size, cfg.img_embed_size,
@@ -45,17 +51,25 @@ def init_ef_model(gen: torch.Generator, cfg: ModelConfig, vgg_params=None):
                                         cfg.ans_vocab_size)
     params["fc2"] = N.torch_linear_init(gen, cfg.ans_vocab_size,
                                         cfg.ans_vocab_size)
-    return params, None
+    return params, arch
 
 
 def ef_img_encode(params, arch, cfg: ModelConfig, img: torch.Tensor,
                   gen: Optional[torch.Generator] = None,
                   deterministic: bool = True) -> torch.Tensor:
     """Image -> L2-normalized embed_size feature."""
-    check_fixed(cfg.arch_type)
+    check_arch_type(cfg.arch_type)
     dt = N.torch_dtype(cfg.compute_dtype)
-    feat = vgg.vgg19_features(params["vgg"], img, gen=gen,
-                              deterministic=deterministic, dtype=dt)
+    if cfg.arch_type == "darts":
+        if cfg.fuse_mixed_ops:
+            raise NotImplementedError(
+                "fuse_mixed_ops (search_fused.py) is a JAX-only way of "
+                "running the supernet and is not ported (ROADMAP.md, 'Not "
+                "ported')")
+        feat = search.network_apply(params["darts"], arch, cfg, img, dtype=dt)
+    else:
+        feat = vgg.vgg19_features(params["vgg"], img, gen=gen,
+                                  deterministic=deterministic, dtype=dt)
     return N.l2_normalize(N.linear(params["img_fc"], feat, dtype=dt))
 
 

@@ -11,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from lctvqa.config import ModelConfig
+from lctvqa_torch.config import ModelConfig
 from lctvqa_torch.models import vgg
 from lctvqa_torch.models.qst_encoder import w_qst_encoder, w_qst_encoder_init
 from lctvqa_torch.ops import nn as N

@@ -1,9 +1,10 @@
 """Builds the port's CUDA kernels at first use and launches them.
 
 The sources are `lctvqa_torch/csrc/*.cu`. At the first launch `nvcc`
-compiles all of them for `sm_90a` into one shared library with a plain C
-interface, which is loaded with `ctypes` (a few seconds, against minutes
-for `torch.utils.cpp_extension.load`, whose sources include PyTorch's
+compiles them for `sm_90a`, one process per source and all at once, and
+links the objects into one shared library with a plain C interface, which
+is loaded with `ctypes` (a few seconds, against minutes for
+`torch.utils.cpp_extension.load`, whose sources include PyTorch's
 headers). The library goes to `build/kernels/` at the repo root, named
 by a hash of the sources and flags, so an edited source is rebuilt and an
 unchanged one is not. A failed build raises; nothing falls back.
@@ -28,8 +29,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 # dtype codes of the C interface (lstm_common.cuh, enum DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -56,23 +59,40 @@ def build() -> Path:
     nvcc's output, with ptxas's register and shared-memory report, is
     kept in build/kernels/build.log."""
     sources = sorted(CSRC.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in sorted(CSRC.glob("*.cu*")):
         digest.update(p.name.encode() + p.read_bytes())
     out = BUILD_DIR / f"liblctvqa_kernels_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    (BUILD_DIR / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                           f"{proc.stderr[-6000:]}")
-    os.replace(tmp, out)
+    cmds = [[nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objects)]
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+        outputs = [proc.communicate()[0] for proc in procs]
+        cmds.append([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objects)])
+        codes = [proc.returncode for proc in procs]
+        if not any(codes):
+            link = subprocess.run(cmds[-1], capture_output=True, text=True,
+                                  check=False)
+            outputs.append(link.stdout + link.stderr)
+            codes.append(link.returncode)
+        log = [" ".join(cmd) + "\n" + text
+               for cmd, text in zip(cmds, outputs)]
+        (BUILD_DIR / "build.log").write_text("\n".join(log))
+        if any(codes):
+            raise RuntimeError(f"nvcc failed with codes {codes}:\n"
+                               f"{''.join(log)[-6000:]}")
+        os.replace(tmp, out)
+    finally:
+        for path in (*objects, tmp):
+            path.unlink(missing_ok=True)
     return out
 
 

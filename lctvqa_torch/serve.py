@@ -1,10 +1,22 @@
 """Online serving with the port: the HTTP JSON endpoint of
-lctvqa/serve.py over a JAX-exported artifact, run by `lctvqa_torch`.
+lctvqa/serve.py over an artifact, run by `lctvqa_torch`.
 
-The endpoints, their JSON, the request decoding (images, question
-tokenization) and the HTTP handler are the JAX package's own
-(`lctvqa.serve.VqaService`, `_Handler`), which import no JAX. What
-differs is the batcher, the warmup and the listen backlog:
+Endpoints (JSON in, JSON out), as the JAX package's:
+
+- `GET  /healthz`  -> {"ok", "family", "functions"}
+- `GET  /meta`     -> artifact meta (word lists replaced by their sizes)
+- `POST /answer`   -> {"image_b64"|"image", "question"} -> {"answer"}
+- `POST /generate` -> {"image_b64"|"image"} -> {"question", "answer"}
+                      (EF artifacts)
+
+Images: base64 of an encoded image file (decoded and resized via PIL), or
+base64 of raw uint8 RGB bytes of exactly img_size*img_size*3, or a nested
+uint8 list of shape [img_size, img_size, 3]. Questions are tokenized as
+`data/preprocess.encode_question` does (<start> tok... <end>, <pad>=0,
+unknown -> 0).
+
+What differs from the JAX package's server is the batcher, the warmup
+and the listen backlog:
 
 - `MicroBatcher` fuses concurrent requests into one batched call of the
   port's `ServingModel`, padded to a power-of-two bucket, and copies the
@@ -17,25 +29,35 @@ differs is the batcher, the warmup and the listen backlog:
   socketserver's default of 5 lets a burst of concurrent clients be
   dropped or reset.
 
+
+The batcher pads a group with repeats of its first row, as the JAX
+package's does. With a supernet (darts EF) artifact BatchNorm uses the
+statistics of the dispatched batch, so an answer depends on the other
+requests of its group and on those pad rows: a group of 3 is answered as
+the batch of 4 whose last row repeats the first.
+
     python -m lctvqa_torch.serve --artifact w.lctx --warmup
 """
 
 from __future__ import annotations
 
 import argparse
+import base64
+import io
+import json
 import queue
 import threading
 import time
-from http.server import ThreadingHTTPServer
+import traceback
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
-from lctvqa.config import ModelConfig
-from lctvqa.serve import VqaService, _Handler
-from lctvqa.text import VocabDict
+from lctvqa_torch.config import ModelConfig
 from lctvqa_torch.export import ServingModel, load_artifact
+from lctvqa_torch.text import VocabDict, tokenize
 
 
 def _to_host(out):
@@ -129,20 +151,81 @@ class MicroBatcher:
                 ev.set()
 
 
-class TorchVqaService(VqaService):
-    """The JAX package's request decoding and endpoints around the port's
-    ServingModel and MicroBatcher."""
+class TorchVqaService:
+    """Request decoding and response encoding around a ServingModel and
+    its MicroBatcher (the JAX package's `VqaService`)."""
 
     def __init__(self, model: ServingModel, window_ms: float = 5.0,
                  max_batch: int = 64):
-        # not VqaService.__init__, which starts the JAX package's batcher
         self.model = model
         self.meta = model.meta
         self.batcher = MicroBatcher(model, window_ms, max_batch)
         self._qst_vocab = (VocabDict(word_list=self.meta["qst_words"])
                            if self.meta.get("qst_words") else None)
         self._ans_words = self.meta.get("ans_words")
-        self._uni_words = self.meta.get("unified_words")
+
+    # -- input decoding ---------------------------------------------------
+
+    def _decode_image(self, payload: Dict[str, Any]) -> np.ndarray:
+        s = self.meta["img_size"]
+        if "image_b64" in payload:
+            raw = base64.b64decode(payload["image_b64"])
+            try:
+                from PIL import Image
+                im = Image.open(io.BytesIO(raw)).convert("RGB")
+                return np.asarray(im.resize((s, s)), np.uint8)
+            except Exception:  # noqa: BLE001 - not an image file: raw bytes
+                arr = np.frombuffer(raw, np.uint8)
+                if arr.size != s * s * 3:
+                    raise ValueError(
+                        f"raw image must be {s}x{s}x3 uint8 "
+                        f"({s * s * 3} bytes), got {arr.size}")
+                return arr.reshape(s, s, 3)
+        arr = np.asarray(payload["image"], np.uint8)
+        if arr.shape != (s, s, 3):
+            raise ValueError(f"image must have shape ({s},{s},3), "
+                             f"got {arr.shape}")
+        return arr
+
+    def _encode_question(self, question: str) -> np.ndarray:
+        """<start> tok... <end>, <pad>=0 tail, unknown tokens -> index 0."""
+        if self._qst_vocab is None:
+            raise ValueError("artifact was exported without --input_dir; "
+                             "no question vocab embedded")
+        seq = self.meta["max_qst_len"]
+        toks = tokenize(question)[:seq - 2]
+        vec = np.zeros(seq, np.int32)
+        d = self._qst_vocab.word2idx_dict
+        vec[0] = d["<start>"]
+        for i, t in enumerate(toks):
+            vec[i + 1] = d.get(t, 0)
+        vec[len(toks) + 1] = d["<end>"]
+        return vec
+
+    # -- endpoints --------------------------------------------------------
+
+    def answer(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        u8 = self._decode_image(payload)
+        qst = self._encode_question(payload["question"])
+        logits = self.batcher.call("answer_logits", u8, qst)
+        ans_id = int(np.argmax(logits))
+        out = {"answer_id": ans_id}
+        if self._ans_words:
+            out["answer"] = self._ans_words[ans_id]
+        return out
+
+    def generate(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        if "generate" not in self.model.functions:
+            raise ValueError("W artifacts have no generate function; "
+                             "use POST /answer")
+        u8 = self._decode_image(payload)
+        tokens, ans_id = self.batcher.call("generate", u8)
+        res: Dict[str, Any] = {"answer_id": int(ans_id)}
+        if self._qst_vocab is not None:
+            res["question"] = self._qst_vocab.arr2qst(tokens)
+        if self._ans_words:
+            res["answer"] = self._ans_words[int(ans_id)]
+        return res
 
     def warmup(self, max_batch: Optional[int] = None) -> int:
         """Run every function at every bucket the batcher can dispatch
@@ -159,6 +242,63 @@ class TorchVqaService(VqaService):
                 _to_host(getattr(self.model, name)(*args[name]))
                 n += 1
         return n
+
+    def healthz(self) -> Dict[str, Any]:
+        return {"ok": True, "family": self.meta["family"],
+                "functions": self.model.functions,
+                "dispatch_batches": len(self.batcher.batch_sizes)}
+
+    def meta_public(self) -> Dict[str, Any]:
+        out = dict(self.meta)
+        for k in ("qst_words", "ans_words", "unified_words"):
+            if k in out:
+                out[k.replace("words", "vocab_len")] = len(out.pop(k))
+        return out
+
+
+class _Handler(BaseHTTPRequestHandler):
+    service: TorchVqaService  # set on the subclass by make_server
+
+    def log_message(self, fmt, *args):  # quiet by default
+        pass
+
+    def _send(self, code: int, obj: Dict[str, Any]):
+        body = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def do_GET(self):
+        if self.path == "/healthz":
+            self._send(200, self.service.healthz())
+        elif self.path == "/meta":
+            self._send(200, self.service.meta_public())
+        else:
+            self._send(404, {"error": f"unknown path {self.path}"})
+
+    def do_POST(self):
+        # The response is computed inside the try and sent after it: the
+        # error paths must fire only for service errors, never for a
+        # failed socket write of a successful response.
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            payload = json.loads(self.rfile.read(length) or b"{}")
+            if self.path == "/answer":
+                code, obj = 200, self.service.answer(payload)
+            elif self.path == "/generate":
+                code, obj = 200, self.service.generate(payload)
+            else:
+                code, obj = 404, {"error": f"unknown path {self.path}"}
+        except (ValueError, KeyError, RuntimeError) as e:
+            code, obj = 400, {"error": str(e)}
+        except Exception:  # noqa: BLE001 - a 500 body beats a dropped
+            # connection; the body is generic, since exception reprs can
+            # leak paths and internals
+            traceback.print_exc()
+            code, obj = 500, {"error": "internal server error"}
+        self._send(code, obj)
 
 
 class VqaHTTPServer(ThreadingHTTPServer):

@@ -1,0 +1,64 @@
+"""The port stands alone: `lctvqa_torch` and `chip_smoke.py` import
+neither JAX nor the JAX package `lctvqa`, not even a module there that
+does not use JAX. The port keeps its own copy of what it needs.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+SOURCES = sorted((REPO / "lctvqa_torch").rglob("*.py")) + [
+    REPO / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "lctvqa")
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from ((a.name, node.lineno) for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module, node.lineno
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_source_imports_neither_jax_nor_lctvqa(path):
+    bad = [(name, line) for name, line in _imported_modules(path)
+           if name.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_serve_loads_with_jax_and_lctvqa_blocked():
+    """`import lctvqa_torch.serve` (and so export, the models, the ops and
+    the kernel wrappers) with `jax` and `lctvqa` made unimportable; a
+    darts EF model then initialises and runs on the CPU."""
+    code = """
+import sys
+for name in ("jax", "jaxlib", "lctvqa"):
+    sys.modules[name] = None      # any import of it raises ImportError
+import dataclasses
+import torch
+import lctvqa_torch.serve
+from lctvqa_torch.config import small_test_config
+from lctvqa_torch.models import vqa_ef
+cfg = small_test_config().model
+params, arch = vqa_ef.init_ef_model(torch.Generator().manual_seed(0), cfg)
+img = torch.zeros(2, cfg.img_size, cfg.img_size, 3)
+tok, ans = vqa_ef.ef_generate(params, arch, cfg, img)
+assert tok.shape == (2, cfg.max_qst_len)
+assert ans.shape == (2, cfg.ans_vocab_size)
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib", "lctvqa") and sys.modules[m] is not None)
+assert not loaded, loaded
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")

@@ -3,9 +3,11 @@
 
 Contract: /answer and /generate answer what the JAX package's
 `w_forward`, `ef_forward` and `ef_generate` answer (argmaxes and greedy
-tokens exact, fp32 on the CPU); warmup covers every bucket the batcher
-can dispatch; artifacts the port cannot serve raise; the port never
-imports JAX.
+tokens exact, fp32 on the CPU), for the fixed VGG19 encoder and for the
+PC-DARTS supernet; a group is padded with repeats of its first row;
+warmup covers every bucket the batcher can dispatch; either package reads
+the artifact the other wrote; artifacts the port cannot serve raise; the
+port never imports JAX.
 """
 
 import dataclasses
@@ -171,9 +173,9 @@ def test_weights_cast_at_load_change_no_result(artifacts, dtype):
     """ServingModel casts its weights for the compute dtype once, at load;
     its answers equal the model functions' on the artifact's own params,
     which cast them on every call."""
-    from lctvqa.export import read_artifact
     from lctvqa_torch import convert
     from lctvqa_torch.data.pipeline import normalize_images as t_normalize
+    from lctvqa_torch.export import read_artifact
     from lctvqa_torch.export import ServingModel
     from lctvqa_torch.models import vqa_ef as t_ef
     from lctvqa_torch.models import vqa_w as t_w
@@ -234,17 +236,164 @@ def test_burst_of_connections_waits_for_accept(artifacts):
 def test_unservable_artifacts_raise(artifacts, monkeypatch):
     d = artifacts["dir"]
     ef = artifacts["ef"][1]
-    for name, params, meta, match in (
-            ("darts", ef, _meta("ef", arch_type="darts"), "supernet"),
-            ("derived", ef, _meta("ef", arch_type="derived"), "supernet"),
-            ("int8", artifacts["w"][1], _meta("w", int8=True), "int8")):
+    derived = dict(ef, derived=ef["vgg"])
+    for name, params, meta, exc, match in (
+            ("derived", derived, _meta("ef", arch_type="derived"),
+             NotImplementedError, "derived"),
+            ("mismatch", ef, _meta("ef", arch_type="darts"), ValueError,
+             "arch_type"),
+            ("int8", artifacts["w"][1], _meta("w", int8=True),
+             NotImplementedError, "int8")):
         path = _write(d / f"{name}.lctx", params, meta)
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(exc, match=match):
             load_artifact(path, device="cpu")
     # no silent fall back to the CPU when the GPU is missing
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         load_artifact(artifacts["w"][0])
+
+
+# ---------------------------------------------------------------------------
+# the PC-DARTS supernet EF
+# ---------------------------------------------------------------------------
+
+DARTS = dataclasses.replace(small_test_config().model, arch_type="darts",
+                            compute_dtype="float32")
+NODE_FLAGS = [{}, {"pallas_mixed_op": True}]
+
+
+@pytest.fixture(scope="module")
+def darts_artifact(tmp_path_factory):
+    """A small darts EF artifact as lctvqa.export writes it: params and
+    arch in one bundle. The arch parameters are moved off their 1e-3 init
+    so that the mixture is not uniform."""
+    params, arch = vqa_ef.init_ef_model(jax.random.PRNGKey(2), DARTS)
+    rng = np.random.default_rng(3)
+    arch = {k: rng.standard_normal(v.shape).astype(np.float32)
+            for k, v in arch.items()}
+    bundle = {"params": jax.tree_util.tree_map(np.asarray, params),
+              "arch": arch}
+    path = tmp_path_factory.mktemp("torch_darts") / "ef_darts.lctx"
+    meta = _meta("ef", arch_type="darts", img_size=DARTS.img_size)
+    save_artifact({"exported": {}, "params": bundle, "meta": meta}, str(path))
+    return str(path), bundle
+
+
+def _darts_inputs(n, seed=4):
+    rng = np.random.default_rng(seed)
+    u8 = rng.integers(0, 256, (n, DARTS.img_size, DARTS.img_size, 3),
+                      dtype=np.uint8)
+    qst = rng.integers(0, DARTS.qst_vocab_size, (n, DARTS.max_qst_len),
+                       dtype=np.int32)
+    return u8, qst
+
+
+def test_darts_dims_come_from_the_param_shapes(darts_artifact):
+    model = load_artifact(darts_artifact[0], device="cpu")
+    for field in ("arch_type", "darts_init_ch", "darts_layers", "darts_steps",
+                  "darts_multiplier", "darts_stem_multiplier",
+                  "darts_partial_k", "img_embed_size", "lstm_hidden_size",
+                  "qst_vocab_size", "ans_vocab_size", "img_size"):
+        assert getattr(model.config, field) == getattr(DARTS, field), field
+    assert model.functions == ["answer_logits", "generate"]
+
+
+@pytest.mark.parametrize("flags", NODE_FLAGS, ids=["default", "node_kernel"])
+def test_darts_endpoints_match_jax(darts_artifact, flags):
+    """Requests sent one at a time, so that each is a dispatch group of
+    its own: the answer is the JAX package's on that batch of one."""
+    path, bundle = darts_artifact
+    u8, _ = _darts_inputs(2)
+    srv = _start(path, **flags)
+    try:
+        svc = srv.RequestHandlerClass.service
+        qv = VocabDict(word_list=QST_WORDS)
+        for i in range(2):
+            qst = svc._encode_question(QUESTIONS[i])[None]
+            img = normalize_images(jnp.asarray(u8[i:i + 1]))
+            status, ans = _post(srv.server_address[1], "/answer",
+                                {"image": u8[i].tolist(),
+                                 "question": QUESTIONS[i]})
+            assert status == 200
+            want = vqa_ef.ef_forward(bundle["params"], bundle["arch"], DARTS,
+                                     img, jnp.asarray(qst))[0]
+            assert ans["answer_id"] == int(np.argmax(want[0]))
+            status, gen = _post(srv.server_address[1], "/generate",
+                                {"image": u8[i].tolist()})
+            assert status == 200
+            tok, gen_ans = vqa_ef.ef_generate(bundle["params"],
+                                              bundle["arch"], DARTS, img)
+            assert gen["answer_id"] == int(np.argmax(gen_ans[0]))
+            assert gen["question"] == qv.arr2qst(np.asarray(tok[0]))
+        assert svc.batcher.batch_sizes == [1, 1, 1, 1]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+
+
+@pytest.mark.parametrize("flags", NODE_FLAGS, ids=["default", "node_kernel"])
+def test_darts_group_of_three_is_the_batch_of_four(darts_artifact, flags):
+    """Batch-stat BatchNorm makes a row's answer depend on its group: a
+    dispatch group of 3 gets the rows of the padded batch of 4 whose last
+    row repeats the first, which is what the JAX package's batcher pads
+    with, and not the rows of the unpadded batch of 3."""
+    import threading as th
+
+    path, bundle = darts_artifact
+    model = load_artifact(path, device="cpu", compute_dtype="float32",
+                          **flags)
+    u8, qst = _darts_inputs(3, seed=5)
+    batcher = serve.MicroBatcher(model, window_ms=1.0)
+    group = [("answer_logits", (u8[i], qst[i]), th.Event(), {})
+             for i in range(3)]
+    batcher._dispatch("answer_logits", group)
+    got = np.stack([g[3]["out"] for g in group])
+    assert batcher.batch_sizes == [3]
+
+    pad_u8 = np.concatenate([u8, u8[:1]])
+    pad_qst = np.concatenate([qst, qst[:1]])
+    padded = model.answer_logits(pad_u8, pad_qst).numpy()
+    np.testing.assert_array_equal(got, padded[:3])
+    np.testing.assert_array_equal(padded[3], padded[0])
+    want = vqa_ef.ef_forward(bundle["params"], bundle["arch"], DARTS,
+                             normalize_images(jnp.asarray(pad_u8)),
+                             jnp.asarray(pad_qst))[0]
+    np.testing.assert_allclose(got, np.asarray(want)[:3], rtol=1e-4,
+                               atol=1e-4)
+    # the unpadded batch of 3 answers differently, beyond the tolerance
+    alone = model.answer_logits(u8, qst).numpy()
+    assert np.abs(alone - got).max() > 2e-4
+
+
+def test_artifacts_cross_between_the_packages(darts_artifact, tmp_path):
+    """lctvqa.export reads what the port's save_artifact wrote, and back:
+    same tree structure (tuples and lists kept), dtypes and values."""
+    from lctvqa.export import read_artifact as jax_read
+    from lctvqa_torch import export as t_export
+
+    _, bundle = darts_artifact
+    meta = _meta("ef", arch_type="darts")
+    art = {"exported": {"answer_logits": b"\x00stablehlo\xff"},
+           "params": dict(bundle, extra=(np.arange(3, dtype=np.int8),
+                                         [np.float32(2.5)])),
+           "meta": meta}
+    assert t_export.ARTIFACT_VERSION == meta["artifact_version"]
+    ported, jaxed = str(tmp_path / "port.lctx"), str(tmp_path / "jax.lctx")
+    t_export.save_artifact(art, ported)
+    save_artifact(art, jaxed)
+    for got in (jax_read(ported), t_export.read_artifact(jaxed),
+                t_export.read_artifact(ported)):
+        assert got["meta"] == meta and got["exported"] == art["exported"]
+        assert (jax.tree_util.tree_structure(got["params"])
+                == jax.tree_util.tree_structure(art["params"]))
+        for a, b in zip(jax.tree_util.tree_leaves(got["params"]),
+                        jax.tree_util.tree_leaves(art["params"])):
+            assert a.dtype == np.asarray(b).dtype
+            np.testing.assert_array_equal(a, b)
+    with open(ported, "rb") as f1, open(jaxed, "rb") as f2:
+        assert f1.read() == f2.read()
+    assert t_export.extract_answer_words(
+        ["<start>", "q", "<sep>", "two", "cats", "<end>", "x"]) == "two cats"
 
 
 def test_port_sources_never_import_jax():
@@ -260,7 +409,7 @@ def test_serving_imports_no_jax():
     code = """
 import sys
 import torch
-from lctvqa.config import ModelConfig
+from lctvqa_torch.config import ModelConfig
 import lctvqa_torch.serve
 from lctvqa_torch import convert
 from lctvqa_torch.export import ServingModel

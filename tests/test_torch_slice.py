@@ -146,6 +146,6 @@ def test_torchvision_state_dict_loads_as_is(w_params):
 
 
 def test_ef_other_encoders_raise():
-    with pytest.raises(NotImplementedError, match="supernet"):
+    with pytest.raises(NotImplementedError, match="derived"):
         t_ef.init_ef_model(torch.Generator().manual_seed(0),
-                           dataclasses.replace(MCFG, arch_type="darts"))
+                           dataclasses.replace(MCFG, arch_type="derived"))
