@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py             # from the repo root, on a Hopper card
-    python3 chip_smoke.py --profile   # only a torch.profiler loop over the
-                                      # darts EF call at batch 64 (PERF.md)
+    python3 chip_smoke.py --profile   # only torch.profiler loops over the
+                                      # darts EF call and over one train
+                                      # step at batch 64 (PERF.md)
 
 Needs CUDA PyTorch, nvcc for sm_90a and numpy; imports neither JAX nor
 the JAX package. Phases, any failure of which makes the script exit
@@ -37,6 +39,27 @@ non-zero:
      after the folded BatchNorm, where |o| / sigma rarely passes 4; a
      flip in a sep conv's first stage spreads through its second at about
      the same size. The limit is 4 * 2^-7 * max|w| absolute.
+   - bn_bwd at the same six shapes, x and g each fp32 or bf16, against
+     batchnorm_bwd_plain, relative to the gradient's scale s = max|plain|:
+     1e-5 s where dx is fp32 (summation order), one bf16 ulp, 2^-7 s,
+     where it is bf16.
+   - mixed_node_bwd at the same cell shapes, E and N, against autograd
+     through mixed_node_plain (which treats a stage output's rounding as
+     the identity, as the kernel does), each gradient relative to its own
+     scale s: fp32 1e-4 s (the sums of two BatchNorm backward passes in
+     another order, and weight gradients that are residues of sums over
+     up to 262144 pixels); bf16 2^-7 s for dx, which is rounded to bf16
+     once, and 2e-3 s for the fp32 gradients of taps, pointwise matrices
+     and weights: the plain version recomputes the forward, and a stage
+     output that the two round to different bf16 neighbours moves a few
+     terms of those sums.
+   - the three LSTM Functions (kernel forward, autograd through the plain
+     version backward) at B = 64: gradients of x, h0, c0 and the weights
+     against autograd through the plain version alone, 1e-5 s in fp32
+     and 1e-3 s in bf16.
+   - the port's avg and max pool gradients on a channel slice, card
+     against CPU, 1e-6 (PyTorch's own channels-last avg_pool2d backward,
+     which is wrong on the card in PyTorch 2.11, is logged beside them).
 3. Full-width W, fixed-EF and darts-EF params (and the supernet's arch
    parameters) from seeded torch.Generators, converted to the JAX
    layout, written as three artifacts with lctvqa_torch.export's
@@ -65,6 +88,29 @@ non-zero:
    amplifies it), whose image features must agree within 1e-5; tokens
    equal or a near tie as in 5.
 7. A batch-64 answer_logits / generate loop: pairs/s (informational).
+8. Training at full width (ModelConfig's defaults: the PC-DARTS supernet
+   EF and the VGG19 W, batch 64) through lctvqa_torch's Experiment on
+   synthetic data made in RAM from a seed: stage 1 + stage 2 steps and
+   one eval, at the default kernel flags and with all kernel flags on,
+   in fp32 and in bf16. Launch counts are zeroed before each run. Checks:
+   finite losses that agree between the two flag sets at the first step
+   (fp32 1e-4: the same math in another order of sums); one stage-1 step
+   with the flags on launches exactly 14 mixed_node_fwd, 14
+   mixed_node_bwd, 40 bn_fwd and 40 bn_bwd, and none of them with the
+   flags off, and the cell kernel launches in both; with dropout_rate = 0
+   the stage-1 loss and its gradient w.r.t. every EF leaf agree between
+   the two flag sets on the card and with the CPU (plain versions):
+   loss 1e-4, each leaf within 2e-3 of its own scale plus 1e-5 of the
+   largest leaf's. Four cells of batch-statistics BatchNorm amplify the
+   summation-order difference, hence the first term. The second is for
+   the convolutions that feed a BatchNorm directly: the loss does not
+   depend on their weights' scale, so their gradient is a residue of
+   terms that cancel, a thousandth of the largest leaf's in size, and
+   carries the absolute noise of a full-size sum (4e-6 seen on a
+   [64, 128, 1, 1] leaf of scale 4e-4, the largest leaf 0.8). A
+   checkpoint is written, read back by a
+   resumed Experiment and found equal bit for bit. Then ms per stage-1
+   and stage-2 step and pairs/s (informational).
 
 It prints the card's name and power limit, one JSON line of the kernels
 (times, bounds and launch counts), and last {"ok": true, "device": {...}}.
@@ -112,20 +158,35 @@ NODE_SHAPES = {"cell0": (64, 64, 16, (3, 5)), "cell1": (32, 32, 32, (1, 3)),
 # cell preprocess outputs, then the sep convs' inner BN on stride-2 edges
 BN_SHAPES = ((64, 64, 64, 16), (64, 64, 64, 32), (64, 32, 32, 64),
              (64, 16, 16, 64), (64, 32, 32, 8), (64, 16, 16, 16))
-KERNELS = {  # name -> (source, TPU kernel it replaces, flag that runs it)
+# name -> (source, TPU kernel it replaces, flag set that runs it, path whose
+# run gives its launch count: HTTP serving or training)
+KERNELS = {
     "lstm_cell": ("lctvqa_torch/csrc/lstm.cu",
-                  "lctvqa/ops/pallas_lstm.py:42", "default"),
+                  "lctvqa/ops/pallas_lstm.py:42", "default", "serve"),
     "lstm_seq_final": ("lctvqa_torch/csrc/lstm.cu",
-                       "lctvqa/ops/pallas_lstm.py:172", "kernels"),
+                       "lctvqa/ops/pallas_lstm.py:172", "kernels", "serve"),
     "lstm_seq_all": ("lctvqa_torch/csrc/lstm.cu",
-                     "lctvqa/ops/pallas_lstm.py:311", "kernels"),
+                     "lctvqa/ops/pallas_lstm.py:311", "kernels", "serve"),
     "greedy_generate": ("lctvqa_torch/csrc/generate.cu",
-                        "lctvqa/ops/pallas_generate.py:142", "kernels"),
+                        "lctvqa/ops/pallas_generate.py:142", "kernels",
+                        "serve"),
     "mixed_node_fwd": ("lctvqa_torch/csrc/mixedop.cu",
-                       "lctvqa/ops/pallas_mixedop.py:425", "kernels"),
+                       "lctvqa/ops/pallas_mixedop.py:425", "kernels",
+                       "serve"),
+    "mixed_node_bwd": ("lctvqa_torch/csrc/mixedop.cu",
+                       "lctvqa/ops/pallas_mixedop.py:721", "kernels",
+                       "train"),
     "bn_fwd": ("lctvqa_torch/csrc/bn.cu", "lctvqa/ops/pallas_bn.py:81",
-               "kernels"),
+               "kernels", "serve"),
+    "bn_bwd": ("lctvqa_torch/csrc/bn.cu", "lctvqa/ops/pallas_bn.py:95",
+               "kernels", "train"),
 }
+# launches of one stage-1 step at full width with the kernel flags on
+STAGE1_LAUNCHES = {"mixed_node_fwd": 14, "mixed_node_bwd": 14, "bn_fwd": 40,
+                   "bn_bwd": 40}
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 2e-3
+TRAIN_GRAD_FLOOR = 1e-5
 LSTM_KERNELS = ("lstm_cell", "lstm_seq_final", "lstm_seq_all",
                 "greedy_generate")
 FAILURES: list = []
@@ -514,6 +575,208 @@ def check_node_kernel(device, batches=BATCHES, time_fn=time_ms):
     return results
 
 
+def _grad_err(got, want):
+    """-> (max |got - want|, max |want|) of two gradients."""
+    return (float((got.float() - want.float()).abs().max()),
+            float(want.float().abs().max()))
+
+
+def check_bn_bwd_kernel(device, time_fn=time_ms):
+    """bn_bwd at the supernet's shapes -> {(shape, x dtype, g dtype): {...}}.
+    The library call is autograd's backward of F.batch_norm(training=True)
+    on the channels-last view."""
+    import torch.nn.functional as F
+
+    from lctvqa_torch.ops import cuda_bn
+
+    gen = torch.Generator().manual_seed(SEED + 20)
+    results = {}
+    for shape in BN_SHAPES:
+        base = (1.5 * torch.randn(shape, generator=gen) + 0.3).to(device)
+        gbase = torch.randn(shape, generator=gen).to(device)
+        for x_name, x_dt in DTYPES.items():
+            x = base.to(x_dt)
+            _, stat, _ = cuda_bn.batchnorm_fwd_stat(x)
+            for g_name, g_dt in DTYPES.items():
+                g = gbase.to(g_dt)
+                got = cuda_bn.batchnorm_bwd(x, g, stat)
+                want = cuda_bn.batchnorm_bwd_plain(
+                    x, g, cuda_bn.batchnorm_stats_plain(x))
+                torch.cuda.synchronize()
+                err, scale = _grad_err(got, want)
+                tol = 1e-5 if x_name == "float32" else 2.0 ** -7
+                tag = f"bn_bwd {shape} x {x_name} g {g_name}"
+                expect(got.dtype == x_dt and got.shape == x.shape
+                       and bool(torch.isfinite(got.float()).all())
+                       and err <= tol * scale,
+                       f"{tag}: max |kernel - plain| = {err} exceeds "
+                       f"{tol} * {scale}")
+                n = x.numel()
+                ms, by = bound(n * (2 * x.element_size() + g.element_size()),
+                               10 * n, "float32")
+                xl = x.permute(0, 3, 1, 2).detach().requires_grad_()
+                yl = F.batch_norm(xl, None, None, training=True, eps=1e-5)
+                gl = g.to(yl.dtype).permute(0, 3, 1, 2)
+                r = results[(shape, x_name, g_name)] = {
+                    "err": err, "bound_ms": ms, "bound_by": by,
+                    "ms": time_fn(lambda: cuda_bn.batchnorm_bwd(x, g, stat)),
+                    "plain_ms": time_fn(lambda: cuda_bn.batchnorm_bwd_plain(
+                        x, g, stat)),
+                    "library_ms": time_library(lambda: torch.autograd.grad(
+                        yl, xl, gl, retain_graph=True))}
+                log(f"kernel {tag}: {_times(r)}")
+    return results
+
+
+def node_bwd_bound(n, h, w, cs, edges, dname):
+    """Each edge's Cs-channel slice and the fp32 output gradient read once,
+    each dx written once (the weight gradients are a few KB); about three
+    times the forward's operations: each stage's depthwise and pointwise
+    products twice more (for the input and for the weights), and the
+    depthwise output computed again."""
+    elems = n * h * w * cs
+    wb = 2 if dname == "bfloat16" else 4
+    flops = 3 * edges * elems * (2 * 102 + 2 * 6 * cs + 18 + 7 * 5)
+    return bound(2 * edges * elems * wb + elems * 4, flops, "float32")
+
+
+def check_node_bwd_kernel(device, batches=BATCHES, time_fn=time_ms):
+    """mixed_node_bwd at the four cell shapes ->
+    {(cell, E, N, dtype): {...}}. `err` is the largest error of any
+    gradient relative to that gradient's scale."""
+    from lctvqa_torch.models import search
+    from lctvqa_torch.ops import cuda_mixedop as M
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    results = {}
+    for cell, (h, w, c, edge_counts) in NODE_SHAPES.items():
+        cs = c // 4
+        ops = [_to(search.mixed_op_init(gen, c, 1, 4), device)
+               for _ in range(max(edge_counts))]
+        all_nodes = [M.node_weights(p) for p in ops]
+        for n in batches:
+            states = [torch.randn(n, h, w, c, generator=gen).to(device)
+                      for _ in ops]
+            g = torch.randn(n, h, w, cs, generator=gen).to(device)
+            for edges in edge_counts:
+                wts = (torch.softmax(torch.randn(edges, 8, generator=gen), 1)
+                       * torch.softmax(torch.randn(edges, generator=gen),
+                                       0)[:, None]).to(device)
+                nodes = all_nodes[:edges]
+                for dname, dtype in DTYPES.items():
+                    xs = [s.to(dtype)[..., :cs] for s in states[:edges]]
+                    _, obuf, stat = M.node_fwd_launch(xs, nodes, wts, cs,
+                                                      device)
+                    got = M.node_bwd_launch(xs, nodes, wts, g, obuf, stat, cs,
+                                            device)
+                    want = M.mixed_node_bwd_plain(xs, nodes, wts, g, cs)
+                    torch.cuda.synchronize()
+                    fp32 = dname == "float32"
+                    tols = [1e-4 if fp32 else 2.0 ** -7] * edges + [
+                        1e-4 if fp32 else 2e-3] * 3
+                    pairs = list(zip(got[0], want[0])) + list(zip(got[1:],
+                                                                  want[1:]))
+                    rel, ok = 0.0, True
+                    for (a, b), tol in zip(pairs, tols):
+                        err, scale = _grad_err(a, b)
+                        ok = ok and bool(torch.isfinite(a.float()).all()) \
+                            and err <= tol * scale
+                        rel = max(rel, err / max(scale, 1e-30))
+                    tag = (f"mixed_node_bwd {cell} {h}x{w} Cs={cs} E={edges} "
+                           f"N={n} {dname}")
+                    expect(ok and got[0][0].dtype == dtype
+                           and got[3].shape == (edges, 8),
+                           f"{tag}: a gradient differs from the plain "
+                           f"version's by {rel} of its scale")
+                    ms, by = node_bwd_bound(n, h, w, cs, edges, dname)
+                    r = results[(cell, edges, n, dname)] = {
+                        "err": rel, "bound_ms": ms, "bound_by": by,
+                        "library_ms": None,
+                        "ms": time_fn(lambda: M.node_bwd_launch(
+                            xs, nodes, wts, g, obuf, stat, cs, device)),
+                        "plain_ms": time_fn(lambda: M.mixed_node_bwd_plain(
+                            xs, nodes, wts, g, cs), reps=3, warmup=1)}
+                    log(f"kernel {tag}: {_times(r)}")
+                    del obuf, stat, got, want
+    return results
+
+
+def check_pool_gradients(device):
+    """The port's avg_pool and max_pool gradients on the card against the
+    CPU's, on a channel slice of an NHWC tensor as the supernet pools
+    one (exact sums of at most nine terms: 1e-6). PyTorch's own CUDA
+    avg_pool2d backward on the same channels-last view is logged beside
+    it: PyTorch 2.11 returns it shifted by a pixel, which is why
+    ops/conv.py takes that backward on contiguous tensors."""
+    import torch.nn.functional as F
+
+    from lctvqa_torch.ops import conv as C
+
+    gen = torch.Generator().manual_seed(SEED + 24)
+    x = torch.randn(4, 16, 16, 64, generator=gen)
+    for stride in (1, 2):
+        g = torch.randn(4, 16 // stride, 16 // stride, 16, generator=gen)
+        fns = {"avg_pool": lambda v: C.avg_pool(v[..., :16], 3, stride, 1),
+               "max_pool": lambda v: C.max_pool(v[..., :16], 3, stride, 1),
+               "F.avg_pool2d": lambda v: F.avg_pool2d(
+                   v[..., :16].permute(0, 3, 1, 2), 3, stride, 1,
+                   count_include_pad=False).permute(0, 2, 3, 1)}
+        for name, fn in fns.items():
+            grads = []
+            for dev in ("cpu", device):
+                v = x.to(dev).requires_grad_()
+                grads.append(torch.autograd.grad(fn(v), v, g.to(dev))[0].cpu())
+            err = float((grads[0] - grads[1]).abs().max())
+            if name.startswith("F."):
+                log(f"library {name} backward, stride {stride}, channels-last"
+                    f" view: card vs CPU max |diff| {err:.3e} (informational)")
+            else:
+                log(f"{name} gradient, stride {stride}: card vs CPU max "
+                    f"|diff| {err:.3e}")
+                expect(err <= 1e-6, f"{name} gradient on the card differs "
+                       f"from the CPU's by {err}")
+
+
+def check_lstm_functions(device, mcfg, b=64):
+    """Gradients through the three LSTM Functions (kernel forward) against
+    autograd through the plain versions alone, at full width."""
+    from lctvqa_torch.ops import cuda_lstm as L
+    from lctvqa_torch.ops.lstm import lstm_init
+
+    gen = torch.Generator().manual_seed(SEED + 22)
+    lp = _to(lstm_init(gen, mcfg.word_embed_size,
+                       mcfg.lstm_hidden_size)["layers"][0], device)
+    xs = torch.tanh(torch.randn(b, mcfg.max_qst_len, mcfg.word_embed_size,
+                                generator=gen)).to(device)
+    h0 = torch.nn.functional.normalize(
+        torch.randn(b, mcfg.lstm_hidden_size, generator=gen)).to(device)
+    for dname, dtype in DTYPES.items():
+        for name, (kern, plain) in _lstm_fns().items():
+            grads = []
+            before = L.K.launch_counts()[name]
+            for fn in (kern, plain):
+                leaves = [v.clone().requires_grad_()
+                          for v in (xs, h0, h0, *lp.values())]
+                w = L.cell_weights(dict(zip(lp, leaves[3:])), dtype)
+                outs = _leaves(fn(w, *leaves[:3]))
+                cots = [torch.randn(o.shape, generator=torch.Generator()
+                                    .manual_seed(SEED + 23 + i)).to(device)
+                        for i, o in enumerate(outs)]
+                grads.append(torch.autograd.grad(outs, leaves, cots))
+            torch.cuda.synchronize()
+            expect(L.K.launch_counts()[name] == before + 1,
+                   f"{name} {dname}: the Function did not launch the kernel")
+            tol = 1e-5 if dname == "float32" else 1e-3
+            rel = 0.0
+            for a, want in zip(*grads):
+                err, scale = _grad_err(a, want)
+                rel = max(rel, err / max(scale, 1e-30))
+            expect(rel <= tol, f"{name} {dname}: a gradient through the "
+                   f"Function differs by {rel} of its scale")
+            log(f"function {name} B={b} {dname}: gradients vs autograd "
+                f"through the plain version, max rel err {rel:.3e}")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         tree = list(tree.values())
@@ -631,7 +894,7 @@ def _post(port: int, path: str, payload=None):
         return r.status, json.loads(r.read())
 
 
-def serve_run(paths, device, flags, n_answer=48, n_generate=24,
+def serve_run(paths, device, flags, n_answer=24, n_generate=12,
               max_batch=64):
     """Serve the artifacts, send concurrent requests; -> responses."""
     from lctvqa_torch import serve
@@ -851,7 +1114,7 @@ def check_against_cpu(paths, device):
     torch.cuda.empty_cache()
 
 
-def throughput(paths, device, batch=64, iters=10):
+def throughput(paths, device, batch=64, iters=5):
     from lctvqa_torch.export import ServingModel, read_artifact
 
     rows = []
@@ -941,18 +1204,287 @@ def profile_darts(path, device, batch=64, iters=5):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
 
-def kernel_rows(lstm, bn, node, launches):
+def train_config(dtype: str, fname: str, root: str, dropout=None):
+    """Full width: every ModelConfig default, batch 64, stage 3 off."""
+    import dataclasses
+
+    from lctvqa_torch.config import Config, ModelConfig, TrainConfig
+
+    model = ModelConfig(compute_dtype=dtype, **KERNEL_FLAGS[fname])
+    if dropout is not None:
+        model = dataclasses.replace(model, dropout_rate=dropout)
+    return Config(model=model,
+                  train=TrainConfig(batch_size=64, num_epochs=1,
+                                    skip_stage3=True, seed=SEED),
+                  root_stats_dir=root, exp_name=f"{dtype}_{fname}")
+
+
+def train_arrays():
+    """Synthetic data in RAM at the model's full width: 64-pixel images,
+    30-token questions over 8192 words, 1000 answers."""
+    from lctvqa_torch.data import synthetic
+
+    mcfg = model_configs()["darts"]
+    return synthetic.make_arrays(
+        num_images=256, num_questions=512, img_size=mcfg.img_size,
+        n_answers=mcfg.ans_vocab_size, seed=SEED,
+        max_qst_len=mcfg.max_qst_len, qst_vocab_size=mcfg.qst_vocab_size)
+
+
+def _delta(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def _ef_loss_grads(exp, batch, device):
+    """Stage 1's loss and its gradient per EF leaf on `device`, from the
+    Experiment's params (dropout is off in its config)."""
+    from lctvqa_torch.data.pipeline import normalize_images
+    from lctvqa_torch.models import vqa_ef
+    from lctvqa_torch.optim.optimizers import tree_leaves, tree_map
+    from lctvqa_torch.train.steps import with_grad
+
+    move = lambda t: t.detach().to(device)  # noqa: E731
+    params = with_grad(tree_map(move, exp.ef_params))
+    arch = tree_map(move, exp.arch)
+    img = normalize_images(move(batch["image_u8"]))
+    loss = vqa_ef.ef_loss(params, arch, exp.cfg.model, img,
+                          move(batch["question"]),
+                          move(batch["answer_label"]), deterministic=False,
+                          gen=torch.Generator(device=device).manual_seed(0))
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss), [torch.zeros(p.shape) if g is None else g.cpu()
+                         for p, g in zip(leaves, grads)]
+
+
+def _grads_agree(got, want, tag):
+    top = max(float(w.abs().max()) for w in want)
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        err, scale = _grad_err(a, b)
+        limit = TRAIN_GRAD_TOL * scale + TRAIN_GRAD_FLOOR * top
+        worst = max(worst, err / limit)
+        expect(bool(torch.isfinite(a).all()) and err <= limit,
+               f"{tag}: leaf {i} {tuple(a.shape)} differs by {err} "
+               f"(scale {scale}, largest leaf {top})")
+    log(f"{tag}: {len(want)} gradient leaves, worst error {worst:.3f} of "
+        f"its limit ({TRAIN_GRAD_TOL} of the leaf's scale + "
+        f"{TRAIN_GRAD_FLOOR} of the largest, {top:.3e})")
+
+
+def train_run(arrays, device, dtype: str, fname: str, root: str, steps=4):
+    """A few stage 1 + stage 2 steps and one eval through Experiment.
+    -> (first stage-1 loss, launches of the whole run)."""
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.optim.optimizers import tree_leaves
+    from lctvqa_torch.train.experiment import Experiment, dev_batch
+
+    mcfg = model_configs()["darts"]
+    tag = f"train {dtype} {fname}"
+    with kernel_flags(fname):
+        run_before = _build.launch_counts()
+        exp = Experiment(train_config(dtype, fname, root), device=device,
+                         data=pipeline.loader_from_arrays(arrays))
+        batches = iter(exp._batches("train"))
+        # one stage-1 step alone, for its launch counts
+        batch = dev_batch(next(batches))
+        before = _build.launch_counts()
+        (exp.ef_params, exp.ef_opt, loss0, _, _) = exp.steps["stage1"](
+            exp.ef_params, exp.arch, exp.ef_opt, batch, exp.gen)
+        torch.cuda.synchronize()
+        calls = _delta(before, _build.launch_counts())
+        want = (STAGE1_LAUNCHES if fname == "kernels"
+                else dict.fromkeys(STAGE1_LAUNCHES, 0))
+        log(f"{tag}: one stage-1 step launched "
+            f"{ {k: v for k, v in calls.items() if v} }")
+        expect(all(calls[k] == v for k, v in want.items())
+               and calls["lstm_cell"] + calls["lstm_seq_all"] > 0,
+               f"{tag}: stage-1 launches {calls}, expected {want} and the "
+               "LSTM kernels")
+        losses, times = [float(loss0)], {"stage1": [], "stage2": []}
+        for batch in (next(batches) for _ in range(steps)):
+            batch = dev_batch(batch)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (exp.ef_params, exp.ef_opt, loss, c1, c2) = exp.steps["stage1"](
+                exp.ef_params, exp.arch, exp.ef_opt, batch, exp.gen)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            (exp.w_params, exp.w_opt, loss2, wc) = exp.steps["stage2"](
+                exp.w_params, exp.w_opt, exp.ef_params, exp.arch, batch,
+                exp.gen, exp.sample_gen)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            times["stage1"].append(1e3 * (t1 - t0))
+            times["stage2"].append(1e3 * (t2 - t1))
+            losses += [float(loss), float(loss2)]
+            expect(0 <= int(c2) <= int(c1) <= 64 and 0 <= int(wc) <= 128,
+                   f"{tag}: counters out of range")
+        # one more pair through the Experiment's own train_step
+        out = exp.train_step(next(batches))
+        losses += [float(out[0]), float(out[3])]
+        ev = exp._eval_step(batch)
+        losses.append(float(ev[0]))
+        expect(ev[3].shape == (64, mcfg.max_qst_len)
+               and ev[3].dtype == torch.int32
+               and ev[4].shape == (64, mcfg.ans_vocab_size),
+               f"{tag}: eval shapes")
+        expect(all(np.isfinite(losses)), f"{tag}: a loss is not finite: "
+               f"{losses}")
+        expect(losses[-3] < losses[0], f"{tag}: the EF loss did not fall "
+               f"over {steps + 2} steps: {losses[0]} -> {losses[-3]}")
+        # a checkpoint written and read back equal
+        exp.save_model()
+        again = Experiment(train_config(dtype, fname, root).replace(
+            resume=True), device=device,
+            data=pipeline.loader_from_arrays(arrays))
+        same = all(torch.equal(a, b) for tree, other in (
+            (again.ef_params, exp.ef_params), (again.w_params, exp.w_params),
+            (again.arch, exp.arch), (again.ef_opt["m"], exp.ef_opt["m"]),
+            (again.w_opt["v"], exp.w_opt["v"]))
+            for a, b in zip(tree_leaves(tree), tree_leaves(other)))
+        expect(same and again.ef_opt["step"] == exp.ef_opt["step"] == steps + 2
+               and again.current_epoch == 1,
+               f"{tag}: the checkpoint read back differs")
+        launches = _delta(run_before, _build.launch_counts())
+    s1, s2 = (statistics.median(times[k][1:]) for k in ("stage1", "stage2"))
+    log(f"{tag}: EF loss {losses[0]:.4f} -> {losses[-3]:.4f}, stage 1 "
+        f"{s1:.1f} ms/step, stage 2 {s2:.1f} ms/step, "
+        f"{64e3 / (s1 + s2):.1f} pairs/s (medians of {steps - 1} steps, host "
+        f"clock around synchronized steps); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del exp, again
+    torch.cuda.empty_cache()
+    return losses[0], launches
+
+
+def check_train_gradients(arrays, device, root: str):
+    """Stage 1's loss and gradients with dropout off: the two flag sets on
+    the card against each other and against the CPU."""
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.train.experiment import Experiment
+
+    out = {}
+    for fname in KERNEL_FLAGS:
+        with kernel_flags(fname):
+            cfg = train_config("float32", fname, root, dropout=0.0).replace(
+                exp_name=f"grads_{fname}")
+            exp = Experiment(cfg, device=device,
+                             data=pipeline.loader_from_arrays(arrays))
+            batch = next(iter(exp._batches("train")))
+            before = _build.launch_counts()
+            out[fname] = _ef_loss_grads(exp, batch, device)
+            calls = _delta(before, _build.launch_counts())
+            expect((calls["mixed_node_bwd"] == 14) == (fname == "kernels"),
+                   f"train gradients {fname}: node backward launches "
+                   f"{calls['mixed_node_bwd']}")
+            if fname == "default":
+                t0 = time.perf_counter()
+                out["cpu"] = _ef_loss_grads(exp, batch, torch.device("cpu"))
+                log(f"train gradients: the CPU's stage-1 forward and "
+                    f"backward took {time.perf_counter() - t0:.1f} s")
+            del exp
+    torch.cuda.empty_cache()
+    for a, b in (("kernels", "default"), ("default", "cpu"),
+                 ("kernels", "cpu")):
+        err = abs(out[a][0] - out[b][0])
+        expect(err <= TRAIN_LOSS_TOL + TRAIN_LOSS_TOL * abs(out[b][0]),
+               f"train gradients: stage-1 loss {a} {out[a][0]} vs {b} "
+               f"{out[b][0]}")
+        _grads_agree(out[a][1], out[b][1], f"train gradients {a} vs {b}")
+
+
+def profile_train(arrays, device, root: str):
+    """A torch.profiler pass over one train step (stage 1 + stage 2) at
+    batch 64 in bf16, both flag sets."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.train.experiment import Experiment, dev_batch
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    for fname in KERNEL_FLAGS:
+        with kernel_flags(fname):
+            cfg = train_config("bfloat16", fname, root).replace(
+                exp_name=f"profile_{fname}")
+            exp = Experiment(cfg, device=device,
+                             data=pipeline.loader_from_arrays(arrays))
+            batches = iter(exp._batches("train"))
+            for _ in range(3):
+                exp.train_step(next(batches))
+            batch = next(batches)
+            torch.cuda.synchronize()
+            for stage in ("stage1", "stage2", "both"):
+                t0 = time.perf_counter()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    b = dev_batch(batch)
+                    if stage in ("stage1", "both"):
+                        (exp.ef_params, exp.ef_opt, *_) = exp.steps["stage1"](
+                            exp.ef_params, exp.arch, exp.ef_opt, b, exp.gen)
+                    if stage in ("stage2", "both"):
+                        (exp.w_params, exp.w_opt, *_) = exp.steps["stage2"](
+                            exp.w_params, exp.w_opt, exp.ef_params, exp.arch,
+                            b, exp.gen, exp.sample_gen)
+                    torch.cuda.synchronize()
+                wall_ms = 1e3 * (time.perf_counter() - t0)
+                events = [e for e in prof.key_averages()
+                          if e.device_type == DeviceType.CUDA
+                          and dev_us(e) > 0]
+                expect(bool(events), f"profile train {fname}: the profiler "
+                       "saw no device kernel")
+                total_ms = sum(dev_us(e) for e in events) / 1e3
+                log(f"profile train {stage} B=64 bf16 {fname}: wall "
+                    f"{wall_ms:.1f} ms under the profiler, device "
+                    f"{total_ms:.1f} ms ({100 * total_ms / wall_ms:.1f}% "
+                    f"busy), {sum(e.count for e in events)} device kernels")
+                if stage == "both":
+                    continue
+                for e in sorted(events, key=dev_us, reverse=True)[:12]:
+                    log(f"  {dev_us(e) / 1e3:8.3f} ms  {e.count:5d} launches"
+                        f"  {e.key[:90]}")
+            # the same step without the profiler
+            times = []
+            for _ in range(4):
+                b = next(batches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                exp.train_step(b)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+            log(f"profile train B=64 bf16 {fname}: "
+                f"{statistics.median(times):.1f} ms/step without the "
+                "profiler")
+            del exp
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+
+def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches):
     """The kernels line: one row per kernel at the largest shape the
-    batch-64 bf16 serving path gives it."""
+    batch-64 bf16 path gives it; `launches` of the run of its path."""
     picks = {name: (lstm[name][(64, "bfloat16")], "B=64 bfloat16")
              for name in LSTM_KERNELS}
     picks["mixed_node_fwd"] = (node[("cell0", 5, 64, "bfloat16")],
                                "cell0 64x64 Cs=4 E=5 N=64 bfloat16")
+    picks["mixed_node_bwd"] = (node_bwd[("cell0", 5, 64, "bfloat16")],
+                               "cell0 64x64 Cs=4 E=5 N=64 bfloat16")
     picks["bn_fwd"] = (bn[((64, 64, 64, 32), "float32", "bfloat16")],
                        "[64,64,64,32] float32 -> bfloat16")
+    picks["bn_bwd"] = (bn_bwd[((64, 64, 64, 32), "float32", "bfloat16")],
+                       "[64,64,64,32] x float32, g bfloat16")
     rows = []
-    for name, (source, replaces, _) in KERNELS.items():
+    for name, (source, replaces, _, _) in KERNELS.items():
         r, shape = picks[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
@@ -1000,6 +1532,7 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
             paths = write_artifacts(Path(tmp), names=("darts",))
             profile_darts(paths["darts"], device)
+            profile_train(train_arrays(), device, tmp)
         log(card)
         return 1 if FAILURES else 0
 
@@ -1013,6 +1546,10 @@ def main(argv=None) -> int:
     kern = check_kernels(device, model_configs()["w"])
     kern_bn = check_bn_kernel(device)
     kern_node = check_node_kernel(device)
+    kern_bn_bwd = check_bn_bwd_kernel(device)
+    kern_node_bwd = check_node_bwd_kernel(device)
+    check_lstm_functions(device, model_configs()["w"])
+    check_pool_gradients(device)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
     log(f"kernel phase took {time.perf_counter() - t0:.1f} s; TF32 at "
@@ -1034,9 +1571,11 @@ def main(argv=None) -> int:
             per_run[fname] = {k: after[k] - before[k] for k in after}
             log(f"launches in the {fname} run: {per_run[fname]}")
         launches = _build.launch_counts()
-        for name, (_, _, run) in KERNELS.items():
-            expect(per_run[run][name] > 0,
+        for name, (_, _, run, path) in KERNELS.items():
+            expect(per_run[run][name] > 0 or path != "serve",
                    f"{name} never launched in the {run} serving run")
+            expect(per_run[run][name] == 0 or path == "serve",
+                   f"{name}, a kernel of training, launched while serving")
         for name in ("mixed_node_fwd", "bn_fwd"):
             expect(per_run["default"][name] == 0,
                    f"{name} launched in the default serving run")
@@ -1061,7 +1600,33 @@ def main(argv=None) -> int:
             log(f"throughput {name} {fn_name} B=64 {dtype} {fname}: "
                 f"{rate:.1f} pairs/s ({ms:.2f} ms/batch) on {card}")
 
-    rows = kernel_rows(kern, kern_bn, kern_node, launches)
+        # 8. the second main path: training, each run with the counts at 0
+        arrays = train_arrays()
+        first_loss = {}
+        for dtype in DTYPES:
+            for fname in KERNEL_FLAGS:
+                _build.reset_launch_counts()
+                first_loss[(dtype, fname)], train_launches = train_run(
+                    arrays, device, dtype, fname, tmp)
+                log(f"launches in the {dtype} {fname} training run: "
+                    f"{ {k: v for k, v in train_launches.items() if v} }")
+                for name, (_, _, run, path) in KERNELS.items():
+                    if path == "train" and run == fname:
+                        expect(train_launches[name] > 0, f"{name} never "
+                               f"launched in the {dtype} {fname} training "
+                               "run")
+                        if dtype == "bfloat16":
+                            launches[name] = train_launches[name]
+            a, b = (first_loss[(dtype, f)] for f in KERNEL_FLAGS)
+            tol = TRAIN_LOSS_TOL if dtype == "float32" else 1e-2
+            expect(abs(a - b) <= tol + tol * abs(a),
+                   f"train {dtype}: first stage-1 loss default {a} vs "
+                   f"kernels {b}")
+        check_train_gradients(arrays, device, tmp)
+        log(f"training timed on {card}")
+
+    rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
+                       launches)
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed:")
         for f in FAILURES:

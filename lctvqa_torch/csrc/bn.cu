@@ -1,12 +1,20 @@
-// Batch-statistics BatchNorm forward for Hopper (sm_90a), bound to Python
-// with ctypes (lctvqa_torch/ops/cuda_bn.py). Replaces the forward of the
-// Pallas TPU kernel of lctvqa/ops/pallas_bn.py (_fwd_kernel, the
-// pallas_call at pallas_bn.py:81):
+// Batch-statistics BatchNorm, forward and backward, for Hopper (sm_90a),
+// bound to Python with ctypes (lctvqa_torch/ops/cuda_bn.py). Replaces the
+// Pallas TPU kernels of lctvqa/ops/pallas_bn.py (_fwd_kernel, the
+// pallas_call at pallas_bn.py:81, and _bwd_kernel, the one at :95):
 //
 //   lctvqa_bn_fwd   y = (x - mean_c) * rsqrt(var_c + eps) over a contiguous
 //                   [M, C] view of an NHWC tensor, no scale or bias,
 //                   var = E[x^2] - mean^2, statistics and normalize in fp32,
-//                   x fp32 or bf16, y fp32 or bf16
+//                   x fp32 or bf16, y fp32 or bf16; leaves mean and
+//                   1/sqrt(var + eps) in `stat` for the backward
+//   lctvqa_bn_bwd   dx = r * (g - mean(g) - xhat * mean(g * xhat)) with
+//                   xhat = (x - mean) * r from the forward's `stat`; g fp32
+//                   or bf16, sums in fp32, dx in x's dtype
+//
+// The backward is bound the same way (bytes: x and g read, dx written) and
+// built the same way: per-block partials of sum g and sum g * xhat, a
+// fixed-order finalize, then one elementwise pass.
 //
 // What bounds it on an H100: bytes. It does 5 operations per element it
 // moves, so the least time is one read of x and one write of y at the
@@ -223,6 +231,156 @@ cudaError_t bn_fwd_vec(const void* x, void* y, void* partial, void* stat,
   return bn_fwd<T, TO, 1>(x, y, partial, stat, M, C, eps, s);
 }
 
+// partial: [gridDim.x, 2, C] (sum g, sum g * xhat); the layout and thread
+// plan of bn_stats_kernel.
+template <typename T, typename TG, int VEC>
+__global__ void bn_bwd_stats_kernel(const T* __restrict__ x,
+                                    const TG* __restrict__ g,
+                                    const float* __restrict__ stat,
+                                    float* __restrict__ partial, long long M,
+                                    int C, int lanes, int rows) {
+  extern __shared__ float red[];  // [rows * lanes][2 * VEC]
+  const int lane = threadIdx.x % lanes;
+  const int r = threadIdx.x / lanes;
+  const int groups = C / VEC;
+  for (int g0 = 0; g0 < groups; g0 += lanes) {
+    const int grp = g0 + lane;
+    const bool active = grp < groups;
+    float s[VEC], q[VEC], mean[VEC], rstd[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) s[k] = q[k] = mean[k] = rstd[k] = 0.f;
+    if (active) {
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        mean[k] = stat[grp * VEC + k];
+        rstd[k] = stat[C + grp * VEC + k];
+      }
+      const long long step = (long long)gridDim.x * rows;
+#pragma unroll 4
+      for (long long row = (long long)blockIdx.x * rows + r; row < M;
+           row += step) {
+        const long long at = row * C + (long long)grp * VEC;
+        float v[VEC], gv[VEC];
+        load_vec<T, VEC>(x + at, v);
+        load_vec<TG, VEC>(g + at, gv);
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          s[k] += gv[k];
+          q[k] = fmaf(gv[k], (v[k] - mean[k]) * rstd[k], q[k]);
+        }
+      }
+    }
+    float* mine = red + (size_t)threadIdx.x * 2 * VEC;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      mine[k] = s[k];
+      mine[VEC + k] = q[k];
+    }
+    __syncthreads();
+    if (active && r == 0) {
+      for (int r2 = 1; r2 < rows; ++r2) {
+        const float* other = red + (size_t)(r2 * lanes + lane) * 2 * VEC;
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          s[k] += other[k];
+          q[k] += other[VEC + k];
+        }
+      }
+      float* out = partial + (size_t)blockIdx.x * 2 * C + (size_t)grp * VEC;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        out[k] = s[k];
+        out[C + k] = q[k];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// gstat: [2, C] (mean of g, mean of g * xhat).
+__global__ void bn_bwd_finalize_kernel(const float* __restrict__ partial,
+                                       float* __restrict__ gstat, int blocks,
+                                       int C, float inv_count) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float s = 0.f, q = 0.f;
+  for (int b = 0; b < blocks; ++b) {
+    s += partial[(size_t)b * 2 * C + c];
+    q += partial[(size_t)b * 2 * C + C + c];
+  }
+  gstat[c] = s * inv_count;
+  gstat[C + c] = q * inv_count;
+}
+
+template <typename T, typename TG, int VEC>
+__global__ void bn_bwd_dx_kernel(const T* __restrict__ x,
+                                 const TG* __restrict__ g,
+                                 const float* __restrict__ stat,
+                                 const float* __restrict__ gstat,
+                                 T* __restrict__ dx, long long M, int C,
+                                 int lanes, int rows) {
+  const int lane = threadIdx.x % lanes;
+  const int r = threadIdx.x / lanes;
+  const int groups = C / VEC;
+  const long long step = (long long)gridDim.x * rows;
+  for (int grp = lane; grp < groups; grp += lanes) {
+    float mean[VEC], rstd[VEC], gm[VEC], gxm[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      mean[k] = stat[grp * VEC + k];
+      rstd[k] = stat[C + grp * VEC + k];
+      gm[k] = gstat[grp * VEC + k];
+      gxm[k] = gstat[C + grp * VEC + k];
+    }
+#pragma unroll 4
+    for (long long row = (long long)blockIdx.x * rows + r; row < M;
+         row += step) {
+      const long long at = row * C + (long long)grp * VEC;
+      float v[VEC], gv[VEC];
+      load_vec<T, VEC>(x + at, v);
+      load_vec<TG, VEC>(g + at, gv);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float xhat = (v[k] - mean[k]) * rstd[k];
+        v[k] = rstd[k] * (gv[k] - gm[k] - xhat * gxm[k]);
+      }
+      store_vec<T, VEC>(dx + at, v);
+    }
+  }
+}
+
+template <typename T, typename TG, int VEC>
+cudaError_t bn_bwd(const void* x, const void* g, const void* stat, void* dx,
+                   void* partial, void* gstat, long long M, int C,
+                   cudaStream_t s) {
+  const int groups = C / VEC;
+  const int lanes = groups < kBnThreads ? groups : kBnThreads;
+  const int rows = kBnThreads / lanes;
+  const int threads = rows * lanes;
+  const long long want = (M + rows - 1) / rows;
+  const int blocks = (int)(want < kBnMaxBlocks ? want : kBnMaxBlocks);
+  const size_t shmem = (size_t)threads * 2 * VEC * sizeof(float);
+  bn_bwd_stats_kernel<T, TG, VEC><<<blocks, threads, shmem, s>>>(
+      (const T*)x, (const TG*)g, (const float*)stat, (float*)partial, M, C,
+      lanes, rows);
+  bn_bwd_finalize_kernel<<<(C + 255) / 256, 256, 0, s>>>(
+      (const float*)partial, (float*)gstat, blocks, C, 1.f / (float)M);
+  const int nblocks = (int)(want < 8 * kBnMaxBlocks ? want : 8 * kBnMaxBlocks);
+  bn_bwd_dx_kernel<T, TG, VEC><<<nblocks, threads, 0, s>>>(
+      (const T*)x, (const TG*)g, (const float*)stat, (const float*)gstat,
+      (T*)dx, M, C, lanes, rows);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TG>
+cudaError_t bn_bwd_vec(const void* x, const void* g, const void* stat,
+                       void* dx, void* partial, void* gstat, long long M,
+                       int C, cudaStream_t s) {
+  if (C % 4 == 0)
+    return bn_bwd<T, TG, 4>(x, g, stat, dx, partial, gstat, M, C, s);
+  return bn_bwd<T, TG, 1>(x, g, stat, dx, partial, gstat, M, C, s);
+}
+
 }  // namespace
 }  // namespace lctvqa
 
@@ -250,6 +408,29 @@ int lctvqa_bn_fwd(const void* x, void* y, void* partial, void* stat,
   else if (in_dtype == kBFloat16 && out_dtype == kBFloat16)
     rc = bn_fwd_vec<__nv_bfloat16, __nv_bfloat16>(x, y, partial, stat, M, C,
                                                   eps, s);
+  return (int)rc;
+}
+
+// x: [M, C] contiguous in `x_dtype`; g: [M, C] contiguous in `g_dtype`;
+// stat: the forward's fp32 [2, C]; dx: [M, C] in `x_dtype`; partial: fp32
+// scratch [lctvqa_bn_max_blocks(), 2, C]; gstat: fp32 scratch [2, C].
+int lctvqa_bn_bwd(const void* x, const void* g, const void* stat, void* dx,
+                  void* partial, void* gstat, long long M, int C, int x_dtype,
+                  int g_dtype, void* stream) {
+  using namespace lctvqa;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t rc = cudaErrorInvalidValue;
+  if (x_dtype == kFloat32 && g_dtype == kFloat32)
+    rc = bn_bwd_vec<float, float>(x, g, stat, dx, partial, gstat, M, C, s);
+  else if (x_dtype == kFloat32 && g_dtype == kBFloat16)
+    rc = bn_bwd_vec<float, __nv_bfloat16>(x, g, stat, dx, partial, gstat, M,
+                                          C, s);
+  else if (x_dtype == kBFloat16 && g_dtype == kFloat32)
+    rc = bn_bwd_vec<__nv_bfloat16, float>(x, g, stat, dx, partial, gstat, M,
+                                          C, s);
+  else if (x_dtype == kBFloat16 && g_dtype == kBFloat16)
+    rc = bn_bwd_vec<__nv_bfloat16, __nv_bfloat16>(x, g, stat, dx, partial,
+                                                  gstat, M, C, s);
   return (int)rc;
 }
 

@@ -1,10 +1,14 @@
-// Node-batched PC-DARTS mixed-op forward for Hopper (sm_90a), bound to
-// Python with ctypes (lctvqa_torch/ops/cuda_mixedop.py). Replaces the Pallas
-// TPU kernel of lctvqa/ops/pallas_mixedop.py (_make_fwd_kernel, the
-// pallas_call at pallas_mixedop.py:425):
+// Node-batched PC-DARTS mixed op, forward and backward, for Hopper (sm_90a),
+// bound to Python with ctypes (lctvqa_torch/ops/cuda_mixedop.py). Replaces
+// the Pallas TPU kernels of lctvqa/ops/pallas_mixedop.py (_make_fwd_kernel,
+// the pallas_call at pallas_mixedop.py:425, and _make_bwd_kernel, the one at
+// :721):
 //
 //   lctvqa_mixed_node_fwd   out[n,h,w,c] = sum_e w[e,skip] * x_e
 //                             + sum_e sum_op w[e,op] * BN_op(op(x_e))
+//   lctvqa_mixed_node_bwd   the gradient of that w.r.t. every x_e, the packed
+//                           depthwise taps and pointwise matrices of every
+//                           edge, and w (see the second half of this file)
 //
 // for the E stride-1 edges of one cell node, on the first Cs channels of each
 // edge's NHWC state: sep_conv 3x3/5x5 (relu, depthwise, pointwise, batch-stat
@@ -466,6 +470,601 @@ cudaError_t node_fwd_tile(const NodeArgs& args, const float* weights,
                         W, Cs, s);
 }
 
+// ---------------------------------------------------------------------------
+// Backward. Given g = dL/d out [N, H, W, Cs] fp32, the forward's stage
+// outputs `obuf` and statistics `stat` (kept by the caller instead of being
+// recomputed, which the TPU kernel has to do: there the planes never leave
+// VMEM, here they are in device memory anyway), it computes dx_e in T and, in
+// fp32, d dw [E, 8, 25, Cs], d pw [E, 8, Cs, Cs] and d w [E, 8]. The rounding
+// of a stage output to T counts as the identity, and every mask (ReLU, the
+// max pool's argmax) is taken on the rounded values the forward saw.
+//
+// What bounds it: bytes again, about twice the forward's (it reads the planes
+// the forward wrote, g, and x, and writes dx, one fp32 plane per sep conv and
+// the per-block partials of the weight gradients). One C entry point makes
+// seven kinds of launches on one stream; every sum over pixels is a per-block
+// partial added later in a fixed order, so a training step repeats bit for
+// bit:
+//   R. per (edge, pixel chunk): sum g and sum g * o for the six folded ops.
+//   C. per (edge, channel): from those, the folded BatchNorm's backward
+//      coefficients (d o = A * (g - gbar - (o - mu) * k2)) and the
+//      per-channel parts of d w[e, op] = r * (sum g o - mu sum g).
+//   S. per (edge, sep branch, tile): second stage of a sep conv backwards:
+//      d o -> pointwise -> depthwise -> ReLU mask; writes dz and per-block
+//      sums of dz and dz * xhat for the inner BatchNorm.
+//   M. adds those sums (mean dz, mean dz * xhat).
+//   X. per (edge, tile): everything that reaches x, from one x tile with a
+//      4-pixel halo: skip, the first stage of both sep convs (through the
+//      inner BatchNorm's backward), both dil convs, max pool (to the first
+//      maximal tap in row-major order) and avg pool; writes dx once.
+//   W. adds the per-block partials of d dw, d pw, the skip weight and the
+//      per-channel parts of d w.
+// S and X share conv_stage_bwd: recompute the depthwise output t (the one
+// value the forward does not keep), d pw = sum t * d, dt = pw^T d, d dw =
+// sum in * dt, d in = dw (*) dt.
+
+constexpr int kChunk = 2048;  // pixels per block of launch R
+constexpr int kRSums = 7;     // sum g, then sum g * o of the six folded ops
+
+struct BwdScratch {  // offsets in floats into one fp32 scratch tensor
+  long long part_r, fc, gbar, dwpart, dzp, part_s, mstat, part_dw, part_pw,
+      part_skip, total;
+};
+
+inline BwdScratch bwd_scratch(int E, long long M, long long nblk, int Cs) {
+  BwdScratch b;
+  const long long nchunk = (M + kChunk - 1) / kChunk;
+  long long at = 0;
+  b.part_r = at;    at += (long long)E * Cs * kRSums * nchunk;
+  b.fc = at;        at += (long long)kFoldSlots * E * Cs * 3;
+  b.gbar = at;      at += (long long)E * Cs;
+  b.dwpart = at;    at += (long long)E * kFoldSlots * Cs;
+  b.dzp = at;       at += 2LL * E * Cs * M;
+  b.part_s = at;    at += 2LL * E * Cs * 2 * nblk;
+  b.mstat = at;     at += 2LL * E * Cs * 2;
+  b.part_dw = at;   at += (long long)E * 8 * kTaps * Cs * nblk;
+  b.part_pw = at;   at += (long long)E * 8 * Cs * Cs * nblk;
+  b.part_skip = at; at += (long long)E * nblk;
+  b.total = at;
+  return b;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
+  return v;
+}
+
+// Sum of p[0..n) over a 128-thread block in a fixed order; the result is
+// valid in thread 0. sh holds 128 floats. Synchronises.
+__device__ __forceinline__ float block_sum_128(const float* p, long long n,
+                                               float* sh) {
+  float s = 0.f;
+  for (long long i = threadIdx.x; i < n; i += 128) s += p[i];
+  sh[threadIdx.x] = s;
+  __syncthreads();
+  for (int d = 64; d > 0; d >>= 1) {
+    if (threadIdx.x < d) sh[threadIdx.x] += sh[threadIdx.x + d];
+    __syncthreads();
+  }
+  const float out = sh[0];
+  __syncthreads();
+  return out;
+}
+
+// Launch R. grid (chunks, E), 256 threads.
+template <typename T>
+__global__ void node_bwd_reduce_kernel(const float* __restrict__ g,
+                                       const T* __restrict__ obuf,
+                                       float* __restrict__ part_r, int E,
+                                       long long M, int Cs) {
+  __shared__ float sh[8][kRSums];
+  const int e = blockIdx.y;
+  const long long nchunk = gridDim.x;
+  const long long lo = (long long)blockIdx.x * kChunk;
+  const long long hi = lo + kChunk < M ? lo + kChunk : M;
+  for (int c = 0; c < Cs; ++c) {
+    float acc[kRSums];
+#pragma unroll
+    for (int k = 0; k < kRSums; ++k) acc[k] = 0.f;
+    for (long long pix = lo + threadIdx.x; pix < hi; pix += blockDim.x) {
+      const float gv = g[pix * Cs + c];
+      acc[0] += gv;
+#pragma unroll
+      for (int s = 0; s < kFoldSlots; ++s) {
+        const size_t plane = ((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c;
+        acc[1 + s] = fmaf(gv, to_f32(obuf[plane * M + pix]), acc[1 + s]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kRSums; ++k) {
+      const float v = warp_sum(acc[k]);
+      if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5][k] = v;
+    }
+    __syncthreads();
+    if (threadIdx.x < kRSums) {
+      float v = 0.f;
+      for (int w = 0; w < 8; ++w) v += sh[w][threadIdx.x];
+      part_r[(((size_t)e * Cs + c) * kRSums + threadIdx.x) * nchunk +
+             blockIdx.x] = v;
+    }
+    __syncthreads();
+  }
+}
+
+// Launch C. One 128-thread block per (edge, channel).
+__global__ void node_bwd_coef_kernel(const float* __restrict__ part_r,
+                                     const float* __restrict__ stat,
+                                     const float* __restrict__ weights,
+                                     float* __restrict__ fc,
+                                     float* __restrict__ gbar,
+                                     float* __restrict__ dwpart, int E, int Cs,
+                                     long long nchunk, float inv_count) {
+  __shared__ float sh[128];
+  const int e = blockIdx.x / Cs, c = blockIdx.x % Cs;
+  float sums[kRSums];
+  for (int k = 0; k < kRSums; ++k)
+    sums[k] = block_sum_128(
+        part_r + (((size_t)e * Cs + c) * kRSums + k) * nchunk, nchunk, sh);
+  if (threadIdx.x != 0) return;
+  const float gs = sums[0];
+  gbar[e * Cs + c] = gs * inv_count;
+  for (int s = 0; s < kFoldSlots; ++s) {
+    const size_t entry = ((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c;
+    const float mu = stat[entry * 2], r = stat[entry * 2 + 1];
+    const float sc = sums[1 + s] - mu * gs;
+    float* out = fc + (((size_t)s * E + e) * Cs + c) * 3;
+    out[0] = weights[e * 8 + kSlotOp[s]] * r;
+    out[1] = mu;
+    out[2] = r * r * sc * inv_count;
+    dwpart[((size_t)e * kFoldSlots + s) * Cs + c] = r * sc;
+  }
+}
+
+// Launches M and W. out[row] = scale * sum of part[row * n .. + n), one
+// 128-thread block per row. With rows_per_kidx > 0 the rows are laid out
+// [.., 8, rows_per_kidx] and those of the packed-weight rows 5 and 7, which
+// no branch uses, are set to 0 without being read.
+__global__ void node_sums_kernel(const float* __restrict__ part,
+                                 float* __restrict__ out, long long n,
+                                 float scale, int rows_per_kidx) {
+  __shared__ float sh[128];
+  const size_t row = blockIdx.x;
+  if (rows_per_kidx > 0) {
+    const int kidx = (int)((row / rows_per_kidx) % 8);
+    if (kidx == 5 || kidx == 7) {
+      if (threadIdx.x == 0) out[row] = 0.f;
+      return;
+    }
+  }
+  const float v = block_sum_128(part + row * n, n, sh);
+  if (threadIdx.x == 0) out[row] = v * scale;
+}
+
+// The folded BatchNorm's backward at one element.
+__device__ __forceinline__ float fold_grad(const float* fc3, float gv,
+                                           float gb, float o) {
+  return fc3[0] * (gv - gb - (o - fc3[1]) * fc3[2]);
+}
+
+// One depthwise + pointwise stage backwards, for one tile.
+//   xs   [Cs][PLANE] the stage's input with a HALO border (RELU: max(., 0)
+//        is applied on read), 0 outside the image
+//   dbuf [Cs][PLANE] gradient of the stage's output, 0 outside the image
+//        and beyond `half` pixels from the tile
+//   dts  [Cs][PLANE] scratch
+//   dws  [25][Cs] the stage's taps; pw (global) [Cs][Cs] as [ci][co]
+// Writes this block's partials of d dw (part_dw[(tap * Cs + c) * nblk]) and
+// d pw (part_pw[(ci * Cs + co) * nblk]); the caller has offset both to
+// (edge, kidx, this block). Then the gradient of the stage's input at the
+// tile's pixels: dins[c][p] = it (mask == nullptr), or dins[c][p] += it where
+// mask[c][plane(p)] > 0. Synchronises at its end.
+template <int TILE, int HALO, bool RELU>
+__device__ __forceinline__ void conv_stage_bwd(
+    const float* xs, const float* dbuf, float* dts, float* dins,
+    const float* mask, const float* dws, const float* __restrict__ pw,
+    float* part_dw, float* part_pw, int Cs, int kk, int dil, long long nblk) {
+  constexpr int PWID = TILE + 2 * HALO;
+  constexpr int PLANE = PWID * PWID;
+  constexpr int PIX = TILE * TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const int half = (kk - 1) / 2 * dil;
+  float* ts = dts;  // [Cs][PIX], dead before dts is written
+  depthwise<TILE, HALO, RELU>(xs, dws, ts, Cs, kk, dil);
+  for (int pair = warp; pair < Cs * Cs; pair += nwarps) {
+    const int ci = pair / Cs, co = pair % Cs;
+    float acc = 0.f;
+    for (int p = lane; p < PIX; p += 32)
+      acc = fmaf(ts[ci * PIX + p],
+                 dbuf[co * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO],
+                 acc);
+    acc = warp_sum(acc);
+    if (lane == 0) part_pw[(long long)pair * nblk] = acc;
+  }
+  __syncthreads();
+  for (int it = threadIdx.x; it < Cs * PLANE; it += blockDim.x) {
+    const int ci = it / PLANE, q = it % PLANE;
+    float acc = 0.f;
+    for (int co = 0; co < Cs; ++co)
+      acc = fmaf(pw[ci * Cs + co], dbuf[co * PLANE + q], acc);
+    dts[it] = acc;
+  }
+  __syncthreads();
+  for (int pair = warp; pair < kTaps * Cs; pair += nwarps) {
+    const int t = pair / Cs, c = pair % Cs;
+    float acc = 0.f;
+    if (t < kk * kk) {
+      const int off = (t / kk * dil - half) * PWID + (t % kk * dil - half);
+      for (int p = lane; p < PIX; p += 32) {
+        const int at = c * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO;
+        float v = xs[at + off];
+        if (RELU) v = fmaxf(v, 0.f);
+        acc = fmaf(v, dts[at], acc);
+      }
+      acc = warp_sum(acc);
+    }
+    if (lane == 0) part_dw[(long long)pair * nblk] = acc;
+  }
+  for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
+    const int c = it / PIX, p = it % PIX;
+    const int at = c * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO;
+    float acc = 0.f;
+    int t = 0;
+    for (int dy = -half; dy <= half; dy += dil)
+      for (int dx = -half; dx <= half; dx += dil, ++t)
+        acc = fmaf(dts[at - dy * PWID - dx], dws[t * Cs + c], acc);
+    if (mask == nullptr)
+      dins[it] = acc;
+    else if (mask[at] > 0.f)
+      dins[it] += acc;
+  }
+  __syncthreads();
+}
+
+// Launch S. grid (tiles, N, 2 * E): z = 2 * e + which (0: sep3, 1: sep5).
+template <typename T, int TILE>
+__global__ void node_bwd_sep2_kernel(NodeArgs args, const float* __restrict__ g,
+                                     const T* __restrict__ obuf,
+                                     const float* __restrict__ stat,
+                                     const float* __restrict__ fc,
+                                     const float* __restrict__ gbar,
+                                     float* __restrict__ dzp,
+                                     float* __restrict__ part_s,
+                                     float* __restrict__ part_dw,
+                                     float* __restrict__ part_pw, int E, int H,
+                                     int W, int Cs) {
+  constexpr int HALO = 2;
+  constexpr int PWID = TILE + 2 * HALO;
+  constexpr int PLANE = PWID * PWID;
+  constexpr int PIX = TILE * TILE;
+  constexpr int CHUNKS = PIX / 32;
+  extern __shared__ float smem[];
+  float* zs = smem;                // [Cs][PLANE] relu(BN(y1)) as values of T
+  float* dbuf = zs + Cs * PLANE;   // [Cs][PLANE] d o2
+  float* dts = dbuf + Cs * PLANE;  // [Cs][PLANE]
+  float* dins = dts + Cs * PLANE;  // [Cs][PIX] dz
+  float* dws = dins + Cs * PIX;    // [25][Cs]
+  float* red = dws + kTaps * Cs;   // [Cs][CHUNKS][2]
+  const int e = blockIdx.z / 2, which = blockIdx.z % 2;
+  const NodeEdge ed = args.edge[e];
+  const TileGeom tg = tile_geom<TILE>(H, W);
+  const long long M = (long long)gridDim.y * H * W;
+  const size_t mid = ((size_t)which * E + e) * Cs;  // slot 0 or 1
+  const size_t outp = ((size_t)(kFirstFoldSlot + which) * E + e) * Cs;
+  const int kk = which ? 5 : 3, half = (kk - 1) / 2;
+  const int kidx = 2 * which + 1;
+
+  for (int i = threadIdx.x; i < PLANE * Cs; i += blockDim.x) {
+    const int c = i % Cs, p = i / Cs;
+    const int py = p / PWID - HALO, px = p % PWID - HALO;
+    const int h = tg.h0 + py, w = tg.w0 + px;
+    float z = 0.f, d = 0.f;
+    if (h >= 0 && h < H && w >= 0 && w < W) {
+      const long long pix = tg.pixbase + (long long)h * W + w;
+      const float o1 = to_f32(obuf[(mid + c) * M + pix]);
+      const float mean = stat[(mid + c) * 2], rstd = stat[(mid + c) * 2 + 1];
+      z = round_to<T>(fmaxf((o1 - mean) * rstd, 0.f));
+      if (py >= -half && py < TILE + half && px >= -half && px < TILE + half)
+        d = fold_grad(fc + (((size_t)which * E + e) * Cs + c) * 3,
+                      g[pix * Cs + c], gbar[e * Cs + c],
+                      to_f32(obuf[(outp + c) * M + pix]));
+    }
+    zs[c * PLANE + p] = z;
+    dbuf[c * PLANE + p] = d;
+  }
+  for (int i = threadIdx.x; i < kTaps * Cs; i += blockDim.x)
+    dws[i] = ed.dw[(size_t)kidx * kTaps * Cs + i];
+  __syncthreads();
+
+  const size_t wrow = (size_t)e * 8 + kidx;
+  conv_stage_bwd<TILE, HALO, false>(
+      zs, dbuf, dts, dins, nullptr, dws, ed.pw + (size_t)kidx * Cs * Cs,
+      part_dw + wrow * kTaps * Cs * tg.nblk + tg.blk,
+      part_pw + wrow * Cs * Cs * tg.nblk + tg.blk, Cs, kk, 1, tg.nblk);
+
+  // through the ReLU: dz where xhat > 0; the inner BatchNorm's two sums
+  for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
+    const int c = it / PIX, p = it % PIX;
+    const int h = tg.h0 + p / TILE, w = tg.w0 + p % TILE;
+    const bool valid = h < H && w < W;
+    float s = 0.f, q = 0.f;
+    if (valid) {
+      const long long pix = tg.pixbase + (long long)h * W + w;
+      const float o1 = to_f32(obuf[(mid + c) * M + pix]);
+      const float xhat =
+          (o1 - stat[(mid + c) * 2]) * stat[(mid + c) * 2 + 1];
+      s = xhat > 0.f ? dins[it] : 0.f;
+      q = s * xhat;
+      dzp[(mid + c) * M + pix] = s;
+    }
+    s = warp_sum(s);
+    q = warp_sum(q);
+    if ((threadIdx.x & 31) == 0) {
+      red[(c * CHUNKS + p / 32) * 2] = s;
+      red[(c * CHUNKS + p / 32) * 2 + 1] = q;
+    }
+  }
+  flush_partials(red, part_s + mid * 2 * tg.nblk + tg.blk, Cs, CHUNKS,
+                 tg.nblk);
+}
+
+struct NodeDx {
+  void* dx[kMaxEdges];  // [N, H, W, Cs] contiguous, in T
+};
+
+// Launch X. grid (tiles, N, E).
+template <typename T, int TILE>
+__global__ void node_bwd_x_kernel(NodeArgs args, NodeDx outs,
+                                  const float* __restrict__ weights,
+                                  const float* __restrict__ g,
+                                  const T* __restrict__ obuf,
+                                  const float* __restrict__ stat,
+                                  const float* __restrict__ fc,
+                                  const float* __restrict__ gbar,
+                                  const float* __restrict__ dzp,
+                                  const float* __restrict__ mstat,
+                                  float* __restrict__ part_dw,
+                                  float* __restrict__ part_pw,
+                                  float* __restrict__ part_skip, int E, int H,
+                                  int W, int Cs) {
+  constexpr int HALO = 4;
+  constexpr int PWID = TILE + 2 * HALO;
+  constexpr int PLANE = PWID * PWID;
+  constexpr int PIX = TILE * TILE;
+  extern __shared__ float smem[];
+  float* xs = smem;                // [Cs][PLANE] raw x, 0 outside the image
+  float* dbuf = xs + Cs * PLANE;   // [Cs][PLANE]
+  float* dts = dbuf + Cs * PLANE;  // [Cs][PLANE]
+  float* dxs = dts + Cs * PLANE;   // [Cs][PIX] dx of this tile
+  float* dws = dxs + Cs * PIX;     // [25][Cs]
+  float* red = dws + kTaps * Cs;   // [8]
+  const int e = blockIdx.z;
+  const NodeEdge ed = args.edge[e];
+  const TileGeom tg = tile_geom<TILE>(H, W);
+  const long long M = (long long)gridDim.y * H * W;
+  const T* x = (const T*)ed.x + (long long)tg.n * ed.sn;
+
+  for (int i = threadIdx.x; i < PLANE * Cs; i += blockDim.x) {
+    const int c = i % Cs, p = i / Cs;
+    const int h = tg.h0 + p / PWID - HALO, w = tg.w0 + p % PWID - HALO;
+    float v = 0.f;
+    if (h >= 0 && h < H && w >= 0 && w < W)
+      v = to_f32(x[(long long)h * ed.sh + (long long)w * ed.sw + c]);
+    xs[c * PLANE + p] = v;
+  }
+  __syncthreads();
+
+  // skip: dx = w[e, skip] * g, and this block's part of sum g * x
+  {
+    const float wskip = weights[e * 8 + kSkipOp];
+    float acc = 0.f;
+    for (int i = threadIdx.x; i < PIX * Cs; i += blockDim.x) {
+      const int c = i % Cs, p = i / Cs;
+      const int h = tg.h0 + p / TILE, w = tg.w0 + p % TILE;
+      float gv = 0.f;
+      if (h < H && w < W)
+        gv = g[(tg.pixbase + (long long)h * W + w) * Cs + c];
+      dxs[c * PIX + p] = wskip * gv;
+      acc = fmaf(gv, xs[c * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO],
+                 acc);
+    }
+    acc = warp_sum(acc);
+    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float v = 0.f;
+      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) v += red[w];
+      part_skip[(long long)e * tg.nblk + tg.blk] = v;
+    }
+  }
+
+  // the four conv branches' first stage: sep3, sep5, dil3, dil5
+  for (int b = 0; b < 4; ++b) {
+    const int kk = (b & 1) ? 5 : 3, dil = b < 2 ? 1 : 2;
+    const int half = (kk - 1) / 2 * dil;
+    const int kidx = 2 * b;
+    __syncthreads();
+    for (int i = threadIdx.x; i < kTaps * Cs; i += blockDim.x)
+      dws[i] = ed.dw[(size_t)kidx * kTaps * Cs + i];
+    for (int i = threadIdx.x; i < PLANE * Cs; i += blockDim.x) {
+      const int c = i % Cs, p = i / Cs;
+      const int py = p / PWID - HALO, px = p % PWID - HALO;
+      const int h = tg.h0 + py, w = tg.w0 + px;
+      float d = 0.f;
+      if (h >= 0 && h < H && w >= 0 && w < W && py >= -half &&
+          py < TILE + half && px >= -half && px < TILE + half) {
+        const long long pix = tg.pixbase + (long long)h * W + w;
+        if (b < 2) {  // through the inner BatchNorm of sep conv b
+          const size_t mid = ((size_t)b * E + e) * Cs + c;
+          const float rstd = stat[mid * 2 + 1];
+          const float xhat = (to_f32(obuf[mid * M + pix]) - stat[mid * 2]) *
+                             rstd;
+          d = rstd * (dzp[mid * M + pix] - mstat[mid * 2] -
+                      xhat * mstat[mid * 2 + 1]);
+        } else {
+          const size_t plane = ((size_t)(kFirstFoldSlot + b) * E + e) * Cs + c;
+          d = fold_grad(fc + (((size_t)b * E + e) * Cs + c) * 3,
+                        g[pix * Cs + c], gbar[e * Cs + c],
+                        to_f32(obuf[plane * M + pix]));
+        }
+      }
+      dbuf[c * PLANE + p] = d;
+    }
+    __syncthreads();
+    const size_t wrow = (size_t)e * 8 + kidx;
+    conv_stage_bwd<TILE, HALO, true>(
+        xs, dbuf, dts, dxs, xs, dws, ed.pw + (size_t)kidx * Cs * Cs,
+        part_dw + wrow * kTaps * Cs * tg.nblk + tg.blk,
+        part_pw + wrow * Cs * Cs * tg.nblk + tg.blk, Cs, kk, dil, tg.nblk);
+  }
+
+  // max pool (fold slot 4, plane 6) then avg pool (fold slot 5, plane 7)
+  for (int pool = 0; pool < 2; ++pool) {
+    const int s = 4 + pool;
+    for (int i = threadIdx.x; i < PLANE * Cs; i += blockDim.x) {
+      const int c = i % Cs, p = i / Cs;
+      const int py = p / PWID - HALO, px = p % PWID - HALO;
+      const int h = tg.h0 + py, w = tg.w0 + px;
+      float d = 0.f, o = 0.f;
+      if (h >= 0 && h < H && w >= 0 && w < W && py >= -1 && py <= TILE &&
+          px >= -1 && px <= TILE) {
+        const long long pix = tg.pixbase + (long long)h * W + w;
+        const size_t plane = ((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c;
+        o = to_f32(obuf[plane * M + pix]);
+        d = fold_grad(fc + (((size_t)s * E + e) * Cs + c) * 3,
+                      g[pix * Cs + c], gbar[e * Cs + c], o);
+        if (pool == 1) {
+          const int rows = 1 + (h > 0) + (h < H - 1);
+          const int cols = 1 + (w > 0) + (w < W - 1);
+          d = d / (float)(rows * cols);
+        }
+      }
+      dbuf[c * PLANE + p] = d;
+      dts[c * PLANE + p] = o;
+    }
+    __syncthreads();
+    for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
+      const int c = it / PIX, p = it % PIX;
+      const int h = tg.h0 + p / TILE, w = tg.w0 + p % TILE;
+      if (h >= H || w >= W) continue;
+      const int at = c * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO;
+      float acc = 0.f;
+      if (pool == 1) {
+        for (int qy = -1; qy <= 1; ++qy)
+          for (int qx = -1; qx <= 1; ++qx) acc += dbuf[at + qy * PWID + qx];
+      } else {
+        const float xv = xs[at];
+        // window q = p + (qy, qx) gives its gradient to its first maximal
+        // tap in row-major order; p is its tap (-qy, -qx)
+        for (int qy = -1; qy <= 1; ++qy) {
+          if (h + qy < 0 || h + qy >= H) continue;
+          for (int qx = -1; qx <= 1; ++qx) {
+            if (w + qx < 0 || w + qx >= W) continue;
+            const int q = at + qy * PWID + qx;
+            const float m = dts[q];
+            if (xv != m) continue;
+            bool first = true;
+            for (int t = 0; t < 9; ++t) {
+              const int ty = t / 3 - 1, tx = t % 3 - 1;
+              if (ty == -qy && tx == -qx) break;  // reached p
+              const int rh = h + qy + ty, rw = w + qx + tx;
+              if (rh < 0 || rh >= H || rw < 0 || rw >= W) continue;
+              if (xs[q + ty * PWID + tx] == m) {
+                first = false;
+                break;
+              }
+            }
+            if (first) acc += dbuf[q];
+          }
+        }
+      }
+      dxs[it] += acc;
+    }
+    __syncthreads();
+  }
+
+  T* dx = (T*)outs.dx[e];
+  for (int i = threadIdx.x; i < PIX * Cs; i += blockDim.x) {
+    const int c = i % Cs, p = i / Cs;
+    const int h = tg.h0 + p / TILE, w = tg.w0 + p % TILE;
+    if (h < H && w < W)
+      dx[(tg.pixbase + (long long)h * W + w) * Cs + c] =
+          from_f32<T>(dxs[c * PIX + p]);
+  }
+}
+
+template <typename T, int TILE>
+cudaError_t node_bwd(const NodeArgs& args, const NodeDx& outs,
+                     const float* weights, const float* g, const T* obuf,
+                     const float* stat, float* scratch, float* ddw, float* dpw,
+                     float* dwt, int E, int N, int H, int W, int Cs,
+                     cudaStream_t s) {
+  const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+  const long long nblk = (long long)N * tiles;
+  const long long M = (long long)N * H * W;
+  const long long nchunk = (M + kChunk - 1) / kChunk;
+  const float inv_count = 1.f / (float)M;
+  const BwdScratch b = bwd_scratch(E, M, nblk, Cs);
+  float* part_r = scratch + b.part_r;
+  float* fc = scratch + b.fc;
+  float* gbar = scratch + b.gbar;
+  float* dwpart = scratch + b.dwpart;
+  float* dzp = scratch + b.dzp;
+  float* part_s = scratch + b.part_s;
+  float* mstat = scratch + b.mstat;
+  float* part_dw = scratch + b.part_dw;
+  float* part_pw = scratch + b.part_pw;
+  float* part_skip = scratch + b.part_skip;
+  constexpr int PIX = TILE * TILE;
+  const size_t smem_s = ((size_t)3 * Cs * (TILE + 4) * (TILE + 4) +
+                         (size_t)Cs * PIX + (size_t)kTaps * Cs +
+                         (size_t)Cs * (PIX / 32) * 2) * sizeof(float);
+  const size_t smem_x = ((size_t)3 * Cs * (TILE + 8) * (TILE + 8) +
+                         (size_t)Cs * PIX + (size_t)kTaps * Cs + 8) *
+                        sizeof(float);
+  cudaError_t rc = allow_smem(node_bwd_sep2_kernel<T, TILE>, smem_s);
+  if (rc != cudaSuccess) return rc;
+  rc = allow_smem(node_bwd_x_kernel<T, TILE>, smem_x);
+  if (rc != cudaSuccess) return rc;
+
+  node_bwd_reduce_kernel<T><<<dim3((unsigned)nchunk, E), kNodeThreads, 0, s>>>(
+      g, obuf, part_r, E, M, Cs);
+  node_bwd_coef_kernel<<<E * Cs, 128, 0, s>>>(part_r, stat, weights, fc, gbar,
+                                              dwpart, E, Cs, nchunk,
+                                              inv_count);
+  node_bwd_sep2_kernel<T, TILE>
+      <<<dim3(tiles, N, 2 * E), kNodeThreads, smem_s, s>>>(
+          args, g, obuf, stat, fc, gbar, dzp, part_s, part_dw, part_pw, E, H,
+          W, Cs);
+  node_sums_kernel<<<2 * E * Cs * 2, 128, 0, s>>>(part_s, mstat, nblk,
+                                                  inv_count, 0);
+  node_bwd_x_kernel<T, TILE><<<dim3(tiles, N, E), kNodeThreads, smem_x, s>>>(
+      args, outs, weights, g, obuf, stat, fc, gbar, dzp, mstat, part_dw,
+      part_pw, part_skip, E, H, W, Cs);
+  node_sums_kernel<<<E * 8 * kTaps * Cs, 128, 0, s>>>(part_dw, ddw, nblk, 1.f,
+                                                      kTaps * Cs);
+  node_sums_kernel<<<E * 8 * Cs * Cs, 128, 0, s>>>(part_pw, dpw, nblk, 1.f,
+                                                   Cs * Cs);
+  node_sums_kernel<<<E * kFoldSlots, 128, 0, s>>>(dwpart, dwt, Cs, 1.f, 0);
+  node_sums_kernel<<<E, 128, 0, s>>>(part_skip, dwt + E * kFoldSlots, nblk,
+                                     1.f, 0);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t node_bwd_tile(const NodeArgs& args, const NodeDx& outs,
+                          const float* weights, const float* g,
+                          const void* obuf, const float* stat, float* scratch,
+                          float* ddw, float* dpw, float* dwt, int E, int N,
+                          int H, int W, int Cs, cudaStream_t s) {
+  if (Cs <= 16)
+    return node_bwd<T, 16>(args, outs, weights, g, (const T*)obuf, stat,
+                           scratch, ddw, dpw, dwt, E, N, H, W, Cs, s);
+  return node_bwd<T, 8>(args, outs, weights, g, (const T*)obuf, stat, scratch,
+                        ddw, dpw, dwt, E, N, H, W, Cs, s);
+}
+
 }  // namespace
 }  // namespace lctvqa
 
@@ -499,6 +1098,46 @@ int lctvqa_mixed_node_fwd(const void* args, const void* weights, void* obuf,
     return (int)node_fwd_tile<__nv_bfloat16>(
         a, (const float*)weights, obuf, (float*)partial, (float*)stat,
         (float*)out, E, N, H, W, Cs, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Floats of fp32 scratch lctvqa_mixed_node_bwd needs at these sizes.
+long long lctvqa_mixed_node_bwd_scratch(int E, int N, int H, int W, int Cs) {
+  using namespace lctvqa;
+  const int tile = lctvqa_mixed_node_tile(Cs);
+  const long long nblk =
+      (long long)N * ((H + tile - 1) / tile) * ((W + tile - 1) / tile);
+  return bwd_scratch(E, (long long)N * H * W, nblk, Cs).total;
+}
+
+// args, weights, obuf, stat: as given to and left by lctvqa_mixed_node_fwd on
+// the same inputs. g: [N, H, W, Cs] fp32 contiguous. dxs: NodeDx on the host,
+// E pointers to [N, H, W, Cs] contiguous tensors in `dtype`. scratch: fp32,
+// lctvqa_mixed_node_bwd_scratch floats. ddw: [E, 8, 25, Cs], dpw:
+// [E, 8, Cs, Cs], dwt: [E * 6 + E] fp32 (d weights of the six folded ops as
+// [E, 6] in the order sep3, sep5, dil3, dil5, max, avg, then of skip as [E]).
+int lctvqa_mixed_node_bwd(const void* args, const void* dxs,
+                          const void* weights, const void* g, const void* obuf,
+                          const void* stat, void* scratch, void* ddw,
+                          void* dpw, void* dwt, int E, int N, int H, int W,
+                          int Cs, int dtype, void* stream) {
+  using namespace lctvqa;
+  if (E < 1 || E > kMaxEdges || Cs < 1 || Cs > kMaxCs || N < 1 ||
+      N > 65535 || H < 1 || W < 1)
+    return (int)cudaErrorInvalidValue;
+  const NodeArgs& a = *static_cast<const NodeArgs*>(args);
+  const NodeDx& d = *static_cast<const NodeDx*>(dxs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return (int)node_bwd_tile<float>(
+        a, d, (const float*)weights, (const float*)g, obuf,
+        (const float*)stat, (float*)scratch, (float*)ddw, (float*)dpw,
+        (float*)dwt, E, N, H, W, Cs, s);
+  if (dtype == kBFloat16)
+    return (int)node_bwd_tile<__nv_bfloat16>(
+        a, d, (const float*)weights, (const float*)g, obuf,
+        (const float*)stat, (float*)scratch, (float*)ddw, (float*)dpw,
+        (float*)dwt, E, N, H, W, Cs, s);
   return (int)cudaErrorInvalidValue;
 }
 

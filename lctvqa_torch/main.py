@@ -1,0 +1,168 @@
+"""CLI entry point of the port (counterpart of lctvqa/main.py).
+
+    python -m lctvqa_torch.main --skip_stage3 --exp my_exp --input_dir ...
+
+Trains the EF and W models on the CUDA device; `--device cpu` runs the
+same loop on the CPU, for a check. The flags are the JAX CLI's where
+they mean something here. Flags of paths that are not ported yet raise
+and name the ROADMAP.md queue that brings them; among them a run without
+`--skip_stage3`, which keeps the JAX CLI's default (stage 3 on).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+
+from lctvqa_torch.config import (Config, DataConfig, ModelConfig,
+                                 TrainConfig)
+
+# flag -> where ROADMAP.md queues it
+NOT_PORTED = {
+    "fuse_mixed_ops": "'Not ported' (search_fused.py, a JAX-only way of "
+                      "running the supernet)",
+    "remat_cells": "'Not ported' (rematerialization of the JAX program)",
+    "pack_conv_branches": "'Not ported' (a JAX-only packing of the conv "
+                          "branches)",
+    "multihost": "queue 1 item 7 (several devices and hosts)",
+    "use_old_dataloader": "queue 1 item 6 (the npy loader, "
+                          "data/pipeline_npy.py)",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="LCT-VQA on PyTorch and CUDA")
+    p.add_argument("--w_lambda", type=float, default=1.0)
+    p.add_argument("--num_epochs", type=int, default=30)
+    p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--train_portion", type=float, default=1.0)
+    p.add_argument("--exp", type=str, default="default_exp")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--input_dir", type=str, default="data/vqa/hdf5_64")
+    p.add_argument("--num_workers", type=int, default=8,
+                   help="kept for the JAX CLI's sake: batches are gathered "
+                        "by one background thread")
+    p.add_argument("--arch_type", type=str, default="darts",
+                   choices=["fixed", "darts", "derived"])
+    p.add_argument("--arch_update_freq", type=int, default=2000)
+    p.add_argument("--skip_stage2", action="store_true")
+    p.add_argument("--skip_stage3", action="store_true")
+    p.add_argument("--no_pretrain_enc", action="store_true")
+    p.add_argument("--img_size", type=int, default=64)
+    p.add_argument("--seed", type=int, default=10)
+    p.add_argument("--bn_eval_stats", action="store_true",
+                   help="track BN running statistics in training and use "
+                        "them in validation")
+    p.add_argument("--preload_images", type=str, default="auto",
+                   choices=["auto", "ram", "lazy"])
+    p.add_argument("--no_fold_bn", action="store_true",
+                   help="explicit per-op BN instead of the folded mixture")
+    p.add_argument("--pallas_mixed_op", action="store_true",
+                   help="the mixed-op node kernels (ops/cuda_mixedop.py)")
+    _m = ModelConfig()
+    p.add_argument("--pallas_generate",
+                   action=argparse.BooleanOptionalAction,
+                   default=_m.pallas_generate,
+                   help="the whole-loop greedy decode kernel")
+    p.add_argument("--pallas_seq_lstm",
+                   action=argparse.BooleanOptionalAction,
+                   default=_m.pallas_seq_lstm,
+                   help="the whole-sequence LSTM kernels")
+    p.add_argument("--compute_dtype", type=str, default="bfloat16")
+    p.add_argument("--vgg_weights", type=str, default="",
+                   help="path to a torchvision vgg19 state_dict")
+    p.add_argument("--tiny", action="store_true",
+                   help="shrink the model for a check")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="'cuda' (default) or 'cpu'; nothing falls back")
+    # accepted so that they can be refused by name
+    p.add_argument("--package", type=str, default="lct",
+                   choices=["lct", "darts", "unified"])
+    for flag in NOT_PORTED:
+        p.add_argument(f"--{flag}", action="store_true")
+    return p
+
+
+def check_ported(args) -> None:
+    """Raise for every flag whose path the port does not have yet."""
+    if args.package != "lct":
+        raise NotImplementedError(
+            f"--package {args.package} (train/experiment_darts.py) is not "
+            "ported: ROADMAP.md, queue 1 item 5")
+    if args.arch_type == "derived":
+        raise NotImplementedError(
+            "--arch_type derived (models/derived.py) is not ported: "
+            "ROADMAP.md, queue 1 item 4 ('Derived')")
+    for flag, where in NOT_PORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(
+                f"--{flag} is not ported: ROADMAP.md, {where}")
+    if args.arch_type == "darts" and not args.skip_stage3:
+        raise NotImplementedError(
+            "stage 3 (the architecture update through the tri-level "
+            "architect) is not ported: it needs second derivatives through "
+            "the kernels (ROADMAP.md, queue 1 item 3). Pass --skip_stage3")
+
+
+def config_from_args(args) -> Config:
+    model = ModelConfig(arch_type=args.arch_type,
+                        pretrained_enc=not args.no_pretrain_enc,
+                        img_size=args.img_size,
+                        compute_dtype=args.compute_dtype,
+                        bn_eval_stats=args.bn_eval_stats,
+                        fold_bn_mixture=not args.no_fold_bn,
+                        pallas_mixed_op=args.pallas_mixed_op,
+                        pallas_generate=args.pallas_generate,
+                        pallas_seq_lstm=args.pallas_seq_lstm)
+    if args.tiny:
+        model = dataclasses.replace(
+            model, img_embed_size=16, word_embed_size=8,
+            lstm_hidden_size=16, max_qst_len=8, darts_init_ch=4,
+            darts_layers=1, darts_steps=2, darts_multiplier=2,
+            vgg_width_mult=1 / 16, vgg_fc_dim=32)
+    train = TrainConfig(
+        w_lambda=args.w_lambda, num_epochs=args.num_epochs,
+        batch_size=args.batch_size, train_portion=args.train_portion,
+        arch_update_freq=args.arch_update_freq,
+        skip_stage2=args.skip_stage2, skip_stage3=args.skip_stage3,
+        seed=args.seed,
+        report_freq=10 if args.arch_type == "darts" else 100)
+    data = DataConfig(input_dir=args.input_dir,
+                      num_workers=args.num_workers,
+                      preload_images=args.preload_images)
+    return Config(model=model, train=train, data=data, exp_name=args.exp,
+                  resume=args.resume)
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    check_ported(args)
+    cfg = config_from_args(args)
+
+    # vocab sizes come from the dataset on disk
+    from lctvqa_torch.text import VocabDict
+    qst_vocab = VocabDict(os.path.join(args.input_dir,
+                                       "vocab_questions.txt"))
+    ans_vocab = VocabDict(os.path.join(args.input_dir, "vocab_answers.txt"))
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, qst_vocab_size=qst_vocab.vocab_size,
+        ans_vocab_size=ans_vocab.vocab_size))
+
+    vgg_params = None
+    if args.vgg_weights:
+        import torch
+
+        from lctvqa_torch.models.vgg import convert_torch_state_dict
+        vgg_params = convert_torch_state_dict(
+            torch.load(args.vgg_weights, map_location="cpu",
+                       weights_only=True))
+
+    from lctvqa_torch.train.experiment import Experiment
+    exp = Experiment(cfg, device=args.device, vgg_params=vgg_params)
+    exp.run()
+    return exp
+
+
+if __name__ == "__main__":
+    main()

@@ -4,7 +4,7 @@
   -> tanh -> fc -> question feature.
 - EF-style encoder/decoder: the LSTM's initial h and c are BOTH the image
   embedding; the teacher-forced forward also emits per-step vocab logits;
-  `ef_qst_generate` decodes greedily.
+  `ef_qst_generate` decodes greedily or samples at a temperature.
 
 Kernel flags: `use_kernel` runs every LSTM step through the cell kernel,
 `use_seq_kernel` runs a one-layer recurrence as one sequence kernel, and
@@ -98,31 +98,46 @@ def ef_qst_encoder(params, question: torch.Tensor,
 def ef_qst_generate(params, image_embedding: torch.Tensor, max_length: int,
                     dtype: Optional[torch.dtype] = None,
                     use_kernel: bool = False,
-                    use_generate_kernel: bool = False) -> torch.Tensor:
-    """Greedy question generation. Returns int32 tokens [B, max_length].
+                    use_generate_kernel: bool = False,
+                    deterministic: bool = True,
+                    sample_gen: Optional[torch.Generator] = None,
+                    temperature: float = 0.1) -> torch.Tensor:
+    """Question generation. Returns int32 tokens [B, max_length], which
+    carry no gradient.
 
-    The `<start>` embedding gets a tanh but the embeddings of generated
-    tokens do not: a reference quirk kept for parity. Temperature sampling
-    belongs to training and is not ported yet.
+    `deterministic` takes the first maximum of the logits at every step;
+    otherwise the token is drawn from softmax(logits / temperature) with
+    `torch.multinomial` on `sample_gen`, a generator of its own on the
+    embedding's device. The `<start>` embedding gets a tanh but the
+    embeddings of generated tokens do not: a reference quirk kept for
+    parity. The whole-loop decode kernel serves only the greedy case;
+    sampling runs the cell at every step.
     """
     layers = params["lstm"]["layers"]
     if len(layers) != 1:
         raise ValueError("generate needs num_layers=1")
-    if use_generate_kernel:
+    if deterministic and use_generate_kernel:
         from lctvqa_torch.ops import cuda_generate
         return cuda_generate.greedy_generate(params, image_embedding,
                                              max_length, dtype=dtype)
-    w = cell_weights(layers[0], dtype)
-    b = image_embedding.shape[0]
-    h = c = image_embedding.reshape(b, -1).to(torch.float32)
-    start = torch.full((b,), START_TOKEN, dtype=torch.long,
-                       device=image_embedding.device)
-    x = torch.tanh(N.embed(params["word2vec"], start))
-    tokens = []
-    for _ in range(max_length):
-        h, c = lstm_cell(w, x, h, c, use_kernel)
-        logits = N.linear(params["fc2"], torch.tanh(h), dtype=dtype)
-        tok = torch.argmax(logits, dim=-1)  # first maximum, as jnp.argmax
-        tokens.append(tok)
-        x = N.embed(params["word2vec"], tok)  # no tanh (quirk, see above)
-    return torch.stack(tokens, 1).to(torch.int32)
+    if not deterministic and sample_gen is None:
+        raise ValueError("sampling needs a generator")
+    with torch.no_grad():
+        w = cell_weights(layers[0], dtype)
+        b = image_embedding.shape[0]
+        h = c = image_embedding.reshape(b, -1).to(torch.float32)
+        start = torch.full((b,), START_TOKEN, dtype=torch.long,
+                           device=image_embedding.device)
+        x = torch.tanh(N.embed(params["word2vec"], start))
+        tokens = []
+        for _ in range(max_length):
+            h, c = lstm_cell(w, x, h, c, use_kernel)
+            logits = N.linear(params["fc2"], torch.tanh(h), dtype=dtype)
+            if deterministic:
+                tok = torch.argmax(logits, dim=-1)  # first maximum
+            else:
+                probs = torch.softmax(logits / temperature, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=sample_gen)[:, 0]
+            tokens.append(tok)
+            x = N.embed(params["word2vec"], tok)  # no tanh (quirk)
+        return torch.stack(tokens, 1).to(torch.int32)

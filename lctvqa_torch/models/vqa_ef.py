@@ -4,7 +4,7 @@ network (`arch_type="darts"`, with its arch parameters in `arch`) or
 VGG19 (`arch_type="fixed"`, `arch` None).
 
 Derived nets (`arch_type="derived"`) are not ported yet (ROADMAP.md,
-queue 1, "Derived"), and asking for them raises.
+queue 1 item 4, "Derived"), and asking for them raises.
 """
 
 from __future__ import annotations
@@ -19,14 +19,17 @@ from lctvqa_torch.models.qst_encoder import (ef_qst_encoder,
                                              ef_qst_encoder_init,
                                              ef_qst_generate)
 from lctvqa_torch.ops import nn as N
+from lctvqa_torch.ops.losses import (cross_entropy,
+                                     sequence_teacher_forcing_ce)
 
 
 def check_arch_type(arch_type: str) -> None:
     if arch_type not in ("fixed", "darts"):
         raise NotImplementedError(
             f"EF arch_type={arch_type!r} is not ported yet: derived nets "
-            "come with models/derived.py (ROADMAP.md, queue 1, 'Derived'); "
-            "arch_type='darts' (the supernet) and 'fixed' (VGG19) run")
+            "come with models/derived.py (ROADMAP.md, queue 1 item 4, "
+            "'Derived'); arch_type='darts' (the supernet) and 'fixed' "
+            "(VGG19) run")
 
 
 def init_ef_model(gen: torch.Generator, cfg: ModelConfig, vgg_params=None):
@@ -68,7 +71,10 @@ def ef_img_encode(params, arch, cfg: ModelConfig, img: torch.Tensor,
                 "ported')")
         feat = search.network_apply(params["darts"], arch, cfg, img, dtype=dt)
     else:
-        feat = vgg.vgg19_features(params["vgg"], img, gen=gen,
+        vgg_params = params["vgg"]
+        if cfg.pretrained_enc:  # frozen iff pretrained
+            vgg_params = N.detach_tree(vgg_params)
+        feat = vgg.vgg19_features(vgg_params, img, gen=gen,
                                   deterministic=deterministic, dtype=dt)
     return N.l2_normalize(N.linear(params["img_fc"], feat, dtype=dt))
 
@@ -100,18 +106,39 @@ def ef_forward(params, arch, cfg: ModelConfig, img: torch.Tensor,
 
 def ef_generate(params, arch, cfg: ModelConfig, img: torch.Tensor,
                 gen: Optional[torch.Generator] = None,
-                deterministic: bool = True) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
-    """Greedily generate a question, then answer it.
+                deterministic: bool = True,
+                sample_deterministic: bool = True,
+                sample_gen: Optional[torch.Generator] = None,
+                temperature: float = 0.1) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """Generate a question, then answer it. `deterministic` gates dropout
+    (training generates with dropout on); `sample_deterministic` picks the
+    greedy token or a sample at `temperature` from `sample_gen`.
     Returns (question int32 [B, T], answer logits [B, A])."""
     dt = N.torch_dtype(cfg.compute_dtype)
     img_feature = ef_img_encode(params, arch, cfg, img, gen, deterministic)
     qst = ef_qst_generate(params["qst"], img_feature, cfg.max_qst_len,
                           dtype=dt, use_kernel=cfg.use_pallas_lstm,
-                          use_generate_kernel=cfg.pallas_generate)
+                          use_generate_kernel=cfg.pallas_generate,
+                          deterministic=sample_deterministic,
+                          sample_gen=sample_gen, temperature=temperature)
     qst_feature, _ = ef_qst_encoder(params["qst"], qst, img_feature, dtype=dt,
                                     use_kernel=cfg.use_pallas_lstm,
                                     use_seq_kernel=cfg.pallas_seq_lstm)
     ans = _answer_head(params, cfg, img_feature, qst_feature, gen,
                        deterministic)
     return qst, ans
+
+
+def ef_loss(params, arch, cfg: ModelConfig, img, qst, labels,
+            gen: Optional[torch.Generator] = None,
+            deterministic: bool = True,
+            qst_only: bool = False) -> torch.Tensor:
+    """Answer CE + shifted teacher-forcing question CE; `qst_only` drops
+    the answer term."""
+    ans_logits, qst_logits = ef_forward(params, arch, cfg, img, qst, gen,
+                                        deterministic)
+    qst_ce = sequence_teacher_forcing_ce(qst_logits, qst)
+    if qst_only:
+        return qst_ce
+    return cross_entropy(ans_logits, labels) + qst_ce

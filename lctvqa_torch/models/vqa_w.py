@@ -2,7 +2,7 @@
 
 VGG19 image feature -> fc -> L2 normalize; W-style question encoder;
 elementwise-mul fusion -> tanh -> dropout -> fc1 -> tanh -> dropout -> fc2.
-Forward only: training is not ported yet.
+The VGG trunk is always frozen: its params are detached in the forward.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from lctvqa_torch.config import ModelConfig
 from lctvqa_torch.models import vgg
 from lctvqa_torch.models.qst_encoder import w_qst_encoder, w_qst_encoder_init
 from lctvqa_torch.ops import nn as N
+from lctvqa_torch.ops.losses import cross_entropy, soft_xent
 
 
 def init_w_model(gen: torch.Generator, cfg: ModelConfig, vgg_params=None):
@@ -39,7 +40,8 @@ def w_forward(params, cfg: ModelConfig, img: torch.Tensor, qst: torch.Tensor,
               deterministic: bool = True) -> torch.Tensor:
     """img NHWC fp32 normalized, qst int [B, T] -> answer logits [B, A]."""
     dt = N.torch_dtype(cfg.compute_dtype)
-    feat = vgg.vgg19_features(params["vgg"], img, gen=gen,
+    vgg_params = N.detach_tree(params["vgg"])  # frozen trunk
+    feat = vgg.vgg19_features(vgg_params, img, gen=gen,
                               deterministic=deterministic, dtype=dt)
     img_feature = N.l2_normalize(N.linear(params["img_fc"], feat, dtype=dt))
     qst_feature = w_qst_encoder(params["qst"], qst, dtype=dt,
@@ -50,3 +52,23 @@ def w_forward(params, cfg: ModelConfig, img: torch.Tensor, qst: torch.Tensor,
     x = torch.tanh(N.linear(params["fc1"], x, dtype=dt))
     x = N.dropout(x, cfg.dropout_rate, gen, deterministic)
     return N.linear(params["fc2"], x, dtype=dt)
+
+
+def w_loss(params, cfg: ModelConfig, img, qst, labels,
+           gen: Optional[torch.Generator] = None,
+           deterministic: bool = True) -> torch.Tensor:
+    """CE of answers."""
+    return cross_entropy(w_forward(params, cfg, img, qst, gen, deterministic),
+                         labels)
+
+
+def w_soft_loss(params, cfg: ModelConfig, img, qst, labels, pseudo_qst,
+                pseudo_ans, w_lambda: float,
+                gen: Optional[torch.Generator] = None,
+                deterministic: bool = True) -> torch.Tensor:
+    """Real CE + w_lambda * soft cross entropy on EF's pseudo QA; the two
+    forwards draw different dropout masks from `gen`."""
+    logits_real = w_forward(params, cfg, img, qst, gen, deterministic)
+    logits_pseudo = w_forward(params, cfg, img, pseudo_qst, gen, deterministic)
+    return (cross_entropy(logits_real, labels)
+            + w_lambda * soft_xent(logits_pseudo, pseudo_ans))

@@ -9,19 +9,22 @@ package's HWIO, a depthwise [k, k, 1, C] to [C, 1, k, k]). Convolutions
 and pools are left to cuDNN, as the JAX package leaves them to XLA.
 
 BatchNorm is batch-statistics everywhere, as in the JAX package by
-default; its `bn_capture`/`bn_eval` running-statistics contexts come with
-training. Affine-free BatchNorm of a CUDA tensor goes through the
-single-pass kernel's counterpart (`ops/cuda_bn.py`) when `USE_PALLAS_BN`
-is on.
+default; the `bn_capture`/`bn_eval` contexts reproduce a reference run's
+eval-mode running statistics when asked. Affine-free BatchNorm of a CUDA
+tensor goes through the BatchNorm kernels (`ops/cuda_bn.py`, forward and
+backward) when `USE_PALLAS_BN` is on, except under either context.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from lctvqa_torch.ops import cuda_bn
 
@@ -55,6 +58,46 @@ def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def _pair(v: IntOrPair) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    cudnn = torch.backends.cudnn
+    was, cudnn.allow_tf32 = cudnn.allow_tf32, False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = was
+
+
+class _ExactConvFn(torch.autograd.Function):
+    """An fp32 convolution on the card with cuDNN's TF32, on by default,
+    turned off in the forward and in the backward: autograd runs the
+    backward later, outside any setting the forward made. First order
+    only."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.args = (stride, padding, dilation, groups)
+        with _no_tf32():
+            return F.conv2d(x, w, None, stride, padding, dilation, groups)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        stride, padding, dilation, groups = ctx.args
+        with _no_tf32():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                g, x, w, None, stride, padding, dilation, False, (0, 0),
+                groups, (ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                         False))
+        return dx, dw, None, None, None, None
+
+
 def conv2d(params, x: torch.Tensor, stride: IntOrPair = 1,
            padding: IntOrPair = 0, dilation: IntOrPair = 1, groups: int = 1,
            dtype: Optional[torch.dtype] = None,
@@ -64,19 +107,24 @@ def conv2d(params, x: torch.Tensor, stride: IntOrPair = 1,
     and the result is produced in it (fp32 accumulation inside), then
     cast to `out_dtype` (default fp32) before the bias: the JAX package's
     rounding. An fp32 conv stays fp32: cuDNN's TF32, on by default, is
-    turned off for it."""
+    turned off for it, forward and backward."""
     x, w = _nchw(x), params["w"]
     if dtype is not None:
         x, w = x.to(dtype), w.to(dtype)
     out_dtype = out_dtype or f32
-    cudnn = torch.backends.cudnn
-    tf32 = cudnn.allow_tf32
-    cudnn.allow_tf32 = tf32 and x.dtype != f32
-    try:
+    if (x.device.type == "cpu" and w.shape[2:] == (1, 1)
+            and stride not in (1, (1, 1))):
+        # oneDNN's weight gradient of a strided 1x1 convolution corrupts
+        # the heap on a channels-last input of few channels (8 -> 4 at 64
+        # pixels, the factorized reduce of a reduction cell; PyTorch 2.11
+        # and 2.13): hand it an NCHW-contiguous input
+        x = x.contiguous()
+    if x.dtype == f32 and x.device.type == "cuda":
+        y = _ExactConvFn.apply(x, w, _pair(stride), _pair(padding),
+                               _pair(dilation), groups).to(out_dtype)
+    else:
         y = F.conv2d(x, w, stride=stride, padding=padding, dilation=dilation,
                      groups=groups).to(out_dtype)
-    finally:
-        cudnn.allow_tf32 = tf32
     if "b" in params:
         y = y + params["b"].to(out_dtype).view(1, -1, 1, 1)
     return _nhwc(y)
@@ -109,10 +157,102 @@ def batchnorm_plain(params, x: torch.Tensor, eps: float = 1e-5,
     return y if out_dtype is None else y.to(out_dtype)
 
 
+# ---------------------------------------------------------------------------
+# Running statistics (opt-in, `ModelConfig.bn_eval_stats`). An ambient
+# context gates each `batchnorm` call:
+#   - `with bn_capture() as cap:` batch-stat math as usual, and every call
+#     appends its {"mean", "var"} to `cap.stats`, the variance already
+#     unbiased by n / (n - 1), as its only reader is the running update;
+#   - `update_running_stats(running, cap.stats)` is torch's momentum update
+#     (0.1), `init_running_stats` torch's (0, 1) start;
+#   - `with bn_eval(running):` each call takes the next entry in call order
+#     and normalizes with it, and leaving the context raises if the number
+#     of calls and of entries differ.
+# Under either context `batchnorm` takes the plain path, never the kernel.
+# ---------------------------------------------------------------------------
+
+_BN_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "lctvqa_torch_bn_ctx", default=None)
+
+
+class _BNCtx:
+    __slots__ = ("mode", "stats", "cursor")
+
+    def __init__(self, mode, stats=None):
+        self.mode = mode              # 'capture' | 'eval'
+        self.stats = list(stats) if stats is not None else []
+        self.cursor = 0
+
+
+@contextlib.contextmanager
+def bn_capture():
+    """Collect the batch statistics of every `batchnorm` in the scope."""
+    ctx = _BNCtx("capture")
+    tok = _BN_CTX.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _BN_CTX.reset(tok)
+
+
+@contextlib.contextmanager
+def bn_eval(stats):
+    """Serve running statistics to `batchnorm` calls, one entry per call in
+    call order. Raises if the calls and the entries differ in number."""
+    ctx = _BNCtx("eval", stats)
+    tok = _BN_CTX.set(ctx)
+    try:
+        yield ctx
+    finally:
+        _BN_CTX.reset(tok)
+    if ctx.cursor != len(ctx.stats):
+        raise ValueError(
+            f"bn_eval consumed {ctx.cursor} of {len(ctx.stats)} BN stat "
+            "entries: the captured and the evaluated networks differ")
+
+
+def init_running_stats(captured):
+    """torch BatchNorm's start: running mean 0, running variance 1."""
+    return [{"mean": torch.zeros_like(c["mean"]),
+             "var": torch.ones_like(c["var"])} for c in captured]
+
+
+def update_running_stats(running, captured, momentum: float = 0.1):
+    """running = (1 - m) * running + m * batch, on the unbiased variance
+    the capture recorded."""
+    return [{"mean": (1.0 - momentum) * r["mean"] + momentum * c["mean"],
+             "var": (1.0 - momentum) * r["var"] + momentum * c["var"]}
+            for r, c in zip(running, captured)]
+
+
+def _batchnorm_ctx(ctx: _BNCtx, params, x, eps, out_dtype):
+    x32 = x.to(f32)
+    if ctx.mode == "eval":
+        if ctx.cursor >= len(ctx.stats):
+            raise ValueError("bn_eval ran out of BN stat entries")
+        s = ctx.stats[ctx.cursor]
+        ctx.cursor += 1
+        y = (x32 - s["mean"]) * torch.rsqrt(s["var"] + eps)
+    else:
+        axes = tuple(range(x.dim() - 1))
+        mean = x32.mean(axes)
+        var = (x32 * x32).mean(axes) - mean * mean
+        n = float(x.numel() // x.shape[-1])
+        ctx.stats.append({"mean": mean.detach(),
+                          "var": (var * (n / max(n - 1.0, 1.0))).detach()})
+        y = (x32 - mean) * torch.rsqrt(var + eps)
+    if "scale" in params:
+        y = y * params["scale"] + params["bias"]
+    return y if out_dtype is None else y.to(out_dtype)
+
+
 def batchnorm(params, x: torch.Tensor, eps: float = 1e-5,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Batch-statistics BN over (N, H, W) per channel (the DARTS search
     space runs its BN layers in train mode during search and eval)."""
+    ctx = _BN_CTX.get()
+    if ctx is not None:
+        return _batchnorm_ctx(ctx, params, x, eps, out_dtype)
     if (USE_PALLAS_BN and not params and x.dim() == 4 and eps == 1e-5
             and x.device.type != "cpu"):
         return cuda_bn.batchnorm_fwd(x, out_dtype=out_dtype)
@@ -124,12 +264,35 @@ def max_pool(x: torch.Tensor, window: int, stride: int,
     return _nhwc(F.max_pool2d(_nchw(x.to(f32)), window, stride, padding))
 
 
+class _AvgPoolFn(torch.autograd.Function):
+    """F.avg_pool2d on a channels-last view, with its gradient taken on
+    NCHW-contiguous tensors. PyTorch 2.11's CUDA avg_pool2d backward
+    returns a shifted gradient when its tensors are channels-last (the
+    forward, and max and adaptive pooling, are right); on contiguous ones
+    it agrees with the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, window, stride, padding, count_include_pad):
+        ctx.args = (x.shape, window, stride, padding, count_include_pad)
+        return F.avg_pool2d(x, window, stride, padding,
+                            count_include_pad=count_include_pad)
+
+    @staticmethod
+    def backward(ctx, g):
+        shape, window, stride, padding, count_include_pad = ctx.args
+        like = torch.empty(shape, dtype=g.dtype, device=g.device)
+        dx = torch.ops.aten.avg_pool2d_backward(
+            g.contiguous(), like, [window, window], [stride, stride],
+            [padding, padding], False, count_include_pad, None)
+        return dx, None, None, None, None
+
+
 def avg_pool(x: torch.Tensor, window: int, stride: int, padding: int = 0,
              count_include_pad: bool = False) -> torch.Tensor:
     """Average pool; count_include_pad=False divides by the number of
     valid elements of each window."""
-    return _nhwc(F.avg_pool2d(_nchw(x.to(f32)), window, stride, padding,
-                              count_include_pad=count_include_pad))
+    return _nhwc(_AvgPoolFn.apply(_nchw(x.to(f32)), window, stride, padding,
+                                  count_include_pad))
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_size: int) -> torch.Tensor:

@@ -9,8 +9,14 @@ then every product and sum in fp32 (which is exactly what a bf16 x bf16
 tensors; for CUDA tensors it launches the kernel or raises.
 
 The compute dtype is that of the weights in `CellWeights`; c and h
-state, bias and outputs are fp32. Serving is forward-only, so there is no
-backward here.
+state, bias and outputs are fp32.
+
+Gradients: the JAX package has no backward kernel for these three; its
+derivative is a tangent rule in plain array code that recomputes the
+gates. Here `LstmCellFn`, `LstmSeqFinalFn` and `LstmSeqFn` launch the
+kernel forward and take the gradient by autograd through the plain
+version on the same rounded operands, recomputed in the backward. First
+order only.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from lctvqa_torch.ops import _build as K
 
@@ -123,11 +130,8 @@ def _check_weights(name: str, w: CellWeights, emb: int) -> Tuple[int, int]:
     return hid, K.dtype_code(name, w.w_ih.dtype)
 
 
-def lstm_cell(w: CellWeights, x: Tensor, h: Tensor,
-              c: Tensor) -> Tuple[Tensor, Tensor]:
-    """One LSTM step (replaces lstm_cell_pallas). x [B, E], h/c [B, H]."""
-    if x.device.type == "cpu":
-        return lstm_cell_plain(w, x, h, c)
+def _cell_kernel(w: CellWeights, x: Tensor, h: Tensor,
+                 c: Tensor) -> Tuple[Tensor, Tensor]:
     name = CELL.name
     device = K.check_cuda_tensors(name, x=x, h=h, c=c, w_ih=w.w_ih,
                                   w_hh=w.w_hh, b=w.b)
@@ -170,19 +174,90 @@ def _seq(kernel: K.Kernel, w: CellWeights, xs: Tensor, h0, c0,
     return out, (h_n, c_n)
 
 
+def _plain_grad_fn(name: str, kernel, plain):
+    """An autograd.Function over (x, h, c, w_ih, w_hh, b): forward is
+    `kernel` (`plain` for CPU tensors), backward is autograd through
+    `plain` on the same inputs. Both take (CellWeights, x, h, c) and
+    return a flat tuple of tensors."""
+
+    def forward(ctx, x, h, c, w_ih, w_hh, b):
+        ctx.save_for_backward(x, h, c, w_ih, w_hh, b)
+        fn = plain if x.device.type == "cpu" else kernel
+        return fn(CellWeights(w_ih, w_hh, b), x, h, c)
+
+    @once_differentiable
+    def backward(ctx, *grads):
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            x, h, c, w_ih, w_hh, b = ins
+            outs = plain(CellWeights(w_ih, w_hh, b), x, h, c)
+            return torch.autograd.grad(outs, ins, grads)
+
+    return type(name, (torch.autograd.Function,),
+                {"forward": staticmethod(forward),
+                 "backward": staticmethod(backward), "__doc__": (
+                     f"{kernel.__name__} forward, autograd through "
+                     f"{plain.__name__} backward.")})
+
+
+def _seq_final_kernel(w, xs, h0, c0):
+    return _seq(SEQ_FINAL, w, xs, h0, c0, with_outputs=False)[1]
+
+
+def _seq_all_kernel(w, xs, h0, c0):
+    out, (h_n, c_n) = _seq(SEQ_ALL, w, xs, h0, c0, with_outputs=True)
+    return out, h_n, c_n
+
+
+def _seq_all_plain(w, xs, h0, c0):
+    out, (h_n, c_n) = lstm_seq_plain(w, xs, h0, c0)
+    return out, h_n, c_n
+
+
+LstmCellFn = _plain_grad_fn("LstmCellFn", _cell_kernel, lstm_cell_plain)
+LstmSeqFinalFn = _plain_grad_fn("LstmSeqFinalFn", _seq_final_kernel,
+                                lstm_seq_final_plain)
+LstmSeqFn = _plain_grad_fn("LstmSeqFn", _seq_all_kernel, _seq_all_plain)
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def lstm_cell(w: CellWeights, x: Tensor, h: Tensor,
+              c: Tensor) -> Tuple[Tensor, Tensor]:
+    """One LSTM step (replaces lstm_cell_pallas), differentiable once.
+    x [B, E], h/c [B, H]."""
+    if x.device.type == "cpu":
+        return lstm_cell_plain(w, x, h, c)
+    if _needs_grad(x, h, c, *w):
+        return LstmCellFn.apply(x, h, c, *w)
+    return _cell_kernel(w, x, h, c)
+
+
 def lstm_seq_final(w: CellWeights, xs: Tensor, h0: Optional[Tensor] = None,
                    c0: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
-    """Whole recurrence, final state only (replaces lstm_seq_final_pallas).
-    xs [B, T, E]; h0/c0 [B, H] or None (zeros). -> (h_n, c_n) fp32."""
+    """Whole recurrence, final state only (replaces lstm_seq_final_pallas),
+    differentiable once. xs [B, T, E]; h0/c0 [B, H] or None (zeros).
+    -> (h_n, c_n) fp32."""
     if xs.device.type == "cpu":
         return lstm_seq_final_plain(w, xs, h0, c0)
-    return _seq(SEQ_FINAL, w, xs, h0, c0, with_outputs=False)[1]
+    h0, c0 = _zeros_state(w, xs, h0, c0)
+    if _needs_grad(xs, h0, c0, *w):
+        return LstmSeqFinalFn.apply(xs, h0, c0, *w)
+    return _seq_final_kernel(w, xs, h0, c0)
 
 
 def lstm_seq(w: CellWeights, xs: Tensor, h0: Optional[Tensor] = None,
              c0: Optional[Tensor] = None):
-    """Whole recurrence with every step's h (replaces lstm_seq_pallas).
-    -> (outputs [B, T, H], (h_n, c_n) [B, H]), all fp32."""
+    """Whole recurrence with every step's h (replaces lstm_seq_pallas),
+    differentiable once. -> (outputs [B, T, H], (h_n, c_n) [B, H]), all
+    fp32."""
     if xs.device.type == "cpu":
         return lstm_seq_plain(w, xs, h0, c0)
-    return _seq(SEQ_ALL, w, xs, h0, c0, with_outputs=True)
+    h0, c0 = _zeros_state(w, xs, h0, c0)
+    if _needs_grad(xs, h0, c0, *w):
+        out, h_n, c_n = LstmSeqFn.apply(xs, h0, c0, *w)
+    else:
+        out, h_n, c_n = _seq_all_kernel(w, xs, h0, c0)
+    return out, (h_n, c_n)

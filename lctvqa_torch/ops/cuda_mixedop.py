@@ -1,11 +1,10 @@
-"""The node-batched PC-DARTS mixed op, forward: the kernel and its plain
-version.
+"""The node-batched PC-DARTS mixed op, forward and backward: the two
+kernels, their plain versions and the autograd function that joins them.
 
 Counterpart of `lctvqa/ops/pallas_mixedop.py::mixed_node_pallas_hwcn`
-(forward; the backward comes with training); the kernel is in
-`lctvqa_torch/csrc/mixedop.cu`. For the E stride-1 edges of one cell
-node, on the first Cs channels of each edge's NHWC state, both versions
-compute
+and its `custom_vjp`; the kernels are in `lctvqa_torch/csrc/mixedop.cu`.
+For the E stride-1 edges of one cell node, on the first Cs channels of
+each edge's NHWC state, both versions compute
 
     out = sum_e w[e, skip] * x_e + sum_e sum_op w[e, op] * BN_op(op(x_e))
 
@@ -19,8 +18,18 @@ depthwise and pointwise sums are fp32 with unrounded fp32 weights, each
 stage output is rounded to the compute dtype once, statistics and the
 fold are fp32 over the rounded values, the result is fp32.
 
+The backward gives the gradient w.r.t. every edge state (in the compute
+dtype), every edge's packed depthwise taps and pointwise matrices and
+`weights` (fp32); the gradients of the conv leaves and of alpha and beta
+follow by autograd through `node_weights` and the `beta * softmax(alpha)`
+product. The forward kernel leaves every stage output and its statistics
+in device memory, and `MixedNodeFn` keeps them for the backward kernel
+instead of recomputing them as the TPU kernel must: SLOTS x E x Cs x
+N*H*W values of the compute dtype per call. The plain version of the
+backward is autograd through `mixed_node_plain`. First order only.
+
 The wrapper takes the plain version only for CPU tensors; for CUDA
-tensors it launches the kernel or raises. It takes any N >= 1 and any
+tensors it launches the kernels or raises. It takes any N >= 1 and any
 H, W: the only condition on an edge is stride 1.
 """
 
@@ -30,6 +39,8 @@ import ctypes
 from typing import List, NamedTuple, Sequence
 
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from lctvqa_torch.ops import _build as K
 from lctvqa_torch.ops import conv as C
@@ -47,8 +58,13 @@ MAX_TAPS = 25
 MAX_POOL, AVG_POOL, SKIP, FIRST_BRANCH = 1, 2, 3, 4
 SLOTS = 8  # scratch planes of the kernel per (edge, channel)
 
+# columns of `weights` of the six folded ops in the backward kernel's order
+FOLD_OPS = (4, 5, 6, 7, MAX_POOL, AVG_POOL)
+
 MIXED_NODE = K.register(K.Kernel(
     "mixed_node_fwd", "lctvqa_mixed_node_fwd", [K.PTR] * 6 + [K.INT] * 6))
+MIXED_NODE_BWD = K.register(K.Kernel(
+    "mixed_node_bwd", "lctvqa_mixed_node_bwd", [K.PTR] * 10 + [K.INT] * 6))
 
 
 class _Edge(ctypes.Structure):  # NodeEdge of mixedop.cu
@@ -64,29 +80,59 @@ class NodeWeights(NamedTuple):
     pw: Tensor  # [8, Cs, Cs]: pointwise matrices as [c_in, c_out]
 
 
+class _Dx(ctypes.Structure):  # NodeDx of mixedop.cu
+    _fields_ = [("dx", ctypes.c_void_p * 8)]
+
+
 def node_weights(p) -> NodeWeights:
     """Pack one mixed op's params ({primitive: {"dw1", "pw1", ...}}, conv
-    weights OIHW) once, outside the forward. A mixed op that holds its
-    packed weights under "node" (a served model's) returns them."""
+    weights OIHW). Differentiable: the packed tensors are built from the
+    conv leaves by reshape, pad and stack, so a training forward packs
+    anew and the leaves get their gradients. A mixed op that holds its
+    packed weights under "node" (a served model's, packed once) returns
+    them."""
     if "node" in p:
         return p["node"]
-    cs = p["dil_conv_3x3"]["pw"]["w"].shape[0]
     ref = p["dil_conv_3x3"]["pw"]["w"]
-    dw = torch.zeros(8, MAX_TAPS, cs, dtype=f32, device=ref.device)
-    pw = torch.zeros(8, cs, cs, dtype=f32, device=ref.device)
-    for b, (name, kk, _, two_stage) in enumerate(BRANCHES):
+    cs = ref.shape[0]
+    dws, pws = [], []
+    for name, kk, _, two_stage in BRANCHES:
         stages = (("dw1", "pw1"), ("dw2", "pw2")) if two_stage else (
-            ("dw", "pw"),)
-        for s, (dw_name, pw_name) in enumerate(stages):
-            dw[2 * b + s, :kk * kk] = (p[name][dw_name]["w"].to(f32)
-                                       .reshape(cs, kk * kk).t())
-            pw[2 * b + s] = p[name][pw_name]["w"].to(f32)[:, :, 0, 0].t()
-    return NodeWeights(dw, pw)
+            ("dw", "pw"), None)
+        for stage in stages:
+            if stage is None:  # rows 5 and 7: a dil conv has one stage
+                dws.append(torch.zeros(MAX_TAPS, cs, dtype=f32,
+                                       device=ref.device))
+                pws.append(torch.zeros(cs, cs, dtype=f32, device=ref.device))
+                continue
+            taps = p[name][stage[0]]["w"].to(f32).reshape(cs, kk * kk).t()
+            dws.append(F.pad(taps, (0, 0, 0, MAX_TAPS - kk * kk)))
+            pws.append(p[name][stage[1]]["w"].to(f32)[:, :, 0, 0].t())
+    return NodeWeights(torch.stack(dws), torch.stack(pws))
 
 
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
+
+class _RoundFn(torch.autograd.Function):
+    """fp32 -> the nearest value of `dtype`, kept as fp32. Its gradient is
+    the identity in fp32, which is how the backward kernel (and the Pallas
+    one) treats a stage output's rounding; autograd through a plain
+    `.to(dtype)` would round every gradient to `dtype` as well."""
+
+    @staticmethod
+    def forward(ctx, x: Tensor, dtype) -> Tensor:
+        return x.to(dtype).to(f32)
+
+    @staticmethod
+    def backward(ctx, g: Tensor):
+        return g, None
+
+
+def _round(x: Tensor, dtype) -> Tensor:
+    return x if dtype == f32 else _RoundFn.apply(x, dtype)
+
 
 def _stats(o32: Tensor):
     mean = o32.mean((0, 1, 2))
@@ -94,33 +140,35 @@ def _stats(o32: Tensor):
     return mean, torch.rsqrt(var + EPS)
 
 
-def _stage(y: Tensor, w: NodeWeights, row: int, kk: int, dil: int) -> Tensor:
-    """depthwise (fp32 sum) then pointwise (fp32 sum) of y, whose values
+def _stage(y32: Tensor, w: NodeWeights, row: int, kk: int, dil: int,
+           dtype) -> Tensor:
+    """depthwise (fp32 sum) then pointwise (fp32 sum) of y32, whose values
     are of the compute dtype; rounded to that dtype once."""
-    cs = y.shape[-1]
+    cs = y32.shape[-1]
     taps = w.dw[row, :kk * kk].t().reshape(cs, 1, kk, kk)
-    t = C.depthwise_conv2d({"w": taps}, y.to(f32),
-                           padding=(kk - 1) // 2 * dil, dilation=dil)
-    return (t @ w.pw[row]).to(y.dtype)
+    t = C.depthwise_conv2d({"w": taps}, y32, padding=(kk - 1) // 2 * dil,
+                           dilation=dil)
+    return _round(t @ w.pw[row], dtype)
 
 
 def mixed_node_plain(xs: Sequence[Tensor], nodes: Sequence[NodeWeights],
                      weights: Tensor, cs: int) -> Tensor:
     """xs: E tensors [N, H, W, >= cs] of one compute dtype; weights [E, 8]
-    fp32 -> [N, H, W, cs] fp32."""
+    fp32 -> [N, H, W, cs] fp32. Every intermediate is an fp32 tensor that
+    holds values of the compute dtype."""
     weights = weights.to(f32)
-    xs = [x[..., :cs] for x in xs]
+    dtype = xs[0].dtype
+    xs = [x[..., :cs].to(f32) for x in xs]
     out = None
     for e, x in enumerate(xs):
-        term = weights[e, SKIP] * x.to(f32)
+        term = weights[e, SKIP] * x
         out = term if out is None else out + term
     bias = torch.zeros(cs, dtype=f32, device=out.device)
 
     def fold(os, op):
         nonlocal out, bias
         term = None
-        for e, o in enumerate(os):
-            o32 = o.to(f32)
+        for e, o32 in enumerate(os):
             mean, rstd = _stats(o32)
             coef = weights[e, op] * rstd
             t = o32 * coef
@@ -131,15 +179,15 @@ def mixed_node_plain(xs: Sequence[Tensor], nodes: Sequence[NodeWeights],
     for b, (_, kk, dil, two_stage) in enumerate(BRANCHES):
         os = []
         for x, w in zip(xs, nodes):
-            o = _stage(torch.relu(x), w, 2 * b, kk, dil)
+            o = _stage(torch.relu(x), w, 2 * b, kk, dil, dtype)
             if two_stage:
-                mean, rstd = _stats(o.to(f32))
-                y = torch.relu((o.to(f32) - mean) * rstd).to(x.dtype)
-                o = _stage(y, w, 2 * b + 1, kk, 1)
+                mean, rstd = _stats(o)
+                y = _round(torch.relu((o - mean) * rstd), dtype)
+                o = _stage(y, w, 2 * b + 1, kk, 1, dtype)
             os.append(o)
         fold(os, FIRST_BRANCH + b)
-    fold([C.max_pool(x, 3, 1, 1).to(x.dtype) for x in xs], MAX_POOL)
-    fold([C.avg_pool(x, 3, 1, 1, count_include_pad=False).to(x.dtype)
+    fold([C.max_pool(x, 3, 1, 1) for x in xs], MAX_POOL)
+    fold([_round(C.avg_pool(x, 3, 1, 1, count_include_pad=False), dtype)
           for x in xs], AVG_POOL)
     return out - bias
 
@@ -148,8 +196,20 @@ def mixed_node_plain(xs: Sequence[Tensor], nodes: Sequence[NodeWeights],
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-def _launch(xs: List[Tensor], nodes: List[NodeWeights], weights: Tensor,
-            cs: int, device) -> Tensor:
+def _edges(xs: Sequence[Tensor], nodes: Sequence[NodeWeights]):
+    edges = (_Edge * K.library().lctvqa_mixed_node_max_edges())()
+    for slot, x, nw in zip(edges, xs, nodes):
+        slot.x, slot.dw, slot.pw = x.data_ptr(), nw.dw.data_ptr(), \
+            nw.pw.data_ptr()
+        slot.sn, slot.sh, slot.sw = x.stride(0), x.stride(1), x.stride(2)
+    return edges
+
+
+def node_fwd_launch(xs: List[Tensor], nodes: List[NodeWeights], weights: Tensor,
+            cs: int, device):
+    """One launch of the forward kernel on at most `max_edges` checked
+    edge slices. -> (out, obuf, stat): the result, and the stage outputs
+    and their statistics as the backward kernel reads them."""
     name = MIXED_NODE.name
     n, h, w, _ = xs[0].shape
     e, m = len(xs), n * h * w
@@ -160,23 +220,112 @@ def _launch(xs: List[Tensor], nodes: List[NodeWeights], weights: Tensor,
     partial = torch.empty(SLOTS, e, cs, 2, blocks, dtype=f32, device=device)
     stat = torch.empty(SLOTS, e, cs, 2, dtype=f32, device=device)
     out = torch.empty(n, h, w, cs, dtype=f32, device=device)
-    edges = (_Edge * K.library().lctvqa_mixed_node_max_edges())()
-    for slot, x, nw in zip(edges, xs, nodes):
-        slot.x, slot.dw, slot.pw = x.data_ptr(), nw.dw.data_ptr(), \
-            nw.pw.data_ptr()
-        slot.sn, slot.sh, slot.sw = x.stride(0), x.stride(1), x.stride(2)
-    MIXED_NODE.launch(device, ctypes.byref(edges), weights, obuf, partial,
-                      stat, out, e, n, h, w, cs, K.dtype_code(name, dtype))
-    return out
+    MIXED_NODE.launch(device, ctypes.byref(_edges(xs, nodes)), weights, obuf,
+                      partial, stat, out, e, n, h, w, cs,
+                      K.dtype_code(name, dtype))
+    return out, obuf, stat
+
+
+def node_bwd_launch(xs: List[Tensor], nodes: List[NodeWeights], weights: Tensor,
+                g: Tensor, obuf: Tensor, stat: Tensor, cs: int, device):
+    """One launch of the backward kernel on what `node_fwd_launch` took and
+    left; g [N, H, W, Cs] fp32 contiguous.
+    -> (dxs, ddw [E, 8, 25, Cs], dpw [E, 8, Cs, Cs], dweights [E, 8])."""
+    name = MIXED_NODE_BWD.name
+    n, h, w, _ = xs[0].shape
+    e = len(xs)
+    dtype = xs[0].dtype
+    size_fn = K.library().lctvqa_mixed_node_bwd_scratch
+    size_fn.argtypes, size_fn.restype = [K.INT] * 5, ctypes.c_longlong
+    scratch = torch.empty(size_fn(e, n, h, w, cs), dtype=f32, device=device)
+    dx = torch.empty(e, n, h, w, cs, dtype=dtype, device=device)
+    ddw = torch.empty(e, 8, MAX_TAPS, cs, dtype=f32, device=device)
+    dpw = torch.empty(e, 8, cs, cs, dtype=f32, device=device)
+    dwt = torch.empty(e * (len(FOLD_OPS) + 1), dtype=f32, device=device)
+    outs = _Dx()
+    for i in range(e):
+        outs.dx[i] = dx[i].data_ptr()
+    MIXED_NODE_BWD.launch(device, ctypes.byref(_edges(xs, nodes)),
+                          ctypes.byref(outs), weights, g, obuf, stat, scratch,
+                          ddw, dpw, dwt, e, n, h, w, cs,
+                          K.dtype_code(name, dtype))
+    dweights = torch.zeros(e, 8, dtype=f32, device=device)
+    dweights[:, list(FOLD_OPS)] = dwt[:e * len(FOLD_OPS)].view(e, -1)
+    dweights[:, SKIP] = dwt[e * len(FOLD_OPS):]
+    return list(dx.unbind(0)), ddw, dpw, dweights
+
+
+def mixed_node_bwd_plain(xs: Sequence[Tensor], nodes: Sequence[NodeWeights],
+                         weights: Tensor, g: Tensor, cs: int):
+    """The backward's plain version: autograd through `mixed_node_plain`.
+    -> (dxs [N, H, W, cs] in the compute dtype, ddw [E, 8, 25, Cs],
+    dpw [E, 8, Cs, Cs], dweights [E, 8])."""
+    with torch.enable_grad():
+        xs = [x[..., :cs].detach().requires_grad_() for x in xs]
+        dws = [nw.dw.detach().requires_grad_() for nw in nodes]
+        pws = [nw.pw.detach().requires_grad_() for nw in nodes]
+        wts = weights.detach().to(f32).requires_grad_()
+        out = mixed_node_plain(xs, [NodeWeights(d, p)
+                                    for d, p in zip(dws, pws)], wts, cs)
+        e = len(xs)
+        grads = torch.autograd.grad(out, [*xs, *dws, *pws, wts], g.to(f32))
+    return (list(grads[:e]), torch.stack(grads[e:2 * e]),
+            torch.stack(grads[2 * e:3 * e]), grads[3 * e])
+
+
+class MixedNodeFn(torch.autograd.Function):
+    """The forward kernel, then the backward kernel on the stage outputs
+    the forward left. Inputs: weights [E, 8] fp32, then the E edge slices
+    [N, H, W, cs] (views, channel stride 1), the E packed dw and the E
+    packed pw. More edges than one launch takes are split: edges are
+    independent given the output's gradient."""
+
+    @staticmethod
+    def forward(ctx, weights: Tensor, cs: int, e: int, *tensors: Tensor):
+        xs, dws, pws = tensors[:e], tensors[e:2 * e], tensors[2 * e:]
+        device = weights.device
+        nodes = [NodeWeights(d, p) for d, p in zip(dws, pws)]
+        step = K.library().lctvqa_mixed_node_max_edges()
+        out, kept = None, []
+        for lo in range(0, e, step):
+            part, obuf, stat = node_fwd_launch(
+                list(xs[lo:lo + step]), nodes[lo:lo + step],
+                weights[lo:lo + step].contiguous(), cs, device)
+            out = part if out is None else out + part
+            kept += [obuf, stat]
+        ctx.cs, ctx.e, ctx.step = cs, e, step
+        ctx.save_for_backward(weights, *tensors, *kept)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g: Tensor):
+        cs, e, step = ctx.cs, ctx.e, ctx.step
+        weights, *rest = ctx.saved_tensors
+        xs, dws, pws = rest[:e], rest[e:2 * e], rest[2 * e:3 * e]
+        kept = rest[3 * e:]
+        nodes = [NodeWeights(d, p) for d, p in zip(dws, pws)]
+        g = g.to(f32).contiguous()
+        dxs, ddws, dpws, dwts = [], [], [], []
+        for i, lo in enumerate(range(0, e, step)):
+            dx, ddw, dpw, dwt = node_bwd_launch(
+                list(xs[lo:lo + step]), nodes[lo:lo + step],
+                weights[lo:lo + step].contiguous(), g, kept[2 * i],
+                kept[2 * i + 1], cs, weights.device)
+            dxs += dx
+            ddws += list(ddw.unbind(0))
+            dpws += list(dpw.unbind(0))
+            dwts.append(dwt)
+        return (torch.cat(dwts), None, None, *dxs, *ddws, *dpws)
 
 
 def mixed_node(xs: Sequence[Tensor], p_list: Sequence[dict], weights: Tensor,
                cs: int) -> Tensor:
     """One cell node's stride-1 mixed ops, summed over its E edges
-    (replaces mixed_node_pallas_hwcn). xs: E edge states [N, H, W, C] of
-    one compute dtype (fp32 or bf16), of which channels [0, cs) are read
-    in place; p_list: the E edges' mixed-op params; weights [E, 8] fp32.
-    -> [N, H, W, cs] fp32."""
+    (replaces mixed_node_pallas_hwcn), differentiable once. xs: E edge
+    states [N, H, W, C] of one compute dtype (fp32 or bf16), of which
+    channels [0, cs) are read in place; p_list: the E edges' mixed-op
+    params; weights [E, 8] fp32. -> [N, H, W, cs] fp32."""
     xs = list(xs)
     nodes = [node_weights(p) for p in p_list]
     if xs[0].device.type == "cpu":
@@ -185,7 +334,7 @@ def mixed_node(xs: Sequence[Tensor], p_list: Sequence[dict], weights: Tensor,
     tensors = {f"x{i}": x for i, x in enumerate(xs)}
     tensors.update({f"dw{i}": nw.dw for i, nw in enumerate(nodes)})
     tensors.update({f"pw{i}": nw.pw for i, nw in enumerate(nodes)})
-    device = K.check_cuda_tensors(name, weights=weights, **tensors)
+    K.check_cuda_tensors(name, weights=weights, **tensors)
     e = len(xs)
     K.check(e >= 1 and len(nodes) == e, name,
             f"needs as many param sets as edges, got {e} and {len(nodes)}")
@@ -209,13 +358,6 @@ def mixed_node(xs: Sequence[Tensor], p_list: Sequence[dict], weights: Tensor,
                 and nw.dw.is_contiguous() and nw.pw.is_contiguous(), name,
                 f"packed weights must be contiguous fp32 [8, {MAX_TAPS}, "
                 f"{cs}] and [8, {cs}, {cs}]")
-    weights = weights.to(f32).contiguous()
-    # edges are independent given the output, so a node with more edges
-    # than one launch takes is the sum of several
-    step = lib.lctvqa_mixed_node_max_edges()
-    out = None
-    for lo in range(0, e, step):
-        part = _launch(xs[lo:lo + step], nodes[lo:lo + step],
-                       weights[lo:lo + step].contiguous(), cs, device)
-        out = part if out is None else out + part
-    return out
+    return MixedNodeFn.apply(
+        weights.to(f32).contiguous(), cs, e, *[x[..., :cs] for x in xs],
+        *[nw.dw for nw in nodes], *[nw.pw for nw in nodes])

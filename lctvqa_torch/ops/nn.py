@@ -104,3 +104,18 @@ def l2_normalize(x: torch.Tensor, dim: int = -1,
     detaches it)."""
     norm = x.detach().square().sum(dim, keepdim=True).sqrt() + eps
     return x / norm
+
+
+def detach_tree(tree):
+    """The same tree with every tensor detached (a frozen sub-model: its
+    leaves get no gradient). Entries that are not tensors, such as a
+    served model's prepared weights' dtype tags, pass as they are."""
+    if not torch.is_grad_enabled():
+        return tree
+    if isinstance(tree, dict):
+        return {k: detach_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(detach_tree(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(detach_tree(v) for v in tree)
+    return tree.detach() if isinstance(tree, torch.Tensor) else tree

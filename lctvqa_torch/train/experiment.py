@@ -1,0 +1,341 @@
+"""LCT Experiment: the training loop (port of
+lctvqa/train/experiment.py).
+
+Epoch loop: STAGE 1, the EF weight update, then STAGE 2, the W update on
+real and EF-generated pseudo QA; then validation (loss, multi-choice
+accuracy with and without <unk>), the StepLR decay and a checkpoint of
+both models. Stage 3, the architecture update, is not ported (ROADMAP.md,
+queue 1 item 3): a config that asks for it raises. BLEU4 of the generated
+questions, the statistics files and their plots come with the eval slice.
+
+One process, one device, no mesh. Losses and counters stay on the device
+during an epoch: the host reads one value per `report_freq` steps and
+the sums once at the epoch's end.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import sys
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lctvqa_torch import convert
+from lctvqa_torch.config import Config
+from lctvqa_torch.data import pipeline
+from lctvqa_torch.models import search, vqa_ef, vqa_w
+from lctvqa_torch.optim.optimizers import set_learning_rate, step_lr, tree_map
+from lctvqa_torch.train import checkpoint
+from lctvqa_torch.train.steps import make_lct_steps
+from lctvqa_torch.train.timing import StageTimer
+
+
+def dev_batch(batch: dict) -> dict:
+    """The fields a step reads, dropping the host-only ones."""
+    return {k: v for k, v in batch.items() if k in pipeline.DEVICE_KEYS}
+
+
+class Experiment:
+    def __init__(self, cfg: Config, device="cuda", data: Optional[dict] = None,
+                 vgg_params=None):
+        """`data`: a loader dict ({"train", "valid"} datasets, e.g. from
+        `pipeline.loader_from_arrays`); by default the h5 files of
+        `cfg.data.input_dir` are opened. `device`: the CUDA device, or
+        "cpu" where the caller asks for it; a missing card raises."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "training runs on a CUDA device and none is available; pass "
+                "device='cpu' (--device cpu) to run on the CPU")
+        if not cfg.train.skip_stage3 and cfg.model.arch_type == "darts":
+            raise NotImplementedError(
+                "stage 3 (the architecture update) is not ported: it needs "
+                "second derivatives through the kernels (ROADMAP.md, queue 1 "
+                "item 3); set skip_stage3 (--skip_stage3)")
+        self.cfg = cfg
+        self.name = cfg.exp_name
+        self.exp_dir = os.path.join(cfg.root_stats_dir, self.name)
+
+        seed = cfg.train.seed
+        self.np_rng = np.random.default_rng(seed)
+        # explicit generators: dropout and question sampling on the device,
+        # initialization on the host
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.sample_gen = torch.Generator(device=self.device).manual_seed(
+            seed + 1)
+        init_gen = torch.Generator().manual_seed(seed)
+
+        self.data = data if data is not None else pipeline.get_loader(
+            cfg.data.input_dir, cfg.train.batch_size, cfg.train.train_portion,
+            preload=cfg.data.preload_images)
+        self.qst_vocab = self.data["train"].qst_vocab
+        self.ans_vocab = self.data["train"].ans_vocab
+
+        to_dev = lambda t: t.to(self.device)  # noqa: E731
+        ef_params, arch = vqa_ef.init_ef_model(init_gen, cfg.model,
+                                               vgg_params=vgg_params)
+        self.ef_params = tree_map(to_dev, ef_params)
+        self.arch = tree_map(to_dev, arch)
+        self.w_params = tree_map(to_dev, vqa_w.init_w_model(
+            init_gen, cfg.model, vgg_params=vgg_params))
+        self.steps = make_lct_steps(cfg, self.ans_vocab.unk2idx, self.device)
+        self.ef_opt = self.steps["ef_tx"].init(self.ef_params)
+        self.w_opt = self.steps["w_tx"].init(self.w_params)
+        # built and stored for the checkpoint; stepped by stage 3 only
+        self.arch_opt = (self.steps["arch_tx"].init(self.arch)
+                         if self.arch is not None else None)
+
+        self.epochs = cfg.train.num_epochs
+        self.current_epoch = 0
+        self.arch_update_freq = cfg.train.arch_update_freq
+        self.train_ef_loss, self.train_ef_acc = [], []
+        self.val_ef_loss, self.val_ef_acc = [], []
+        self.train_w_loss, self.train_w_acc = [], []
+        self.timer = StageTimer(self.device)
+        self.bn_running = None  # running statistics (model.bn_eval_stats)
+
+        self._load_experiment()
+        self.log(f"seed: {seed}")
+        self.log(f"device: {self.device}")
+        self.log(f"config: {cfg}")
+        if cfg.train.packed_dispatch:
+            self.log("packed_dispatch is a way of passing the JAX package's "
+                     "param trees to a compiled program; it is ignored here")
+
+    # ------------------------------------------------------------------
+    def log(self, msg: str):
+        logging.info(msg)
+
+    def _setup_logger(self):
+        fmt = "%(asctime)s %(message)s"
+        logging.basicConfig(stream=sys.stdout, level=logging.INFO,
+                            format=fmt, datefmt="%m/%d %I:%M:%S %p",
+                            force=True)
+        fh = logging.FileHandler(os.path.join(self.exp_dir, "log.txt"))
+        fh.setFormatter(logging.Formatter(fmt))
+        logging.getLogger().addHandler(fh)
+        self.log(f"Exp Name: {self.name}")
+
+    def _load_experiment(self):
+        os.makedirs(self.cfg.root_stats_dir, exist_ok=True)
+        if os.path.exists(self.exp_dir):
+            if not self.cfg.resume:
+                if len(os.listdir(self.exp_dir)) > 1:
+                    raise RuntimeError(
+                        f"exp dir {self.exp_dir} not empty; delete it or "
+                        "pass resume=True")
+            else:
+                self.load_model()
+        else:
+            os.makedirs(self.exp_dir)
+        self._setup_logger()
+
+    # ------------------------------------------------------------------
+    def set_arch_update_freq(self):
+        t = self.cfg.train
+        freq = int(t.arch_update_freq *
+                   (t.arch_freq_decay ** self.current_epoch))
+        self.arch_update_freq = max(freq, t.arch_update_freq_min)
+        self.log(f"architecture update freq: {self.arch_update_freq}")
+
+    def _epoch_lr(self) -> float:
+        t = self.cfg.train
+        return step_lr(t.learning_rate, self.current_epoch, t.step_size,
+                       t.lr_decay)
+
+    def _batches(self, split: str, shuffle=True):
+        return pipeline.Prefetcher(
+            pipeline.epoch_batches(self.data[split],
+                                   self.cfg.train.batch_size, self.np_rng,
+                                   shuffle=shuffle,
+                                   max_num_ans=self.cfg.data.max_num_ans),
+            self.device, depth=self.cfg.data.prefetch)
+
+    # ------------------------------------------------------------------
+    def run(self):
+        for epoch in range(self.current_epoch, self.epochs):
+            self.log(f"Starting Epoch: {epoch + 1}")
+            if self.arch is not None:
+                self.log(f"genotype: {self.genotype()}")
+            self.current_epoch = epoch
+            self.set_arch_update_freq()
+            self.train_epoch()
+            self.val()
+            self.save_model()
+        self.val()
+
+    def genotype(self):
+        return search.genotype(self.arch, self.cfg.model.darts_steps,
+                               self.cfg.model.darts_multiplier)
+
+    # ------------------------------------------------------------------
+    def train_step(self, batch):
+        """Stage 1, then stage 2 unless skipped, on one device batch.
+        -> (ef_loss, corr1, corr2, w_loss or None, w_corr or None), all
+        0-d tensors on the device."""
+        batch = dev_batch(batch)
+        bn_stats = None
+        with self.timer.stage("stage1"):
+            out = self.steps["stage1"](self.ef_params, self.arch,
+                                       self.ef_opt, batch, self.gen)
+            if self.cfg.model.bn_eval_stats:
+                *out, bn_stats = out
+                self.bn_running = self.steps["bn_update"](self.bn_running,
+                                                          bn_stats)
+            self.ef_params, self.ef_opt, loss, c1, c2 = out
+        if self.cfg.train.skip_stage2:
+            return loss, c1, c2, None, None
+        with self.timer.stage("stage2"):
+            self.w_params, self.w_opt, loss2, wc = self.steps["stage2"](
+                self.w_params, self.w_opt, self.ef_params, self.arch, batch,
+                self.gen, self.sample_gen)
+        return loss, c1, c2, loss2, wc
+
+    def train_epoch(self):
+        t = self.cfg.train
+        dataset = self.data["train"]
+        n = (len(dataset) // t.batch_size) * t.batch_size
+        batch_step_size = max(len(dataset) // t.batch_size, 1)
+        # quirk parity: the reference reads W's learning rate from the EF
+        # scheduler; the two are the same value
+        lr = self._epoch_lr()
+        set_learning_rate(self.ef_opt, lr)
+        set_learning_rate(self.w_opt, lr)
+
+        ef_losses, w_losses = [], []
+        ef_c1s, ef_c2s, w_corrs = [], [], []
+        last_batch = None
+        head = (f"Epoch [{self.current_epoch + 1:02d}/{self.epochs:02d}], "
+                "Step [{:04d}/" + f"{batch_step_size:04d}], ")
+        for batch_idx, batch in enumerate(self._batches("train")):
+            last_batch = batch
+            loss, c1, c2, loss2, wc = self.train_step(batch)
+            ef_losses.append(loss)
+            ef_c1s.append(c1)
+            ef_c2s.append(c2)
+            report = batch_idx % t.report_freq == 0
+            if report:
+                self.log(f"| TRAIN SET | STAGE1 | {head.format(batch_idx)}"
+                         f"EF-Loss: {float(loss):.4f}")
+            if loss2 is not None:
+                w_losses.append(loss2)
+                w_corrs.append(wc)
+                if report:
+                    self.log(f"| TRAIN SET | STAGE2 | "
+                             f"{head.format(batch_idx)}"
+                             f"W-Loss: {float(loss2):.4f}")
+
+        def total(xs):
+            return torch.stack(xs).sum().item() if xs else 0
+
+        ef_loss = float(total(ef_losses))
+        ef_corr1, ef_corr2 = int(total(ef_c1s)), int(total(ef_c2s))
+        w_loss, w_corr = float(total(w_losses)), int(total(w_corrs))
+        self.train_ef_loss.append(ef_loss / batch_step_size)
+        self.train_ef_acc.append(ef_corr2 / max(n, 1))
+        self.train_w_loss.append(w_loss / batch_step_size)
+        # denominator 2N: W is scored on real AND pseudo QA
+        self.train_w_acc.append(w_corr / max(2 * n, 1))
+        self.log(
+            f"| TRAIN SET | Epoch [{self.current_epoch + 1:02d}/"
+            f"{self.epochs:02d}], EF-Loss: {self.train_ef_loss[-1]:.4f} "
+            f"EF-Acc(Exp1): {ef_corr1 / max(n, 1):.4f}, "
+            f"EF-Acc(Exp2): {self.train_ef_acc[-1]:.4f}, "
+            f"W-Loss: {self.train_w_loss[-1]:.4f}, "
+            f"W-Acc: {self.train_w_acc[-1]:.4f}")
+        self.log(f"| TIMING | {self.timer.summary()}")
+        self.timer.reset()
+        if last_batch is not None:
+            self.evaluate_gen_qst(last_batch)
+
+    def _eval_step(self, batch):
+        return self.steps["eval"](
+            self.ef_params, self.arch, dev_batch(batch),
+            self.bn_running if self.cfg.model.bn_eval_stats else None)
+
+    def evaluate_gen_qst(self, batch):
+        """Log ground-truth against generated QA pairs."""
+        _, _, _, gen_qst, gen_ans = self._eval_step(batch)
+        gen_qst = gen_qst.cpu().numpy()
+        gen_pred = gen_ans.argmax(1).cpu().numpy()
+        qsts = batch["question"].cpu().numpy()
+        labels = batch["answer_label"].cpu().numpy()
+        self.log("Evaluating question answer pairs")
+        for i in range(min(4, len(gen_qst))):
+            self.log(f"ground truth qst: {self.qst_vocab.arr2qst(qsts[i])} "
+                     f"ans: {self.ans_vocab.idx2word(int(labels[i]))}")
+            self.log(f"generated qst: {self.qst_vocab.arr2qst(gen_qst[i])} "
+                     f"ans: {self.ans_vocab.idx2word(int(gen_pred[i]))}")
+
+    # ------------------------------------------------------------------
+    def val(self):
+        t = self.cfg.train
+        dataset = self.data["valid"]
+        n = (len(dataset) // t.batch_size) * t.batch_size
+        batch_step_size = max(len(dataset) // t.batch_size, 1)
+        losses, c1s, c2s = [], [], []
+        for batch_idx, batch in enumerate(self._batches("valid",
+                                                        shuffle=False)):
+            loss, c1, c2, _, _ = self._eval_step(batch)
+            losses.append(loss)
+            c1s.append(c1)
+            c2s.append(c2)
+            if batch_idx % 100 == 0:
+                self.log(
+                    f"| VALID SET | Epoch [{self.current_epoch + 1:02d}/"
+                    f"{self.epochs:02d}], Step [{batch_idx:04d}/"
+                    f"{batch_step_size:04d}], Loss: {float(loss):.4f}")
+        running_loss = float(torch.stack(losses).sum()) if losses else 0.0
+        corr1 = int(torch.stack(c1s).sum()) if c1s else 0
+        corr2 = int(torch.stack(c2s).sum()) if c2s else 0
+        self.val_ef_loss.append(running_loss / batch_step_size)
+        self.val_ef_acc.append(corr2 / max(n, 1))
+        self.log(
+            f"| VALID SET | Epoch [{self.current_epoch + 1:02d}/"
+            f"{self.epochs:02d}], Loss: {self.val_ef_loss[-1]:.4f} "
+            f"Acc(Exp1): {corr1 / max(n, 1):.4f}, "
+            f"Acc(Exp2): {self.val_ef_acc[-1]:.4f}")
+
+    # ------------------------------------------------------------------
+    def save_model(self):
+        checkpoint.save_state(
+            os.path.join(self.exp_dir, "ef_model.ckpt"),
+            {"ef_params": self.ef_params, "ef_opt": self.ef_opt,
+             "arch": self.arch, "arch_opt": self.arch_opt,
+             "bn_running": self.bn_running,
+             "epoch": self.current_epoch + 1},
+            config=self.cfg)
+        checkpoint.save_state(
+            os.path.join(self.exp_dir, "w_model.ckpt"),
+            {"w_params": self.w_params, "w_opt": self.w_opt,
+             "epoch": self.current_epoch + 1},
+            config=self.cfg)
+
+    def _opt_from(self, state):
+        if state is None:
+            return None
+        return {"step": int(state["step"]), "lr": float(state["lr"]),
+                "m": convert.as_tensors(state["m"], self.device),
+                "v": convert.as_tensors(state["v"], self.device)}
+
+    def load_model(self):
+        state = checkpoint.load_state(
+            os.path.join(self.exp_dir, "ef_model.ckpt"))
+        self.ef_params = convert.as_tensors(state["ef_params"], self.device)
+        self.ef_opt = self._opt_from(state["ef_opt"])
+        if state["arch"] is not None:
+            self.arch = convert.as_tensors(state["arch"], self.device)
+        self.arch_opt = self._opt_from(state["arch_opt"])
+        if state.get("bn_running") is not None:
+            self.bn_running = convert.as_tensors(state["bn_running"],
+                                                 self.device)
+        self.current_epoch = state["epoch"]
+        w_path = os.path.join(self.exp_dir, "w_model.ckpt")
+        if checkpoint.exists(w_path):
+            w_state = checkpoint.load_state(w_path)
+            self.w_params = convert.as_tensors(w_state["w_params"],
+                                               self.device)
+            self.w_opt = self._opt_from(w_state["w_opt"])

@@ -1,0 +1,129 @@
+"""Train and eval steps of the LCT loop (port of lctvqa/train/steps.py).
+
+Each step is a plain function on param trees, an optimizer state and a
+batch whose tensors lie on the device: it normalizes the uint8 images
+there, runs forward and backward, applies the optimizer and returns the
+new trees. Losses and counters come back as 0-d tensors on the device;
+nothing in a step reads a value back to the host. Randomness comes from
+explicit `torch.Generator`s on the device: one for dropout, one for
+sampling the generated questions.
+
+Stage 3 (the architecture step through the tri-level architect) needs
+second derivatives through the kernels and is not ported: ROADMAP.md,
+queue 1 item 3.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from lctvqa_torch.config import Config
+from lctvqa_torch.data.pipeline import normalize_images
+from lctvqa_torch.models import vqa_ef, vqa_w
+from lctvqa_torch.ops import conv as C
+from lctvqa_torch.ops.losses import (cross_entropy,
+                                     sequence_teacher_forcing_ce, soft_xent)
+from lctvqa_torch.optim.optimizers import (arch_optimizer, model_optimizer,
+                                           tree_leaves, tree_map)
+from lctvqa_torch.train.metrics import mask_unk, num_correct
+
+
+def with_grad(params):
+    """The same storage as fresh leaves that require a gradient."""
+    return tree_map(lambda t: t.detach().requires_grad_(), params)
+
+
+def make_lct_steps(cfg: Config, unk_idx: int, device):
+    """Build the stage1/stage2/eval step functions and the optimizers.
+    Returns a dict of callables, as the JAX package's does."""
+    mcfg, tcfg = cfg.model, cfg.train
+    mean, std = cfg.data.mean, cfg.data.std
+    device = torch.device(device)
+    ef_tx = model_optimizer(tcfg)
+    w_tx = model_optimizer(tcfg)
+    arch_tx = arch_optimizer(tcfg)
+
+    def _img(batch):
+        return normalize_images(batch["image_u8"].to(device), mean, std)
+
+    def _counts(ans_logits, batch):
+        pred = ans_logits.argmax(1)
+        mc = batch["answer_multi_choice"]
+        return num_correct(pred, mc), num_correct(mask_unk(pred, unk_idx), mc)
+
+    # ---------------- STAGE 1: EF weight update
+    def stage1(ef_params, arch, ef_opt_state, batch, gen):
+        img, qst = _img(batch), batch["question"]
+        p = with_grad(ef_params)
+        with (C.bn_capture() if mcfg.bn_eval_stats
+              else contextlib.nullcontext()) as cap:
+            ans_logits, qst_logits = vqa_ef.ef_forward(
+                p, arch, mcfg, img, qst, gen=gen, deterministic=False)
+        loss = (cross_entropy(ans_logits, batch["answer_label"])
+                + sequence_teacher_forcing_ce(qst_logits, qst))
+        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
+        ef_params, ef_opt_state = ef_tx.update(ef_params, grads, ef_opt_state)
+        corr1, corr2 = _counts(ans_logits.detach(), batch)
+        if mcfg.bn_eval_stats:
+            return (ef_params, ef_opt_state, loss.detach(), corr1, corr2,
+                    cap.stats)
+        return ef_params, ef_opt_state, loss.detach(), corr1, corr2
+
+    def bn_update(running, captured):
+        if running is None:
+            running = C.init_running_stats(captured)
+        return C.update_running_stats(running, captured)
+
+    # ---------------- STAGE 2: W update on real + pseudo QA
+    def stage2(w_params, w_opt_state, ef_params, arch, batch, gen,
+               sample_gen):
+        img, qst = _img(batch), batch["question"]
+        labels = batch["answer_label"]
+        with torch.no_grad():
+            pseudo_qst, pseudo_logits = vqa_ef.ef_generate(
+                ef_params, arch, mcfg, img, gen=gen, deterministic=False,
+                sample_deterministic=False, sample_gen=sample_gen,
+                temperature=tcfg.temperature)
+            # stage 2 softens WITHOUT temperature, unlike stage 3
+            pseudo_ans = torch.softmax(pseudo_logits, dim=-1)
+        p = with_grad(w_params)
+        out1 = vqa_w.w_forward(p, mcfg, img, qst, gen, deterministic=False)
+        out2 = vqa_w.w_forward(p, mcfg, img, pseudo_qst, gen,
+                               deterministic=False)
+        loss = (cross_entropy(out1, labels)
+                + tcfg.w_lambda * soft_xent(out2, pseudo_ans))
+        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
+        w_params, w_opt_state = w_tx.update(w_params, grads, w_opt_state)
+        # W is scored on BOTH the real and the pseudo pairs
+        corr = ((out1.argmax(1) == labels).sum()
+                + (out2.argmax(1) == pseudo_ans.argmax(1)).sum())
+        return w_params, w_opt_state, loss.detach(), corr
+
+    def stage3(*args, **kwargs):
+        raise NotImplementedError(
+            "stage 3 (the architecture step) is not ported: it needs second "
+            "derivatives through the kernels (ROADMAP.md, queue 1 item 3); train "
+            "with skip_stage3")
+
+    # ---------------- validation
+    @torch.no_grad()
+    def eval_step(ef_params, arch, batch, bn_running=None):
+        img, qst = _img(batch), batch["question"]
+        # with running statistics, each model call consumes the whole list
+        ctx = ((lambda: C.bn_eval(bn_running)) if bn_running is not None
+               else contextlib.nullcontext)
+        with ctx():
+            ans_logits, _ = vqa_ef.ef_forward(ef_params, arch, mcfg, img, qst,
+                                              deterministic=True)
+        loss = cross_entropy(ans_logits, batch["answer_label"])
+        corr1, corr2 = _counts(ans_logits, batch)
+        with ctx():
+            gen_qst, gen_ans = vqa_ef.ef_generate(ef_params, arch, mcfg, img,
+                                                  deterministic=True)
+        return loss, corr1, corr2, gen_qst, gen_ans
+
+    return {"stage1": stage1, "stage2": stage2, "stage3": stage3,
+            "eval": eval_step, "bn_update": bn_update, "ef_tx": ef_tx,
+            "w_tx": w_tx, "arch_tx": arch_tx}

@@ -15,7 +15,16 @@ same, plus h values whose bf16 rounding a 1-ulp fp32 difference flips),
 greedy tokens exact in fp32. BatchNorm: fp32 out 1e-5, bf16 out one bf16
 ulp (2^-7 of the value). Mixed-op node: fp32 1e-5; bf16 4 * 2^-7 *
 max|w| absolute (a flipped bf16 rounding of a stage output, see
-chip_smoke.py).
+chip_smoke.py). Backward kernels, each gradient against its own scale
+s = max|plain|: bn_bwd 1e-5 s in fp32 and one bf16 ulp (2^-7 s) where dx
+is bf16 (bn_bwd's s also counts max|g|: over a handful of rows dx is a
+small remainder of g); mixed_node_bwd 1e-4 s in fp32 (two BatchNorm
+backward passes deep), and in bf16 2^-7 s for dx (its one rounding) and
+2e-3 s for the fp32 weight gradients (the plain version recomputes the
+forward, and a stage output that the two round to different bf16
+neighbours moves a few terms of a sum over all pixels). The LSTM Functions' gradients against
+autograd through their plain versions: the same code after the forward,
+so 1e-5 s in fp32 and 1e-3 s in bf16.
 """
 
 import pytest
@@ -283,3 +292,155 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         cuda_bn.batchnorm_fwd(torch.zeros(2, 2, 2, 4, device=cuda,
                                           dtype=torch.float16))
+
+
+# ---------------------------------------------------------------------------
+# backward kernels and the autograd Functions
+# ---------------------------------------------------------------------------
+
+def _scaled_close(got, want, tol, what, floor=0.0):
+    scale = float(want.float().abs().max()) + floor
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale + 1e-7, f"{what}: err {err}, scale {scale}"
+
+
+@pytest.mark.parametrize("g_dtype", [torch.float32, torch.bfloat16],
+                         ids=["g_float32", "g_bfloat16"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 5, 7, 3), (2, 9, 4, 6), (5, 3, 3, 20),
+                                   (64, 16, 16, 64), (1, 1, 2, 8),
+                                   (2, 3, 5, 1028)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bn_bwd_kernel_matches_plain(cuda, shape, x_dtype, g_dtype):
+    gen = torch.Generator().manual_seed(14)
+    x = (1.5 * torch.randn(shape, generator=gen) + 0.3).to(cuda, x_dtype)
+    g = torch.randn(shape, generator=gen).to(cuda, g_dtype)
+    before = _build.launch_counts()
+    xr = x.clone().requires_grad_()
+    y = cuda_bn.batchnorm_fwd(xr, out_dtype=g_dtype)
+    y.backward(g)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["bn_fwd"] == before["bn_fwd"] + 1
+    assert after["bn_bwd"] == before["bn_bwd"] + 1
+    want = cuda_bn.batchnorm_bwd_plain(x, g, cuda_bn.batchnorm_stats_plain(x))
+    assert xr.grad.dtype == x_dtype and xr.grad.shape == x.shape
+    # relative to dx's scale plus g's: dx is what is left of g after two
+    # projections, and over a handful of rows (the 1x1x2 case) little is
+    _scaled_close(xr.grad, want, 1e-5 if x_dtype == torch.float32
+                  else 2.0 ** -7, "dx", floor=float(g.float().abs().max()))
+    # the same inputs again give the same bits: no atomics
+    xr2 = x.clone().requires_grad_()
+    cuda_bn.batchnorm_fwd(xr2, out_dtype=g_dtype).backward(g)
+    assert torch.equal(xr2.grad, xr.grad)
+
+
+def test_bn_function_is_first_order_only(cuda):
+    x = torch.randn(2, 3, 3, 4, device=cuda, requires_grad=True)
+    (dx,) = torch.autograd.grad(cuda_bn.batchnorm_fwd(x).square().sum(), x,
+                                create_graph=True)
+    with pytest.raises(RuntimeError, match="once_differentiable"):
+        dx.sum().backward()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", NODE_CASES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mixed_node_bwd_kernel_matches_plain(cuda, case, dtype):
+    n, h, w, c, k, edges = case
+    cs = c // k
+    gen = torch.Generator().manual_seed(15)
+    xs, ops, wts = _node_case(gen, n, h, w, c, k, edges, dtype, cuda)
+    g = torch.randn(n, h, w, cs, generator=gen).to(cuda)
+    nodes = [cuda_mixedop.node_weights(p) for p in ops]
+    xg = [x.clone().requires_grad_() for x in xs]
+    dws = [nw.dw.clone().requires_grad_() for nw in nodes]
+    pws = [nw.pw.clone().requires_grad_() for nw in nodes]
+    wg = wts.clone().requires_grad_()
+    before = _build.launch_counts()["mixed_node_bwd"]
+    out = cuda_mixedop.mixed_node(
+        xg, [{"node": cuda_mixedop.NodeWeights(d, q)}
+             for d, q in zip(dws, pws)], wg, cs)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert (_build.launch_counts()["mixed_node_bwd"]
+            == before + -(-edges // 8))
+    dxs, ddw, dpw, dwt = cuda_mixedop.mixed_node_bwd_plain(xs, nodes, wts, g,
+                                                           cs)
+    fp32 = dtype == torch.float32
+    for e in range(edges):
+        assert xg[e].grad.dtype == dtype
+        assert not bool(xg[e].grad[..., cs:].any())  # untouched channels
+        _scaled_close(xg[e].grad[..., :cs], dxs[e],
+                      1e-4 if fp32 else 2.0 ** -7, f"dx[{e}]")
+    tol = 1e-4 if fp32 else 2e-3
+    _scaled_close(torch.stack([d.grad for d in dws]), ddw, tol, "d dw")
+    _scaled_close(torch.stack([q.grad for q in pws]), dpw, tol, "d pw")
+    _scaled_close(wg.grad, dwt, tol, "d weights")
+    assert not bool(wg.grad[:, 0].any())  # 'none'
+
+
+def test_mixed_node_gradients_reach_the_conv_leaves_and_repeat(cuda):
+    """Through node_weights' packing every conv leaf of every edge gets a
+    gradient, equal to autograd's through the plain version; weights get
+    one even where they are 0; a second run gives the same bits."""
+    gen = torch.Generator().manual_seed(16)
+    xs, ops, wts = _node_case(gen, 2, 9, 8, 16, 4, 3, torch.float32, cuda)
+    wts[1] = 0.0
+    g = torch.randn(2, 9, 8, 4, generator=gen).to(cuda)
+
+    def run(fn):
+        leaves = [c["w"].requires_grad_() for p in ops for sub in p.values()
+                  for c in sub.values()]
+        wg = wts.clone().requires_grad_()
+        out = fn([x for x in xs], ops, wg)
+        return torch.autograd.grad(out, leaves + [wg], g)
+
+    kernel = lambda x, p, w: cuda_mixedop.mixed_node(x, p, w, 4)  # noqa: E731
+    plain = lambda x, p, w: cuda_mixedop.mixed_node_plain(  # noqa: E731
+        x, [cuda_mixedop.node_weights(q) for q in p], w, 4)
+    got, again, want = run(kernel), run(kernel), run(plain)
+    assert len(got) == 3 * 12 + 1
+    for i, (a, b, c) in enumerate(zip(got, again, want)):
+        assert torch.equal(a, b), i
+        _scaled_close(a, c, 1e-4, f"leaf {i}")
+    assert bool((got[-1][1, 1:].abs() > 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SHAPES[:3],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lstm_functions_grads_match_plain(cuda, shape, dtype):
+    b, t, e, h = shape
+    gen = torch.Generator().manual_seed(17)
+    lp = {k: v.to(cuda) for k, v in lstm_init(gen, e, h)["layers"][0].items()}
+    xs = torch.randn(b, t, e, generator=gen).to(cuda)
+    h0 = (0.5 * torch.randn(b, h, generator=gen)).to(cuda)
+    c0 = torch.randn(b, h, generator=gen).to(cuda)
+    tol = 1e-5 if dtype == torch.float32 else 1e-3
+    cases = {
+        "lstm_cell": (lambda w, x, a, c: cuda_lstm.lstm_cell(w, x[:, 0], a, c),
+                      lambda w, x, a, c: cuda_lstm.lstm_cell_plain(
+                          w, x[:, 0], a, c)),
+        "lstm_seq_final": (cuda_lstm.lstm_seq_final,
+                           cuda_lstm.lstm_seq_final_plain),
+        "lstm_seq_all": (cuda_lstm.lstm_seq, cuda_lstm.lstm_seq_plain),
+    }
+    for name, (kern, plain) in cases.items():
+        grads = []
+        before = _build.launch_counts()[name]
+        for fn in (kern, plain):
+            leaves = [v.clone().requires_grad_() for v in
+                      (xs, h0, c0, *lp.values())]
+            x, a, c = leaves[:3]
+            w = cuda_lstm.cell_weights(dict(zip(lp, leaves[3:])), dtype)
+            out = _flat(fn(w, x, a, c))
+            gen.manual_seed(18)  # the same cotangent for both
+            cot = torch.randn(out.shape, generator=gen).to(cuda)
+            grads.append(torch.autograd.grad(out, leaves, cot))
+        assert _build.launch_counts()[name] == before + 1
+        for i, (a, c) in enumerate(zip(*grads)):
+            _scaled_close(a, c, tol, f"{name} leaf {i}")

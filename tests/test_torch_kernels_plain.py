@@ -191,7 +191,8 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     cuda_lstm.lstm_seq_final(w, x)
     assert _build.launch_counts() == before
     assert set(before) == {"lstm_cell", "lstm_seq_final", "lstm_seq_all",
-                           "greedy_generate", "bn_fwd", "mixed_node_fwd"}
+                           "greedy_generate", "bn_fwd", "bn_bwd",
+                           "mixed_node_fwd", "mixed_node_bwd"}
 
 
 def test_non_cpu_non_cuda_tensors_raise():
@@ -324,3 +325,178 @@ def test_new_wrappers_refuse_tensors_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         cuda_mixedop.mixed_node([x], [{"node": nw}],
                                 torch.empty(1, 8, device="meta"), 2)
+
+
+# ---------------------------------------------------------------------------
+# gradients: the plain versions of the backward kernels and the LSTM
+# Functions against jax.grad through the Pallas kernels in interpret mode
+# ---------------------------------------------------------------------------
+
+def _rel_close(got, want, tol, what=""):
+    """|got - want| <= tol * max|want| (a gradient's own scale)."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    scale = max(float(np.abs(want).max()), 1e-12)
+    err = float(np.abs(got - want).max())
+    assert err <= tol * scale, f"{what}: err {err}, scale {scale}"
+
+
+@pytest.mark.parametrize("g_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 8, 8, 16), (2, 16, 16, 4)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_batchnorm_bwd_plain_matches_pallas_grad(shape, g_dtype):
+    """dx of the BatchNorm Function on the CPU (batchnorm_bwd_plain on the
+    saved x and stat) against jax.grad through batchnorm_pallas in
+    interpret mode: within 1e-5 of the gradient's scale (summation order).
+    With a bf16 output the cotangent arrives in bf16 in both."""
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[g_dtype]
+    rng = np.random.default_rng(20)
+    x = (rng.standard_normal(shape) * 1.7 + 0.4).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+
+    def loss(v):
+        y = PB.batchnorm_pallas(v, out_dtype=jdt, force_interpret=True)
+        return jnp.sum(y.astype(jnp.float32) * jnp.asarray(g))
+
+    want = jax.grad(loss)(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    y = cuda_bn.BatchNormFn.apply(xt, tdt, cuda_bn.EPS)
+    (y.float() * torch.from_numpy(g)).sum().backward()
+    _rel_close(xt.grad.numpy(), want, 1e-5, "dx")
+    # the same through the wrapper, and the plain formula on its own
+    xr = torch.from_numpy(x).requires_grad_()
+    (cuda_bn.batchnorm_fwd(xr, out_dtype=tdt).float()
+     * torch.from_numpy(g)).sum().backward()
+    assert torch.equal(xr.grad, xt.grad)
+    stat = cuda_bn.batchnorm_stats_plain(torch.from_numpy(x))
+    dx = cuda_bn.batchnorm_bwd_plain(torch.from_numpy(x),
+                                     torch.from_numpy(g).to(tdt), stat)
+    assert torch.equal(dx, xt.grad)
+
+
+@pytest.mark.parametrize("dtype,edges", [("float32", 1), ("float32", 3),
+                                         ("bfloat16", 2)])
+def test_mixed_node_plain_grad_matches_pallas_grad(dtype, edges):
+    """Autograd through mixed_node_plain against jax.grad through the
+    Pallas node kernel (its backward kernel, in interpret mode), leaf by
+    leaf: every edge state, every conv leaf of every edge, and weights.
+    Inputs are floats from a seed, so the max pool has no ties. fp32
+    within 1e-4 of each leaf's scale (summation order through two
+    BatchNorm backward passes); bf16 within 2e-2: both treat a stage
+    output's rounding as the identity, but a value that one rounds up
+    and the other down after a 1-ulp fp32 difference moves a mask."""
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    n, h, w, c, k = 4, 6, 5, 8, 4
+    cs = c // k
+    rng = np.random.default_rng(30 + edges)
+    keys = jax.random.split(jax.random.PRNGKey(40 + edges), edges)
+    ps = [jax.tree_util.tree_map(np.asarray,
+                                 j_search.mixed_op_init(kk, c, 1, k))
+          for kk in keys]
+    xs = [rng.standard_normal((n, h, w, c)).astype(np.float32)
+          for _ in range(edges)]
+    wts = rng.uniform(0.02, 0.2, (edges, 8)).astype(np.float32)
+    g = rng.standard_normal((n, h, w, cs)).astype(np.float32)
+
+    def loss(xs_, ps_, wts_):
+        hwcn = tuple(jnp.transpose(x[..., :cs].astype(jdt),
+                                   (1, 2, 3, 0)).reshape(h, w, cs * n)
+                     for x in xs_)
+        out = PM.mixed_node_pallas_hwcn(hwcn, ps_, wts_, cs, n, True)
+        out = jnp.transpose(out.reshape(h, w, cs, n), (3, 0, 1, 2))
+        return jnp.sum(out * jnp.asarray(g))
+
+    want_x, want_p, want_w = jax.grad(loss, argnums=(0, 1, 2))(
+        [jnp.asarray(x) for x in xs], _jax(ps), jnp.asarray(wts))
+
+    txs = [torch.from_numpy(x).requires_grad_() for x in xs]
+    tps = [convert.from_jax(p) for p in ps]
+    leaves = [t.requires_grad_() for p in tps
+              for t in jax.tree_util.tree_leaves(p)]
+    twts = torch.from_numpy(wts).requires_grad_()
+    out = cuda_mixedop.mixed_node([x.to(tdt) for x in txs], tps, twts, cs)
+    (out * torch.from_numpy(g)).sum().backward()
+    for e in range(edges):
+        _rel_close(txs[e].grad.numpy(), want_x[e], tol, f"dx[{e}]")
+        got_p = convert.to_jax(jax.tree_util.tree_map(lambda t: t.grad,
+                                                      tps[e]))
+        flat_got = jax.tree_util.tree_leaves_with_path(got_p)
+        flat_want = jax.tree_util.tree_leaves(want_p[e])
+        assert len(flat_got) == len(flat_want) == 12
+        for (path, a), b in zip(flat_got, flat_want):
+            _rel_close(a, b, tol, f"edge {e} {jax.tree_util.keystr(path)}")
+    _rel_close(twts.grad.numpy(), want_w, tol, "d weights")
+    assert len(leaves) == 12 * edges
+
+
+def test_mixed_node_weights_get_a_gradient_at_zero():
+    """d weights[e, op] does not vanish where the weight is exactly 0."""
+    n, h, w, c, cs = 2, 5, 4, 8, 2
+    rng = np.random.default_rng(33)
+    p = convert.from_jax(jax.tree_util.tree_map(
+        np.asarray, j_search.mixed_op_init(jax.random.PRNGKey(3), c, 1, 4)))
+    x = torch.from_numpy(rng.standard_normal((n, h, w, c)).astype(np.float32))
+    wts = torch.zeros(1, 8, requires_grad=True)
+    out = cuda_mixedop.mixed_node([x], [p], wts, cs)
+    (out * torch.from_numpy(rng.standard_normal(
+        (n, h, w, cs)).astype(np.float32))).sum().backward()
+    assert bool((wts.grad[0, 1:].abs() > 0).all()) and wts.grad[0, 0] == 0
+
+
+LSTM_FNS = {
+    "cell": (cuda_lstm.LstmCellFn,
+             lambda lp, xs, h, c, dt: PL.lstm_cell_pallas(
+                 lp, xs[:, 0], h, c, dtype=dt, force_interpret=True),
+             lambda xs: xs[:, 0]),
+    "seq_final": (cuda_lstm.LstmSeqFinalFn,
+                  lambda lp, xs, h, c, dt: PL.lstm_seq_final_pallas(
+                      lp, xs, h, c, dtype=dt, force_interpret=True),
+                  lambda xs: xs),
+    "seq_all": (cuda_lstm.LstmSeqFn,
+                lambda lp, xs, h, c, dt: jax.tree_util.tree_leaves(
+                    PL.lstm_seq_pallas(lp, xs, h, c, dtype=dt,
+                                       force_interpret=True)),
+                lambda xs: xs),
+}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name", sorted(LSTM_FNS))
+def test_lstm_function_grads_match_jax(name, dtype):
+    """The three LSTM Functions on the CPU (plain forward, autograd
+    through the plain version backward) against jax.grad through the
+    Pallas kernels in interpret mode, whose derivative is the jnp tangent
+    rule: x, h0, c0 and the four weight leaves. fp32 within 1e-4 of each
+    gradient's scale; bf16 operands within 3e-2 (the casts lie outside
+    the primitive in both, and a rounded h differs now and then)."""
+    jdt, tdt, _ = DTYPES[dtype]
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    fn, jfn, pick = LSTM_FNS[name]
+    rng = np.random.default_rng(50)
+    lp = _layer(rng)
+    xs = rng.standard_normal((B, T, E)).astype(np.float32)
+    h0 = (0.5 * rng.standard_normal((B, H))).astype(np.float32)
+    c0 = (0.5 * rng.standard_normal((B, H))).astype(np.float32)
+    n_out = {"cell": 2, "seq_final": 2, "seq_all": 3}[name]
+    gs = [rng.standard_normal(s).astype(np.float32) for s in
+          ([(B, T, H)] if n_out == 3 else []) + [(B, H), (B, H)]]
+
+    def loss(lp_, xs_, h_, c_):
+        outs = jfn(lp_, xs_, h_, c_, jdt)
+        return sum(jnp.sum(o * jnp.asarray(g)) for o, g in zip(outs, gs))
+
+    want = jax.grad(loss, argnums=(0, 1, 2, 3))(
+        _jax(lp), jnp.asarray(xs), jnp.asarray(h0), jnp.asarray(c0))
+    tlp = {k: v.requires_grad_() for k, v in _torch(lp).items()}
+    txs, th, tc = (torch.from_numpy(a).requires_grad_()
+                   for a in (xs, h0, c0))
+    w = cuda_lstm.cell_weights(tlp, tdt)
+    outs = fn.apply(pick(txs), th, tc, *w)
+    sum((o * torch.from_numpy(g)).sum() for o, g in zip(outs, gs)).backward()
+    _rel_close(txs.grad.numpy(), want[1], tol, "dx")
+    _rel_close(th.grad.numpy(), want[2], tol, "dh0")
+    _rel_close(tc.grad.numpy(), want[3], tol, "dc0")
+    for k in ("w_ih", "w_hh", "b_ih", "b_hh"):
+        _rel_close(tlp[k].grad.numpy(), want[0][k], tol, k)
