@@ -25,7 +25,13 @@ non-zero:
      of the plain maximum. In bf16 the three LSTM kernels also run a
      probe on which rounding h before the recurrent product moves every
      gate by 1.5: the kernel must match the plain version there, and the
-     plain version with h left unrounded must not.
+     plain version with h left unrounded must not. The two sequence
+     kernels and nn.LSTM are also timed with the L2 flushed before each
+     call (a 128 MB buffer rewritten outside the events), as a caller
+     finds it that ran a convolutional encoder in between; the sequence
+     kernel's launch shape on this card (blocks, shared memory) must be
+     what ops/cuda_lstm.py::seq_plan says, and the time of as many empty
+     grid barriers as one call crosses is printed beside it.
    - bn_fwd at the supernet's six shapes, fp32 and bf16 in and out: fp32
      out 1e-5 (summation order); bf16 out |kernel - plain| <= 1e-5 +
      2^-7 |plain|: a 1-ulp fp32 difference can round the normalized value
@@ -184,6 +190,7 @@ KERNELS = {
 # launches of one stage-1 step at full width with the kernel flags on
 STAGE1_LAUNCHES = {"mixed_node_fwd": 14, "mixed_node_bwd": 14, "bn_fwd": 40,
                    "bn_bwd": 40}
+L2_FLUSH_BYTES = 128 * 2 ** 20  # more than the card's 50 MB L2
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 2e-3
 TRAIN_GRAD_FLOOR = 1e-5
@@ -209,6 +216,24 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_cold_ms(fn, flush, reps: int = 10) -> float:
+    """Median of per-call CUDA-event times with the 50 MB L2 flushed before
+    each call (`flush`, a buffer larger than L2, is rewritten outside the
+    events): what a caller finds that ran other work in between."""
+    fn()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -395,6 +420,7 @@ def check_kernels(device, mcfg, batches=BATCHES, time_fn=time_ms):
     qst = _to(qst, device)
     seq, hid = mcfg.max_qst_len, mcfg.lstm_hidden_size
     results = {name: {} for name in LSTM_KERNELS}
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     for b in batches:
         ids = torch.randint(0, mcfg.qst_vocab_size, (b, seq), generator=gen)
         xs = torch.tanh(N.embed(qst["word2vec"], ids.to(device)))
@@ -419,6 +445,9 @@ def check_kernels(device, mcfg, batches=BATCHES, time_fn=time_ms):
                     "plain_ms": time_fn(lambda: plain(*args)),
                     "library_ms": time_library(library[name]),
                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+                if name != "lstm_cell" and time_fn is time_ms:
+                    r["cold_ms"] = time_cold_ms(lambda: kern(*args), flush)
+                    r["library_cold_ms"] = time_cold_ms(library[name], flush)
                 if dname != "bfloat16":
                     continue
                 probe, unrounded, p_in = h_rounding_probe(w, b, seq)
@@ -458,8 +487,87 @@ def check_kernels(device, mcfg, batches=BATCHES, time_fn=time_ms):
             probe = (f"  h-rounding probe {r['probe_err']:.3e}, unrounded "
                      f"control {r['control_err']:.3e}"
                      if "probe_err" in r else "")
-            log(f"kernel {name:16s} B={b:3d} {dname:9s} {_times(r)}{probe}")
+            cold = (f"  L2 flushed: kernel {r['cold_ms']:.4f} ms, library "
+                    f"{r['library_cold_ms']:.4f} ms" if "cold_ms" in r else "")
+            log(f"kernel {name:16s} B={b:3d} {dname:9s} {_times(r)}{cold}"
+                f"{probe}")
     return results
+
+
+def check_seq_plan(device, mcfg, time_fn=time_ms):
+    """The sequence kernel's launch shape on this card against the Python
+    mirror of the choice, and the time of max_qst_len - 1 empty grid
+    barriers (what one call crosses) at that grid."""
+    from lctvqa_torch.ops import cuda_lstm as L
+
+    hid, steps = mcfg.lstm_hidden_size, mcfg.max_qst_len
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    out = {}
+    for dname, dtype in DTYPES.items():
+        plan = L.seq_plan_on_device(hid, dtype, device)
+        want = L.seq_plan(hid, dtype, sms)
+        expect(all(plan[k] == want[k] for k in plan),
+               f"lstm_seq plan {dname}: the card chose {plan}, the Python "
+               f"mirror {want}")
+        g = plan["blocks"]
+        none = time_fn(lambda: L.grid_barrier_probe(g, 0, device))
+        ms = time_fn(lambda: L.grid_barrier_probe(g, steps - 1, device))
+        many = time_fn(lambda: L.grid_barrier_probe(g, 10 * steps, device))
+        out[dname] = dict(plan, barriers_ms=ms, per_barrier_us=1e3 * (
+            many - none) / (10 * steps))
+        log(f"lstm_seq {dname} H={hid} on {sms} SMs: {plan['blocks']} blocks "
+            f"of {plan['threads']} threads, {plan['units']} units each, "
+            f"batch tile {plan['batch_tile']}, {plan['smem_bytes']} B of "
+            f"shared memory; {steps - 1} empty grid barriers {ms:.4f} ms, "
+            f"none {none:.4f} ms, {10 * steps} barriers {many:.4f} ms "
+            f"({out[dname]['per_barrier_us']:.3f} us each)")
+    return out
+
+
+def seq_device_times(device, mcfg, b=64, iters=10):
+    """Device time by kernel of one lstm_seq call and of one nn.LSTM call
+    at batch `b`, from torch.profiler: the wrapper's host cost, which the
+    event-timed medians include, is not in it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lctvqa_torch.ops import cuda_lstm as L
+    from lctvqa_torch.ops.lstm import lstm_init
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    lp = _to(lstm_init(gen, mcfg.word_embed_size,
+                       mcfg.lstm_hidden_size)["layers"][0], device)
+    xs = torch.tanh(torch.randn(b, mcfg.max_qst_len, mcfg.word_embed_size,
+                                generator=gen)).to(device)
+    h0 = torch.nn.functional.normalize(
+        torch.randn(b, mcfg.lstm_hidden_size, generator=gen)).to(device)
+    for dname, dtype in DTYPES.items():
+        w = L.cell_weights(lp, dtype)
+        fns = {"lstm_seq": lambda: L.lstm_seq(w, xs, h0, h0),
+               "nn.LSTM": lstm_library_fns(w, xs, h0, device)["lstm_seq_all"]}
+        for name, fn in fns.items():
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+            expect(bool(events), f"{name} {dname}: the profiler saw no "
+                   "device kernel")
+            total = sum(dev_us(e) for e in events) / iters
+            log(f"device time {name} B={b} {dname}: {total:.1f} us/call in "
+                f"{sum(e.count for e in events) // iters} device kernels: "
+                + "; ".join(f"{dev_us(e) / iters:.1f} us x{e.count // iters} "
+                            f"{e.key[:48]}" for e in sorted(
+                                events, key=dev_us, reverse=True)[:4]))
 
 
 def _times(r) -> str:
@@ -1470,7 +1578,7 @@ def profile_train(arrays, device, root: str):
 
 # ---------------------------------------------------------------------------
 
-def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches):
+def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan):
     """The kernels line: one row per kernel at the largest shape the
     batch-64 bf16 path gives it; `launches` of the run of its path."""
     picks = {name: (lstm[name][(64, "bfloat16")], "B=64 bfloat16")
@@ -1498,6 +1606,15 @@ def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches):
         if "probe_err" in r:
             rows[-1]["h_rounding_probe_err"] = max(
                 lstm[name][(b, "bfloat16")]["probe_err"] for b in BATCHES)
+        if "cold_ms" in r:
+            plan = seq_plan["bfloat16"]
+            rows[-1].update(
+                l2_flushed_ms=r["cold_ms"],
+                library_l2_flushed_ms=r["library_cold_ms"],
+                fp32_ms=lstm[name][(64, "float32")]["ms"],
+                fp32_library_ms=lstm[name][(64, "float32")]["library_ms"],
+                blocks=plan["blocks"], smem_bytes=plan["smem_bytes"],
+                empty_barriers_ms=plan["barriers_ms"])
     return rows
 
 
@@ -1524,9 +1641,18 @@ def main(argv=None) -> int:
     lib_path = _build.build()
     _build.library()
     log(f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in (_build.BUILD_DIR / "build.log").read_text().splitlines():
+    build_log = (_build.BUILD_DIR / "build.log").read_text().splitlines()
+    for line in build_log:
         if "registers" in line or "spill" in line:
             log("ptxas:", line.strip())
+    # the sequence kernels by name: registers, static shared memory, spills
+    for i, line in enumerate(build_log):
+        if "Compiling entry function" in line and any(
+                k in line for k in ("lstm_seq_kernel", "xw_gemm")):
+            name = line.split("'")[1]
+            log(f"ptxas {name}: " + "; ".join(
+                t.strip().replace("ptxas info    : ", "")
+                for t in build_log[i + 2:i + 4]))
 
     if args.profile:
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
@@ -1544,6 +1670,8 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     kern = check_kernels(device, model_configs()["w"])
+    seq_plan = check_seq_plan(device, model_configs()["w"])
+    seq_device_times(device, model_configs()["w"])
     kern_bn = check_bn_kernel(device)
     kern_node = check_node_kernel(device)
     kern_bn_bwd = check_bn_bwd_kernel(device)
@@ -1626,7 +1754,7 @@ def main(argv=None) -> int:
         log(f"training timed on {card}")
 
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
-                       launches)
+                       launches, seq_plan)
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed:")
         for f in FAILURES:

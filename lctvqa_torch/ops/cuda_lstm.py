@@ -11,6 +11,14 @@ tensors; for CUDA tensors it launches the kernel or raises.
 The compute dtype is that of the weights in `CellWeights`; c and h
 state, bias and outputs are fp32.
 
+The two whole-sequence functions are one kernel pair: a tiled product
+writes x W_ih + b for all steps at once into an fp32 scratch, then one
+persistent kernel runs the T steps with each block's slice of W_hh
+resident in shared memory, the recurrent product on the tensor cores in
+bf16, and one grid barrier per step (`seq_plan`, `seq_scratch_bytes`). All
+its blocks must be resident at once, so the launch is cooperative: a card
+too small for the grid makes the wrapper raise.
+
 Gradients: the JAX package has no backward kernel for these three; its
 derivative is a tangent rule in plain array code that recomputes the
 gates. Here `LstmCellFn`, `LstmSeqFinalFn` and `LstmSeqFn` launch the
@@ -34,9 +42,14 @@ f32 = torch.float32
 CELL = K.register(K.Kernel("lstm_cell", "lctvqa_lstm_cell",
                            [K.PTR] * 8 + [K.INT] * 4))
 SEQ_FINAL = K.register(K.Kernel("lstm_seq_final", "lctvqa_lstm_seq",
-                                [K.PTR] * 9 + [K.INT] * 5))
+                                [K.PTR] * 11 + [K.INT] * 5))
 SEQ_ALL = K.register(K.Kernel("lstm_seq_all", "lctvqa_lstm_seq",
-                              [K.PTR] * 9 + [K.INT] * 5))
+                              [K.PTR] * 11 + [K.INT] * 5))
+
+# the sequence kernel's launch shape (csrc/lstm_seq.cuh)
+SEQ_THREADS = 512
+SEQ_SYNC_BYTES = 256        # the grid barrier's counter, padded
+SMEM_PER_BLOCK = 232448     # what a block may take on sm_90
 
 
 class CellWeights(NamedTuple):
@@ -123,11 +136,88 @@ def _check_weights(name: str, w: CellWeights, emb: int) -> Tuple[int, int]:
             "w_ih and w_hh must share one compute dtype")
     K.check(all(t.is_contiguous() for t in w), name,
             "weights must be contiguous")
-    # bounds that keep the kernels' shared memory under 48 KB and a row
-    # of units within one block
+    # bounds that keep the cell's shared memory under 48 KB, and the
+    # sequence kernel's grid within one block per SM
     K.check(emb + 4 * hid <= 8192 and hid <= 1024, name,
             f"E={emb}, H={hid} too large (needs E + 4H <= 8192, H <= 1024)")
     return hid, K.dtype_code(name, w.w_ih.dtype)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def seq_plan(hid: int, dtype: torch.dtype, sm_count: int) -> dict:
+    """The sequence kernel's launch shape at hidden size `hid` on a card
+    of `sm_count` SMs, as the C entry point chooses it: one block per SM
+    at most, each owning `units` hidden units (all four gates) with its
+    [H, 4 units] slice of W_hh in shared memory. bf16 takes 8 units (one
+    tensor-core tile of 8 columns per gate); fp32 takes 4 with a 64-row
+    batch tile where that many blocks fit on the card and the tile in
+    shared memory beside the weights, else 8 with a 16-row tile.
+    `batch_tile` rows are multiplied at a time, `k_slices` warps or warp
+    groups share the sum over H. Raises ValueError where no shape fits."""
+    mma = dtype == torch.bfloat16
+    size = 2 if mma else 4
+    hp = _round_up(hid, 128 if mma else 64)
+    stride = hp + 16 // size
+    k_slices = 4 if mma else 16
+    # (units, rows a thread multiplies), in the order the kernel tries them
+    for units, rows in (((8, 4),) if mma else ((4, 8), (8, 4))):
+        tile = 64 if mma else rows * 32 // units
+        w_elems = 4 * units * stride if mma else hp * 4 * units
+        smem = (k_slices * tile * 4 * units * 4
+                + (w_elems + tile * stride) * size)
+        blocks = -(-hid // units)
+        if blocks <= sm_count and smem <= SMEM_PER_BLOCK:
+            return {"units": units, "blocks": blocks, "threads": SEQ_THREADS,
+                    "smem_bytes": smem, "batch_tile": tile,
+                    "k_slices": k_slices}
+    raise ValueError(f"lstm_seq: H={hid} in {dtype} needs more than "
+                     f"{sm_count} resident blocks or {SMEM_PER_BLOCK} bytes "
+                     "of shared memory per block")
+
+
+def seq_scratch_bytes(bsz: int, hid: int, dtype: torch.dtype) -> int:
+    """Bytes of zeroed scratch one sequence call needs: the barrier's
+    counter, then the exchange buffer [2, B, H rounded up to 8] of the
+    compute dtype (rows start on 16 bytes)."""
+    size = 2 if dtype == torch.bfloat16 else 4
+    return SEQ_SYNC_BYTES + 2 * bsz * _round_up(hid, 8) * size
+
+
+def seq_plan_on_device(hid: int, dtype: torch.dtype,
+                       device: torch.device) -> dict:
+    """The launch shape the C entry point takes on `device` (it asks the
+    card for its SMs, shared memory and occupancy): `seq_plan`'s keys
+    without k_slices. Raises where the grid cannot be resident at once."""
+    import ctypes
+
+    fn = K.library().lctvqa_lstm_seq_plan
+    fn.argtypes = [K.INT, K.INT, ctypes.POINTER(K.INT * 4)]
+    fn.restype = K.INT
+    plan = (K.INT * 4)()
+    with torch.cuda.device(device):
+        rc = fn(hid, K.dtype_code("lstm_seq", dtype), ctypes.byref(plan))
+    if rc != 0:
+        msg = K.library().lctvqa_cuda_error_string(rc).decode()
+        raise RuntimeError(f"lstm_seq: no launch shape for H={hid} in "
+                           f"{dtype} on {device}: {msg} (cudaError {rc})")
+    units, tile, blocks, smem = plan
+    return {"units": units, "blocks": blocks, "threads": SEQ_THREADS,
+            "smem_bytes": smem, "batch_tile": tile}
+
+
+# `barriers` empty grid barriers of `blocks` blocks: the floor under a
+# recurrence's chain of steps. A diagnostic, not a kernel of any path.
+_BARRIER_PROBE = K.Kernel("grid_barrier_probe", "lctvqa_grid_barrier_probe",
+                          [K.PTR, K.INT, K.INT])
+
+
+def grid_barrier_probe(blocks: int, barriers: int,
+                       device: torch.device) -> None:
+    counter = torch.zeros(SEQ_SYNC_BYTES, dtype=torch.uint8, device=device)
+    _BARRIER_PROBE.launch(device, counter, blocks, barriers)
 
 
 def _cell_kernel(w: CellWeights, x: Tensor, h: Tensor,
@@ -168,8 +258,12 @@ def _seq(kernel: K.Kernel, w: CellWeights, xs: Tensor, h0, c0,
     h_n = torch.empty(bsz, hid, dtype=f32, device=device)
     c_n = torch.empty(bsz, hid, dtype=f32, device=device)
     if bsz:
+        # per-call scratch: calls on several streams share nothing
+        xw = torch.empty(bsz, steps, 4 * hid, dtype=f32, device=device)
+        scratch = torch.zeros(seq_scratch_bytes(bsz, hid, w.w_ih.dtype),
+                              dtype=torch.uint8, device=device)
         kernel.launch(device, xs, h0, c0, w.w_ih, w.w_hh, w.b,
-                      out if with_outputs else None, h_n, c_n,
+                      out if with_outputs else None, h_n, c_n, xw, scratch,
                       bsz, steps, emb, hid, code)
     return out, (h_n, c_n)
 

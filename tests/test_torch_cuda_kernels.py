@@ -134,6 +134,101 @@ def test_lstm_kernels_round_h_to_bf16(cuda, shape):
         assert float((ctl - want).abs().max()) > 10 * TOL[torch.bfloat16]
 
 
+def _seq_case(b, t, dtype, device, e=300, h=512, seed=30):
+    gen = torch.Generator().manual_seed(seed)
+    w = _weights(gen, e, h, dtype, device)
+    xs = torch.tanh(torch.randn(b, t, e, generator=gen)).to(device)
+    h0 = (0.5 * torch.randn(b, h, generator=gen)).to(device)
+    c0 = torch.randn(b, h, generator=gen).to(device)
+    return w, xs, h0, c0
+
+
+# the sequence kernel's batch tiles hold 64 rows (fp32 at this width too):
+# one row, a partial tile, one short of a tile, a full one, one over, and
+# three tiles with a ragged last; a single step crosses no grid barrier
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("steps", [30, 1])
+@pytest.mark.parametrize("b", [1, 8, 63, 64, 65, 130])
+def test_lstm_seq_kernels_batch_tiles(cuda, b, steps, dtype):
+    w, xs, h0, c0 = _seq_case(b, steps, dtype, cuda)
+    for state in ((None, None), (h0, c0)):
+        got_o, (got_h, got_c) = cuda_lstm.lstm_seq(w, xs, *state)
+        want_o, (want_h, want_c) = cuda_lstm.lstm_seq_plain(w, xs, *state)
+        assert got_o.shape == (b, steps, 512)
+        _close(got_o, want_o, dtype)
+        _close(got_h, want_h, dtype)
+        _close(got_c, want_c, dtype)
+        assert torch.equal(got_o[:, -1], got_h)
+        fin_h, fin_c = cuda_lstm.lstm_seq_final(w, xs, *state)
+        # the same kernel with and without the outputs: the same bits
+        assert torch.equal(fin_h, got_h) and torch.equal(fin_c, got_c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_lstm_seq_kernel_calls_back_to_back(cuda, dtype):
+    """Calls queued with no synchronize between them: each has its own
+    barrier counter and exchange buffer, so none sees another's state;
+    and two runs give the same bits."""
+    w, xs, h0, c0 = _seq_case(64, 30, dtype, cuda)
+    want = _flat(cuda_lstm.lstm_seq_plain(w, xs, h0, c0))
+    outs = [cuda_lstm.lstm_seq(w, xs, h0, c0) for _ in range(2)]
+    outs += [cuda_lstm.lstm_seq(w, xs, h0, c0) for _ in range(20)]
+    torch.cuda.synchronize()
+    first = _flat(outs[0])
+    _close(first, want, dtype)
+    for out in outs[1:]:
+        assert torch.equal(_flat(out), first)
+    # alternating shapes reuse nothing either
+    small = _seq_case(3, 5, dtype, cuda, e=20, h=48)
+    mixed = [cuda_lstm.lstm_seq(*args) for _ in range(5)
+             for args in ((w, xs, h0, c0), small)]
+    torch.cuda.synchronize()
+    for out in mixed[0::2]:
+        assert torch.equal(_flat(out), first)
+    _close(_flat(mixed[1]), _flat(cuda_lstm.lstm_seq_plain(*small)), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_lstm_seq_kernel_on_other_streams(cuda, dtype):
+    """A call on a non-default stream, then two calls on two streams at
+    once: each is a cooperative launch with its own scratch."""
+    w, xs, h0, c0 = _seq_case(64, 30, dtype, cuda)
+    other = _seq_case(8, 30, dtype, cuda, seed=31)
+    want = _flat(cuda_lstm.lstm_seq_plain(w, xs, h0, c0))
+    want_other = _flat(cuda_lstm.lstm_seq_plain(*other))
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(s1):
+        got = cuda_lstm.lstm_seq(w, xs, h0, c0)
+    s1.synchronize()
+    _close(_flat(got), want, dtype)
+    outs1, outs2 = [], []
+    for _ in range(5):
+        with torch.cuda.stream(s1):
+            outs1.append(cuda_lstm.lstm_seq(w, xs, h0, c0))
+        with torch.cuda.stream(s2):
+            outs2.append(cuda_lstm.lstm_seq_final(*other))
+    torch.cuda.synchronize()
+    for out in outs1:
+        assert torch.equal(_flat(out), _flat(got))
+    n = other[2].numel()
+    for out in outs2:
+        _close(_flat(out), want_other[-2 * n:], dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [48, 512, 576, 1024])
+def test_lstm_seq_plan_on_the_card_is_the_python_mirror(cuda, h, dtype):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    got = cuda_lstm.seq_plan_on_device(h, dtype, cuda)
+    want = cuda_lstm.seq_plan(h, dtype, sms)
+    assert got == {k: want[k] for k in got}
+
+
 @pytest.mark.parametrize("vocab,h", [(130, 48), (1000, 80)])
 def test_generate_kernel_matches_plain(cuda, vocab, h):
     b, t, e = 5, 7, 24

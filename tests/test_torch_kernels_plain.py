@@ -500,3 +500,56 @@ def test_lstm_function_grads_match_jax(name, dtype):
     _rel_close(tc.grad.numpy(), want[3], tol, "dc0")
     for k in ("w_ih", "w_hh", "b_ih", "b_hh"):
         _rel_close(tlp[k].grad.numpy(), want[0][k], tol, k)
+
+
+# ---------------------------------------------------------------------------
+# the sequence kernel's launch shape and scratch (plain Python helpers)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("hid,dtype,want", [
+    # bf16: 8 units a block, 64-row batch tiles, whatever H is
+    (512, torch.bfloat16, (8, 64, 64, 132608)),
+    (1024, torch.bfloat16, (8, 128, 64, 230912)),
+    (48, torch.bfloat16, (8, 6, 64, 58880)),
+    # fp32: 4 units and a 64-row tile where H / 4 blocks fit on 132 SMs
+    # and the tile in shared memory beside the weights, else 8 and 16
+    (512, torch.float32, (4, 128, 64, 230400)),
+    (528, torch.float32, (8, 66, 16, 143616)),
+    (576, torch.float32, (8, 72, 16, 143616)),
+    (1024, torch.float32, (8, 128, 16, 229632)),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_seq_plan_shapes(hid, dtype, want):
+    plan = cuda_lstm.seq_plan(hid, dtype, 132)
+    assert (plan["units"], plan["blocks"], plan["batch_tile"],
+            plan["smem_bytes"]) == want
+    assert plan["threads"] == 512
+    # every unit has a block, no block is empty, one block per SM at most
+    assert (plan["blocks"] - 1) * plan["units"] < hid \
+        <= plan["blocks"] * plan["units"]
+    assert plan["blocks"] <= 132
+    assert plan["smem_bytes"] <= cuda_lstm.SMEM_PER_BLOCK
+    # one thread per (row, unit) of a batch tile finishes the cell
+    assert plan["batch_tile"] * plan["units"] <= plan["threads"]
+
+
+def test_seq_plan_refuses_a_card_too_small():
+    # H = 1024 needs 128 resident blocks
+    with pytest.raises(ValueError, match="resident blocks"):
+        cuda_lstm.seq_plan(1024, torch.bfloat16, 108)
+    assert cuda_lstm.seq_plan(512, torch.bfloat16, 108)["blocks"] == 64
+    # fp32 at H = 512 falls back to 8 units on 108 SMs
+    assert cuda_lstm.seq_plan(512, torch.float32, 108)["units"] == 8
+
+
+def test_seq_scratch_bytes():
+    # the counter's 256 bytes, then [2, B, H rounded up to 8] of the dtype
+    assert cuda_lstm.seq_scratch_bytes(64, 512, torch.bfloat16) \
+        == 256 + 2 * 64 * 512 * 2
+    assert cuda_lstm.seq_scratch_bytes(3, 50, torch.float32) \
+        == 256 + 2 * 3 * 56 * 4
+    # rows of the exchange buffer start on 16 bytes
+    for hid in (1, 7, 48, 50, 1024):
+        for dtype, size in ((torch.bfloat16, 2), (torch.float32, 4)):
+            row = (cuda_lstm.seq_scratch_bytes(1, hid, dtype) - 256) // 2
+            assert row % 16 == 0 and row >= hid * size
+
