@@ -6,6 +6,12 @@ NVIDIA GPU.
     python3 chip_smoke.py --profile   # only torch.profiler loops over the
                                       # darts EF call and over one train
                                       # step at batch 64 (PERF.md)
+    python3 chip_smoke.py --kernel-times [--root DIR]
+                                      # only the cell, the node forward and
+                                      # the W / EF calls, timed; --root takes
+                                      # lctvqa_torch from another checkout
+                                      # (a git archive of the parent), for
+                                      # before/after runs in one call
 
 Needs CUDA PyTorch, nvcc for sm_90a and numpy; imports neither JAX nor
 the JAX package. Phases, any failure of which makes the script exit
@@ -29,9 +35,12 @@ non-zero:
      kernels and nn.LSTM are also timed with the L2 flushed before each
      call (a 128 MB buffer rewritten outside the events), as a caller
      finds it that ran a convolutional encoder in between; the sequence
-     kernel's launch shape on this card (blocks, shared memory) must be
-     what ops/cuda_lstm.py::seq_plan says, and the time of as many empty
-     grid barriers as one call crosses is printed beside it.
+     and cell kernels' launch shapes on this card (blocks, batch tile,
+     shared memory) must be what ops/cuda_lstm.py::seq_plan and cell_plan
+     say, and the time of as many empty grid barriers as one call
+     crosses is printed beside the former. The cell's and nn.LSTMCell's
+     device time per call at B = 64 (torch.profiler) and their host
+     enqueue times are printed too.
    - bn_fwd at the supernet's six shapes, fp32 and bf16 in and out: fp32
      out 1e-5 (summation order); bf16 out |kernel - plain| <= 1e-5 +
      2^-7 |plain|: a 1-ulp fp32 difference can round the normalized value
@@ -44,7 +53,9 @@ non-zero:
      bf16 ulp, at most 2^-7 |o|, and the output by w * 2^-7 * |o| / sigma
      after the folded BatchNorm, where |o| / sigma rarely passes 4; a
      flip in a sep conv's first stage spreads through its second at about
-     the same size. The limit is 4 * 2^-7 * max|w| absolute.
+     the same size. The limit is 4 * 2^-7 * max|w| absolute. At
+     NODE_PROFILE's two shapes the device time of each launch of one call
+     (torch.profiler) and the host's enqueue time are printed.
    - bn_bwd at the same six shapes, x and g each fp32 or bf16, against
      batchnorm_bwd_plain, relative to the gradient's scale s = max|plain|:
      1e-5 s where dx is fp32 (summation order), one bf16 ulp, 2^-7 s,
@@ -126,6 +137,7 @@ from __future__ import annotations
 
 import base64
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -407,8 +419,10 @@ def lstm_library_fns(w, xs, h0, device):
             "lstm_seq_all": run_seq}
 
 
-def check_kernels(device, mcfg, batches=BATCHES, time_fn=time_ms):
-    """-> {kernel: {(B, dtype): {"err", "ms", "plain_ms", "library_ms",
+def check_kernels(device, mcfg, batches=BATCHES, time_fn=time_ms,
+                  names=LSTM_KERNELS):
+    """The LSTM-family kernels in `names` ->
+    {kernel: {(B, dtype): {"err", "ms", "plain_ms", "library_ms",
     "bound_ms", "bound_by"[, "probe_err", "control_err"]}}}."""
     from lctvqa_torch.models.qst_encoder import ef_qst_encoder_init
     from lctvqa_torch.ops import cuda_generate, cuda_lstm
@@ -419,7 +433,7 @@ def check_kernels(device, mcfg, batches=BATCHES, time_fn=time_ms):
                               mcfg.img_embed_size, 1, mcfg.lstm_hidden_size)
     qst = _to(qst, device)
     seq, hid = mcfg.max_qst_len, mcfg.lstm_hidden_size
-    results = {name: {} for name in LSTM_KERNELS}
+    results = {name: {} for name in names}
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     for b in batches:
         ids = torch.randint(0, mcfg.qst_vocab_size, (b, seq), generator=gen)
@@ -434,6 +448,8 @@ def check_kernels(device, mcfg, batches=BATCHES, time_fn=time_ms):
             bounds = lstm_bounds(mcfg, b, dname)
             library = lstm_library_fns(w, xs, h0, device)
             for name, (kern, plain) in _lstm_fns().items():
+                if name not in names:
+                    continue
                 args = (w,) + inputs[name]
                 got, want = _leaves(kern(*args)), _leaves(plain(*args))
                 err = _max_err(got, want)
@@ -462,6 +478,8 @@ def check_kernels(device, mcfg, batches=BATCHES, time_fn=time_ms):
                 expect(not _within(control, p_want, TOL[dname]),
                        f"{name} B={b} h-rounding probe: unrounded h is "
                        f"within {TOL[dname]} of the plain version")
+            if "greedy_generate" not in names:
+                continue
             got = cuda_generate.greedy_generate(qst, h0, seq, dtype)
             want = cuda_generate.greedy_generate_plain(qst, h0, seq, dtype)
             expect(got.shape == (b, seq) and got.dtype == torch.int32,
@@ -524,19 +542,92 @@ def check_seq_plan(device, mcfg, time_fn=time_ms):
     return out
 
 
-def seq_device_times(device, mcfg, b=64, iters=10):
-    """Device time by kernel of one lstm_seq call and of one nn.LSTM call
-    at batch `b`, from torch.profiler: the wrapper's host cost, which the
-    event-timed medians include, is not in it."""
+def check_cell_plan(device, mcfg):
+    """The cell kernel's launch shape on this card against the Python
+    mirror of the choice."""
+    from lctvqa_torch.ops import cuda_lstm as L
+
+    emb, hid = mcfg.word_embed_size, mcfg.lstm_hidden_size
+    limit = torch.cuda.get_device_properties(device) \
+        .shared_memory_per_block_optin
+    out = {}
+    for dname, dtype in DTYPES.items():
+        plan = L.cell_plan_on_device(emb, hid, dtype, device)
+        want = L.cell_plan(emb, hid, dtype, limit)
+        expect(all(plan[k] == want[k] for k in plan),
+               f"lstm_cell plan {dname}: the card chose {plan}, the Python "
+               f"mirror {want}")
+        out[dname] = plan
+        log(f"lstm_cell {dname} E={emb} H={hid}: {plan['blocks']} blocks of "
+            f"{plan['threads']} threads, {plan['units']} units each, batch "
+            f"tile {plan['batch_tile']}, {plan['smem_bytes']} B of shared "
+            "memory")
+    return out
+
+
+def device_times(fn, iters=10):
+    """torch.profiler over `iters` calls of fn, after three unprofiled ones
+    -> (device us per call, [(kernel, launches per call, us per call)] in
+    launch order). Only device kernels count: the wrapper's host cost,
+    which the event-timed medians include, is not in it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    expect(bool(kernels), "the profiler saw no device kernel")
+    # one row per launch position of a call where every call launches the
+    # same sequence, else one row per kernel name
+    per = len(kernels) // iters
+    names = [e.name for e in kernels]
+    if per and len(kernels) == per * iters and all(
+            names[i] == names[i % per] for i in range(len(names))):
+        rows = [(names[i][:60], 1, sum(kernels[c * per + i].time_range
+                                       .elapsed_us() for c in range(iters))
+                 / iters) for i in range(per)]
+    else:
+        by_name = {}
+        for e in kernels:
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        rows = [(k[:60], n / iters, us / iters)
+                for k, (n, us) in by_name.items()]
+    return sum(r[2] for r in rows), rows
+
+
+def _device_line(tag, total, rows):
+    log(f"device time {tag}: {total:.1f} us/call in "
+        f"{sum(r[1] for r in rows):g} launches: " + "; ".join(
+            f"{us:.1f} us x{n:g} {name}" for name, n, us in rows))
+
+
+def host_enqueue_us(fn, iters=20):
+    """Host time to enqueue one call: a host clock around `iters` calls
+    with no synchronize between them (after a synchronize)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / iters
+
+
+def seq_device_times(device, mcfg, b=64, iters=10):
+    """Device time by kernel of one lstm_seq call and of one nn.LSTM call
+    at batch `b`."""
     from lctvqa_torch.ops import cuda_lstm as L
     from lctvqa_torch.ops.lstm import lstm_init
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0))
 
     gen = torch.Generator().manual_seed(SEED + 30)
     lp = _to(lstm_init(gen, mcfg.word_embed_size,
@@ -550,24 +641,81 @@ def seq_device_times(device, mcfg, b=64, iters=10):
         fns = {"lstm_seq": lambda: L.lstm_seq(w, xs, h0, h0),
                "nn.LSTM": lstm_library_fns(w, xs, h0, device)["lstm_seq_all"]}
         for name, fn in fns.items():
-            for _ in range(3):
-                fn()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    fn()
-                torch.cuda.synchronize()
-            events = [e for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-            expect(bool(events), f"{name} {dname}: the profiler saw no "
-                   "device kernel")
-            total = sum(dev_us(e) for e in events) / iters
-            log(f"device time {name} B={b} {dname}: {total:.1f} us/call in "
-                f"{sum(e.count for e in events) // iters} device kernels: "
-                + "; ".join(f"{dev_us(e) / iters:.1f} us x{e.count // iters} "
-                            f"{e.key[:48]}" for e in sorted(
-                                events, key=dev_us, reverse=True)[:4]))
+            total, rows = device_times(fn, iters)
+            _device_line(f"{name} B={b} {dname}", total, rows)
+
+
+def cell_device_times(device, mcfg, b=64, iters=20):
+    """Device time per call of the cell's wrapper and of nn.LSTMCell at
+    batch `b`, on the inputs check_kernels gives them (x a strided fp32
+    view, h = c the image embedding), with the host's enqueue time per
+    call -> {dtype: {"kernel_us", "library_us", "kernel_launches",
+    "kernel_enqueue_us", "library_enqueue_us"}}."""
+    from lctvqa_torch.ops import cuda_lstm as L
+    from lctvqa_torch.ops.lstm import lstm_init
+
+    gen = torch.Generator().manual_seed(SEED + 31)
+    lp = _to(lstm_init(gen, mcfg.word_embed_size,
+                       mcfg.lstm_hidden_size)["layers"][0], device)
+    xs = torch.tanh(torch.randn(b, mcfg.max_qst_len, mcfg.word_embed_size,
+                                generator=gen)).to(device)
+    h0 = torch.nn.functional.normalize(
+        torch.randn(b, mcfg.lstm_hidden_size, generator=gen)).to(device)
+    out = {}
+    for dname, dtype in DTYPES.items():
+        w = L.cell_weights(lp, dtype)
+        kern = lambda: L.lstm_cell(w, xs[:, 0], h0, h0)  # noqa: E731
+        lib = lstm_library_fns(w, xs, h0, device)["lstm_cell"]
+        k_us, k_rows = device_times(kern, iters)
+        l_us, l_rows = device_times(lib, iters)
+        _device_line(f"lstm_cell B={b} {dname}", k_us, k_rows)
+        _device_line(f"nn.LSTMCell B={b} {dname}", l_us, l_rows)
+        out[dname] = {"kernel_us": k_us, "library_us": l_us,
+                      "kernel_launches": sum(r[1] for r in k_rows),
+                      "kernel_enqueue_us": host_enqueue_us(kern),
+                      "library_enqueue_us": host_enqueue_us(lib)}
+        log(f"lstm_cell B={b} {dname}: host enqueue "
+            f"{out[dname]['kernel_enqueue_us']:.1f} us/call, nn.LSTMCell "
+            f"{out[dname]['library_enqueue_us']:.1f} us/call")
+    return out
+
+
+# (cell, E, N, dtype) of the node forward's per-launch profile: the
+# kernels line's pick, and a small-plane cell
+NODE_PROFILE = (("cell0", 5, 64, "bfloat16"), ("cell2", 3, 64, "bfloat16"))
+
+
+def node_device_times(device, picks=NODE_PROFILE, iters=10):
+    """mixed_node_fwd at each pick: device time of each launch of one call
+    (torch.profiler), the event-timed call and the host's enqueue time ->
+    {pick: {"device_us", "launches", "ms", "enqueue_us", "rows"}}."""
+    from lctvqa_torch.models import search
+    from lctvqa_torch.ops import cuda_mixedop
+
+    out = {}
+    for cell, edges, n, dname in picks:
+        h, w, c, _ = NODE_SHAPES[cell]
+        gen = torch.Generator().manual_seed(SEED + 12)
+        ops = [_to(search.mixed_op_init(gen, c, 1, 4), device)
+               for _ in range(edges)]
+        ops = [dict(p, node=cuda_mixedop.node_weights(p)) for p in ops]
+        xs = [torch.randn(n, h, w, c, generator=gen).to(device, DTYPES[dname])
+              for _ in ops]
+        wts = (torch.softmax(torch.randn(edges, 8, generator=gen), 1)
+               * torch.softmax(torch.randn(edges, generator=gen),
+                               0)[:, None]).to(device)
+        fn = lambda: cuda_mixedop.mixed_node(xs, ops, wts, c // 4)  # noqa
+        total, rows = device_times(fn, iters)
+        tag = f"mixed_node_fwd {cell} E={edges} N={n} {dname}"
+        r = out[(cell, edges, n, dname)] = {
+            "device_us": total, "launches": sum(x[1] for x in rows),
+            "ms": time_ms(fn), "enqueue_us": host_enqueue_us(fn),
+            "rows": rows}
+        _device_line(tag, total, rows)
+        log(f"{tag}: {r['ms']:.4f} ms a call (events), host enqueue "
+            f"{r['enqueue_us']:.1f} us, device {total:.1f} us: host share "
+            f"{1 - total / (1e3 * r['ms']):.2f}")
+    return out
 
 
 def _times(r) -> str:
@@ -1222,7 +1370,8 @@ def check_against_cpu(paths, device):
     torch.cuda.empty_cache()
 
 
-def throughput(paths, device, batch=64, iters=5):
+def throughput(paths, device, batch=64, iters=5,
+               flag_sets=tuple(KERNEL_FLAGS)):
     from lctvqa_torch.export import ServingModel, read_artifact
 
     rows = []
@@ -1235,7 +1384,7 @@ def throughput(paths, device, batch=64, iters=5):
         qst = torch.zeros(batch, seq, dtype=torch.int32)
         for dtype in (("bfloat16",) if name == "darts"
                       else ("bfloat16", "float32")):
-            for fname in KERNEL_FLAGS:
+            for fname in flag_sets:
                 with kernel_flags(fname) as flags:
                     model = ServingModel(art, device, compute_dtype=dtype,
                                          **flags)
@@ -1578,9 +1727,13 @@ def profile_train(arrays, device, root: str):
 
 # ---------------------------------------------------------------------------
 
-def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan):
+def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
+                cell_dev, node_dev):
     """The kernels line: one row per kernel at the largest shape the
-    batch-64 bf16 path gives it; `launches` of the run of its path."""
+    batch-64 bf16 path gives it; `launches` of the run of its path. The
+    cell's row also has its device time per call and nn.LSTMCell's
+    (torch.profiler), the node forward's the device time of each launch
+    of one call."""
     picks = {name: (lstm[name][(64, "bfloat16")], "B=64 bfloat16")
              for name in LSTM_KERNELS}
     picks["mixed_node_fwd"] = (node[("cell0", 5, 64, "bfloat16")],
@@ -1606,6 +1759,17 @@ def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan):
         if "probe_err" in r:
             rows[-1]["h_rounding_probe_err"] = max(
                 lstm[name][(b, "bfloat16")]["probe_err"] for b in BATCHES)
+        if name == "lstm_cell":
+            d = cell_dev["bfloat16"]
+            rows[-1].update(device_us=d["kernel_us"],
+                            library_device_us=d["library_us"],
+                            fp32_device_us=cell_dev["float32"]["kernel_us"],
+                            fp32_library_device_us=cell_dev["float32"][
+                                "library_us"])
+        if name == "mixed_node_fwd":
+            d = node_dev[NODE_PROFILE[0]]
+            rows[-1].update(device_us=d["device_us"], launch_device_us=[
+                [k, us] for k, _, us in d["rows"]])
         if "cold_ms" in r:
             plan = seq_plan["bfloat16"]
             rows[-1].update(
@@ -1618,23 +1782,81 @@ def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan):
     return rows
 
 
+def kernel_times(device, card: str, tree: str) -> int:
+    """The short comparison run (--kernel-times): the cell against its
+    plain version and nn.LSTMCell at B = 1, 8, 64 in both dtypes with its
+    device time and host enqueue at B = 64, the node forward at every
+    shape of check_node_kernel with its per-launch device times at
+    NODE_PROFILE, and the W and EF answer_logits / generate loop at the
+    default flags. One JSON line of the numbers, also written to
+    chiprun_out/kernel_times_<tree>_<pid>.json."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mcfg = model_configs()["w"]
+    cell = check_kernels(device, mcfg, names=("lstm_cell",))["lstm_cell"]
+    for (b, dname), r in sorted(cell.items()):
+        log(f"kernel lstm_cell B={b:3d} {dname:9s} {_times(r)}")
+    cell_dev = cell_device_times(device, mcfg)
+    node = check_node_kernel(device)
+    node_dev = node_device_times(device)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    with tempfile.TemporaryDirectory(dir=Path.cwd()) as tmp:
+        paths = write_artifacts(Path(tmp), names=("w", "ef"))
+        rows = throughput(paths, device, flag_sets=("default",))
+    for name, fn_name, dtype, fname, rate, ms in rows:
+        log(f"throughput {name} {fn_name} B=64 {dtype} {fname}: "
+            f"{rate:.1f} pairs/s ({ms:.2f} ms/batch) on {card}")
+    record = {
+        "tree": tree, "card": card,
+        "cell": {f"B={b} {d}": {k: r[k] for k in ("ms", "plain_ms",
+                                                   "library_ms", "err")}
+                 for (b, d), r in cell.items()},
+        "cell_device": cell_dev,
+        "node": {" ".join(map(str, k)): {"ms": r["ms"], "err": r["err"]}
+                 for k, r in node.items()},
+        "node_device": {" ".join(map(str, k)): r
+                        for k, r in node_dev.items()},
+        "throughput": [{"model": n, "fn": f, "dtype": d, "ms": ms}
+                       for n, f, d, _, _, ms in rows]}
+    out_dir = Path("chiprun_out")
+    out_dir.mkdir(exist_ok=True)
+    tag = tree.strip("/.").replace("/", "_") or "repo"
+    (out_dir / f"kernel_times_{tag}_{os.getpid()}.json").write_text(
+        json.dumps(record))
+    log(json.dumps(record))
+    log(card)
+    return 1 if FAILURES else 0
+
+
 def main(argv=None) -> int:
     import argparse
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", action="store_true",
-                        help="only build, then profile the darts EF call")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--profile", action="store_true",
+                      help="only build, then profile the darts EF call")
+    mode.add_argument("--kernel-times", action="store_true",
+                      help="only build, then time the cell and the node "
+                      "forward and the W / EF calls (the before/after run)")
+    parser.add_argument("--root", default=None,
+                        help="take lctvqa_torch from this checkout (e.g. "
+                        "a git archive of another commit) instead of the "
+                        "one beside this script")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs only on an NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.root is not None:
+        sys.path.insert(0, str(Path(args.root).resolve()))
     from lctvqa_torch.ops import _build
 
     device = torch.device("cuda")
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
-        f"python {sys.version.split()[0]}")
+        f"python {sys.version.split()[0]}; lctvqa_torch from "
+        f"{Path(_build.__file__).parents[2]}")
 
     # 1. build
     t0 = time.perf_counter()
@@ -1645,15 +1867,19 @@ def main(argv=None) -> int:
     for line in build_log:
         if "registers" in line or "spill" in line:
             log("ptxas:", line.strip())
-    # the sequence kernels by name: registers, static shared memory, spills
+    # the LSTM and node kernels by name: registers, static shared memory,
+    # spills
     for i, line in enumerate(build_log):
         if "Compiling entry function" in line and any(
-                k in line for k in ("lstm_seq_kernel", "xw_gemm")):
+                k in line for k in ("lstm_seq_kernel", "xw_gemm",
+                                    "lstm_cell_kernel", "node_")):
             name = line.split("'")[1]
             log(f"ptxas {name}: " + "; ".join(
                 t.strip().replace("ptxas info    : ", "")
                 for t in build_log[i + 2:i + 4]))
 
+    if args.kernel_times:
+        return kernel_times(device, card, args.root or ".")
     if args.profile:
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
             paths = write_artifacts(Path(tmp), names=("darts",))
@@ -1671,9 +1897,12 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     kern = check_kernels(device, model_configs()["w"])
     seq_plan = check_seq_plan(device, model_configs()["w"])
+    check_cell_plan(device, model_configs()["w"])
     seq_device_times(device, model_configs()["w"])
+    cell_dev = cell_device_times(device, model_configs()["w"])
     kern_bn = check_bn_kernel(device)
     kern_node = check_node_kernel(device)
+    node_dev = node_device_times(device)
     kern_bn_bwd = check_bn_bwd_kernel(device)
     kern_node_bwd = check_node_bwd_kernel(device)
     check_lstm_functions(device, model_configs()["w"])
@@ -1754,7 +1983,7 @@ def main(argv=None) -> int:
         log(f"training timed on {card}")
 
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
-                       launches, seq_plan)
+                       launches, seq_plan, cell_dev, node_dev)
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed:")
         for f in FAILURES:

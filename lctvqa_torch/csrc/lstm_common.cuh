@@ -6,12 +6,14 @@
 // product and sum is fp32, the bias is fp32, and the h/c state is fp32.
 // h is rounded to T only where it enters the recurrent product.
 //
-// Thread layout of a gate computation: the block's threads form `ks`
-// slices of `hp` threads (hp a multiple of 32). Thread (s, j), tid =
-// s * hp + j, sums the four gate dots of hidden unit j over slice s of
-// the concatenated input rows [x; h]. Splitting the rows keeps more
-// independent weight loads in flight per SM, which is what bounds these
-// kernels (they read the weights from L2 once per row and step).
+// Thread layout of block_gates, the greedy decode's gate computation
+// (generate.cu; the cell and sequence kernels of lstm.cu multiply tiles of
+// the batch instead): the block's threads form `ks` slices of `hp` threads
+// (hp a multiple of 32). Thread (s, j), tid = s * hp + j, sums the four
+// gate dots of hidden unit j over slice s of the concatenated input rows
+// [x; h]. Splitting the rows keeps more independent weight loads in flight
+// per SM, which is what bounds the decode (it reads the weights from L2
+// once per row and step).
 #pragma once
 
 #include <cuda_bf16.h>

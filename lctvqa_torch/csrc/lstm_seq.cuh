@@ -20,6 +20,7 @@
 
 #include <cstdint>
 
+#include "fragments.cuh"
 #include "lstm_common.cuh"
 
 namespace lctvqa {
@@ -53,47 +54,6 @@ inline size_t smem_bytes(int H) {
   const size_t HP = round_up(H, C::KPAD), S = HP + C::PAD;
   const size_t w = C::kMma ? 4 * U * S : HP * 4 * U;
   return C::kPartialFloats * sizeof(float) + (w + C::BT * S) * sizeof(T);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 operands, fp32 sums. With g = lane / 4
-// and q = lane % 4: a0..a3 hold A[g][2q..], A[g+8][2q..], A[g][2q+8..],
-// A[g+8][2q+8..]; b0, b1 hold B[2q..][g], B[2q+8..][g]; c holds D[g][2q],
-// D[g][2q+1], D[g+8][2q], D[g+8][2q+1].
-__device__ __forceinline__ void mma_bf16(float c[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
 }
 
 // The grid barrier: a counter that only grows, zeroed by the caller before
@@ -139,50 +99,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 constexpr int kGemmRows = 128;    // rows of xw per block
 constexpr int kGemmCols = 64;     // columns of xw per block
 constexpr int kGemmThreads = 256;
-
-// Four consecutive elements at p, of which `left` exist (<= 0: none); the
-// rest read as 0. vec: p is aligned for one load and left is 0 or >= 4.
-__device__ __forceinline__ uint2 load4(const __nv_bfloat16* p, int left,
-                                       bool vec) {
-  if (left <= 0) return make_uint2(0u, 0u);
-  if (vec) return *reinterpret_cast<const uint2*>(p);
-  const unsigned short* u = reinterpret_cast<const unsigned short*>(p);
-  uint32_t v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = i < left ? u[i] : 0u;
-  return make_uint2(v[0] | (v[1] << 16), v[2] | (v[3] << 16));
-}
-
-__device__ __forceinline__ float4 load4(const float* p, int left, bool vec) {
-  if (left <= 0) return make_float4(0.f, 0.f, 0.f, 0.f);
-  if (vec) return *reinterpret_cast<const float4*>(p);
-  float v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) v[i] = i < left ? p[i] : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
-// Four 8 x 8 bf16 matrices from shared memory, each transposed: from rows
-// of 8 contiguous n at consecutive k to the "col" operand of mma. Lane l
-// gives the address of row l % 8 of matrix l / 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* smem) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-// The same without the transpose: rows of 8 contiguous k, as the "row"
-// operand A lies ([m][k]) and as w_s holds the "col" operand B ([n][k]).
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* smem) {
-  const uint32_t s = (uint32_t)__cvta_generic_to_shared(smem);
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
 
 // Warp w owns rows [16w, 16w + 16) of the tile and all 64 columns (eight
 // mma n-tiles). Slabs of 32 k: x as [m][k], w_ih as it lies, [k][n], read

@@ -21,29 +21,38 @@
 // weights, every stage output `o` is rounded to T once, statistics and the
 // fold are fp32 over the rounded `o`, the output is fp32.
 //
-// What bounds it on an H100: bytes. The work is ~200 operations per input
-// element outside the tensor cores against 2-4 bytes read, but the batch
-// statistics force every stage output through device memory: no block sees
-// all of (N, H, W), and blocks run in no order. The TPU kernel is one
-// sequential program over VMEM-resident slabs; here one C entry point issues
-// a fixed sequence of five launches on one stream:
-//   A. per (edge, image, tile): x tile with a 4-pixel halo in shared memory;
-//      the first stage of the four conv branches and both pools from that
-//      one tile; writes six `o` planes and per-block sums of o and o^2.
-//   F. per (stage, edge, channel): adds the per-block sums in a fixed order
-//      (no atomics, so a result does not change from run to run) and writes
-//      mean and 1/sqrt(var + eps). Runs after A for the sep convs' inner
-//      BN, and after B for the six folded BNs.
+// What bounds it on an H100: bytes and the chain of launches. The work is
+// ~200 operations per input element outside the tensor cores against 2-4
+// bytes read, but the batch statistics force every stage output through
+// device memory: no block sees all of (N, H, W), and blocks run in no order.
+// The TPU kernel is one sequential program over VMEM-resident slabs; here
+// one C entry point issues a memset of 2E counters and three launches on one
+// stream:
+//   A. per (edge, image, tile): the x tile with a 4-pixel halo in shared
+//      memory (four channels of a pixel in one load where aligned); the
+//      first stage of the four conv branches and both pools from that one
+//      tile, a thread computing one channel's depthwise taps (unrolled, the
+//      taps in registers) at two pixels, then four output channels of a
+//      pixel in the pointwise; writes six `o` planes and, once per block, the
+//      per-block sums of o and o^2 of all six. The edge's last block to
+//      finish, found by a counter, adds the per-block sums of the sep convs'
+//      inner BN in a fixed order and writes mean and 1/sqrt(var + eps).
 //   B. per (edge, sep branch, image, tile): inner BN, relu, rounding to T,
-//      second depthwise and pointwise; writes `o` and its per-block sums.
-//   Z. per pixel: coef and bias from the statistics, the weighted sum over
-//      ops and edges, minus the bias.
-// Scratch `o` planes are channel-planar ([slot, edge, channel, N*H*W]) so
-// that neighbouring threads (neighbouring pixels) touch neighbouring
+//      second depthwise and pointwise; writes `o` and its per-block sums. The
+//      edge's last block finishes the six folded BNs' statistics the same
+//      way.
+//   Z. per (pixel, four channels): coef and bias from the statistics, the
+//      weighted sum over ops and edges, minus the bias.
+// The counters are the only atomics; no atomic touches a value, and every
+// sum is taken in a fixed order, so a result does not change from run to
+// run. Scratch `o` planes are channel-planar ([slot, edge, channel, N*H*W])
+// so that neighbouring threads (neighbouring pixels) touch neighbouring
 // addresses; the edge inputs are read through their strides, so a channel
-// slice needs no copy.
+// slice needs no copy. The planes and statistics are what the backward
+// reads.
 #include <cmath>
 
+#include "fragments.cuh"
 #include "lstm_common.cuh"
 
 namespace lctvqa {
@@ -73,36 +82,6 @@ struct NodeEdge {
 struct NodeArgs {
   NodeEdge edge[kMaxEdges];
 };
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Stores v (already a value of T) for a valid pixel and leaves the warp's
-// sums of v and v^2 in red_slot[0..1]. All 32 lanes of the warp call it.
-template <typename T>
-__device__ __forceinline__ void store_and_reduce(float v, bool valid, T* dst,
-                                                 float* red_slot) {
-  if (valid) *dst = from_f32<T>(v);
-  float s = valid ? v : 0.f;
-  float q = s * s;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    s += __shfl_down_sync(0xffffffffu, s, d);
-    q += __shfl_down_sync(0xffffffffu, q, d);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    red_slot[0] = s;
-    red_slot[1] = q;
-  }
-}
 
 // red: [Cs][chunks][2] per-warp sums of this block -> part[(c*2 + k) * nblk]
 // (the caller has offset `part` to this block's column). Synchronises before
@@ -142,29 +121,9 @@ __device__ __forceinline__ TileGeom tile_geom(int H, int W) {
   return g;
 }
 
-// o[co] = sum_ci ts[ci][p] * pw[ci][co], rounded to T, stored to the plane
-// `o` ([Cs][M]) and reduced into `part`. ts: [Cs][TILE*TILE].
-template <typename T, int TILE>
-__device__ __forceinline__ void pointwise_emit(
-    const float* ts, const float* pw, float* red, T* o, float* part, int Cs,
-    long long M, const TileGeom& g, int H, int W) {
-  constexpr int PIX = TILE * TILE;
-  constexpr int CHUNKS = PIX / 32;
-  for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
-    const int co = it / PIX, p = it % PIX;
-    const int h = g.h0 + p / TILE, w = g.w0 + p % TILE;
-    float acc = 0.f;
-    for (int ci = 0; ci < Cs; ++ci)
-      acc = fmaf(ts[ci * PIX + p], pw[ci * Cs + co], acc);
-    store_and_reduce<T>(round_to<T>(acc), h < H && w < W,
-                        o + (long long)co * M + g.pixbase + (long long)h * W + w,
-                        red + (co * CHUNKS + p / 32) * 2);
-  }
-  flush_partials(red, part, Cs, CHUNKS, g.nblk);
-}
-
 // ts[c][p] = sum over the kk x kk taps (dilation dil) of xs, which holds
 // the stage's input with a HALO-pixel border; RELU applies max(., 0) on read.
+// (The backward's recomputation of a depthwise output.)
 template <int TILE, int HALO, bool RELU>
 __device__ __forceinline__ void depthwise(const float* xs, const float* dw,
                                           float* ts, int Cs, int kk, int dil) {
@@ -190,190 +149,465 @@ __device__ __forceinline__ void depthwise(const float* xs, const float* dw,
   __syncthreads();
 }
 
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
+
+constexpr int kNodeWarps = kNodeThreads / 32;
+// halo loads in flight a thread: launch A loads four channels at once and
+// keeps four blocks an SM at 64 registers; launch B loads one value
+constexpr int kLoadBatchA = 4, kLoadBatchB = 8;
+
+// The same depthwise as `depthwise`, the window and dilation known at
+// compile time: a thread computes one channel at kRows pixels of a column,
+// rows r + i DIL, i < kRows, which share their input rows (KK + kRows - 1
+// rows feed kRows outputs), with the channel's KK x KK taps in registers
+// and kRows independent sums (each in the same order as `depthwise`'s).
+// Row groups start at 0, 4, 8, ... for DIL 1 and at 0, 1, 8, 9, ... for
+// DIL 2; TILE is a multiple of 8.
+constexpr int kRows = 4;
+
+template <int KK, int DIL, int TILE, int HALO, bool RELU>
+__device__ __forceinline__ void depthwise_fixed(const float* xs,
+                                                const float* dw, float* ts,
+                                                int Cs) {
+  constexpr int PWID = TILE + 2 * HALO;
+  constexpr int PLANE = PWID * PWID;
+  constexpr int PIX = TILE * TILE;
+  constexpr int GROUPS = PIX / kRows;
+  constexpr int HALF = (KK - 1) / 2 * DIL;
+  static_assert(TILE % 8 == 0 && HALF <= HALO, "row groups, taps in halo");
+  for (int it = threadIdx.x; it < Cs * GROUPS; it += blockDim.x) {
+    const int c = it / GROUPS, gi = it % GROUPS;
+    const int kr = gi / TILE, col = gi % TILE;
+    const int r0 = DIL == 1 ? kRows * kr : (kr / 2) * 2 * kRows + (kr % 2);
+    float w[KK * KK];
+#pragma unroll
+    for (int t = 0; t < KK * KK; ++t) w[t] = dw[t * Cs + c];
+    const float* src =
+        xs + c * PLANE + (r0 + HALO - HALF) * PWID + (col + HALO - HALF);
+    float acc[kRows] = {};
+#pragma unroll
+    for (int i = 0; i < KK + kRows - 1; ++i) {
+      float v[KK];
+#pragma unroll
+      for (int dx = 0; dx < KK; ++dx) {
+        v[dx] = src[i * DIL * PWID + dx * DIL];
+        if (RELU) v[dx] = fmaxf(v[dx], 0.f);
+      }
+#pragma unroll
+      for (int o = 0; o < kRows; ++o) {
+        if (i - o < 0 || i - o >= KK) continue;
+#pragma unroll
+        for (int dx = 0; dx < KK; ++dx)
+          acc[o] = fmaf(v[dx], w[(i - o) * KK + dx], acc[o]);
+      }
+    }
+#pragma unroll
+    for (int o = 0; o < kRows; ++o)
+      ts[c * PIX + (r0 + o * DIL) * TILE + col] = acc[o];
+  }
+}
+
+// A thread's sums of o and o^2 (`n` values each, of channels c0 ..) over
+// its pixels of one channel group, reduced over the warp; lane 0 adds them
+// to the warp's entries red[((c0 + j) * kNodeWarps + warp) * 2]. All 32
+// lanes call it with the same c0 and n.
+template <int NV>
+__device__ __forceinline__ void warp_flush(float (&s)[NV], float (&q)[NV],
+                                           int c0, int n, float* red) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    if (j >= n) break;
+    float a = s[j], b = q[j];
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      a += __shfl_down_sync(0xffffffffu, a, d);
+      b += __shfl_down_sync(0xffffffffu, b, d);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      red[((c0 + j) * kNodeWarps + warp) * 2] += a;
+      red[((c0 + j) * kNodeWarps + warp) * 2 + 1] += b;
+    }
+    s[j] = q[j] = 0.f;
+  }
+}
+
+// o[co] = round_T(sum_ci ts[ci][p] pw[ci][co]) at the tile's pixels, four
+// output channels per item (a warp's 32 lanes: 32 pixels of one group of
+// four), stored to the channel planes at `o` ([Cs][M]); the sums of o and
+// o^2 of each channel, over a thread's items, then over the warp, go to
+// the warp's entries of red ([Cs][kNodeWarps][2], zeroed by the caller).
+template <typename T, int TILE>
+__device__ __forceinline__ void pointwise_store(const float* ts,
+                                                const float* pw, T* o,
+                                                float* red, int Cs,
+                                                long long M,
+                                                const TileGeom& g, int H,
+                                                int W) {
+  constexpr int PIX = TILE * TILE;
+  const int groups = (Cs + 3) / 4;
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
+  int run = -1;  // the channel group s and q hold sums of (warp-uniform)
+  for (int it = threadIdx.x; it < groups * PIX; it += blockDim.x) {
+    const int cg = it / PIX, p = it % PIX;
+    if (cg != run) {
+      if (run >= 0) warp_flush(s, q, run * 4, min(4, Cs - run * 4), red);
+      run = cg;
+    }
+    const int h = g.h0 + p / TILE, w = g.w0 + p % TILE;
+    const bool valid = h < H && w < W;
+    const long long pix = g.pixbase + (long long)h * W + w;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    if (Cs % 4 == 0) {  // four weights in one load
+      for (int ci = 0; ci < Cs; ++ci) {
+        const float t = ts[ci * PIX + p];
+        const float4 wv =
+            *reinterpret_cast<const float4*>(pw + ci * Cs + cg * 4);
+        acc[0] = fmaf(t, wv.x, acc[0]);
+        acc[1] = fmaf(t, wv.y, acc[1]);
+        acc[2] = fmaf(t, wv.z, acc[2]);
+        acc[3] = fmaf(t, wv.w, acc[3]);
+      }
+    } else {
+      for (int ci = 0; ci < Cs; ++ci) {
+        const float t = ts[ci * PIX + p];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (cg * 4 + j < Cs)
+            acc[j] = fmaf(t, pw[ci * Cs + cg * 4 + j], acc[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int co = cg * 4 + j;
+      if (co >= Cs) break;  // uniform over the warp
+      const float v = valid ? round_to<T>(acc[j]) : 0.f;
+      if (valid) o[co * M + pix] = from_f32<T>(v);
+      s[j] += v;
+      q[j] = fmaf(v, v, q[j]);
+    }
+  }
+  if (run >= 0) warp_flush(s, q, run * 4, min(4, Cs - run * 4), red);
+}
+
+// The block's sums of `slots` stage outputs, red [slots][Cs][kNodeWarps][2],
+// into partial[((slot * E + e) * Cs + c) * 2 + k][blk] for the slots
+// listed in slot_of, then the fence that makes them visible before the
+// block counts itself done. Returns true in the last block of edge e to
+// finish (ctr counts the blocks of the edge, `blocks` of them).
+__device__ __forceinline__ bool flush_and_count(const float* red,
+                                                const int* slot_of,
+                                                int slots, float* partial,
+                                                unsigned* ctr, int e, int E,
+                                                int Cs, const TileGeom& g,
+                                                unsigned blocks) {
+  __shared__ int last;
+  __syncthreads();
+  for (int i = threadIdx.x; i < slots * Cs; i += blockDim.x) {
+    const int s = i / Cs, c = i % Cs;
+    float sum = 0.f, sq = 0.f;
+#pragma unroll
+    for (int k = 0; k < kNodeWarps; ++k) {
+      sum += red[((s * Cs + c) * kNodeWarps + k) * 2];
+      sq += red[((s * Cs + c) * kNodeWarps + k) * 2 + 1];
+    }
+    float* part =
+        partial + ((((long long)slot_of[s] * E + e) * Cs + c) * 2) * g.nblk +
+        g.blk;
+    part[0] = sum;
+    part[g.nblk] = sq;
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ctr + e, 1u) == blocks - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// In the last block of edge e: mean and 1/sqrt(var + eps) of `slots` slots
+// (slot_of) from the per-block sums, each the sum over blocks in a fixed
+// order (a lane's stride of 32, then a shuffle tree), one warp per entry.
+__device__ __forceinline__ void finish_stats(const float* partial,
+                                             float* stat, const int* slot_of,
+                                             int slots, int e, int E, int Cs,
+                                             long long nblk,
+                                             float inv_count, float eps) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int i = warp; i < slots * Cs; i += blockDim.x >> 5) {
+    const long long entry = ((long long)slot_of[i / Cs] * E + e) * Cs +
+                            i % Cs;
+    const float* ps = partial + entry * 2 * nblk;
+    // four sums a lane, so that four pairs of loads are in flight
+    float sv[4] = {0.f, 0.f, 0.f, 0.f}, qv[4] = {0.f, 0.f, 0.f, 0.f};
+    long long b = lane;
+    for (; b + 96 < nblk; b += 128) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        sv[u] += __ldcg(ps + b + 32 * u);
+        qv[u] += __ldcg(ps + nblk + b + 32 * u);
+      }
+    }
+    for (; b < nblk; b += 32) {
+      sv[0] += __ldcg(ps + b);
+      qv[0] += __ldcg(ps + nblk + b);
+    }
+    float s = (sv[0] + sv[1]) + (sv[2] + sv[3]);
+    float q = (qv[0] + qv[1]) + (qv[2] + qv[3]);
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      s += __shfl_down_sync(0xffffffffu, s, d);
+      q += __shfl_down_sync(0xffffffffu, q, d);
+    }
+    if (lane == 0) {
+      const float mean = s * inv_count;
+      const float var = q * inv_count - mean * mean;
+      stat[entry * 2] = mean;
+      stat[entry * 2 + 1] = 1.f / sqrtf(var + eps);
+    }
+  }
+}
+
 template <int TILE, int HALO>
-constexpr size_t stage_smem_floats(int Cs, int branches) {
+constexpr size_t stage_smem_floats(int Cs, int branches, int slots) {
   return (size_t)Cs * (TILE + 2 * HALO) * (TILE + 2 * HALO)  // xs
          + (size_t)Cs * TILE * TILE                          // ts
          + (size_t)branches * kTaps * Cs                     // dws
          + (size_t)branches * Cs * Cs                        // pws
-         + (size_t)Cs * (TILE * TILE / 32) * 2;              // red
+         + (size_t)slots * Cs * kNodeWarps * 2;              // red
 }
 
-// Launch A. grid (tiles, N, E).
+// Launch A. grid (tiles, N, E). The edge's x tile with a 4-pixel halo, the
+// first stage of the four conv branches and both pools: six planes and
+// their per-block sums; the edge's last block finishes the statistics of
+// slots 0 and 1 (the sep convs' inner BatchNorm).
 template <typename T, int TILE>
-__global__ void node_stage_a_kernel(NodeArgs args, T* __restrict__ obuf,
-                                    float* __restrict__ partial, int E, int H,
-                                    int W, int Cs) {
+__global__ void __launch_bounds__(kNodeThreads, 4)
+    node_stage_a_kernel(NodeArgs args, T* __restrict__ obuf,
+                        float* __restrict__ partial,
+                        float* __restrict__ stat, unsigned* ctr, int E,
+                        int H, int W, int Cs, int vec_x) {
   constexpr int HALO = 4;
   constexpr int PWID = TILE + 2 * HALO;
   constexpr int PLANE = PWID * PWID;
   constexpr int PIX = TILE * TILE;
-  constexpr int CHUNKS = PIX / 32;
-  extern __shared__ float smem[];
-  float* xs = smem;                 // [Cs][PLANE] raw x, 0 outside the image
-  float* ts = xs + Cs * PLANE;      // [Cs][PIX]
-  float* dws = ts + Cs * PIX;       // [4][25][Cs] first-stage taps
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                   // [Cs][PLANE] raw x, 0 outside
+  float* ts = xs + Cs * PLANE;        // [Cs][PIX]
+  float* dws = ts + Cs * PIX;         // [4][25][Cs] first-stage taps
   float* pws = dws + 4 * kTaps * Cs;  // [4][Cs][Cs]
-  float* red = pws + 4 * Cs * Cs;   // [Cs][CHUNKS][2]
+  float* red = pws + 4 * Cs * Cs;     // [6][Cs][kNodeWarps][2]
   const int e = blockIdx.z;
   const NodeEdge ed = args.edge[e];
   const TileGeom g = tile_geom<TILE>(H, W);
   const long long M = (long long)gridDim.y * H * W;
   const T* x = (const T*)ed.x + (long long)g.n * ed.sn;
 
-  for (int i = threadIdx.x; i < PLANE * Cs; i += blockDim.x) {
-    const int c = i % Cs, p = i / Cs;
-    const int h = g.h0 + p / PWID - HALO, w = g.w0 + p % PWID - HALO;
-    float v = 0.f;
-    if (h >= 0 && h < H && w >= 0 && w < W)
-      v = to_f32(x[(long long)h * ed.sh + (long long)w * ed.sw + c]);
-    xs[c * PLANE + p] = v;
+  // the halo tile, four channels of a pixel at a time where aligned
+  const int groups = vec_x ? Cs / 4 : Cs;
+  const int per = vec_x ? 4 : 1;
+  for (int base = threadIdx.x; base < PLANE * groups;
+       base += kLoadBatchA * kNodeThreads) {
+    float v[kLoadBatchA][4];
+#pragma unroll
+    for (int b = 0; b < kLoadBatchA; ++b) {
+      const int i = base + b * kNodeThreads;
+      const int q = i / groups, cg = i % groups;
+      const int h = g.h0 + q / PWID - HALO, w = g.w0 + q % PWID - HALO;
+      v[b][0] = v[b][1] = v[b][2] = v[b][3] = 0.f;
+      if (i < PLANE * groups && h >= 0 && h < H && w >= 0 && w < W) {
+        const T* src = x + (long long)h * ed.sh + (long long)w * ed.sw +
+                       cg * per;
+        if (vec_x) {
+          const float4 f = ld4f(src);
+          v[b][0] = f.x, v[b][1] = f.y, v[b][2] = f.z, v[b][3] = f.w;
+        } else {
+          v[b][0] = to_f32(*src);
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kLoadBatchA; ++b) {
+      const int i = base + b * kNodeThreads;
+      if (i >= PLANE * groups) break;
+      const int q = i / groups, cg = i % groups;
+      for (int j = 0; j < per; ++j) xs[(cg * per + j) * PLANE + q] = v[b][j];
+    }
   }
   for (int i = threadIdx.x; i < 4 * kTaps * Cs; i += blockDim.x)
     dws[i] = ed.dw[(size_t)(2 * (i / (kTaps * Cs))) * kTaps * Cs +
                    i % (kTaps * Cs)];
   for (int i = threadIdx.x; i < 4 * Cs * Cs; i += blockDim.x)
     pws[i] = ed.pw[(size_t)(2 * (i / (Cs * Cs))) * Cs * Cs + i % (Cs * Cs)];
+  for (int i = threadIdx.x; i < 6 * Cs * kNodeWarps * 2; i += blockDim.x)
+    red[i] = 0.f;
   __syncthreads();
 
   // the four conv branches' first stage: sep3, sep5, dil3, dil5
+#pragma unroll
   for (int b = 0; b < 4; ++b) {
+    const float* dw = dws + b * kTaps * Cs;
+    if (b == 0) depthwise_fixed<3, 1, TILE, HALO, true>(xs, dw, ts, Cs);
+    if (b == 1) depthwise_fixed<5, 1, TILE, HALO, true>(xs, dw, ts, Cs);
+    if (b == 2) depthwise_fixed<3, 2, TILE, HALO, true>(xs, dw, ts, Cs);
+    if (b == 3) depthwise_fixed<5, 2, TILE, HALO, true>(xs, dw, ts, Cs);
+    __syncthreads();
     const int slot = b < 2 ? b : b + 2;
-    depthwise<TILE, HALO, true>(xs, dws + b * kTaps * Cs, ts, Cs,
-                                (b & 1) ? 5 : 3, b < 2 ? 1 : 2);
-    const size_t plane = ((size_t)slot * E + e) * Cs;
-    pointwise_emit<T, TILE>(ts, pws + b * Cs * Cs, red, obuf + plane * M,
-                            partial + plane * 2 * g.nblk + g.blk, Cs, M, g, H,
-                            W);
+    pointwise_store<T, TILE>(ts, pws + b * Cs * Cs,
+                             obuf + ((size_t)slot * E + e) * Cs * M,
+                             red + b * Cs * kNodeWarps * 2, Cs, M, g, H, W);
+    __syncthreads();
   }
 
-  // max pool (slot 6) and avg pool (slot 7), 3x3, stride 1, pad 1
-  for (int pool = 0; pool < 2; ++pool) {
-    const size_t plane = ((size_t)(6 + pool) * E + e) * Cs;
-    for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
-      const int c = it / PIX, p = it % PIX;
-      const int h = g.h0 + p / TILE, w = g.w0 + p % TILE;
-      const float* src =
-          xs + c * PLANE + (p / TILE + HALO) * PWID + (p % TILE + HALO);
-      float mx = -INFINITY, sum = 0.f;
-      int rows = 0, cols = 0;
-      for (int dy = -1; dy <= 1; ++dy) {
-        if (h + dy < 0 || h + dy >= H) continue;
-        ++rows;
-        cols = 0;
-        for (int dx = -1; dx <= 1; ++dx) {
-          if (w + dx < 0 || w + dx >= W) continue;
-          ++cols;
-          const float v = src[dy * PWID + dx];
-          mx = fmaxf(mx, v);
-          sum += v;
-        }
+  // max pool (slot 6) and avg pool (slot 7), 3x3, stride 1, pad 1; the
+  // window's valid rows and columns are known from the pixel. Their sums
+  // are kept per channel as in pointwise_store.
+  float sm[1] = {0.f}, qm[1] = {0.f}, sa[1] = {0.f}, qa[1] = {0.f};
+  int run = -1;
+  for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
+    const int c = it / PIX, p = it % PIX;
+    if (c != run) {
+      if (run >= 0) {
+        warp_flush(sm, qm, run, 1, red + 4 * Cs * kNodeWarps * 2);
+        warp_flush(sa, qa, run, 1, red + 5 * Cs * kNodeWarps * 2);
       }
-      const bool valid = h < H && w < W;
-      const float v =
-          !valid ? 0.f
-                 : (pool == 0 ? mx : round_to<T>(sum / (float)(rows * cols)));
-      store_and_reduce<T>(
-          v, valid,
-          obuf + (plane + c) * M + g.pixbase + (long long)h * W + w,
-          red + (c * CHUNKS + p / 32) * 2);
+      run = c;
     }
-    flush_partials(red, partial + plane * 2 * g.nblk + g.blk, Cs, CHUNKS,
-                   g.nblk);
+    const int h = g.h0 + p / TILE, w = g.w0 + p % TILE;
+    const bool valid = h < H && w < W;
+    const float* src =
+        xs + c * PLANE + (p / TILE + HALO) * PWID + (p % TILE + HALO);
+    const int y0 = h > 0 ? -1 : 0, y1 = h < H - 1 ? 1 : 0;
+    const int x0 = w > 0 ? -1 : 0, x1 = w < W - 1 ? 1 : 0;
+    float mx = -INFINITY, sum = 0.f;
+    for (int dy = y0; dy <= y1; ++dy)
+      for (int dx = x0; dx <= x1; ++dx) {
+        const float v = src[dy * PWID + dx];
+        mx = fmaxf(mx, v);
+        sum += v;
+      }
+    const float vmax = valid ? mx : 0.f;
+    const float vavg =
+        valid ? round_to<T>(sum / (float)((y1 - y0 + 1) * (x1 - x0 + 1)))
+              : 0.f;
+    const long long pix = g.pixbase + (long long)h * W + w;
+    if (valid) {
+      obuf[(((size_t)6 * E + e) * Cs + c) * M + pix] = from_f32<T>(vmax);
+      obuf[(((size_t)7 * E + e) * Cs + c) * M + pix] = from_f32<T>(vavg);
+    }
+    sm[0] += vmax;
+    qm[0] = fmaf(vmax, vmax, qm[0]);
+    sa[0] += vavg;
+    qa[0] = fmaf(vavg, vavg, qa[0]);
   }
+  if (run >= 0) {
+    warp_flush(sm, qm, run, 1, red + 4 * Cs * kNodeWarps * 2);
+    warp_flush(sa, qa, run, 1, red + 5 * Cs * kNodeWarps * 2);
+  }
+
+  // the slots of the six outputs in the order of red: sep3 and sep5 after
+  // their first pointwise, dil3, dil5, max pool, avg pool
+  const int slots[6] = {0, 1, 4, 5, 6, 7};
+  if (flush_and_count(red, slots, 6, partial, ctr, e, E, Cs, g,
+                      (unsigned)g.nblk))
+    finish_stats(partial, stat, slots, 2, e, E, Cs, g.nblk, 1.f / (float)M,
+                 1e-5f);
 }
 
 // Launch B. grid (tiles, N, 2 * E): z = 2 * e + which (0: sep3, 1: sep5).
+// The second stage of the sep convs from the first stage's plane through
+// its BatchNorm; the edge's last block finishes the six folded statistics.
 template <typename T, int TILE>
-__global__ void node_stage_b_kernel(NodeArgs args, T* __restrict__ obuf,
-                                    const float* __restrict__ stat,
-                                    float* __restrict__ partial, int E, int H,
-                                    int W, int Cs) {
+__global__ void __launch_bounds__(kNodeThreads)
+    node_stage_b_kernel(NodeArgs args, T* __restrict__ obuf,
+                        float* __restrict__ partial,
+                        float* __restrict__ stat, unsigned* ctr, int E,
+                        int H, int W, int Cs) {
   constexpr int HALO = 2;
   constexpr int PWID = TILE + 2 * HALO;
   constexpr int PLANE = PWID * PWID;
   constexpr int PIX = TILE * TILE;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* xs = smem;               // [Cs][PLANE] relu(BN(o1)) as values of T
   float* ts = xs + Cs * PLANE;    // [Cs][PIX]
   float* dws = ts + Cs * PIX;     // [25][Cs] second-stage taps
   float* pws = dws + kTaps * Cs;  // [Cs][Cs]
-  float* red = pws + Cs * Cs;
+  float* red = pws + Cs * Cs;     // [Cs][kNodeWarps][2]
   const int e = blockIdx.z / 2, which = blockIdx.z % 2;
   const NodeEdge ed = args.edge[e];
   const TileGeom g = tile_geom<TILE>(H, W);
   const long long M = (long long)gridDim.y * H * W;
   const size_t mid = ((size_t)which * E + e) * Cs;  // slot 0 or 1
 
-  for (int i = threadIdx.x; i < PLANE * Cs; i += blockDim.x) {
-    const int c = i / PLANE, p = i % PLANE;
-    const int h = g.h0 + p / PWID - HALO, w = g.w0 + p % PWID - HALO;
-    float v = 0.f;
-    if (h >= 0 && h < H && w >= 0 && w < W) {
-      const float o1 =
-          to_f32(obuf[(mid + c) * M + g.pixbase + (long long)h * W + w]);
-      const float mean = stat[(mid + c) * 2], rstd = stat[(mid + c) * 2 + 1];
-      v = round_to<T>(fmaxf((o1 - mean) * rstd, 0.f));
+  for (int base = threadIdx.x; base < PLANE * Cs;
+       base += kLoadBatchB * kNodeThreads) {
+    float v[kLoadBatchB];
+    bool in[kLoadBatchB];
+#pragma unroll
+    for (int b = 0; b < kLoadBatchB; ++b) {
+      const int i = base + b * kNodeThreads;
+      const int c = i / PLANE, q = i % PLANE;
+      const int h = g.h0 + q / PWID - HALO, w = g.w0 + q % PWID - HALO;
+      in[b] = i < PLANE * Cs && h >= 0 && h < H && w >= 0 && w < W;
+      v[b] = in[b] ? to_f32(obuf[(mid + c) * M + g.pixbase +
+                                 (long long)h * W + w])
+                   : 0.f;
     }
-    xs[i] = v;
+#pragma unroll
+    for (int b = 0; b < kLoadBatchB; ++b) {
+      const int i = base + b * kNodeThreads;
+      if (i >= PLANE * Cs) break;
+      const int c = i / PLANE;
+      const float mean = stat[(mid + c) * 2], rstd = stat[(mid + c) * 2 + 1];
+      xs[i] = in[b] ? round_to<T>(fmaxf((v[b] - mean) * rstd, 0.f)) : 0.f;
+    }
   }
   const int kidx = 2 * which + 1;
   for (int i = threadIdx.x; i < kTaps * Cs; i += blockDim.x)
     dws[i] = ed.dw[(size_t)kidx * kTaps * Cs + i];
   for (int i = threadIdx.x; i < Cs * Cs; i += blockDim.x)
     pws[i] = ed.pw[(size_t)kidx * Cs * Cs + i];
+  for (int i = threadIdx.x; i < Cs * kNodeWarps * 2; i += blockDim.x)
+    red[i] = 0.f;
   __syncthreads();
 
-  depthwise<TILE, HALO, false>(xs, dws, ts, Cs, which ? 5 : 3, 1);
-  const size_t plane = ((size_t)(kFirstFoldSlot + which) * E + e) * Cs;
-  pointwise_emit<T, TILE>(ts, pws, red, obuf + plane * M,
-                          partial + plane * 2 * g.nblk + g.blk, Cs, M, g, H,
-                          W);
-}
-
-// Launch F. One block per (slot, edge, channel) entry from `first` on.
-__global__ void node_finalize_kernel(const float* __restrict__ partial,
-                                     float* __restrict__ stat, int first,
-                                     long long nblk, float inv_count,
-                                     float eps) {
-  __shared__ float sh[2][128];
-  const size_t entry = (size_t)first + blockIdx.x;
-  const float* ps = partial + entry * 2 * nblk;
-  float s = 0.f, q = 0.f;
-  for (long long i = threadIdx.x; i < nblk; i += blockDim.x) {
-    s += ps[i];
-    q += ps[nblk + i];
-  }
-  sh[0][threadIdx.x] = s;
-  sh[1][threadIdx.x] = q;
+  if (which)
+    depthwise_fixed<5, 1, TILE, HALO, false>(xs, dws, ts, Cs);
+  else
+    depthwise_fixed<3, 1, TILE, HALO, false>(xs, dws, ts, Cs);
   __syncthreads();
-  for (int d = 64; d > 0; d >>= 1) {
-    if (threadIdx.x < d) {
-      sh[0][threadIdx.x] += sh[0][threadIdx.x + d];
-      sh[1][threadIdx.x] += sh[1][threadIdx.x + d];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const float mean = sh[0][0] * inv_count;
-    const float var = sh[1][0] * inv_count - mean * mean;
-    stat[entry * 2] = mean;
-    stat[entry * 2 + 1] = 1.f / sqrtf(var + eps);
+  const int slot = kFirstFoldSlot + which;
+  pointwise_store<T, TILE>(ts, pws, obuf + ((size_t)slot * E + e) * Cs * M,
+                           red, Cs, M, g, H, W);
+  const int slot_of[1] = {slot};
+  // the edge's blocks of both sep convs count on one counter
+  if (flush_and_count(red, slot_of, 1, partial, ctr, e, E, Cs, g,
+                      2u * (unsigned)g.nblk)) {
+    const int folds[kFoldSlots] = {2, 3, 4, 5, 6, 7};
+    finish_stats(partial, stat, folds, kFoldSlots, e, E, Cs, g.nblk,
+                 1.f / (float)M, 1e-5f);
   }
 }
 
-// Launch Z. One thread per pixel, looping over the Cs channels.
-template <typename T>
-__global__ void node_final_kernel(NodeArgs args,
-                                  const float* __restrict__ weights,
-                                  const T* __restrict__ obuf,
-                                  const float* __restrict__ stat,
-                                  float* __restrict__ out, int E, int N, int H,
-                                  int W, int Cs) {
-  extern __shared__ float smem[];
-  float* coef = smem;                       // [E][6][Cs]
-  float* bias = coef + E * kFoldSlots * Cs; // [Cs]
-  float* skip = bias + Cs;                  // [E]
+// Launch Z. One item per (PX consecutive pixels, four channels), pixels
+// fastest: a warp's plane loads are contiguous, PX values in one load (PX
+// = 2 where N H W is even: a warp reads whole 128-byte lines of a bf16
+// plane). coef and bias from the statistics, then per (pixel, channel) for
+// each edge its skip term and its six folded ops, minus the bias: a fixed
+// order.
+template <typename T, int PX>
+__global__ void __launch_bounds__(kNodeThreads)
+    node_final_kernel(NodeArgs args, const float* __restrict__ weights,
+                      const T* __restrict__ obuf,
+                      const float* __restrict__ stat,
+                      float* __restrict__ out, int E, int N, int H, int W,
+                      int Cs, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* coef = smem;                        // [E][6][Cs]
+  float* bias = coef + E * kFoldSlots * Cs;  // [Cs]
+  float* skip = bias + Cs;                   // [E]
   for (int i = threadIdx.x; i < E * kFoldSlots * Cs; i += blockDim.x) {
     const int e = i / (kFoldSlots * Cs), s = (i / Cs) % kFoldSlots;
     const int c = i % Cs;
@@ -393,37 +627,97 @@ __global__ void node_final_kernel(NodeArgs args,
     bias[c] = b;
   }
   __syncthreads();
-  const long long M = (long long)N * H * W;
-  for (long long pix = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       pix < M; pix += (long long)gridDim.x * blockDim.x) {
-    const int n = (int)(pix / ((long long)H * W));
-    const int rem = (int)(pix % ((long long)H * W));
-    const int h = rem / W, w = rem % W;
-    for (int c = 0; c < Cs; ++c) {
-      float acc = 0.f;
-      for (int e = 0; e < E; ++e) {
-        const NodeEdge& ed = args.edge[e];
-        const T* x = (const T*)ed.x;
-        acc = fmaf(to_f32(x[(long long)n * ed.sn + (long long)h * ed.sh +
-                            (long long)w * ed.sw + c]),
-                   skip[e], acc);
-      }
-      for (int s = 0; s < kFoldSlots; ++s)
-        for (int e = 0; e < E; ++e) {
-          const size_t plane = ((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c;
-          acc = fmaf(to_f32(obuf[plane * M + pix]),
-                     coef[(e * kFoldSlots + s) * Cs + c], acc);
+  const long long M = (long long)N * H * W, units = M / PX;
+  const long long HW = (long long)H * W;
+  const int groups = (Cs + 3) / 4;
+  for (long long it = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       it < groups * units; it += (long long)gridDim.x * blockDim.x) {
+    const int c0 = (int)(it / units) * 4;
+    const long long pix0 = (it % units) * PX;
+    int img[PX], row[PX], col[PX];  // each pixel's n, h, w
+#pragma unroll
+    for (int q = 0; q < PX; ++q) {
+      const long long pix = pix0 + q;
+      img[q] = (int)(pix / HW);
+      const int rem = (int)(pix % HW);
+      row[q] = rem / W, col[q] = rem % W;
+    }
+    float acc[PX][4] = {};
+    for (int e = 0; e < E; ++e) {
+      const NodeEdge& ed = args.edge[e];
+#pragma unroll
+      for (int q = 0; q < PX; ++q) {
+        const T* x = (const T*)ed.x + (long long)img[q] * ed.sn +
+                     (long long)row[q] * ed.sh + (long long)col[q] * ed.sw +
+                     c0;
+        float xv[4];
+        if (vec) {
+          const float4 f = ld4f(x);
+          xv[0] = f.x, xv[1] = f.y, xv[2] = f.z, xv[3] = f.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            xv[j] = c0 + j < Cs ? to_f32(x[j]) : 0.f;
         }
-      out[pix * Cs + c] = acc - bias[c];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[q][j] = fmaf(xv[j], skip[e], acc[q][j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j >= Cs) break;
+        float o[kFoldSlots][PX];
+#pragma unroll
+        for (int s = 0; s < kFoldSlots; ++s) {
+          const T* src =
+              obuf + (((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c0 + j) *
+                         M + pix0;
+          if constexpr (PX == 2) {
+            const float2 v = ld2f(src);
+            o[s][0] = v.x, o[s][1] = v.y;
+          } else {
+            o[s][0] = to_f32(*src);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < PX; ++q)
+#pragma unroll
+          for (int s = 0; s < kFoldSlots; ++s)
+            acc[q][j] = fmaf(o[s][q], coef[(e * kFoldSlots + s) * Cs + c0 + j],
+                             acc[q][j]);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < PX; ++q) {
+      float* dst = out + (pix0 + q) * Cs + c0;
+      if (vec) {
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(acc[q][0] - bias[c0], acc[q][1] - bias[c0 + 1],
+                        acc[q][2] - bias[c0 + 2], acc[q][3] - bias[c0 + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + j < Cs) dst[j] = acc[q][j] - bias[c0 + j];
+      }
     }
   }
 }
 
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  return allow_dynamic_smem((const void*)kernel, (int)bytes);
+}
+
+// Four consecutive channels of one pixel of every edge load at once.
+inline bool edges_vec4(const NodeArgs& args, int E, int Cs, size_t elem) {
+  if (Cs % 4 != 0) return false;
+  for (int e = 0; e < E; ++e) {
+    const NodeEdge& ed = args.edge[e];
+    if ((uintptr_t)ed.x % (4 * elem) != 0 || ed.sn % 4 != 0 ||
+        ed.sh % 4 != 0 || ed.sw % 4 != 0)
+      return false;
+  }
+  return true;
 }
 
 template <typename T, int TILE>
@@ -433,41 +727,57 @@ cudaError_t node_fwd(const NodeArgs& args, const float* weights, T* obuf,
   const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
   const long long nblk = (long long)N * tiles;
   const long long M = (long long)N * H * W;
-  const float inv_count = 1.f / (float)M;
-  const float eps = 1e-5f;
-  const size_t smem_a = stage_smem_floats<TILE, 4>(Cs, 4) * sizeof(float);
-  const size_t smem_b = stage_smem_floats<TILE, 2>(Cs, 1) * sizeof(float);
+  // two counters per edge after the partial sums: launch A's, launch B's
+  unsigned* ctr =
+      reinterpret_cast<unsigned*>(partial + (long long)8 * E * Cs * 2 * nblk);
+  const size_t smem_a = stage_smem_floats<TILE, 4>(Cs, 4, 6) * sizeof(float);
+  const size_t smem_b = stage_smem_floats<TILE, 2>(Cs, 1, 1) * sizeof(float);
   cudaError_t rc = allow_smem(node_stage_a_kernel<T, TILE>, smem_a);
   if (rc != cudaSuccess) return rc;
   rc = allow_smem(node_stage_b_kernel<T, TILE>, smem_b);
   if (rc != cudaSuccess) return rc;
-
+  rc = cudaMemsetAsync(ctr, 0, 2 * E * sizeof(unsigned), s);
+  if (rc != cudaSuccess) return rc;
+  const int vec = edges_vec4(args, E, Cs, sizeof(T));
   node_stage_a_kernel<T, TILE><<<dim3(tiles, N, E), kNodeThreads, smem_a, s>>>(
-      args, obuf, partial, E, H, W, Cs);
-  node_finalize_kernel<<<2 * E * Cs, 128, 0, s>>>(partial, stat, 0, nblk,
-                                                  inv_count, eps);
+      args, obuf, partial, stat, ctr, E, H, W, Cs, vec);
   node_stage_b_kernel<T, TILE>
       <<<dim3(tiles, N, 2 * E), kNodeThreads, smem_b, s>>>(
-          args, obuf, stat, partial, E, H, W, Cs);
-  node_finalize_kernel<<<kFoldSlots * E * Cs, 128, 0, s>>>(
-      partial, stat, kFirstFoldSlot * E * Cs, nblk, inv_count, eps);
-  long long want = (M + kNodeThreads - 1) / kNodeThreads;
-  const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
+          args, obuf, partial, stat, ctr + E, E, H, W, Cs);
+  const int px = M % 2 == 0 ? 2 : 1;
+  const long long items = (long long)((Cs + 3) / 4) * (M / px);
+  const long long want = (items + kNodeThreads - 1) / kNodeThreads;
+  const int blocks = (int)(want < 132 * 32 ? want : 132 * 32);
   const size_t smem_z = (size_t)(E * kFoldSlots * Cs + Cs + E) * sizeof(float);
-  node_final_kernel<T><<<blocks, kNodeThreads, smem_z, s>>>(
-      args, weights, obuf, stat, out, E, N, H, W, Cs);
+  if (px == 2)
+    node_final_kernel<T, 2><<<blocks, kNodeThreads, smem_z, s>>>(
+        args, weights, obuf, stat, out, E, N, H, W, Cs, vec);
+  else
+    node_final_kernel<T, 1><<<blocks, kNodeThreads, smem_z, s>>>(
+        args, weights, obuf, stat, out, E, N, H, W, Cs, vec);
   return cudaGetLastError();
 }
+
+// Edge of the square pixel tile of one block of launches A and B: the most
+// pixels whose tile and halo fit beside Cs channels (more pixels a block
+// amortise its weights, its flush and the halo).
+inline int fwd_tile(int Cs) { return Cs <= 4 ? 32 : (Cs <= 16 ? 16 : 8); }
 
 template <typename T>
 cudaError_t node_fwd_tile(const NodeArgs& args, const float* weights,
                           void* obuf, float* partial, float* stat, float* out,
                           int E, int N, int H, int W, int Cs, cudaStream_t s) {
-  if (Cs <= 16)
-    return node_fwd<T, 16>(args, weights, (T*)obuf, partial, stat, out, E, N,
-                           H, W, Cs, s);
-  return node_fwd<T, 8>(args, weights, (T*)obuf, partial, stat, out, E, N, H,
-                        W, Cs, s);
+  switch (fwd_tile(Cs)) {
+    case 32:
+      return node_fwd<T, 32>(args, weights, (T*)obuf, partial, stat, out, E,
+                             N, H, W, Cs, s);
+    case 16:
+      return node_fwd<T, 16>(args, weights, (T*)obuf, partial, stat, out, E,
+                             N, H, W, Cs, s);
+    default:
+      return node_fwd<T, 8>(args, weights, (T*)obuf, partial, stat, out, E,
+                            N, H, W, Cs, s);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1052,13 +1362,17 @@ cudaError_t node_bwd(const NodeArgs& args, const NodeDx& outs,
   return cudaGetLastError();
 }
 
+// Edge of the square pixel tile of one block of the backward's launches S
+// and X.
+inline int bwd_tile(int Cs) { return Cs <= 16 ? 16 : 8; }
+
 template <typename T>
 cudaError_t node_bwd_tile(const NodeArgs& args, const NodeDx& outs,
                           const float* weights, const float* g,
                           const void* obuf, const float* stat, float* scratch,
                           float* ddw, float* dpw, float* dwt, int E, int N,
                           int H, int W, int Cs, cudaStream_t s) {
-  if (Cs <= 16)
+  if (bwd_tile(Cs) == 16)
     return node_bwd<T, 16>(args, outs, weights, g, (const T*)obuf, stat,
                            scratch, ddw, dpw, dwt, E, N, H, W, Cs, s);
   return node_bwd<T, 8>(args, outs, weights, g, (const T*)obuf, stat, scratch,
@@ -1072,15 +1386,16 @@ extern "C" {
 
 int lctvqa_mixed_node_max_edges() { return lctvqa::kMaxEdges; }
 int lctvqa_mixed_node_max_cs() { return lctvqa::kMaxCs; }
-// Edge of the square pixel tile one block takes at this Cs: a call runs
-// N * ceil(H / tile) * ceil(W / tile) blocks per edge, and `partial` holds
-// one column per block.
-int lctvqa_mixed_node_tile(int Cs) { return Cs <= 16 ? 16 : 8; }
+// Edge of the square pixel tile one block of the forward's launch A takes
+// at this Cs: it runs N * ceil(H / tile) * ceil(W / tile) blocks per edge,
+// and `partial` holds one column per block.
+int lctvqa_mixed_node_fwd_tile(int Cs) { return lctvqa::fwd_tile(Cs); }
 
 // args: NodeArgs on the host, its first E edges filled. weights: [E, 8]
 // fp32. obuf: scratch [8, E, Cs, N*H*W] in `dtype`. partial: fp32 scratch
-// [8, E, Cs, 2, blocks per edge]. stat: fp32 scratch [8, E, Cs, 2]. out:
-// [N, H, W, Cs] fp32. 1 <= E <= 8, 1 <= Cs <= 64, N <= 65535.
+// [8, E, Cs, 2, blocks per edge], then 2E unsigned counters (zeroed here).
+// stat: fp32 scratch [8, E, Cs, 2]. out: [N, H, W, Cs] fp32. 1 <= E <= 8,
+// 1 <= Cs <= 64, N <= 65535.
 int lctvqa_mixed_node_fwd(const void* args, const void* weights, void* obuf,
                           void* partial, void* stat, void* out, int E, int N,
                           int H, int W, int Cs, int dtype, void* stream) {
@@ -1104,7 +1419,7 @@ int lctvqa_mixed_node_fwd(const void* args, const void* weights, void* obuf,
 // Floats of fp32 scratch lctvqa_mixed_node_bwd needs at these sizes.
 long long lctvqa_mixed_node_bwd_scratch(int E, int N, int H, int W, int Cs) {
   using namespace lctvqa;
-  const int tile = lctvqa_mixed_node_tile(Cs);
+  const int tile = bwd_tile(Cs);
   const long long nblk =
       (long long)N * ((H + tile - 1) / tile) * ((W + tile - 1) / tile);
   return bwd_scratch(E, (long long)N * H * W, nblk, Cs).total;

@@ -110,6 +110,13 @@ def library() -> ctypes.CDLL:
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+LONG = ctypes.c_longlong
+
+
+def _current_stream(index: int) -> int:
+    """PyTorch's current stream on CUDA device `index`, as a raw
+    cudaStream_t."""
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 class Kernel:
@@ -117,7 +124,8 @@ class Kernel:
 
     `launch` takes tensors (passed as device pointers) and ints in the
     order of the C function, appends PyTorch's current stream, and raises
-    if the launch was refused. `launches` counts successful launches."""
+    if the launch was refused. `launches` counts successful launches. It
+    makes `device` the current one only where it is not already."""
 
     def __init__(self, name: str, symbol: str, argtypes: Sequence):
         self.name = name
@@ -135,12 +143,15 @@ class Kernel:
         return self._fn
 
     def launch(self, device: torch.device, *args) -> None:
-        fn = self._bind()
-        c_args = [PTR(a.data_ptr()) if isinstance(a, torch.Tensor) else a
+        fn = self._fn or self._bind()
+        c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
                   for a in args]
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = fn(*c_args, PTR(stream))
+        current = torch.cuda.current_device()
+        if device.index is None or device.index == current:
+            rc = fn(*c_args, _current_stream(current))
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*c_args, _current_stream(device.index))
         if rc != 0:
             msg = library().lctvqa_cuda_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: kernel launch failed: {msg} "

@@ -9,7 +9,16 @@ then every product and sum in fp32 (which is exactly what a bf16 x bf16
 tensors; for CUDA tensors it launches the kernel or raises.
 
 The compute dtype is that of the weights in `CellWeights`; c and h
-state, bias and outputs are fp32.
+state, bias and outputs are fp32. `cell_weights` checks a layer's weights
+once, where it casts them; the cell's wrapper then checks only what
+changes from call to call.
+
+The cell is one launch of ceil(H / U) blocks (`cell_plan`; U = 8 hidden
+units in bf16, 4 in fp32): each block keeps its [E + H, 4U] slice of
+the weights in shared memory, takes the
+batch as the M dimension in tiles of up to 64 rows (`cell_batch_tiles`)
+and writes h' and c' into one [2, B, H] output. It takes x in fp32 or in
+the compute dtype, with any row stride, and rounds it itself.
 
 The two whole-sequence functions are one kernel pair: a tiled product
 writes x W_ih + b for all steps at once into an fp32 scratch, then one
@@ -29,6 +38,7 @@ order only.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -40,12 +50,18 @@ Tensor = torch.Tensor
 f32 = torch.float32
 
 CELL = K.register(K.Kernel("lstm_cell", "lctvqa_lstm_cell",
-                           [K.PTR] * 8 + [K.INT] * 4))
+                           [K.PTR, K.LONG, K.INT] + [K.PTR] * 6
+                           + [K.INT] * 4))
 SEQ_FINAL = K.register(K.Kernel("lstm_seq_final", "lctvqa_lstm_seq",
                                 [K.PTR] * 11 + [K.INT] * 5))
 SEQ_ALL = K.register(K.Kernel("lstm_seq_all", "lctvqa_lstm_seq",
                               [K.PTR] * 11 + [K.INT] * 5))
 
+# the cell kernel's launch shape (csrc/lstm.cu, namespace cell): hidden
+# units per block by compute dtype
+CELL_THREADS = 512
+CELL_UNITS = {torch.bfloat16: 8, torch.float32: 4}
+CELL_WARPS = CELL_THREADS // 32
 # the sequence kernel's launch shape (csrc/lstm_seq.cuh)
 SEQ_THREADS = 512
 SEQ_SYNC_BYTES = 256        # the grid barrier's counter, padded
@@ -62,8 +78,9 @@ class CellWeights(NamedTuple):
 
 def cell_weights(layer_params, dtype: Optional[torch.dtype]) -> CellWeights:
     """Cast one layer's params ({"w_ih", "w_hh", "b_ih", "b_hh"}) once,
-    outside the time loop. dtype None keeps fp32. A layer that holds its
-    cast weights under "cell" (a served model's) returns them."""
+    outside the time loop, and check them (`check_cell_weights`). dtype
+    None keeps fp32. A layer that holds its cast weights under "cell" (a
+    served model's, checked where it was cast) returns them."""
     dt = dtype or f32
     if "cell" in layer_params:
         cell = layer_params["cell"]
@@ -71,11 +88,33 @@ def cell_weights(layer_params, dtype: Optional[torch.dtype]) -> CellWeights:
             raise ValueError(f"layer weights cast to {cell.w_ih.dtype}, "
                              f"called with {dt}")
         return cell
-    return CellWeights(
+    w = CellWeights(
         layer_params["w_ih"].to(dt).contiguous(),
         layer_params["w_hh"].to(dt).contiguous(),
         (layer_params["b_ih"].to(f32) + layer_params["b_hh"].to(f32))
         .contiguous())
+    check_cell_weights(w)
+    return w
+
+
+def check_cell_weights(w: CellWeights) -> None:
+    """What the kernels take of a layer's weights, whatever the device: w_ih
+    [E, 4H] and w_hh [H, 4H] of one dtype, b [4H] fp32, all contiguous and
+    on one device. Raises ValueError otherwise."""
+    name = CELL.name
+    hid = w.w_hh.shape[0]
+    K.check(w.w_ih.dim() == 2 and w.w_ih.shape[1] == 4 * hid, name,
+            f"w_ih must be [E, {4 * hid}], got {tuple(w.w_ih.shape)}")
+    K.check(w.w_hh.shape == (hid, 4 * hid), name,
+            f"w_hh must be [{hid}, {4 * hid}], got {tuple(w.w_hh.shape)}")
+    K.check(w.b.shape == (4 * hid,) and w.b.dtype == f32, name,
+            "b must be [4H] float32")
+    K.check(w.w_hh.dtype == w.w_ih.dtype, name,
+            "w_ih and w_hh must share one compute dtype")
+    K.check(all(t.is_contiguous() for t in w), name,
+            "weights must be contiguous")
+    K.check(w.w_ih.device == w.w_hh.device == w.b.device, name,
+            "weights must be on one device")
 
 
 # ---------------------------------------------------------------------------
@@ -125,19 +164,11 @@ def lstm_seq_final_plain(w: CellWeights, xs: Tensor,
 # ---------------------------------------------------------------------------
 
 def _check_weights(name: str, w: CellWeights, emb: int) -> Tuple[int, int]:
+    check_cell_weights(w)
     hid = w.w_hh.shape[0]
-    K.check(w.w_ih.shape == (emb, 4 * hid), name,
+    K.check(w.w_ih.shape[0] == emb, name,
             f"w_ih must be [{emb}, {4 * hid}], got {tuple(w.w_ih.shape)}")
-    K.check(w.w_hh.shape == (hid, 4 * hid), name,
-            f"w_hh must be [{hid}, {4 * hid}], got {tuple(w.w_hh.shape)}")
-    K.check(w.b.shape == (4 * hid,) and w.b.dtype == f32, name,
-            "b must be [4H] float32")
-    K.check(w.w_hh.dtype == w.w_ih.dtype, name,
-            "w_ih and w_hh must share one compute dtype")
-    K.check(all(t.is_contiguous() for t in w), name,
-            "weights must be contiguous")
-    # bounds that keep the cell's shared memory under 48 KB, and the
-    # sequence kernel's grid within one block per SM
+    # bounds that keep the sequence kernel's grid within one block per SM
     K.check(emb + 4 * hid <= 8192 and hid <= 1024, name,
             f"E={emb}, H={hid} too large (needs E + 4H <= 8192, H <= 1024)")
     return hid, K.dtype_code(name, w.w_ih.dtype)
@@ -145,6 +176,63 @@ def _check_weights(name: str, w: CellWeights, emb: int) -> Tuple[int, int]:
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def cell_plan(emb: int, hid: int, dtype: torch.dtype,
+              smem_max: int = SMEM_PER_BLOCK) -> dict:
+    """The cell kernel's launch shape at (E, H), as the C entry point
+    chooses it: ceil(H / U) blocks of 512 threads, each owning U hidden
+    units (8 in bf16, 4 in fp32; 4U gate columns) with its [KP, 4U] slice
+    of [W_ih; W_hh] in shared memory, KP = (E rounded up to 16) + H
+    rounded up to 16 (bf16, the mma's depth) or 64 (fp32, 16 slices of
+    whole float4 steps); the largest batch tile (bf16 64, 32, 16 rows;
+    fp32 32, 16) whose shared memory fits `smem_max`. Raises ValueError
+    where none does."""
+    code = K.dtype_code(CELL.name, dtype)
+    mma = dtype == torch.bfloat16
+    size = 2 if mma else 4
+    units = CELL_UNITS[dtype]
+    cols = 4 * units
+    kp = _round_up(_round_up(emb, 16) + hid, 16 if mma else 64)
+    w_stride = cols + 8 if mma else cols
+    for tile in ((64, 32, 16) if mma else (32, 16)):
+        partial = CELL_WARPS * (16 if mma else tile) * cols * 4
+        smem = partial + (kp * w_stride + tile * (kp + 16 // size)) * size
+        if smem <= smem_max:
+            return {"units": units, "blocks": -(-hid // units),
+                    "threads": CELL_THREADS, "batch_tile": tile,
+                    "smem_bytes": smem, "code": code}
+    raise ValueError(f"lstm_cell: E={emb}, H={hid} too large: the weight "
+                     f"slice and a 16-row batch tile need more than "
+                     f"{smem_max} bytes of shared memory in {dtype}")
+
+
+def cell_batch_tiles(bsz: int, tile: int):
+    """The batch tiles one cell block runs in turn, weights resident:
+    [(first row, rows)]."""
+    return [(b0, min(tile, bsz - b0)) for b0 in range(0, bsz, tile)]
+
+
+def cell_plan_on_device(emb: int, hid: int, dtype: torch.dtype,
+                        device: torch.device) -> dict:
+    """The launch shape the C entry point takes on `device` (it asks the
+    card for its shared-memory limit): `cell_plan`'s keys without code."""
+    import ctypes
+
+    fn = K.library().lctvqa_lstm_cell_plan
+    fn.argtypes = [K.INT, K.INT, K.INT, ctypes.POINTER(K.INT * 4)]
+    fn.restype = K.INT
+    plan = (K.INT * 4)()
+    with torch.cuda.device(device):
+        rc = fn(emb, hid, K.dtype_code("lstm_cell", dtype), ctypes.byref(plan))
+    if rc != 0:
+        msg = K.library().lctvqa_cuda_error_string(rc).decode()
+        raise RuntimeError(f"lstm_cell: no launch shape for E={emb}, H={hid} "
+                           f"in {dtype} on {device}: {msg} (cudaError {rc})")
+    units, blocks, tile, smem = plan
+    return {"units": units, "blocks": blocks, "threads": CELL_THREADS,
+            "batch_tile": tile, "smem_bytes": smem}
 
 
 def seq_plan(hid: int, dtype: torch.dtype, sm_count: int) -> dict:
@@ -222,22 +310,33 @@ def grid_barrier_probe(blocks: int, barriers: int,
 
 def _cell_kernel(w: CellWeights, x: Tensor, h: Tensor,
                  c: Tensor) -> Tuple[Tensor, Tensor]:
-    name = CELL.name
-    device = K.check_cuda_tensors(name, x=x, h=h, c=c, w_ih=w.w_ih,
-                                  w_hh=w.w_hh, b=w.b)
+    """The cell kernel on weights that `cell_weights` checked: per call only
+    devices, shapes and the layout of x, h and c are looked at, and a cast
+    or copy is made only where one is needed."""
+    w_ih = w.w_ih
+    device = w_ih.device
+    if not (device.type == "cuda" and x.device == device
+            and h.device == device and c.device == device):
+        K.check_cuda_tensors(CELL.name, x=x, h=h, c=c, w_ih=w_ih)
     bsz, emb = x.shape
-    hid, code = _check_weights(name, w, emb)
-    K.check(h.shape == (bsz, hid) and c.shape == (bsz, hid), name,
-            f"h and c must be [{bsz}, {hid}]")
-    x = x.to(w.w_ih.dtype).contiguous()
-    h = h.to(f32).contiguous()
-    c = c.to(f32).contiguous()
-    h_out = torch.empty(bsz, hid, dtype=f32, device=device)
-    c_out = torch.empty(bsz, hid, dtype=f32, device=device)
+    hid = w.w_hh.shape[0]
+    if w_ih.shape[0] != emb or h.shape != (bsz, hid) or c.shape != (bsz, hid):
+        raise ValueError(f"lstm_cell: x [{bsz}, {emb}], h {tuple(h.shape)} "
+                         f"and c {tuple(c.shape)} do not fit w_ih "
+                         f"{tuple(w_ih.shape)}, w_hh {tuple(w.w_hh.shape)}")
+    plan = cell_plan(emb, hid, w_ih.dtype)
+    x_code = K.DTYPE_CODES.get(x.dtype)
+    if x_code is None or x.stride(1) != 1:
+        x, x_code = x.to(f32).contiguous(), K.DTYPE_CODES[f32]
+    if h.dtype != f32 or not h.is_contiguous():
+        h = h.to(f32).contiguous()
+    if c.dtype != f32 or not c.is_contiguous():
+        c = c.to(f32).contiguous()
+    out = torch.empty((2, bsz, hid), dtype=f32, device=device)
     if bsz:
-        CELL.launch(device, x, h, c, w.w_ih, w.w_hh, w.b, h_out, c_out,
-                    bsz, emb, hid, code)
-    return h_out, c_out
+        CELL.launch(device, x, x.stride(0), x_code, h, c, w_ih, w.w_hh, w.b,
+                    out, bsz, emb, hid, plan["code"])
+    return out.unbind(0)
 
 
 def _seq(kernel: K.Kernel, w: CellWeights, xs: Tensor, h0, c0,

@@ -30,12 +30,18 @@ backward is autograd through `mixed_node_plain`. First order only.
 
 The wrapper takes the plain version only for CPU tensors; for CUDA
 tensors it launches the kernels or raises. It takes any N >= 1 and any
-H, W: the only condition on an edge is stride 1.
+H, W: the only condition on an edge is stride 1. A call that no backward
+will read (no input needs a gradient, or grad mode is off) launches the
+forward directly, without the autograd Function. The launch shape
+(`node_tile`) and the one scratch tensor's layout (`node_scratch`) are
+computed here, as the C entry point computes them.
 """
 
 from __future__ import annotations
 
+import array
 import ctypes
+import functools
 from typing import List, NamedTuple, Sequence
 
 import torch
@@ -66,11 +72,11 @@ MIXED_NODE = K.register(K.Kernel(
 MIXED_NODE_BWD = K.register(K.Kernel(
     "mixed_node_bwd", "lctvqa_mixed_node_bwd", [K.PTR] * 10 + [K.INT] * 6))
 
-
-class _Edge(ctypes.Structure):  # NodeEdge of mixedop.cu
-    _fields_ = [("x", ctypes.c_void_p), ("sn", ctypes.c_longlong),
-                ("sh", ctypes.c_longlong), ("sw", ctypes.c_longlong),
-                ("dw", ctypes.c_void_p), ("pw", ctypes.c_void_p)]
+# what one launch takes (kMaxEdges, kMaxCs of mixedop.cu)
+MAX_EDGES = 8
+MAX_CS = 64
+# NodeEdge of mixedop.cu: x, sn, sh, sw, dw, pw, eight bytes each
+EDGE_FIELDS = 6
 
 
 class NodeWeights(NamedTuple):
@@ -196,34 +202,79 @@ def mixed_node_plain(xs: Sequence[Tensor], nodes: Sequence[NodeWeights],
 # kernel wrapper
 # ---------------------------------------------------------------------------
 
-def _edges(xs: Sequence[Tensor], nodes: Sequence[NodeWeights]):
-    edges = (_Edge * K.library().lctvqa_mixed_node_max_edges())()
-    for slot, x, nw in zip(edges, xs, nodes):
-        slot.x, slot.dw, slot.pw = x.data_ptr(), nw.dw.data_ptr(), \
-            nw.pw.data_ptr()
-        slot.sn, slot.sh, slot.sw = x.stride(0), x.stride(1), x.stride(2)
-    return edges
+def node_tile(cs: int) -> int:
+    """Edge of the square pixel tile one block of the forward's launches A
+    and B takes (lctvqa_mixed_node_fwd_tile): 32 up to 4 channels, 16 up
+    to 16, else 8."""
+    return 32 if cs <= 4 else (16 if cs <= 16 else 8)
 
 
-def node_fwd_launch(xs: List[Tensor], nodes: List[NodeWeights], weights: Tensor,
-            cs: int, device):
-    """One launch of the forward kernel on at most `max_edges` checked
-    edge slices. -> (out, obuf, stat): the result, and the stage outputs
-    and their statistics as the backward kernel reads them."""
-    name = MIXED_NODE.name
-    n, h, w, _ = xs[0].shape
-    e, m = len(xs), n * h * w
-    dtype = xs[0].dtype
-    tile = K.library().lctvqa_mixed_node_tile(cs)
+@functools.lru_cache(maxsize=256)
+def node_scratch(e: int, n: int, h: int, w: int, cs: int,
+                 dtype: torch.dtype) -> dict:
+    """The forward's one scratch tensor, in bytes, laid out as the C entry
+    point reads it: obuf [8, E, Cs, N*H*W] of the compute dtype (the stage
+    outputs), partial [8, E, Cs, 2, blocks] fp32 (per-block sums) followed
+    by 2E uint32 counters, stat [8, E, Cs, 2] fp32 (mean, 1/sqrt(var +
+    eps)). Every part starts on 16 bytes. -> {"blocks", "obuf", "partial",
+    "stat", "total"}: the blocks per edge of launch A and the byte offset
+    of each part, and the size."""
+    tile = node_tile(cs)
     blocks = n * -(-h // tile) * -(-w // tile)
-    obuf = torch.empty(SLOTS, e, cs, m, dtype=dtype, device=device)
-    partial = torch.empty(SLOTS, e, cs, 2, blocks, dtype=f32, device=device)
-    stat = torch.empty(SLOTS, e, cs, 2, dtype=f32, device=device)
-    out = torch.empty(n, h, w, cs, dtype=f32, device=device)
-    MIXED_NODE.launch(device, ctypes.byref(_edges(xs, nodes)), weights, obuf,
-                      partial, stat, out, e, n, h, w, cs,
-                      K.dtype_code(name, dtype))
-    return out, obuf, stat
+    size = 2 if dtype == torch.bfloat16 else 4
+    obuf = SLOTS * e * cs * n * h * w * size
+    partial = SLOTS * e * cs * 2 * blocks * 4 + 2 * e * 4
+    at_partial = -(-obuf // 16) * 16
+    at_stat = at_partial + -(-partial // 16) * 16
+    return {"blocks": blocks, "obuf": 0, "partial": at_partial,
+            "stat": at_stat, "total": at_stat + SLOTS * e * cs * 2 * 4}
+
+
+def _edge_args(xs: Sequence[Tensor], nodes: Sequence[NodeWeights]):
+    """NodeArgs of mixedop.cu (MAX_EDGES NodeEdge structs of six 8-byte
+    fields) for the first len(xs) edges, the rest zero; the caller keeps
+    the array alive for the launch and passes its address."""
+    vals = []
+    for x, nw in zip(xs, nodes):
+        sn, sh, sw = x.stride()[:3]
+        vals += (x.data_ptr(), sn, sh, sw, nw.dw.data_ptr(),
+                 nw.pw.data_ptr())
+    vals += [0] * (MAX_EDGES * EDGE_FIELDS - len(vals))
+    return array.array("q", vals)
+
+
+def _node_fwd(xs: Sequence[Tensor], nodes: Sequence[NodeWeights],
+              weights: Tensor, cs: int, device):
+    """One launch of the forward kernel on at most MAX_EDGES checked edges
+    -> (out, scratch, layout)."""
+    n, h, w, _ = xs[0].shape
+    dtype = xs[0].dtype
+    e = len(xs)
+    lay = node_scratch(e, n, h, w, cs, dtype)
+    scratch = torch.empty(lay["total"], dtype=torch.uint8, device=device)
+    out = torch.empty((n, h, w, cs), dtype=f32, device=device)
+    base = scratch.data_ptr()
+    args = _edge_args(xs, nodes)
+    MIXED_NODE.launch(device, args.buffer_info()[0], weights,
+                      base + lay["obuf"], base + lay["partial"],
+                      base + lay["stat"], out, e, n, h, w, cs,
+                      K.DTYPE_CODES[dtype])
+    return out, scratch, lay
+
+
+def node_fwd_launch(xs: List[Tensor], nodes: List[NodeWeights],
+                    weights: Tensor, cs: int, device):
+    """One launch of the forward kernel on at most MAX_EDGES checked edge
+    slices. -> (out, obuf, stat): the result, and the stage outputs
+    [8, E, Cs, N*H*W] and their statistics [8, E, Cs, 2] as the backward
+    kernel reads them (views of the scratch)."""
+    out, scratch, lay = _node_fwd(xs, nodes, weights, cs, device)
+    n, h, w, _ = xs[0].shape
+    e, dtype = len(xs), xs[0].dtype
+    obuf = scratch[:lay["partial"]].view(dtype)[:SLOTS * e * cs * n * h * w]
+    stat = scratch[lay["stat"]:].view(f32)
+    return (out, obuf.view(SLOTS, e, cs, n * h * w),
+            stat.view(SLOTS, e, cs, 2))
 
 
 def node_bwd_launch(xs: List[Tensor], nodes: List[NodeWeights], weights: Tensor,
@@ -245,7 +296,8 @@ def node_bwd_launch(xs: List[Tensor], nodes: List[NodeWeights], weights: Tensor,
     outs = _Dx()
     for i in range(e):
         outs.dx[i] = dx[i].data_ptr()
-    MIXED_NODE_BWD.launch(device, ctypes.byref(_edges(xs, nodes)),
+    args = _edge_args(xs, nodes)
+    MIXED_NODE_BWD.launch(device, args.buffer_info()[0],
                           ctypes.byref(outs), weights, g, obuf, stat, scratch,
                           ddw, dpw, dwt, e, n, h, w, cs,
                           K.dtype_code(name, dtype))
@@ -285,12 +337,13 @@ class MixedNodeFn(torch.autograd.Function):
         xs, dws, pws = tensors[:e], tensors[e:2 * e], tensors[2 * e:]
         device = weights.device
         nodes = [NodeWeights(d, p) for d, p in zip(dws, pws)]
-        step = K.library().lctvqa_mixed_node_max_edges()
+        step = MAX_EDGES
         out, kept = None, []
         for lo in range(0, e, step):
             part, obuf, stat = node_fwd_launch(
                 list(xs[lo:lo + step]), nodes[lo:lo + step],
-                weights[lo:lo + step].contiguous(), cs, device)
+                weights if e <= step else weights[lo:lo + step].contiguous(),
+                cs, device)
             out = part if out is None else out + part
             kept += [obuf, stat]
         ctx.cs, ctx.e, ctx.step = cs, e, step
@@ -310,13 +363,54 @@ class MixedNodeFn(torch.autograd.Function):
         for i, lo in enumerate(range(0, e, step)):
             dx, ddw, dpw, dwt = node_bwd_launch(
                 list(xs[lo:lo + step]), nodes[lo:lo + step],
-                weights[lo:lo + step].contiguous(), g, kept[2 * i],
+                weights if e <= step else weights[lo:lo + step].contiguous(),
+                g, kept[2 * i],
                 kept[2 * i + 1], cs, weights.device)
             dxs += dx
             ddws += list(ddw.unbind(0))
             dpws += list(dpw.unbind(0))
             dwts.append(dwt)
         return (torch.cat(dwts), None, None, *dxs, *ddws, *dpws)
+
+
+def _check_node_call(xs: List[Tensor], nodes: List[NodeWeights],
+                     weights: Tensor, cs: int) -> None:
+    name = MIXED_NODE.name
+    device = weights.device
+    if not (device.type == "cuda" and all(x.device == device for x in xs)
+            and all(nw.dw.device == device and nw.pw.device == device
+                    for nw in nodes)):
+        tensors = {f"x{i}": x for i, x in enumerate(xs)}
+        tensors.update({f"dw{i}": nw.dw for i, nw in enumerate(nodes)})
+        tensors.update({f"pw{i}": nw.pw for i, nw in enumerate(nodes)})
+        K.check_cuda_tensors(name, weights=weights, **tensors)
+    e = len(xs)
+    K.check(e >= 1 and len(nodes) == e, name,
+            f"needs as many param sets as edges, got {e} and {len(nodes)}")
+    shape, dtype = xs[0].shape, xs[0].dtype
+    K.check(all(x.dim() == 4 and x.shape == shape and x.dtype == dtype
+                for x in xs), name,
+            "edge states must share one [N, H, W, C] shape and dtype")
+    K.check(xs[0].numel() > 0 and 1 <= cs <= shape[-1], name,
+            f"needs non-empty states with at least cs={cs} channels, got "
+            f"{tuple(shape)}")
+    K.check(all(x.stride(3) == 1 for x in xs), name,
+            "edge states must have channel stride 1")
+    K.check(cs <= MAX_CS and shape[0] <= 65535, name,
+            f"cs={cs}, N={shape[0]} too large (needs cs <= {MAX_CS}, "
+            "N <= 65535)")
+    K.check(dtype in K.DTYPE_CODES, name,
+            f"compute dtype {dtype} is not supported by the kernel "
+            "(float32 or bfloat16)")
+    K.check(weights.shape == (e, 8), name,
+            f"weights must be [{e}, 8], got {tuple(weights.shape)}")
+    dw_shape, pw_shape = (8, MAX_TAPS, cs), (8, cs, cs)
+    for nw in nodes:
+        K.check(nw.dw.shape == dw_shape and nw.pw.shape == pw_shape
+                and nw.dw.dtype == f32 and nw.pw.dtype == f32
+                and nw.dw.is_contiguous() and nw.pw.is_contiguous(), name,
+                f"packed weights must be contiguous fp32 [8, {MAX_TAPS}, "
+                f"{cs}] and [8, {cs}, {cs}]")
 
 
 def mixed_node(xs: Sequence[Tensor], p_list: Sequence[dict], weights: Tensor,
@@ -330,34 +424,24 @@ def mixed_node(xs: Sequence[Tensor], p_list: Sequence[dict], weights: Tensor,
     nodes = [node_weights(p) for p in p_list]
     if xs[0].device.type == "cpu":
         return mixed_node_plain(xs, nodes, weights, cs)
-    name = MIXED_NODE.name
-    tensors = {f"x{i}": x for i, x in enumerate(xs)}
-    tensors.update({f"dw{i}": nw.dw for i, nw in enumerate(nodes)})
-    tensors.update({f"pw{i}": nw.pw for i, nw in enumerate(nodes)})
-    K.check_cuda_tensors(name, weights=weights, **tensors)
+    _check_node_call(xs, nodes, weights, cs)
+    if weights.dtype != f32 or not weights.is_contiguous():
+        weights = weights.to(f32).contiguous()
     e = len(xs)
-    K.check(e >= 1 and len(nodes) == e, name,
-            f"needs as many param sets as edges, got {e} and {len(nodes)}")
-    K.check(all(x.dim() == 4 and x.shape == xs[0].shape
-                and x.dtype == xs[0].dtype for x in xs), name,
-            "edge states must share one [N, H, W, C] shape and dtype")
-    K.check(xs[0].numel() > 0 and 1 <= cs <= xs[0].shape[-1], name,
-            f"needs non-empty states with at least cs={cs} channels, got "
-            f"{tuple(xs[0].shape)}")
-    K.check(all(x.stride(3) == 1 for x in xs), name,
-            "edge states must have channel stride 1")
-    lib = K.library()
-    K.check(cs <= lib.lctvqa_mixed_node_max_cs() and xs[0].shape[0] <= 65535,
-            name, f"cs={cs}, N={xs[0].shape[0]} too large (needs cs <= "
-            f"{lib.lctvqa_mixed_node_max_cs()}, N <= 65535)")
-    K.check(weights.shape == (e, 8), name,
-            f"weights must be [{e}, 8], got {tuple(weights.shape)}")
-    for nw in nodes:
-        K.check(nw.dw.shape == (8, MAX_TAPS, cs) and nw.pw.shape == (8, cs, cs)
-                and nw.dw.dtype == f32 and nw.pw.dtype == f32
-                and nw.dw.is_contiguous() and nw.pw.is_contiguous(), name,
-                f"packed weights must be contiguous fp32 [8, {MAX_TAPS}, "
-                f"{cs}] and [8, {cs}, {cs}]")
-    return MixedNodeFn.apply(
-        weights.to(f32).contiguous(), cs, e, *[x[..., :cs] for x in xs],
-        *[nw.dw for nw in nodes], *[nw.pw for nw in nodes])
+    if torch.is_grad_enabled() and (
+            weights.requires_grad or any(x.requires_grad for x in xs)
+            or any(nw.dw.requires_grad or nw.pw.requires_grad
+                   for nw in nodes)):
+        return MixedNodeFn.apply(
+            weights, cs, e, *[x[..., :cs] for x in xs],
+            *[nw.dw for nw in nodes], *[nw.pw for nw in nodes])
+    # no backward will read the stage outputs: no Function, no views
+    out = None
+    for lo in range(0, e, MAX_EDGES):
+        part = _node_fwd(
+            xs[lo:lo + MAX_EDGES], nodes[lo:lo + MAX_EDGES],
+            weights if e <= MAX_EDGES
+            else weights[lo:lo + MAX_EDGES].contiguous(),
+            cs, weights.device)[0]
+        out = part if out is None else out + part
+    return out

@@ -539,3 +539,135 @@ def test_lstm_functions_grads_match_plain(cuda, shape, dtype):
         assert _build.launch_counts()[name] == before + 1
         for i, (a, c) in enumerate(zip(*grads)):
             _scaled_close(a, c, tol, f"{name} leaf {i}")
+
+
+# ---------------------------------------------------------------------------
+# the cell kernel: batch tiles, H not a multiple of its unit group, x in
+# place, repeatability, streams, launch shape
+# ---------------------------------------------------------------------------
+
+CELL_SHAPES = [(300, 512), (30, 50)]  # E, H; 50 is no multiple of 4 or 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("eh", CELL_SHAPES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("b", [1, 8, 64, 65, 130])
+def test_lstm_cell_kernel_batch_tiles(cuda, b, eh, dtype):
+    e, h = eh
+    gen = torch.Generator().manual_seed(40)
+    w = _weights(gen, e, h, dtype, cuda)
+    xs = torch.randn(b, 3, e, generator=gen).to(cuda)
+    h0 = (0.5 * torch.randn(b, h, generator=gen)).to(cuda)
+    c0 = torch.randn(b, h, generator=gen).to(cuda)
+    before = _build.launch_counts()["lstm_cell"]
+    # x as a strided fp32 view, in the compute dtype, contiguous
+    for x in (xs[:, 1], xs[:, 1].to(dtype), xs[:, 1].contiguous()):
+        got = cuda_lstm.lstm_cell(w, x, h0, c0)
+        want = cuda_lstm.lstm_cell_plain(w, x, h0, c0)
+        _close(got[0], want[0], dtype)
+        _close(got[1], want[1], dtype)
+        # one [2, B, H] output
+        assert got[1].data_ptr() == got[0].data_ptr() + b * h * 4
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["lstm_cell"] == before + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_lstm_cell_kernel_repeats_and_runs_on_two_streams(cuda, dtype):
+    """Two runs give the same bits (partial sums in a fixed order, no
+    atomics); calls on two streams at once share nothing."""
+    gen = torch.Generator().manual_seed(41)
+    w = _weights(gen, 300, 512, dtype, cuda)
+    args = [(torch.randn(b, 300, generator=gen).to(cuda),
+             (0.5 * torch.randn(b, 512, generator=gen)).to(cuda),
+             torch.randn(b, 512, generator=gen).to(cuda)) for b in (64, 8)]
+    first = [_flat(cuda_lstm.lstm_cell(w, *a)) for a in args]
+    for a, f in zip(args, first):
+        _close(f, _flat(cuda_lstm.lstm_cell_plain(w, *a)), dtype)
+    torch.cuda.synchronize()
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    outs = ([], [])
+    for _ in range(10):
+        for s, a, o in zip((s1, s2), args, outs):
+            with torch.cuda.stream(s):
+                o.append(_flat(cuda_lstm.lstm_cell(w, *a)))
+    torch.cuda.synchronize()
+    for f, o in zip(first, outs):
+        assert all(torch.equal(v, f) for v in o)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("eh", CELL_SHAPES + [(300, 1024), (7, 1024)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_lstm_cell_plan_on_the_card_is_the_python_mirror(cuda, eh, dtype):
+    got = cuda_lstm.cell_plan_on_device(*eh, dtype, cuda)
+    smem = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    want = cuda_lstm.cell_plan(*eh, dtype, smem)
+    assert got == {k: want[k] for k in got}
+
+
+# ---------------------------------------------------------------------------
+# the node forward at the supernet's cell shapes
+# ---------------------------------------------------------------------------
+
+# H, W, C of the cells' states and the most stride-1 edges a node has there
+CELL_NODES = {"cell0": (64, 64, 16, 5), "cell1": (32, 32, 32, 3),
+              "cell2": (16, 16, 64, 3), "cell3": (16, 16, 64, 5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("cell", sorted(CELL_NODES))
+def test_mixed_node_forward_with_and_without_grad(cuda, cell, dtype):
+    """The same bits with and without a gradient (the call without one
+    skips the autograd Function); the stage outputs and statistics the
+    grad path keeps are what the backward reads: every statistic is the
+    mean and 1/sqrt(var + eps) of its plane, and the backward kernel on
+    them gives the plain version's gradients."""
+    h, w, c, edges = CELL_NODES[cell]
+    cs = c // 4
+    gen = torch.Generator().manual_seed(42)
+    xs, ops, wts = _node_case(gen, 4, h, w, c, 4, edges, dtype, cuda)
+    nodes = [cuda_mixedop.node_weights(p) for p in ops]
+    want = cuda_mixedop.mixed_node_plain(xs, nodes, wts, cs)
+    before = _build.launch_counts()["mixed_node_fwd"]
+    got = cuda_mixedop.mixed_node(xs, ops, wts, cs)
+    with torch.no_grad():
+        again = cuda_mixedop.mixed_node(xs, ops, wts, cs)
+    xg = [x.clone().requires_grad_() for x in xs]
+    out = cuda_mixedop.mixed_node(xg, ops, wts, cs)
+    assert out.grad_fn is not None
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["mixed_node_fwd"] == before + 3
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=0, atol=4 * 2.0 ** -7 * float(wts.max())))
+    torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(got, again) and torch.equal(got, out)
+
+    _, obuf, stat = cuda_mixedop.node_fwd_launch(
+        [x[..., :cs] for x in xs], nodes, wts, cs, cuda)
+    planes = obuf.float()
+    mean = planes.mean(-1)
+    var = (planes * planes).mean(-1) - mean * mean
+    torch.testing.assert_close(stat[..., 0], mean, rtol=1e-4,
+                               atol=1e-5 * float(planes.abs().max()))
+    torch.testing.assert_close(stat[..., 1], torch.rsqrt(var + 1e-5),
+                               rtol=1e-3, atol=0)
+    g = torch.randn(out.shape, generator=gen).to(cuda)
+    out.backward(g)
+    dxs = cuda_mixedop.mixed_node_bwd_plain(xs, nodes, wts, g, cs)[0]
+    for e in range(edges):
+        _scaled_close(xg[e].grad[..., :cs], dxs[e],
+                      1e-4 if dtype == torch.float32 else 2.0 ** -7,
+                      f"dx[{e}]")
+
+
+def test_mixed_node_launch_shape_mirror(cuda):
+    lib = _build.library()
+    assert lib.lctvqa_mixed_node_max_edges() == cuda_mixedop.MAX_EDGES
+    assert lib.lctvqa_mixed_node_max_cs() == cuda_mixedop.MAX_CS
+    for cs in (1, 4, 5, 16, 17, 64):
+        assert lib.lctvqa_mixed_node_fwd_tile(cs) == cuda_mixedop.node_tile(cs)

@@ -31,6 +31,7 @@ from lctvqa_torch import convert
 from lctvqa_torch.models import search as t_search
 from lctvqa_torch.ops import (_build, conv as t_conv, cuda_bn, cuda_generate,
                               cuda_lstm, cuda_mixedop)
+from test_torch_train import one_cpu_thread  # noqa: F401 (autouse)
 
 MCFG = small_test_config().model
 B, T = 4, MCFG.max_qst_len
@@ -553,3 +554,188 @@ def test_seq_scratch_bytes():
             row = (cuda_lstm.seq_scratch_bytes(1, hid, dtype) - 256) // 2
             assert row % 16 == 0 and row >= hid * size
 
+
+
+# ---------------------------------------------------------------------------
+# the cell kernel's launch shape and wrapper, the node forward's scratch
+# (plain Python; the launch itself is replaced by a recorder)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("emb,hid,dtype,want", [
+    # bf16: 8 units a block, the largest batch tile of 64, 32, 16 rows
+    (300, 512, torch.bfloat16, (64, 64, 203520)),
+    (300, 1024, torch.bfloat16, (128, 32, 224512)),
+    (20, 50, torch.bfloat16, (7, 64, 53760)),
+    # fp32: 4 units a block, tiles of 32 or 16 rows
+    (300, 512, torch.float32, (128, 32, 193024)),
+    (7, 1024, torch.float32, (256, 16, 155904)),
+    (9, 80, torch.float32, (20, 32, 57856)),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_cell_plan_shapes(emb, hid, dtype, want):
+    plan = cuda_lstm.cell_plan(emb, hid, dtype)
+    assert (plan["blocks"], plan["batch_tile"], plan["smem_bytes"]) == want
+    units = 8 if dtype == torch.bfloat16 else 4
+    assert plan["units"] == units and plan["threads"] == 512
+    assert plan["smem_bytes"] <= cuda_lstm.SMEM_PER_BLOCK
+    # every unit has a block; one thread per (row, unit) of a tile finishes
+    assert (plan["blocks"] - 1) * units < hid <= plan["blocks"] * units
+    assert plan["batch_tile"] * plan["units"] <= plan["threads"]
+
+
+def test_cell_plan_refuses_what_does_not_fit():
+    with pytest.raises(ValueError, match="too large"):
+        cuda_lstm.cell_plan(2000, 1024, torch.float32)
+    # a smaller card's limit takes a smaller tile
+    assert cuda_lstm.cell_plan(300, 512, torch.bfloat16,
+                               smem_max=180000)["batch_tile"] == 32
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_lstm.cell_plan(300, 512, torch.float16)
+
+
+@pytest.mark.parametrize("bsz", [1, 63, 64, 65, 130])
+@pytest.mark.parametrize("tile", [64, 32, 16])
+def test_cell_batch_tiles(bsz, tile):
+    tiles = cuda_lstm.cell_batch_tiles(bsz, tile)
+    assert [b0 for b0, _ in tiles] == list(range(0, bsz, tile))
+    assert sum(rows for _, rows in tiles) == bsz
+    assert all(0 < rows <= tile for _, rows in tiles)
+    assert all(rows == tile for _, rows in tiles[:-1])
+    assert len(tiles) == -(-bsz // tile)
+
+
+class _Recorder:
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, device, *args):
+        self.calls.append(args)
+
+
+def _cell_inputs(dtype, x_dtype=torch.float32, bsz=5, emb=12, hid=8):
+    rng = np.random.default_rng(60)
+    lp = {"w_ih": rng.standard_normal((emb, 4 * hid)),
+          "w_hh": rng.standard_normal((hid, 4 * hid)),
+          "b_ih": rng.standard_normal(4 * hid),
+          "b_hh": rng.standard_normal(4 * hid)}
+    w = cuda_lstm.cell_weights(
+        {k: torch.tensor(v, dtype=torch.float32) for k, v in lp.items()},
+        dtype)
+    xs = torch.tensor(rng.standard_normal((bsz, 3, emb)), dtype=x_dtype)
+    h = torch.tensor(rng.standard_normal((bsz, hid)), dtype=torch.float32)
+    return w, xs, h
+
+
+def test_cell_wrapper_one_output_and_no_needless_copy(monkeypatch):
+    """The wrapper's host side without a card: one [2, B, H] fp32 output
+    whose two views are h' and c'; x handed over in place, strided, in
+    fp32 or the compute dtype; a copy only for what the kernel does not
+    take."""
+    rec = _Recorder()
+    monkeypatch.setattr(cuda_lstm.CELL, "launch", rec)
+    monkeypatch.setattr(cuda_lstm.K, "check_cuda_tensors", lambda *a, **k: 0)
+    w, xs, h = _cell_inputs(torch.bfloat16)
+    x = xs[:, 1]  # a strided view, as a caller slices a sequence
+    h_out, c_out = cuda_lstm._cell_kernel(w, x, h, h)
+    (args,) = rec.calls
+    out = args[8]
+    assert out.shape == (2, 5, 8) and out.dtype == torch.float32
+    assert out.is_contiguous()
+    assert h_out.data_ptr() == out.data_ptr()
+    assert c_out.data_ptr() == out.data_ptr() + 5 * 8 * 4
+    assert h_out.stride() == c_out.stride() == (8, 1)
+    assert h_out.shape == c_out.shape == (5, 8)
+    assert args[0] is x and args[1] == 3 * 12 and args[2] == 0  # fp32 x
+    assert args[3] is h and args[4] is h
+    assert args[5] is w.w_ih and args[6] is w.w_hh and args[7] is w.b
+    assert args[9:] == (5, 12, 8, 1)  # B, E, H, bf16
+    # x already in the compute dtype goes as it is, with its code
+    _, xb, _ = _cell_inputs(torch.bfloat16, torch.bfloat16)
+    cuda_lstm._cell_kernel(w, xb[:, 0], h, h)
+    assert rec.calls[-1][0].dtype == torch.bfloat16
+    assert rec.calls[-1][2] == 1
+    # fp16 x and a transposed h are copied to what the kernel takes
+    cuda_lstm._cell_kernel(w, xs[:, 0].half(), h.t().contiguous().t(), h)
+    args = rec.calls[-1]
+    assert args[0].dtype == torch.float32 and args[0].is_contiguous()
+    assert args[2] == 0 and args[3].is_contiguous()
+    with pytest.raises(ValueError, match="w_ih"):
+        cuda_lstm._cell_kernel(w, torch.zeros(5, 13), h, h)
+
+
+def test_cell_weights_are_checked_once_where_they_are_cast():
+    w, _, _ = _cell_inputs(None)
+    with pytest.raises(ValueError, match="b must be"):
+        cuda_lstm.check_cell_weights(cuda_lstm.CellWeights(
+            w.w_ih, w.w_hh, w.b.double()))
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_lstm.check_cell_weights(cuda_lstm.CellWeights(
+            w.w_ih.t().contiguous().t(), w.w_hh, w.b))
+    with pytest.raises(ValueError, match="w_hh"):
+        cuda_lstm.cell_weights({"w_ih": torch.zeros(3, 32),
+                                "w_hh": torch.zeros(8, 31),
+                                "b_ih": torch.zeros(32),
+                                "b_hh": torch.zeros(32)}, None)
+
+
+@pytest.mark.parametrize("e,n,h,w,cs,dtype,blocks,want", [
+    # cell 0 of the supernet at batch 64: 84 MB of stage outputs, 32 x 32
+    # tiles
+    (5, 64, 64, 64, 4, torch.bfloat16, 256,
+     (0, 83886080, 84213808, 84215088)),
+    (3, 64, 16, 16, 16, torch.bfloat16, 64,
+     (0, 12582912, 12779552, 12782624)),
+    # an odd shape in fp32: 8 x 8 tiles past 16 channels (16 x 16 between)
+    (2, 3, 7, 9, 24, torch.float32, 6, (0, 290304, 308752, 311824)),
+], ids=["cell0", "cell2", "odd"])
+def test_node_scratch_layout(e, n, h, w, cs, dtype, blocks, want):
+    lay = cuda_mixedop.node_scratch(e, n, h, w, cs, dtype)
+    assert lay["blocks"] == blocks
+    assert (lay["obuf"], lay["partial"], lay["stat"], lay["total"]) == want
+    size = 2 if dtype == torch.bfloat16 else 4
+    tile = cuda_mixedop.node_tile(cs)
+    assert blocks == n * -(-h // tile) * -(-w // tile)
+    assert lay["partial"] >= 8 * e * cs * n * h * w * size
+    # the partial sums, then two counters per edge, before the statistics
+    assert lay["stat"] - lay["partial"] >= 8 * e * cs * 2 * blocks * 4 + 8 * e
+    assert lay["total"] - lay["stat"] == 8 * e * cs * 2 * 4
+    assert all(lay[k] % 16 == 0 for k in ("partial", "stat"))
+
+
+def test_node_forward_wrapper_hands_over_one_scratch(monkeypatch):
+    """node_fwd_launch without a card: one scratch tensor, the edge
+    arguments packed as mixedop.cu's NodeArgs, and obuf / stat handed
+    back as the backward reads them (views of the scratch)."""
+    import ctypes
+
+    rec, packed = _Recorder(), []
+
+    def launch(device, *args):  # NodeArgs lives only for the call
+        packed.extend((ctypes.c_longlong * 48).from_address(args[0]))
+        rec(device, *args)
+
+    monkeypatch.setattr(cuda_mixedop.MIXED_NODE, "launch", launch)
+    n, h, w, c, cs = 2, 5, 6, 16, 4
+    wide = torch.zeros(n, h, w, c, dtype=torch.bfloat16)
+    xs = [wide[..., :cs], wide[..., 4:4 + cs]]
+    nodes = [cuda_mixedop.NodeWeights(torch.zeros(8, 25, cs),
+                                      torch.zeros(8, cs, cs))
+             for _ in xs]
+    wts = torch.zeros(2, 8)
+    out, obuf, stat = cuda_mixedop.node_fwd_launch(xs, nodes, wts, cs, "cpu")
+    (args,) = rec.calls
+    lay = cuda_mixedop.node_scratch(2, n, h, w, cs, torch.bfloat16)
+    base = obuf.data_ptr()
+    assert args[2:5] == (base, base + lay["partial"], base + lay["stat"])
+    assert args[5] is out and args[6:] == (2, n, h, w, cs, 1)
+    assert out.shape == (n, h, w, cs) and out.dtype == torch.float32
+    assert obuf.shape == (8, 2, cs, n * h * w)
+    assert obuf.dtype == torch.bfloat16 and obuf.is_contiguous()
+    assert stat.shape == (8, 2, cs, 2) and stat.dtype == torch.float32
+    assert stat.data_ptr() == base + lay["stat"]
+    assert obuf.untyped_storage().nbytes() == lay["total"]
+    # NodeArgs: eight edges of (x, sn, sh, sw, dw, pw), the rest zero
+    assert list(packed[:6]) == [xs[0].data_ptr(), h * w * c, w * c, c,
+                                nodes[0].dw.data_ptr(),
+                                nodes[0].pw.data_ptr()]
+    assert packed[6] == xs[1].data_ptr() == xs[0].data_ptr() + 8
+    assert list(packed[12:]) == [0] * 36

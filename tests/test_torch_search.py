@@ -24,6 +24,7 @@ from lctvqa_torch import convert
 from lctvqa_torch.models import search as t_search
 from lctvqa_torch.models import vqa_ef as t_ef
 from lctvqa_torch.ops import conv as t_conv
+from test_torch_train import one_cpu_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 MCFG = small_test_config().model

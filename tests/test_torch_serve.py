@@ -17,6 +17,7 @@ import re
 import subprocess
 import sys
 import threading
+import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -35,6 +36,7 @@ from lctvqa.models import vqa_ef, vqa_w
 from lctvqa.text import VocabDict
 from lctvqa_torch import serve
 from lctvqa_torch.export import load_artifact
+from test_torch_train import one_cpu_thread  # noqa: F401 (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 MCFG = dataclasses.replace(small_test_config().model, arch_type="fixed",
@@ -365,9 +367,13 @@ def test_darts_group_of_three_is_the_batch_of_four(darts_artifact, flags):
     assert np.abs(alone - got).max() > 2e-4
 
 
-def test_artifacts_cross_between_the_packages(darts_artifact, tmp_path):
+def test_artifacts_cross_between_the_packages(darts_artifact, tmp_path,
+                                             monkeypatch):
     """lctvqa.export reads what the port's save_artifact wrote, and back:
-    same tree structure (tuples and lists kept), dtypes and values."""
+    same tree structure (tuples and lists kept), dtypes and values; the
+    two files are the same bytes when written at the same time (the ZIP
+    entries carry the clock's time to two seconds, so both writes see one
+    frozen clock)."""
     from lctvqa.export import read_artifact as jax_read
     from lctvqa_torch import export as t_export
 
@@ -379,8 +385,11 @@ def test_artifacts_cross_between_the_packages(darts_artifact, tmp_path):
            "meta": meta}
     assert t_export.ARTIFACT_VERSION == meta["artifact_version"]
     ported, jaxed = str(tmp_path / "port.lctx"), str(tmp_path / "jax.lctx")
+    now = time.time()
+    monkeypatch.setattr(time, "time", lambda: now)
     t_export.save_artifact(art, ported)
     save_artifact(art, jaxed)
+    monkeypatch.undo()
     for got in (jax_read(ported), t_export.read_artifact(jaxed),
                 t_export.read_artifact(ported)):
         assert got["meta"] == meta and got["exported"] == art["exported"]

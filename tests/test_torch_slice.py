@@ -25,6 +25,7 @@ from lctvqa_torch.data.pipeline import normalize_images
 from lctvqa_torch.models import vgg as t_vgg
 from lctvqa_torch.models import vqa_ef as t_ef
 from lctvqa_torch.models import vqa_w as t_w
+from test_torch_train import one_cpu_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 MCFG = dataclasses.replace(small_test_config().model, arch_type="fixed",
