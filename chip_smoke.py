@@ -8,7 +8,8 @@ NVIDIA GPU.
                                       # step at batch 64 (PERF.md)
     python3 chip_smoke.py --kernel-times [--root DIR]
                                       # only the cell, the node forward and
-                                      # the W / EF calls, timed; --root takes
+                                      # backward, the decode and the W / EF
+                                      # calls, timed; --root takes
                                       # lctvqa_torch from another checkout
                                       # (a git archive of the parent), for
                                       # before/after runs in one call
@@ -37,8 +38,11 @@ non-zero:
      finds it that ran a convolutional encoder in between; the sequence
      and cell kernels' launch shapes on this card (blocks, batch tile,
      shared memory) must be what ops/cuda_lstm.py::seq_plan and cell_plan
-     say, and the time of as many empty grid barriers as one call
-     crosses is printed beside the former. The cell's and nn.LSTMCell's
+     say, and the decode's (gate and head blocks, columns a head block,
+     batch tiles, shared memory) what ops/cuda_generate.py::generate_plan
+     says; the time of as many empty grid barriers as one call crosses
+     is printed beside the sequence kernel's and the decode's plans, and
+     the decode's device time and host enqueue at B = 64. The cell's and nn.LSTMCell's
      device time per call at B = 64 (torch.profiler) and their host
      enqueue times are printed too.
    - bn_fwd at the supernet's six shapes, fp32 and bf16 in and out: fp32
@@ -69,7 +73,8 @@ non-zero:
      once, and 2e-3 s for the fp32 gradients of taps, pointwise matrices
      and weights: the plain version recomputes the forward, and a stage
      output that the two round to different bf16 neighbours moves a few
-     terms of those sums.
+     terms of those sums. At NODE_PROFILE's first shape the device time
+     of each launch of one call and the host's enqueue time are printed.
    - the three LSTM Functions (kernel forward, autograd through the plain
      version backward) at B = 64: gradients of x, h0, c0 and the weights
      against autograd through the plain version alone, 1e-5 s in fp32
@@ -565,6 +570,37 @@ def check_cell_plan(device, mcfg):
     return out
 
 
+def check_generate_plan(device, mcfg, time_fn=time_ms):
+    """The decode kernel's launch shape on this card against the Python
+    mirror of the choice, and the time of 2 max_qst_len empty grid
+    barriers (as many hand-overs as one call makes) at that grid."""
+    from lctvqa_torch.ops import cuda_generate as G
+    from lctvqa_torch.ops import cuda_lstm as L
+
+    emb, hid, steps = (mcfg.word_embed_size, mcfg.lstm_hidden_size,
+                       mcfg.max_qst_len)
+    vpad = -(-mcfg.qst_vocab_size // 8) * 8
+    props = torch.cuda.get_device_properties(device)
+    out = {}
+    for dname, dtype in DTYPES.items():
+        plan = G.generate_plan_on_device(emb, hid, vpad, dtype, device)
+        want = G.generate_plan(emb, hid, vpad, dtype,
+                               props.multi_processor_count,
+                               props.shared_memory_per_block_optin)
+        expect(plan == want, f"greedy_generate plan {dname}: the card chose "
+               f"{plan}, the Python mirror {want}")
+        ms = time_fn(lambda: L.grid_barrier_probe(plan["blocks"], 2 * steps,
+                                                  device))
+        out[dname] = dict(plan, barriers_ms=ms)
+        log(f"greedy_generate {dname} E={emb} H={hid} V={vpad}: "
+            f"{plan['gate_blocks']} gate blocks (batch tile "
+            f"{plan['gate_tile']}) and {plan['head_blocks']} head blocks of "
+            f"{plan['head_cols']} columns (batch tile {plan['head_tile']}), "
+            f"{plan['threads']} threads, {plan['smem_bytes']} B of shared "
+            f"memory; {2 * steps} empty grid barriers {ms:.4f} ms")
+    return out
+
+
 def device_times(fn, iters=10):
     """torch.profiler over `iters` calls of fn, after three unprofiled ones
     -> (device us per call, [(kernel, launches per call, us per call)] in
@@ -715,6 +751,88 @@ def node_device_times(device, picks=NODE_PROFILE, iters=10):
         log(f"{tag}: {r['ms']:.4f} ms a call (events), host enqueue "
             f"{r['enqueue_us']:.1f} us, device {total:.1f} us: host share "
             f"{1 - total / (1e3 * r['ms']):.2f}")
+    return out
+
+
+def node_bwd_device_times(device, picks=NODE_PROFILE, iters=10):
+    """mixed_node_bwd at each pick, on the stage outputs one forward left:
+    device time of each launch of one call (torch.profiler), the
+    event-timed call and the host's enqueue time -> as node_device_times."""
+    from lctvqa_torch.models import search
+    from lctvqa_torch.ops import cuda_mixedop as M
+
+    out = {}
+    for cell, edges, n, dname in picks:
+        h, w, c, _ = NODE_SHAPES[cell]
+        cs = c // 4
+        gen = torch.Generator().manual_seed(SEED + 13)
+        nodes = [M.node_weights(_to(search.mixed_op_init(gen, c, 1, 4),
+                                    device)) for _ in range(edges)]
+        xs = [torch.randn(n, h, w, c, generator=gen).to(
+            device, DTYPES[dname])[..., :cs] for _ in nodes]
+        wts = (torch.softmax(torch.randn(edges, 8, generator=gen), 1)
+               * torch.softmax(torch.randn(edges, generator=gen),
+                               0)[:, None]).to(device)
+        g = torch.randn(n, h, w, cs, generator=gen).to(device)
+        _, obuf, stat = M.node_fwd_launch(xs, nodes, wts, cs, device)
+        fn = lambda: M.node_bwd_launch(xs, nodes, wts, g, obuf,  # noqa
+                                       stat, cs, device)
+        total, rows = device_times(fn, iters)
+        tag = f"mixed_node_bwd {cell} E={edges} N={n} {dname}"
+        r = out[(cell, edges, n, dname)] = {
+            "device_us": total, "launches": sum(x[1] for x in rows),
+            "ms": time_ms(fn), "enqueue_us": host_enqueue_us(fn),
+            "rows": rows}
+        _device_line(tag, total, rows)
+        log(f"{tag}: {r['ms']:.4f} ms a call (events), host enqueue "
+            f"{r['enqueue_us']:.1f} us, device {total:.1f} us: host share "
+            f"{1 - total / (1e3 * r['ms']):.2f}")
+        del obuf, stat
+    return out
+
+
+def generate_device_times(device, mcfg, batches=BATCHES, iters=10):
+    """greedy_generate at full width, B in `batches`, both dtypes: device
+    time per call (torch.profiler), the event-timed call and the host's
+    enqueue; where the tree has the grid design, its launch plan and the
+    time of as many empty grid barriers as one call crosses ->
+    {(B, dtype): {...}}."""
+    from lctvqa_torch.models.qst_encoder import ef_qst_encoder_init
+    from lctvqa_torch.ops import cuda_generate as G
+    from lctvqa_torch.ops import cuda_lstm as L
+    from lctvqa_torch.ops import nn as N
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    qst = _to(ef_qst_encoder_init(gen, mcfg.qst_vocab_size,
+                                  mcfg.word_embed_size, mcfg.img_embed_size,
+                                  1, mcfg.lstm_hidden_size), device)
+    seq, hid = mcfg.max_qst_len, mcfg.lstm_hidden_size
+    out = {}
+    for b in batches:
+        h0 = N.l2_normalize(torch.randn(b, hid, generator=gen)).to(device)
+        for dname, dtype in DTYPES.items():
+            qd = dict(qst, decode=G.decode_weights(qst, dtype))
+            fn = lambda: G.greedy_generate(qd, h0, seq, dtype)  # noqa
+            total, rows = device_times(fn, iters)
+            tag = f"greedy_generate B={b} {dname}"
+            r = out[(b, dname)] = {
+                "device_us": total, "launches": sum(x[1] for x in rows),
+                "ms": time_ms(fn), "enqueue_us": host_enqueue_us(fn),
+                "rows": rows}
+            if hasattr(G, "generate_plan_on_device"):
+                dw = qd["decode"]
+                plan = G.generate_plan_on_device(
+                    dw.table.shape[1], hid, dw.fc2_w.shape[1], dtype, device)
+                r["plan"] = plan
+                # two hand-overs a step
+                r["barriers_ms"] = time_ms(lambda: L.grid_barrier_probe(
+                    plan["blocks"], 2 * seq, device))
+            _device_line(tag, total, rows)
+            log(f"{tag}: {r['ms']:.4f} ms a call (events), host enqueue "
+                f"{r['enqueue_us']:.1f} us, device {total:.1f} us" + (
+                    f"; {2 * seq} empty grid barriers of "
+                    f"{r['plan']['blocks']} blocks {r['barriers_ms']:.4f} ms"
+                    if "plan" in r else ""))
     return out
 
 
@@ -1728,12 +1846,13 @@ def profile_train(arrays, device, root: str):
 # ---------------------------------------------------------------------------
 
 def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
-                cell_dev, node_dev):
+                cell_dev, node_dev, gen_plan, gen_dev, node_bwd_dev):
     """The kernels line: one row per kernel at the largest shape the
     batch-64 bf16 path gives it; `launches` of the run of its path. The
     cell's row also has its device time per call and nn.LSTMCell's
-    (torch.profiler), the node forward's the device time of each launch
-    of one call."""
+    (torch.profiler), the node forward's and backward's the device time of
+    each launch of one call, the decode's its device time, its grid and
+    the time of as many empty grid barriers as one call makes."""
     picks = {name: (lstm[name][(64, "bfloat16")], "B=64 bfloat16")
              for name in LSTM_KERNELS}
     picks["mixed_node_fwd"] = (node[("cell0", 5, 64, "bfloat16")],
@@ -1766,10 +1885,18 @@ def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
                             fp32_device_us=cell_dev["float32"]["kernel_us"],
                             fp32_library_device_us=cell_dev["float32"][
                                 "library_us"])
-        if name == "mixed_node_fwd":
-            d = node_dev[NODE_PROFILE[0]]
+        if name in ("mixed_node_fwd", "mixed_node_bwd"):
+            d = (node_dev if name == "mixed_node_fwd"
+                 else node_bwd_dev)[NODE_PROFILE[0]]
             rows[-1].update(device_us=d["device_us"], launch_device_us=[
                 [k, us] for k, _, us in d["rows"]])
+        if name == "greedy_generate":
+            plan = gen_plan["bfloat16"]
+            rows[-1].update(
+                device_us=gen_dev[(64, "bfloat16")]["device_us"],
+                fp32_ms=lstm[name][(64, "float32")]["ms"],
+                blocks=plan["blocks"], smem_bytes=plan["smem_bytes"],
+                empty_barriers_ms=plan["barriers_ms"])
         if "cold_ms" in r:
             plan = seq_plan["bfloat16"]
             rows[-1].update(
@@ -1786,9 +1913,11 @@ def kernel_times(device, card: str, tree: str) -> int:
     """The short comparison run (--kernel-times): the cell against its
     plain version and nn.LSTMCell at B = 1, 8, 64 in both dtypes with its
     device time and host enqueue at B = 64, the node forward at every
-    shape of check_node_kernel with its per-launch device times at
-    NODE_PROFILE, and the W and EF answer_logits / generate loop at the
-    default flags. One JSON line of the numbers, also written to
+    shape of check_node_kernel and the node backward at every shape of
+    check_node_bwd_kernel, both with their per-launch device times at
+    NODE_PROFILE, greedy_generate against its plain version with its
+    device time and host enqueue at B = 1, 8, 64 in both dtypes, and the
+    W and EF answer_logits / generate loop at the default flags. One JSON line of the numbers, also written to
     chiprun_out/kernel_times_<tree>_<pid>.json."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1799,6 +1928,11 @@ def kernel_times(device, card: str, tree: str) -> int:
     cell_dev = cell_device_times(device, mcfg)
     node = check_node_kernel(device)
     node_dev = node_device_times(device)
+    node_bwd = check_node_bwd_kernel(device)
+    node_bwd_dev = node_bwd_device_times(device)
+    gen = check_kernels(device, mcfg,
+                        names=("greedy_generate",))["greedy_generate"]
+    gen_dev = generate_device_times(device, mcfg)
     torch.backends.cuda.matmul.allow_tf32 = True
     torch.backends.cudnn.allow_tf32 = True
     with tempfile.TemporaryDirectory(dir=Path.cwd()) as tmp:
@@ -1817,6 +1951,15 @@ def kernel_times(device, card: str, tree: str) -> int:
                  for k, r in node.items()},
         "node_device": {" ".join(map(str, k)): r
                         for k, r in node_dev.items()},
+        "node_bwd": {" ".join(map(str, k)): {"ms": r["ms"], "err": r["err"]}
+                     for k, r in node_bwd.items()},
+        "node_bwd_device": {" ".join(map(str, k)): r
+                            for k, r in node_bwd_dev.items()},
+        "generate": {f"B={b} {d}": {k: r[k] for k in ("ms", "plain_ms",
+                                                       "err")}
+                     for (b, d), r in gen.items()},
+        "generate_device": {f"B={b} {d}": r
+                            for (b, d), r in gen_dev.items()},
         "throughput": [{"model": n, "fn": f, "dtype": d, "ms": ms}
                        for n, f, d, _, _, ms in rows]}
     out_dir = Path("chiprun_out")
@@ -1837,8 +1980,9 @@ def main(argv=None) -> int:
     mode.add_argument("--profile", action="store_true",
                       help="only build, then profile the darts EF call")
     mode.add_argument("--kernel-times", action="store_true",
-                      help="only build, then time the cell and the node "
-                      "forward and the W / EF calls (the before/after run)")
+                      help="only build, then time the cell, the node "
+                      "forward and backward, the decode and the W / EF "
+                      "calls (the before/after run)")
     parser.add_argument("--root", default=None,
                         help="take lctvqa_torch from this checkout (e.g. "
                         "a git archive of another commit) instead of the "
@@ -1898,6 +2042,7 @@ def main(argv=None) -> int:
     kern = check_kernels(device, model_configs()["w"])
     seq_plan = check_seq_plan(device, model_configs()["w"])
     check_cell_plan(device, model_configs()["w"])
+    gen_plan = check_generate_plan(device, model_configs()["w"])
     seq_device_times(device, model_configs()["w"])
     cell_dev = cell_device_times(device, model_configs()["w"])
     kern_bn = check_bn_kernel(device)
@@ -1905,6 +2050,9 @@ def main(argv=None) -> int:
     node_dev = node_device_times(device)
     kern_bn_bwd = check_bn_bwd_kernel(device)
     kern_node_bwd = check_node_bwd_kernel(device)
+    node_bwd_dev = node_bwd_device_times(device, picks=NODE_PROFILE[:1])
+    gen_dev = generate_device_times(device, model_configs()["w"],
+                                    batches=(64,))
     check_lstm_functions(device, model_configs()["w"])
     check_pool_gradients(device)
     (torch.backends.cuda.matmul.allow_tf32,
@@ -1983,7 +2131,8 @@ def main(argv=None) -> int:
         log(f"training timed on {card}")
 
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
-                       launches, seq_plan, cell_dev, node_dev)
+                       launches, seq_plan, cell_dev, node_dev, gen_plan,
+                       gen_dev, node_bwd_dev)
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed:")
         for f in FAILURES:

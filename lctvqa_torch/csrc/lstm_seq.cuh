@@ -1,6 +1,9 @@
 // Device code of the whole-sequence LSTM (lctvqa_lstm_seq, lstm.cu): the
-// hoisted input product and the persistent recurrent kernel. The note at
-// the head of lstm.cu has the design; here are the layouts.
+// persistent recurrent kernel, its tile product and its grid barrier, which
+// the greedy decode (generate.cu) shares. The note at the head of lstm.cu
+// has the design; here are the layouts. The kernels that are not templates
+// (the input product, the barrier probe) are in lstm.cu, so that two
+// translation units may include this header.
 //
 // Recurrent kernel, block `blockIdx.x` owns the U hidden units
 // [j0, j0 + U), j0 = U * blockIdx.x, all four gates of them. With
@@ -80,194 +83,6 @@ __device__ __forceinline__ void grid_wait(const unsigned* ctr,
     } while (v < target);
   }
   __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads, 1)
-    grid_barrier_probe_kernel(unsigned* ctr, int barriers) {
-  unsigned target = 0;
-  for (int t = 0; t < barriers; ++t) {
-    target += gridDim.x;
-    grid_arrive(ctr);
-    grid_wait(ctr, target);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the input product: xw[m, n] = sum_k x[m, k] w_ih[k, n] + b[n]
-// ---------------------------------------------------------------------------
-
-constexpr int kGemmRows = 128;    // rows of xw per block
-constexpr int kGemmCols = 64;     // columns of xw per block
-constexpr int kGemmThreads = 256;
-
-// Warp w owns rows [16w, 16w + 16) of the tile and all 64 columns (eight
-// mma n-tiles). Slabs of 32 k: x as [m][k], w_ih as it lies, [k][n], read
-// through ldmatrix.trans; the next slab's global loads are in flight in
-// registers while this one is multiplied.
-__global__ void __launch_bounds__(kGemmThreads)
-    xw_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                        const __nv_bfloat16* __restrict__ w_ih,
-                        const float* __restrict__ b, float* __restrict__ xw,
-                        int M, int E, int N, int vec_x, int vec_w) {
-  constexpr int BK = 32, SA = BK + 8, SB = kGemmCols + 8;
-  __shared__ __align__(16) __nv_bfloat16 a_s[kGemmRows * SA];
-  __shared__ __align__(16) __nv_bfloat16 b_s[BK * SB];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, q = lane & 3;
-  const int m0 = blockIdx.x * kGemmRows, n0 = blockIdx.y * kGemmCols;
-  uint2 ra[4], rb[2];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = tid + kGemmThreads * i, m = m0 + (c >> 3);
-      const int k = k0 + (c & 7) * 4;
-      ra[i] = load4(x + (size_t)m * E + k, m < M ? E - k : 0, vec_x);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + kGemmThreads * i, k = k0 + (c >> 4);
-      const int n = n0 + (c & 15) * 4;
-      rb[i] = load4(w_ih + (size_t)k * N + n, k < E ? N - n : 0, vec_w);
-    }
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = tid + kGemmThreads * i;
-      *reinterpret_cast<uint2*>(a_s + (c >> 3) * SA + (c & 7) * 4) = ra[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + kGemmThreads * i;
-      *reinterpret_cast<uint2*>(b_s + (c >> 4) * SB + (c & 15) * 4) = rb[i];
-    }
-  };
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  fetch(0);
-  stash();
-  __syncthreads();
-  for (int k0 = 0; k0 < E; k0 += BK) {
-    const bool more = k0 + BK < E;
-    if (more) fetch(k0 + BK);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      const __nv_bfloat16* ap = a_s + (warp * 16 + g) * SA + kk + 2 * q;
-      const uint32_t a0 = ld_pair(ap), a1 = ld_pair(ap + 8 * SA);
-      const uint32_t a2 = ld_pair(ap + 8), a3 = ld_pair(ap + 8 * SA + 8);
-      const __nv_bfloat16* bp =
-          b_s + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * SB +
-          (lane >> 4) * 8;
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bp + np * 16);
-        mma_bf16(acc[2 * np], a0, a1, a2, a3, r[0], r[1]);
-        mma_bf16(acc[2 * np + 1], a0, a1, a2, a3, r[2], r[3]);
-      }
-    }
-    __syncthreads();
-    if (more) {
-      stash();
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-    const int n = n0 + nt * 8 + 2 * q;  // even, and N is even
-    if (n >= N) continue;
-    const float b0 = b[n], b1 = b[n + 1];
-    const int m = m0 + warp * 16 + g;
-    if (m < M)
-      *reinterpret_cast<float2*>(xw + (size_t)m * N + n) =
-          make_float2(acc[nt][0] + b0, acc[nt][1] + b1);
-    if (m + 8 < M)
-      *reinterpret_cast<float2*>(xw + (size_t)(m + 8) * N + n) =
-          make_float2(acc[nt][2] + b0, acc[nt][3] + b1);
-  }
-}
-
-// An 8 x 4 patch of the tile per thread, fmaf in a fixed order of k; slabs
-// of 16 k, x transposed to [k][m] on the way in, the next slab in flight in
-// registers as above.
-__global__ void __launch_bounds__(kGemmThreads)
-    xw_gemm_f32_kernel(const float* __restrict__ x,
-                       const float* __restrict__ w_ih,
-                       const float* __restrict__ b, float* __restrict__ xw,
-                       int M, int E, int N, int vec_x, int vec_w) {
-  constexpr int BK = 16, SA = kGemmRows + 4;
-  __shared__ __align__(16) float a_s[BK * SA];         // [k][m]
-  __shared__ __align__(16) float b_s[BK * kGemmCols];  // [k][n]
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int m0 = blockIdx.x * kGemmRows, n0 = blockIdx.y * kGemmCols;
-  float4 ra[2], rb;
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + kGemmThreads * i, m = m0 + (c >> 2);
-      const int k = k0 + (c & 3) * 4;
-      ra[i] = load4(x + (size_t)m * E + k, m < M ? E - k : 0, vec_x);
-    }
-    const int k = k0 + (tid >> 4), n = n0 + (tid & 15) * 4;
-    rb = load4(w_ih + (size_t)k * N + n, k < E ? N - n : 0, vec_w);
-  };
-  auto stash = [&]() {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + kGemmThreads * i;
-      float* p = a_s + (c & 3) * 4 * SA + (c >> 2);
-      p[0] = ra[i].x, p[SA] = ra[i].y, p[2 * SA] = ra[i].z;
-      p[3 * SA] = ra[i].w;
-    }
-    *reinterpret_cast<float4*>(b_s + (tid >> 4) * kGemmCols +
-                               (tid & 15) * 4) = rb;
-  };
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  fetch(0);
-  stash();
-  __syncthreads();
-  for (int k0 = 0; k0 < E; k0 += BK) {
-    const bool more = k0 + BK < E;
-    if (more) fetch(k0 + BK);
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 lo =
-          *reinterpret_cast<const float4*>(a_s + k * SA + 8 * ty);
-      const float4 hi =
-          *reinterpret_cast<const float4*>(a_s + k * SA + 8 * ty + 4);
-      const float4 w =
-          *reinterpret_cast<const float4*>(b_s + k * kGemmCols + 4 * tx);
-      const float av[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        acc[i][0] = fmaf(av[i], w.x, acc[i][0]);
-        acc[i][1] = fmaf(av[i], w.y, acc[i][1]);
-        acc[i][2] = fmaf(av[i], w.z, acc[i][2]);
-        acc[i][3] = fmaf(av[i], w.w, acc[i][3]);
-      }
-    }
-    __syncthreads();
-    if (more) {
-      stash();
-      __syncthreads();
-    }
-  }
-  const int n = n0 + 4 * tx;  // N is a multiple of 4
-  if (n >= N) return;
-  const float bv[4] = {b[n], b[n + 1], b[n + 2], b[n + 3]};
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + 8 * ty + i;
-    if (m >= M) break;
-    *reinterpret_cast<float4*>(xw + (size_t)m * N + n) =
-        make_float4(acc[i][0] + bv[0], acc[i][1] + bv[1], acc[i][2] + bv[2],
-                    acc[i][3] + bv[3]);
-  }
 }
 
 // ---------------------------------------------------------------------------

@@ -83,25 +83,6 @@ struct NodeArgs {
   NodeEdge edge[kMaxEdges];
 };
 
-// red: [Cs][chunks][2] per-warp sums of this block -> part[(c*2 + k) * nblk]
-// (the caller has offset `part` to this block's column). Synchronises before
-// and after.
-__device__ __forceinline__ void flush_partials(const float* red, float* part,
-                                               int Cs, int chunks,
-                                               long long nblk) {
-  __syncthreads();
-  for (int c = threadIdx.x; c < Cs; c += blockDim.x) {
-    float s = 0.f, q = 0.f;
-    for (int k = 0; k < chunks; ++k) {
-      s += red[(c * chunks + k) * 2];
-      q += red[(c * chunks + k) * 2 + 1];
-    }
-    part[(long long)(c * 2) * nblk] = s;
-    part[(long long)(c * 2 + 1) * nblk] = q;
-  }
-  __syncthreads();
-}
-
 struct TileGeom {
   int n, h0, w0;        // image and the tile's first pixel
   long long pixbase;    // n * H * W
@@ -121,34 +102,6 @@ __device__ __forceinline__ TileGeom tile_geom(int H, int W) {
   return g;
 }
 
-// ts[c][p] = sum over the kk x kk taps (dilation dil) of xs, which holds
-// the stage's input with a HALO-pixel border; RELU applies max(., 0) on read.
-// (The backward's recomputation of a depthwise output.)
-template <int TILE, int HALO, bool RELU>
-__device__ __forceinline__ void depthwise(const float* xs, const float* dw,
-                                          float* ts, int Cs, int kk, int dil) {
-  constexpr int PWID = TILE + 2 * HALO;
-  constexpr int PLANE = PWID * PWID;
-  constexpr int PIX = TILE * TILE;
-  const int half = (kk - 1) / 2 * dil;
-  for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
-    const int c = it / PIX, p = it % PIX;
-    const float* src =
-        xs + c * PLANE + (p / TILE + HALO) * PWID + (p % TILE + HALO);
-    const float* wt = dw + c;
-    float acc = 0.f;
-    int t = 0;
-    for (int dy = -half; dy <= half; dy += dil)
-      for (int dx = -half; dx <= half; dx += dil, ++t) {
-        float v = src[dy * PWID + dx];
-        if (RELU) v = fmaxf(v, 0.f);
-        acc = fmaf(v, wt[t * Cs], acc);
-      }
-    ts[it] = acc;
-  }
-  __syncthreads();
-}
-
 // ---------------------------------------------------------------------------
 // Forward
 // ---------------------------------------------------------------------------
@@ -158,13 +111,14 @@ constexpr int kNodeWarps = kNodeThreads / 32;
 // keeps four blocks an SM at 64 registers; launch B loads one value
 constexpr int kLoadBatchA = 4, kLoadBatchB = 8;
 
-// The same depthwise as `depthwise`, the window and dilation known at
-// compile time: a thread computes one channel at kRows pixels of a column,
-// rows r + i DIL, i < kRows, which share their input rows (KK + kRows - 1
-// rows feed kRows outputs), with the channel's KK x KK taps in registers
-// and kRows independent sums (each in the same order as `depthwise`'s).
-// Row groups start at 0, 4, 8, ... for DIL 1 and at 0, 1, 8, 9, ... for
-// DIL 2; TILE is a multiple of 8.
+// ts[c][p] = sum over the KK x KK taps (dilation DIL) of xs, which holds
+// the stage's input with a HALO-pixel border (RELU: max(., 0) on read). The
+// window and dilation are known at compile time: a thread computes one
+// channel at kRows pixels of a column, rows r + i DIL, i < kRows, which
+// share their input rows (KK + kRows - 1 rows feed kRows outputs), with the
+// channel's KK x KK taps in registers and kRows independent sums, each over
+// the taps in row-major order. Row groups start at 0, 4, 8, ... for DIL 1
+// and at 0, 1, 8, 9, ... for DIL 2; TILE is a multiple of 8.
 constexpr int kRows = 4;
 
 template <int KK, int DIL, int TILE, int HALO, bool RELU>
@@ -790,51 +744,70 @@ cudaError_t node_fwd_tile(const NodeArgs& args, const float* weights,
 // max pool's argmax) is taken on the rounded values the forward saw.
 //
 // What bounds it: bytes again, about twice the forward's (it reads the planes
-// the forward wrote, g, and x, and writes dx, one fp32 plane per sep conv and
-// the per-block partials of the weight gradients). One C entry point makes
-// seven kinds of launches on one stream; every sum over pixels is a per-block
-// partial added later in a fixed order, so a training step repeats bit for
-// bit:
-//   R. per (edge, pixel chunk): sum g and sum g * o for the six folded ops.
-//   C. per (edge, channel): from those, the folded BatchNorm's backward
-//      coefficients (d o = A * (g - gbar - (o - mu) * k2)) and the
-//      per-channel parts of d w[e, op] = r * (sum g o - mu sum g).
-//   S. per (edge, sep branch, tile): second stage of a sep conv backwards:
-//      d o -> pointwise -> depthwise -> ReLU mask; writes dz and per-block
-//      sums of dz and dz * xhat for the inner BatchNorm.
-//   M. adds those sums (mean dz, mean dz * xhat).
-//   X. per (edge, tile): everything that reaches x, from one x tile with a
-//      4-pixel halo: skip, the first stage of both sep convs (through the
-//      inner BatchNorm's backward), both dil convs, max pool (to the first
-//      maximal tap in row-major order) and avg pool; writes dx once.
-//   W. adds the per-block partials of d dw, d pw, the skip weight and the
-//      per-channel parts of d w.
-// S and X share conv_stage_bwd: recompute the depthwise output t (the one
-// value the forward does not keep), d pw = sum t * d, dt = pw^T d, d dw =
-// sum in * dt, d in = dw (*) dt.
+// the forward wrote, g, and x, and writes dx and one fp32 plane per sep
+// conv), and the three grid-wide dependencies of the function: the folded
+// BatchNorms' sums of g and g o, then the inner BatchNorms' sums of dz, then
+// x's gradient. One C entry point issues a memset of 3E counters and three
+// launches on one stream; the last block of each edge to finish a launch
+// (a counter per edge, the only atomics) finishes that launch's sums over
+// the grid, each sum over blocks in a fixed order, so a training step
+// repeats bit for bit:
+//   R. per (edge, 1024-pixel chunk, four channels): sum g and sum g o of the
+//      six folded ops, a plane at a time, four channels of g in one load.
+//      The edge's last block adds the chunks and writes the folded
+//      BatchNorms' backward coefficients (d o = A (g - gbar - (o - mu) k2)),
+//      gbar, and d w of the six folded ops (and 0 at `none`) straight into
+//      [E, 8].
+//   S. per (edge, sep branch, image, tile): the sep conv's second stage
+//      backwards, d o -> pointwise -> depthwise -> ReLU mask: writes dz as an
+//      fp32 plane and the block's sums of dz and dz xhat; the edge's last
+//      block (of both branches) writes their means.
+//   X. per (edge, image, tile): everything that reaches x, from one x tile
+//      with a 4-pixel halo: skip, the first stage of both sep convs (through
+//      the inner BatchNorm's backward), both dil convs, max pool (to the
+//      first maximal tap in row-major order) and avg pool; writes dx once.
+//      The edge's last block adds the blocks' partials of d dw, d pw (S's
+//      and its own) and d w[skip].
+// A stage backwards, in S and in X (stage_bwd): dt = pw^T d over the tile and
+// the taps' reach (one pass, four input channels an item), then one pass in
+// which a thread takes one channel at R pixels of a column, taps and window
+// rows known at compile time and held in registers, and computes from the
+// shared window rows of the stage's input and of dt: the depthwise output t
+// again (the one value the forward does not keep), d dw += in dt, d in = dw
+// (*) dt, and d pw += t d for every output channel. A channel's d dw and d
+// pw are summed per thread, then per warp, then over the channel's warps in
+// order, and written once per block. Planes are read pixel-fastest (a
+// warp's loads contiguous); tiles are the forward's, 32 x 32 up to 4
+// channels.
 
-constexpr int kChunk = 2048;  // pixels per block of launch R
+constexpr int kChunk = 1024;  // pixels per block of launch R
 constexpr int kRSums = 7;     // sum g, then sum g * o of the six folded ops
+constexpr int kRedFloats = kNodeWarps * (kTaps + 4 + 2);  // see stage_bwd
 
-struct BwdScratch {  // offsets in floats into one fp32 scratch tensor
-  long long part_r, fc, gbar, dwpart, dzp, part_s, mstat, part_dw, part_pw,
-      part_skip, total;
+struct BwdScratch {  // offsets in floats into one fp32 scratch, 16-byte parts
+  long long part_r, fc, gbar, dzp, part_s, mstat, part_dw, part_pw,
+      part_skip, ctr, total;
 };
 
 inline BwdScratch bwd_scratch(int E, long long M, long long nblk, int Cs) {
   BwdScratch b;
   const long long nchunk = (M + kChunk - 1) / kChunk;
   long long at = 0;
-  b.part_r = at;    at += (long long)E * Cs * kRSums * nchunk;
-  b.fc = at;        at += (long long)kFoldSlots * E * Cs * 3;
-  b.gbar = at;      at += (long long)E * Cs;
-  b.dwpart = at;    at += (long long)E * kFoldSlots * Cs;
-  b.dzp = at;       at += 2LL * E * Cs * M;
-  b.part_s = at;    at += 2LL * E * Cs * 2 * nblk;
-  b.mstat = at;     at += 2LL * E * Cs * 2;
-  b.part_dw = at;   at += (long long)E * 8 * kTaps * Cs * nblk;
-  b.part_pw = at;   at += (long long)E * 8 * Cs * Cs * nblk;
-  b.part_skip = at; at += (long long)E * nblk;
+  auto take = [&at](long long n) {
+    const long long o = at;
+    at += (n + 3) / 4 * 4;
+    return o;
+  };
+  b.part_r = take((long long)E * Cs * kRSums * nchunk);
+  b.fc = take((long long)kFoldSlots * E * Cs * 3);
+  b.gbar = take((long long)E * Cs);
+  b.dzp = take(2LL * E * Cs * M);
+  b.part_s = take(2LL * E * Cs * 2 * nblk);
+  b.mstat = take(2LL * E * Cs * 2);
+  b.part_dw = take((long long)E * 8 * kTaps * Cs * nblk);
+  b.part_pw = take((long long)E * 8 * Cs * Cs * nblk);
+  b.part_skip = take((long long)E * nblk);
+  b.ctr = take(3LL * E);  // unsigned: R's, S's and X's counter per edge
   b.total = at;
   return b;
 }
@@ -845,110 +818,72 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Sum of p[0..n) over a 128-thread block in a fixed order; the result is
-// valid in thread 0. sh holds 128 floats. Synchronises.
-__device__ __forceinline__ float block_sum_128(const float* p, long long n,
-                                               float* sh) {
-  float s = 0.f;
-  for (long long i = threadIdx.x; i < n; i += 128) s += p[i];
-  sh[threadIdx.x] = s;
+// After this block's partials are written: true in the last of `blocks`
+// blocks that count on ctr, which then sees every block's writes.
+__device__ __forceinline__ bool count_done(unsigned* ctr, unsigned blocks) {
+  __shared__ int last;
+  __threadfence();
   __syncthreads();
-  for (int d = 64; d > 0; d >>= 1) {
-    if (threadIdx.x < d) sh[threadIdx.x] += sh[threadIdx.x + d];
-    __syncthreads();
-  }
-  const float out = sh[0];
+  if (threadIdx.x == 0) last = atomicAdd(ctr, 1u) == blocks - 1;
   __syncthreads();
-  return out;
+  if (last) __threadfence();
+  return last;
 }
 
-// Launch R. grid (chunks, E), 256 threads.
-template <typename T>
-__global__ void node_bwd_reduce_kernel(const float* __restrict__ g,
-                                       const T* __restrict__ obuf,
-                                       float* __restrict__ part_r, int E,
-                                       long long M, int Cs) {
-  __shared__ float sh[8][kRSums];
-  const int e = blockIdx.y;
-  const long long nchunk = gridDim.x;
-  const long long lo = (long long)blockIdx.x * kChunk;
-  const long long hi = lo + kChunk < M ? lo + kChunk : M;
-  for (int c = 0; c < Cs; ++c) {
-    float acc[kRSums];
+// For i < count: store(i, the sum of the n partials at part + row(i) * n),
+// or store(i, 0) where row(i) < 0. Each sum in a fixed order: a lane's
+// stride over the row (four values a load where rows start on 16 bytes,
+// eight loads in flight), then a shuffle tree over the entry's L lanes, L =
+// 1, 2, 4 or 8 as the row is long. The whole block calls it.
+template <typename Row, typename Store>
+__device__ __forceinline__ void sum_entries(const float* part, long long n,
+                                            int count, Row row, Store store) {
+  const int L = n >= 256 ? 8 : (n >= 128 ? 4 : (n >= 64 ? 2 : 1));
+  const int sub = threadIdx.x % L, per = blockDim.x / L;
+  const bool vec = n % 4 == 0 && (uintptr_t)part % 16 == 0;
+  for (int base = 0; base < count; base += per) {
+    const int i = base + (int)threadIdx.x / L;
+    const long long r = i < count ? row(i) : -1;
+    float s = 0.f;
+    if (r >= 0) {
+      const float* p = part + r * n;
+      if (vec) {
+        long long k = 4 * sub;
+        for (; k + 28 * L < n; k += 32 * L) {
+          float4 v[8];
 #pragma unroll
-    for (int k = 0; k < kRSums; ++k) acc[k] = 0.f;
-    for (long long pix = lo + threadIdx.x; pix < hi; pix += blockDim.x) {
-      const float gv = g[pix * Cs + c];
-      acc[0] += gv;
+          for (int u = 0; u < 8; ++u)
+            v[u] = __ldcg(reinterpret_cast<const float4*>(p + k + 4 * L * u));
 #pragma unroll
-      for (int s = 0; s < kFoldSlots; ++s) {
-        const size_t plane = ((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c;
-        acc[1 + s] = fmaf(gv, to_f32(obuf[plane * M + pix]), acc[1 + s]);
+          for (int u = 0; u < 8; ++u) s += (v[u].x + v[u].y) + (v[u].z + v[u].w);
+        }
+        for (; k < n; k += 4 * L) {
+          const float4 v = __ldcg(reinterpret_cast<const float4*>(p + k));
+          s += (v.x + v.y) + (v.z + v.w);
+        }
+      } else {
+        for (long long k = sub; k < n; k += L) s += __ldcg(p + k);
       }
     }
+    for (int d = L / 2; d > 0; d >>= 1)
+      s += __shfl_down_sync(0xffffffffu, s, d, L);
+    if (i < count && sub == 0) store(i, s);
+  }
+}
+
+// Four channels [c0, c0 + 4) of g at pixel pix (zero past Cs).
+__device__ __forceinline__ float4 load_g4(const float* g, long long pix,
+                                          int Cs, int c0, bool vec) {
+  const float* p = g + pix * Cs + c0;
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  float v[4];
 #pragma unroll
-    for (int k = 0; k < kRSums; ++k) {
-      const float v = warp_sum(acc[k]);
-      if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5][k] = v;
-    }
-    __syncthreads();
-    if (threadIdx.x < kRSums) {
-      float v = 0.f;
-      for (int w = 0; w < 8; ++w) v += sh[w][threadIdx.x];
-      part_r[(((size_t)e * Cs + c) * kRSums + threadIdx.x) * nchunk +
-             blockIdx.x] = v;
-    }
-    __syncthreads();
-  }
+  for (int j = 0; j < 4; ++j) v[j] = c0 + j < Cs ? p[j] : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// Launch C. One 128-thread block per (edge, channel).
-__global__ void node_bwd_coef_kernel(const float* __restrict__ part_r,
-                                     const float* __restrict__ stat,
-                                     const float* __restrict__ weights,
-                                     float* __restrict__ fc,
-                                     float* __restrict__ gbar,
-                                     float* __restrict__ dwpart, int E, int Cs,
-                                     long long nchunk, float inv_count) {
-  __shared__ float sh[128];
-  const int e = blockIdx.x / Cs, c = blockIdx.x % Cs;
-  float sums[kRSums];
-  for (int k = 0; k < kRSums; ++k)
-    sums[k] = block_sum_128(
-        part_r + (((size_t)e * Cs + c) * kRSums + k) * nchunk, nchunk, sh);
-  if (threadIdx.x != 0) return;
-  const float gs = sums[0];
-  gbar[e * Cs + c] = gs * inv_count;
-  for (int s = 0; s < kFoldSlots; ++s) {
-    const size_t entry = ((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c;
-    const float mu = stat[entry * 2], r = stat[entry * 2 + 1];
-    const float sc = sums[1 + s] - mu * gs;
-    float* out = fc + (((size_t)s * E + e) * Cs + c) * 3;
-    out[0] = weights[e * 8 + kSlotOp[s]] * r;
-    out[1] = mu;
-    out[2] = r * r * sc * inv_count;
-    dwpart[((size_t)e * kFoldSlots + s) * Cs + c] = r * sc;
-  }
-}
-
-// Launches M and W. out[row] = scale * sum of part[row * n .. + n), one
-// 128-thread block per row. With rows_per_kidx > 0 the rows are laid out
-// [.., 8, rows_per_kidx] and those of the packed-weight rows 5 and 7, which
-// no branch uses, are set to 0 without being read.
-__global__ void node_sums_kernel(const float* __restrict__ part,
-                                 float* __restrict__ out, long long n,
-                                 float scale, int rows_per_kidx) {
-  __shared__ float sh[128];
-  const size_t row = blockIdx.x;
-  if (rows_per_kidx > 0) {
-    const int kidx = (int)((row / rows_per_kidx) % 8);
-    if (kidx == 5 || kidx == 7) {
-      if (threadIdx.x == 0) out[row] = 0.f;
-      return;
-    }
-  }
-  const float v = block_sum_128(part + row * n, n, sh);
-  if (threadIdx.x == 0) out[row] = v * scale;
+__device__ __forceinline__ float get4(const float4& v, int j) {
+  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
 }
 
 // The folded BatchNorm's backward at one element.
@@ -957,426 +892,865 @@ __device__ __forceinline__ float fold_grad(const float* fc3, float gv,
   return fc3[0] * (gv - gb - (o - fc3[1]) * fc3[2]);
 }
 
-// One depthwise + pointwise stage backwards, for one tile.
-//   xs   [Cs][PLANE] the stage's input with a HALO border (RELU: max(., 0)
-//        is applied on read), 0 outside the image
-//   dbuf [Cs][PLANE] gradient of the stage's output, 0 outside the image
-//        and beyond `half` pixels from the tile
-//   dts  [Cs][PLANE] scratch
-//   dws  [25][Cs] the stage's taps; pw (global) [Cs][Cs] as [ci][co]
-// Writes this block's partials of d dw (part_dw[(tap * Cs + c) * nblk]) and
-// d pw (part_pw[(ci * Cs + co) * nblk]); the caller has offset both to
-// (edge, kidx, this block). Then the gradient of the stage's input at the
-// tile's pixels: dins[c][p] = it (mask == nullptr), or dins[c][p] += it where
-// mask[c][plane(p)] > 0. Synchronises at its end.
-template <int TILE, int HALO, bool RELU>
-__device__ __forceinline__ void conv_stage_bwd(
-    const float* xs, const float* dbuf, float* dts, float* dins,
-    const float* mask, const float* dws, const float* __restrict__ pw,
-    float* part_dw, float* part_pw, int Cs, int kk, int dil, long long nblk) {
-  constexpr int PWID = TILE + 2 * HALO;
-  constexpr int PLANE = PWID * PWID;
-  constexpr int PIX = TILE * TILE;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int nwarps = blockDim.x >> 5;
-  const int half = (kk - 1) / 2 * dil;
-  float* ts = dts;  // [Cs][PIX], dead before dts is written
-  depthwise<TILE, HALO, RELU>(xs, dws, ts, Cs, kk, dil);
-  for (int pair = warp; pair < Cs * Cs; pair += nwarps) {
-    const int ci = pair / Cs, co = pair % Cs;
-    float acc = 0.f;
-    for (int p = lane; p < PIX; p += 32)
-      acc = fmaf(ts[ci * PIX + p],
-                 dbuf[co * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO],
-                 acc);
-    acc = warp_sum(acc);
-    if (lane == 0) part_pw[(long long)pair * nblk] = acc;
-  }
-  __syncthreads();
-  for (int it = threadIdx.x; it < Cs * PLANE; it += blockDim.x) {
-    const int ci = it / PLANE, q = it % PLANE;
-    float acc = 0.f;
-    for (int co = 0; co < Cs; ++co)
-      acc = fmaf(pw[ci * Cs + co], dbuf[co * PLANE + q], acc);
-    dts[it] = acc;
-  }
-  __syncthreads();
-  for (int pair = warp; pair < kTaps * Cs; pair += nwarps) {
-    const int t = pair / Cs, c = pair % Cs;
-    float acc = 0.f;
-    if (t < kk * kk) {
-      const int off = (t / kk * dil - half) * PWID + (t % kk * dil - half);
-      for (int p = lane; p < PIX; p += 32) {
-        const int at = c * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO;
-        float v = xs[at + off];
-        if (RELU) v = fmaxf(v, 0.f);
-        acc = fmaf(v, dts[at], acc);
+// Launch R. grid (chunks, E * channel groups of 4). The chunk's planes one
+// at a time (a block reads one contiguous run of a plane at once, as DRAM
+// prefers); g, read four channels a load, comes from L1 after the first
+// pass.
+template <typename T>
+__global__ void __launch_bounds__(kNodeThreads)
+    node_bwd_r_kernel(const float* __restrict__ g, const T* __restrict__ obuf,
+                      const float* __restrict__ stat,
+                      const float* __restrict__ weights, float* part_r,
+                      float* __restrict__ fc, float* __restrict__ gbar,
+                      float* __restrict__ dwt, unsigned* ctr, int E,
+                      long long M, int Cs, int vec_g) {
+  constexpr int kPer = kChunk / kNodeThreads;  // pixels a thread
+  __shared__ float red[kNodeWarps][4];
+  __shared__ float sums[kMaxCs * kRSums];
+  const int groups = (Cs + 3) / 4, warp = threadIdx.x >> 5;
+  const int e = blockIdx.y / groups, c0 = blockIdx.y % groups * 4;
+  const long long nchunk = gridDim.x;
+  const long long lo = (long long)blockIdx.x * kChunk;
+  {
+    const int nc = Cs - c0 < 4 ? Cs - c0 : 4;
+    for (int k = 0; k < kRSums; ++k) {  // sum g, then g o of fold slot k - 1
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      float ov[kPer][4];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {  // the plane's loads, all in flight
+        const long long pix = lo + threadIdx.x + i * kNodeThreads;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          ov[i][j] = 1.f;
+          if (k > 0 && j < nc && pix < M)
+            ov[i][j] = to_f32(obuf[(((size_t)(kFirstFoldSlot + k - 1) * E +
+                                     e) * Cs + c0 + j) * M + pix]);
+        }
       }
-      acc = warp_sum(acc);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const long long pix = lo + threadIdx.x + i * kNodeThreads;
+        if (pix >= M) break;
+        const float4 gv = load_g4(g, pix, Cs, c0, vec_g);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[j] = fmaf(get4(gv, j), ov[i][j], acc[j]);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = warp_sum(acc[j]);
+        if ((threadIdx.x & 31) == 0) red[warp][j] = v;
+      }
+      __syncthreads();
+      if ((int)threadIdx.x < nc) {
+        float v = 0.f;
+#pragma unroll
+        for (int w = 0; w < kNodeWarps; ++w) v += red[w][threadIdx.x];
+        part_r[(((size_t)e * Cs + c0 + threadIdx.x) * kRSums + k) * nchunk +
+               blockIdx.x] = v;
+      }
+      __syncthreads();
     }
-    if (lane == 0) part_dw[(long long)pair * nblk] = acc;
   }
-  for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
-    const int c = it / PIX, p = it % PIX;
-    const int at = c * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO;
-    float acc = 0.f;
-    int t = 0;
-    for (int dy = -half; dy <= half; dy += dil)
-      for (int dx = -half; dx <= half; dx += dil, ++t)
-        acc = fmaf(dts[at - dy * PWID - dx], dws[t * Cs + c], acc);
-    if (mask == nullptr)
-      dins[it] = acc;
-    else if (mask[at] > 0.f)
-      dins[it] += acc;
-  }
+  if (!count_done(ctr + e, (unsigned)(nchunk * groups))) return;
+
+  // the edge's last block: the sums over all pixels, then per channel the
+  // folded BatchNorms' coefficients, then d w of the six folded ops
+  sum_entries(
+      part_r + (size_t)e * Cs * kRSums * nchunk, nchunk, Cs * kRSums,
+      [](int i) { return (long long)i; },
+      [&](int i, float v) { sums[i] = v; });
   __syncthreads();
+  const float inv_count = 1.f / (float)M;
+  for (int c = threadIdx.x; c < Cs; c += blockDim.x) {
+    const float gs = sums[c * kRSums];
+    gbar[e * Cs + c] = gs * inv_count;
+    for (int s = 0; s < kFoldSlots; ++s) {
+      const size_t entry = ((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c;
+      const float mu = stat[entry * 2], r = stat[entry * 2 + 1];
+      const float sc = sums[c * kRSums + 1 + s] - mu * gs;
+      float* out = fc + (((size_t)s * E + e) * Cs + c) * 3;
+      out[0] = weights[e * 8 + kSlotOp[s]] * r;
+      out[1] = mu;
+      out[2] = r * r * sc * inv_count;
+    }
+  }
+  if (threadIdx.x < kFoldSlots) {
+    const int s = threadIdx.x;
+    float v = 0.f;
+    for (int c = 0; c < Cs; ++c) {
+      const size_t entry = ((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c;
+      const float mu = stat[entry * 2], r = stat[entry * 2 + 1];
+      const float gs = sums[c * kRSums];
+      v += r * (sums[c * kRSums + 1 + s] - mu * gs);
+    }
+    dwt[e * 8 + kSlotOp[s]] = v;
+  } else if (threadIdx.x == kFoldSlots) {
+    dwt[e * 8] = 0.f;  // none
+  }
 }
 
-// Launch S. grid (tiles, N, 2 * E): z = 2 * e + which (0: sep3, 1: sep5).
-template <typename T, int TILE>
-__global__ void node_bwd_sep2_kernel(NodeArgs args, const float* __restrict__ g,
-                                     const T* __restrict__ obuf,
-                                     const float* __restrict__ stat,
-                                     const float* __restrict__ fc,
-                                     const float* __restrict__ gbar,
-                                     float* __restrict__ dzp,
-                                     float* __restrict__ part_s,
-                                     float* __restrict__ part_dw,
-                                     float* __restrict__ part_pw, int E, int H,
-                                     int W, int Cs) {
-  constexpr int HALO = 2;
-  constexpr int PWID = TILE + 2 * HALO;
-  constexpr int PLANE = PWID * PWID;
+// NOUT values of four channels.
+template <int NOUT>
+struct Vals {
+  float4 v[NOUT];
+};
+
+// kStageBatch items a thread: their loads are all in flight before the
+// first store (eight measured no faster).
+constexpr int kStageBatch = 4;
+
+// In[c][PLANE] of a tile with a HALO border: region = the tile and HALF
+// pixels around it. out[k][c][.] = f(c0, pix, h, w).v[k] for the four
+// channels c0.. of an item at pixels in the image (pix = n H W + h W + w),
+// 0 elsewhere in the region. Items are (channel group, pixel), pixels
+// fastest.
+template <int TILE, int HALO, int HALF, int NOUT, typename F>
+__device__ __forceinline__ void stage_region(float* const (&out)[NOUT],
+                                             int Cs, const TileGeom& tg,
+                                             int H, int W, F f) {
+  constexpr int RW = TILE + 2 * HALF, NQ = RW * RW;
+  constexpr int PWID = TILE + 2 * HALO, PLANE = PWID * PWID;
+  const int items = (Cs + 3) / 4 * NQ;
+  for (int base = threadIdx.x; base < items;
+       base += kStageBatch * kNodeThreads) {
+    Vals<NOUT> v[kStageBatch];
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int it = base + k * kNodeThreads;
+      const int c0 = it / NQ * 4, q = it % NQ;
+      const int h = tg.h0 + q / RW - HALF, w = tg.w0 + q % RW - HALF;
+#pragma unroll
+      for (int o = 0; o < NOUT; ++o) v[k].v[o] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (it < items && h >= 0 && h < H && w >= 0 && w < W)
+        v[k] = f(c0, tg.pixbase + (long long)h * W + w, h, w);
+    }
+#pragma unroll
+    for (int k = 0; k < kStageBatch; ++k) {
+      const int it = base + k * kNodeThreads;
+      if (it >= items) break;
+      const int c0 = it / NQ * 4, q = it % NQ;
+      const int at = c0 * PLANE + (q / RW - HALF + HALO) * PWID + q % RW -
+                     HALF + HALO;
+#pragma unroll
+      for (int o = 0; o < NOUT; ++o)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + j < Cs) out[o][at + j * PLANE] = get4(v[k].v[o], j);
+    }
+  }
+}
+
+// One output: f returns a float4.
+template <int TILE, int HALO, int HALF, typename F>
+__device__ __forceinline__ void stage_region(float* out, int Cs,
+                                             const TileGeom& tg, int H, int W,
+                                             F f) {
+  float* const outs[1] = {out};
+  stage_region<TILE, HALO, HALF, 1>(
+      outs, Cs, tg, H, W, [&](int c0, long long pix, int h, int w) {
+        return Vals<1>{{f(c0, pix, h, w)}};
+      });
+}
+
+// dts[ci][q] = sum over co of pw[ci][co] dbuf[co][q] over the region (the
+// tile and HALF pixels around it); four input channels an item.
+template <int TILE, int HALO, int HALF>
+__device__ __forceinline__ void pointwise_t(const float* dbuf,
+                                            const float* pw, float* dts,
+                                            int Cs) {
+  constexpr int RW = TILE + 2 * HALF, NQ = RW * RW;
+  constexpr int PWID = TILE + 2 * HALO, PLANE = PWID * PWID;
+  const int groups = (Cs + 3) / 4;
+  for (int it = threadIdx.x; it < groups * NQ; it += blockDim.x) {
+    const int c0 = it / NQ * 4, q = it % NQ;
+    const int at = (q / RW - HALF + HALO) * PWID + q % RW - HALF + HALO;
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = pw + (c0 + j < Cs ? c0 + j : c0) * Cs;
+    for (int co = 0; co < Cs; ++co) {
+      const float dv = dbuf[co * PLANE + at];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[j] = fmaf(w[j][co], dv, acc[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c0 + j < Cs) dts[(c0 + j) * PLANE + at] = acc[j];
+  }
+}
+
+// Where a stage's backward sends its input gradient: X adds it to dx where
+// x > 0; S writes dz where xhat > 0 as an fp32 plane and sums dz, dz xhat.
+struct StageOut {
+  float* dxs;             // X: [Cs][PIX] dx of the tile
+  const float* xh;        // S: [Cs][PIX] xhat of the tile
+  float* dzp;             // S: the plane of channel 0, channel stride M
+  float* part_s;          // S: (c * 2 + k) * nblk, offset to this block
+  long long M;
+};
+
+// One depthwise + pointwise stage backwards for one tile, after pointwise_t:
+//   in_s [Cs][PLANE] the stage's input (RELU: max(., 0) on read), dbuf and
+//   dts [Cs][PLANE] d of the stage's output and dt = pw^T d; dws [25][Cs].
+// A warp takes one channel (Cs >= 8) or 8 / Cs warps take one (Cs < 8, one
+// round); a lane takes R pixels of a column, rows r0 + o DIL. d dw of tap t
+// goes to part_dw[(t * Cs + c) * nblk], d pw to part_pw[(c * Cs + co) *
+// nblk], both offset to (edge, kidx, block). CB: the largest Cs of the tile.
+template <int KK, int DIL, int TILE, int HALO, int R, int CB, bool X>
+__device__ __forceinline__ void stage_bwd(const float* in_s,
+                                          const float* dbuf,
+                                          const float* dts, const float* dws,
+                                          const StageOut& so, float* red,
+                                          float* part_dw, float* part_pw,
+                                          long long nblk, const TileGeom& tg,
+                                          int H, int W, int Cs) {
+  constexpr int PWID = TILE + 2 * HALO, PLANE = PWID * PWID;
+  constexpr int PIX = TILE * TILE, GROUPS = PIX / R;
+  constexpr int HALF = (KK - 1) / 2 * DIL, NT = KK * KK;
+  constexpr int NV = NT + (CB < 4 ? CB : 4) + 2;  // values a warp hands over
+  static_assert(TILE % (DIL * R) == 0 && HALF <= HALO, "rows, reach");
+  static_assert(NV * kNodeWarps <= kRedFloats || CB > 4, "red");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wpc = Cs >= kNodeWarps ? 1 : kNodeWarps / Cs;
+  const int grp = warp / wpc, sub = warp % wpc;
+  for (int c = grp; c < Cs; c += kNodeWarps / wpc) {
+    float w[NT], ddw[NT], dpw[CB];
+    float bs = 0.f, bq = 0.f;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      w[t] = dws[t * Cs + c];
+      ddw[t] = 0.f;
+    }
+#pragma unroll
+    for (int co = 0; co < CB; ++co) dpw[co] = 0.f;
+    for (int gi = sub * 32 + lane; gi < GROUPS; gi += wpc * 32) {
+      const int kr = gi / TILE, col = gi % TILE;
+      const int r0 = DIL == 1 ? R * kr : (kr / 2) * 2 * R + (kr % 2);
+      const int top = c * PLANE + (r0 + HALO - HALF) * PWID + col + HALO - HALF;
+      float dtc[R], t[R], din[R];
+#pragma unroll
+      for (int o = 0; o < R; ++o) {
+        dtc[o] = dts[c * PLANE + (r0 + o * DIL + HALO) * PWID + col + HALO];
+        t[o] = din[o] = 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < KK + R - 1; ++i) {
+        float v[KK], u[KK];
+#pragma unroll
+        for (int dx = 0; dx < KK; ++dx) {
+          v[dx] = in_s[top + i * DIL * PWID + dx * DIL];
+          if constexpr (X) v[dx] = fmaxf(v[dx], 0.f);
+          u[dx] = dts[top + i * DIL * PWID + dx * DIL];
+        }
+#pragma unroll
+        for (int o = 0; o < R; ++o) {
+          const int ky = i - o;
+          if (ky < 0 || ky >= KK) continue;
+#pragma unroll
+          for (int dx = 0; dx < KK; ++dx) {
+            t[o] = fmaf(v[dx], w[ky * KK + dx], t[o]);
+            ddw[ky * KK + dx] = fmaf(v[dx], dtc[o], ddw[ky * KK + dx]);
+            din[o] = fmaf(w[(KK - 1 - ky) * KK + KK - 1 - dx], u[dx], din[o]);
+          }
+        }
+      }
+#pragma unroll
+      for (int o = 0; o < R; ++o) {
+        const int r = r0 + o * DIL;
+        const int at = (r + HALO) * PWID + col + HALO;
+#pragma unroll
+        for (int co = 0; co < CB; ++co)
+          if (co < Cs) dpw[co] = fmaf(t[o], dbuf[co * PLANE + at], dpw[co]);
+        const int p = r * TILE + col;
+        if constexpr (X) {
+          if (in_s[c * PLANE + at] > 0.f) so.dxs[c * PIX + p] += din[o];
+        } else {
+          const float xhat = so.xh[c * PIX + p];
+          const float dz = xhat > 0.f ? din[o] : 0.f;
+          const int h = tg.h0 + r, wc = tg.w0 + col;
+          if (h < H && wc < W)
+            so.dzp[c * so.M + tg.pixbase + (long long)h * W + wc] = dz;
+          bs += dz;
+          bq = fmaf(dz, xhat, bq);
+        }
+      }
+    }
+    // per warp, then (Cs < 8) over the channel's warps in order
+#pragma unroll
+    for (int k = 0; k < NT; ++k) ddw[k] = warp_sum(ddw[k]);
+#pragma unroll
+    for (int co = 0; co < CB; ++co)
+      if (co < Cs) dpw[co] = warp_sum(dpw[co]);
+    if constexpr (!X) {
+      bs = warp_sum(bs);
+      bq = warp_sum(bq);
+    }
+    if (lane == 0) {
+      if (wpc == 1) {
+#pragma unroll
+        for (int k = 0; k < NT; ++k) part_dw[(k * Cs + c) * nblk] = ddw[k];
+#pragma unroll
+        for (int co = 0; co < CB; ++co)
+          if (co < Cs) part_pw[(c * Cs + co) * nblk] = dpw[co];
+        if constexpr (!X) {
+          so.part_s[(c * 2) * nblk] = bs;
+          so.part_s[(c * 2 + 1) * nblk] = bq;
+        }
+      } else if constexpr (CB <= 4) {
+        float* rw = red + warp * NV;
+#pragma unroll
+        for (int k = 0; k < NT; ++k) rw[k] = ddw[k];
+#pragma unroll
+        for (int co = 0; co < CB; ++co)
+          if (co < Cs) rw[NT + co] = dpw[co];
+        rw[NV - 2] = bs;
+        rw[NV - 1] = bq;
+      }
+    }
+  }
+  if constexpr (CB <= 4) {
+    if (wpc > 1) {  // Cs <= 4: one round, channel c on warps c wpc ..
+      __syncthreads();
+      for (int i = threadIdx.x; i < Cs * NV; i += blockDim.x) {
+        const int c = i / NV, k = i % NV;
+        float v = 0.f;
+        for (int s = 0; s < wpc; ++s) v += red[(c * wpc + s) * NV + k];
+        if (k < NT)
+          part_dw[(k * Cs + c) * nblk] = v;
+        else if (k < NT + Cs)
+          part_pw[(c * Cs + k - NT) * nblk] = v;
+        else if (!X && k >= NV - 2)
+          so.part_s[(c * 2 + k - (NV - 2)) * nblk] = v;
+      }
+    }
+  }
+}
+
+template <int TILE>
+__host__ __device__ constexpr int rows_per_thread() {
+  return TILE >= 16 ? 4 : 2;  // a warp's 32 items in one channel
+}
+
+template <int TILE>
+__host__ __device__ constexpr int max_cs() {
+  return TILE == 32 ? 4 : (TILE == 16 ? 16 : kMaxCs);
+}
+
+// pw in shared memory beside the planes where it fits (tiles of 16, 32)
+template <int TILE>
+__host__ __device__ constexpr bool pw_shared() {
+  return TILE >= 16;
+}
+
+template <int TILE, int HALO>
+constexpr size_t bwd_smem_floats(int Cs) {
+  return (size_t)3 * Cs * (TILE + 2 * HALO) * (TILE + 2 * HALO)  // in, d, dt
+         + (size_t)Cs * TILE * TILE          // dx (X) or xhat (S)
+         + (size_t)kTaps * Cs                // dws
+         + (pw_shared<TILE>() ? (size_t)Cs * Cs : 0)
+         + kRedFloats + kNodeWarps;
+}
+
+// Launch S. grid (tiles, N, 2 E): z = 2 e + which (0: sep3, 1: sep5).
+template <typename T, int TILE, int KK>
+__device__ __forceinline__ void sep2_branch(
+    const NodeEdge& ed, const float* g, const T* obuf, const float* stat,
+    const float* fc, const float* gbar, float* dzp, float* part_s,
+    float* part_dw, float* part_pw, float* smem, int e, int which, int E,
+    int H, int W, int Cs, bool vec_g) {
+  constexpr int HALO = 2, HALF = (KK - 1) / 2;
+  constexpr int PLANE = (TILE + 2 * HALO) * (TILE + 2 * HALO);
   constexpr int PIX = TILE * TILE;
-  constexpr int CHUNKS = PIX / 32;
-  extern __shared__ float smem[];
-  float* zs = smem;                // [Cs][PLANE] relu(BN(y1)) as values of T
-  float* dbuf = zs + Cs * PLANE;   // [Cs][PLANE] d o2
-  float* dts = dbuf + Cs * PLANE;  // [Cs][PLANE]
-  float* dins = dts + Cs * PLANE;  // [Cs][PIX] dz
-  float* dws = dins + Cs * PIX;    // [25][Cs]
-  float* red = dws + kTaps * Cs;   // [Cs][CHUNKS][2]
-  const int e = blockIdx.z / 2, which = blockIdx.z % 2;
-  const NodeEdge ed = args.edge[e];
+  float* zs = smem;                 // [Cs][PLANE] round_T(relu(xhat))
+  float* dbuf = zs + Cs * PLANE;    // [Cs][PLANE] d o2
+  float* dts = dbuf + Cs * PLANE;   // [Cs][PLANE] pw^T d o2
+  float* xh = dts + Cs * PLANE;     // [Cs][PIX] xhat of the tile
+  float* dws = xh + Cs * PIX;       // [25][Cs]
+  float* pws = dws + kTaps * Cs;    // [Cs][Cs] (pw_shared)
+  float* red = pws + (pw_shared<TILE>() ? Cs * Cs : 0);
   const TileGeom tg = tile_geom<TILE>(H, W);
   const long long M = (long long)gridDim.y * H * W;
   const size_t mid = ((size_t)which * E + e) * Cs;  // slot 0 or 1
-  const size_t outp = ((size_t)(kFirstFoldSlot + which) * E + e) * Cs;
-  const int kk = which ? 5 : 3, half = (kk - 1) / 2;
+  const size_t o2 = ((size_t)(kFirstFoldSlot + which) * E + e) * Cs;
   const int kidx = 2 * which + 1;
+  const float* fcw = fc + mid * 3;  // fold slot `which`: sep3 0, sep5 1
 
-  for (int i = threadIdx.x; i < PLANE * Cs; i += blockDim.x) {
-    const int c = i % Cs, p = i / Cs;
-    const int py = p / PWID - HALO, px = p % PWID - HALO;
-    const int h = tg.h0 + py, w = tg.w0 + px;
-    float z = 0.f, d = 0.f;
-    if (h >= 0 && h < H && w >= 0 && w < W) {
-      const long long pix = tg.pixbase + (long long)h * W + w;
-      const float o1 = to_f32(obuf[(mid + c) * M + pix]);
-      const float mean = stat[(mid + c) * 2], rstd = stat[(mid + c) * 2 + 1];
-      z = round_to<T>(fmaxf((o1 - mean) * rstd, 0.f));
-      if (py >= -half && py < TILE + half && px >= -half && px < TILE + half)
-        d = fold_grad(fc + (((size_t)which * E + e) * Cs + c) * 3,
-                      g[pix * Cs + c], gbar[e * Cs + c],
-                      to_f32(obuf[(outp + c) * M + pix]));
-    }
-    zs[c * PLANE + p] = z;
-    dbuf[c * PLANE + p] = d;
-  }
+  // one pass over the region (0 outside the image): xhat into zs, d o2
+  // into dbuf; then xh = xhat on the tile and z = round_T(relu(xhat))
+  float* const outs[2] = {zs, dbuf};
+  stage_region<TILE, HALO, HALF, 2>(outs, Cs, tg, H, W, [&](int c0,
+                                                            long long pix,
+                                                            int, int) {
+    const float4 gv = load_g4(g, pix, Cs, c0, vec_g);
+    Vals<2> r;
+    float z[4] = {0.f, 0.f, 0.f, 0.f}, d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (c0 + j < Cs) {
+        const size_t c = mid + c0 + j;
+        z[j] = (to_f32(obuf[c * M + pix]) - stat[c * 2]) * stat[c * 2 + 1];
+        d[j] = fold_grad(fcw + (c0 + j) * 3, get4(gv, j),
+                         gbar[e * Cs + c0 + j],
+                         to_f32(obuf[(o2 + c0 + j) * M + pix]));
+      }
+    r.v[0] = make_float4(z[0], z[1], z[2], z[3]);
+    r.v[1] = make_float4(d[0], d[1], d[2], d[3]);
+    return r;
+  });
   for (int i = threadIdx.x; i < kTaps * Cs; i += blockDim.x)
     dws[i] = ed.dw[(size_t)kidx * kTaps * Cs + i];
+  const float* pw = ed.pw + (size_t)kidx * Cs * Cs;
+  if (pw_shared<TILE>()) {
+    for (int i = threadIdx.x; i < Cs * Cs; i += blockDim.x) pws[i] = pw[i];
+    pw = pws;
+  }
   __syncthreads();
-
-  const size_t wrow = (size_t)e * 8 + kidx;
-  conv_stage_bwd<TILE, HALO, false>(
-      zs, dbuf, dts, dins, nullptr, dws, ed.pw + (size_t)kidx * Cs * Cs,
-      part_dw + wrow * kTaps * Cs * tg.nblk + tg.blk,
-      part_pw + wrow * Cs * Cs * tg.nblk + tg.blk, Cs, kk, 1, tg.nblk);
-
-  // through the ReLU: dz where xhat > 0; the inner BatchNorm's two sums
-  for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
-    const int c = it / PIX, p = it % PIX;
-    const int h = tg.h0 + p / TILE, w = tg.w0 + p % TILE;
-    const bool valid = h < H && w < W;
-    float s = 0.f, q = 0.f;
-    if (valid) {
-      const long long pix = tg.pixbase + (long long)h * W + w;
-      const float o1 = to_f32(obuf[(mid + c) * M + pix]);
-      const float xhat =
-          (o1 - stat[(mid + c) * 2]) * stat[(mid + c) * 2 + 1];
-      s = xhat > 0.f ? dins[it] : 0.f;
-      q = s * xhat;
-      dzp[(mid + c) * M + pix] = s;
-    }
-    s = warp_sum(s);
-    q = warp_sum(q);
-    if ((threadIdx.x & 31) == 0) {
-      red[(c * CHUNKS + p / 32) * 2] = s;
-      red[(c * CHUNKS + p / 32) * 2 + 1] = q;
+  {
+    constexpr int RW = TILE + 2 * HALF, NQ = RW * RW;
+    constexpr int PWID = TILE + 2 * HALO;
+    for (int it = threadIdx.x; it < Cs * NQ; it += blockDim.x) {
+      const int c = it / NQ, q = it % NQ;
+      const int y = q / RW - HALF, x = q % RW - HALF;
+      float* zp = zs + c * PLANE + (y + HALO) * PWID + x + HALO;
+      const float xhat = *zp;
+      if (y >= 0 && y < TILE && x >= 0 && x < TILE)
+        xh[c * PIX + y * TILE + x] = xhat;
+      *zp = round_to<T>(fmaxf(xhat, 0.f));
     }
   }
-  flush_partials(red, part_s + mid * 2 * tg.nblk + tg.blk, Cs, CHUNKS,
-                 tg.nblk);
+  __syncthreads();
+  pointwise_t<TILE, HALO, HALF>(dbuf, pw, dts, Cs);
+  __syncthreads();
+  const StageOut so{nullptr, xh, dzp + mid * M, part_s + mid * 2 * tg.nblk +
+                    tg.blk, M};
+  const size_t wrow = (size_t)e * 8 + kidx;
+  stage_bwd<KK, 1, TILE, HALO, rows_per_thread<TILE>(), max_cs<TILE>(), false>(
+      zs, dbuf, dts, dws, so, red,
+      part_dw + wrow * kTaps * Cs * tg.nblk + tg.blk,
+      part_pw + wrow * Cs * Cs * tg.nblk + tg.blk, tg.nblk, tg, H, W, Cs);
 }
 
-struct NodeDx {
-  void* dx[kMaxEdges];  // [N, H, W, Cs] contiguous, in T
-};
+// Two blocks an SM where the planes of two fit (tiles of 16, 32): at most
+// 128 registers a thread.
+template <int TILE>
+__host__ __device__ constexpr int bwd_min_blocks() {
+  return TILE >= 16 ? 2 : 1;
+}
+
+template <typename T, int TILE>
+__global__ void __launch_bounds__(kNodeThreads, bwd_min_blocks<TILE>())
+    node_bwd_s_kernel(NodeArgs args, const float* __restrict__ g,
+                      const T* __restrict__ obuf,
+                      const float* __restrict__ stat,
+                      const float* __restrict__ fc,
+                      const float* __restrict__ gbar, float* __restrict__ dzp,
+                      float* part_s, float* __restrict__ part_dw,
+                      float* __restrict__ part_pw, float* __restrict__ mstat,
+                      unsigned* ctr, int E, int H, int W, int Cs, int vec_g) {
+  extern __shared__ __align__(16) float smem[];
+  const int e = blockIdx.z / 2, which = blockIdx.z % 2;
+  const NodeEdge ed = args.edge[e];
+  if (which)
+    sep2_branch<T, TILE, 5>(ed, g, obuf, stat, fc, gbar, dzp, part_s,
+                            part_dw, part_pw, smem, e, which, E, H, W, Cs,
+                            vec_g);
+  else
+    sep2_branch<T, TILE, 3>(ed, g, obuf, stat, fc, gbar, dzp, part_s,
+                            part_dw, part_pw, smem, e, which, E, H, W, Cs,
+                            vec_g);
+  // the edge's blocks of both sep convs count on one counter
+  const long long nblk = (long long)gridDim.y * gridDim.x;
+  if (!count_done(ctr + e, 2u * (unsigned)nblk)) return;
+  const float inv_count = 1.f / (float)((long long)gridDim.y * H * W);
+  // entries (which, c, k) of edge e: rows ((which E + e) Cs + c) 2 + k
+  sum_entries(
+      part_s, nblk, 4 * Cs,
+      [&](int i) {
+        const int which2 = i / (2 * Cs), rest = i % (2 * Cs);
+        return (((long long)which2 * E + e) * Cs) * 2 + rest;
+      },
+      [&](int i, float v) {
+        const int which2 = i / (2 * Cs), rest = i % (2 * Cs);
+        mstat[(((size_t)which2 * E + e) * Cs) * 2 + rest] = v * inv_count;
+      });
+}
 
 // Launch X. grid (tiles, N, E).
 template <typename T, int TILE>
-__global__ void node_bwd_x_kernel(NodeArgs args, NodeDx outs,
-                                  const float* __restrict__ weights,
-                                  const float* __restrict__ g,
-                                  const T* __restrict__ obuf,
-                                  const float* __restrict__ stat,
-                                  const float* __restrict__ fc,
-                                  const float* __restrict__ gbar,
-                                  const float* __restrict__ dzp,
-                                  const float* __restrict__ mstat,
-                                  float* __restrict__ part_dw,
-                                  float* __restrict__ part_pw,
-                                  float* __restrict__ part_skip, int E, int H,
-                                  int W, int Cs) {
+__global__ void __launch_bounds__(kNodeThreads, bwd_min_blocks<TILE>())
+    node_bwd_x_kernel(NodeArgs args, T* __restrict__ dx,
+                      const float* __restrict__ weights,
+                      const float* __restrict__ g,
+                      const T* __restrict__ obuf,
+                      const float* __restrict__ stat,
+                      const float* __restrict__ fc,
+                      const float* __restrict__ gbar,
+                      const float* __restrict__ dzp,
+                      const float* __restrict__ mstat, float* part_dw,
+                      float* part_pw, float* part_skip,
+                      float* __restrict__ ddw, float* __restrict__ dpw,
+                      float* __restrict__ dwt, unsigned* ctr, int E, int H,
+                      int W, int Cs, int vec_x, int vec_g) {
   constexpr int HALO = 4;
-  constexpr int PWID = TILE + 2 * HALO;
-  constexpr int PLANE = PWID * PWID;
+  constexpr int PWID = TILE + 2 * HALO, PLANE = PWID * PWID;
   constexpr int PIX = TILE * TILE;
-  extern __shared__ float smem[];
+  constexpr int R = rows_per_thread<TILE>(), CB = max_cs<TILE>();
+  extern __shared__ __align__(16) float smem[];
   float* xs = smem;                // [Cs][PLANE] raw x, 0 outside the image
   float* dbuf = xs + Cs * PLANE;   // [Cs][PLANE]
   float* dts = dbuf + Cs * PLANE;  // [Cs][PLANE]
   float* dxs = dts + Cs * PLANE;   // [Cs][PIX] dx of this tile
   float* dws = dxs + Cs * PIX;     // [25][Cs]
-  float* red = dws + kTaps * Cs;   // [8]
+  float* pws = dws + kTaps * Cs;   // [Cs][Cs] (pw_shared)
+  float* red = pws + (pw_shared<TILE>() ? Cs * Cs : 0);
+  float* red8 = red + kRedFloats;  // [8]
   const int e = blockIdx.z;
   const NodeEdge ed = args.edge[e];
   const TileGeom tg = tile_geom<TILE>(H, W);
   const long long M = (long long)gridDim.y * H * W;
   const T* x = (const T*)ed.x + (long long)tg.n * ed.sn;
 
-  for (int i = threadIdx.x; i < PLANE * Cs; i += blockDim.x) {
-    const int c = i % Cs, p = i / Cs;
-    const int h = tg.h0 + p / PWID - HALO, w = tg.w0 + p % PWID - HALO;
-    float v = 0.f;
-    if (h >= 0 && h < H && w >= 0 && w < W)
-      v = to_f32(x[(long long)h * ed.sh + (long long)w * ed.sw + c]);
-    xs[c * PLANE + p] = v;
+  // the halo tile, four channels of a pixel in one load where aligned
+  {
+    const int groups = vec_x ? Cs / 4 : Cs, per = vec_x ? 4 : 1;
+    const int items = PLANE * groups;
+    for (int base = threadIdx.x; base < items;
+         base += kStageBatch * kNodeThreads) {
+      float4 v[kStageBatch];
+#pragma unroll
+      for (int k = 0; k < kStageBatch; ++k) {
+        const int i = base + k * kNodeThreads;
+        const int q = i / groups, cg = i % groups;
+        const int h = tg.h0 + q / PWID - HALO, w = tg.w0 + q % PWID - HALO;
+        v[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (i < items && h >= 0 && h < H && w >= 0 && w < W) {
+          const T* src = x + (long long)h * ed.sh + (long long)w * ed.sw +
+                         cg * per;
+          v[k] = vec_x ? ld4f(src) : make_float4(to_f32(*src), 0.f, 0.f, 0.f);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kStageBatch; ++k) {
+        const int i = base + k * kNodeThreads;
+        if (i >= items) break;
+        const int q = i / groups, cg = i % groups;
+        for (int j = 0; j < per; ++j)
+          xs[(cg * per + j) * PLANE + q] = get4(v[k], j);
+      }
+    }
   }
   __syncthreads();
 
-  // skip: dx = w[e, skip] * g, and this block's part of sum g * x
+  // skip: dx = w[e, skip] g, and this block's part of sum g x
   {
     const float wskip = weights[e * 8 + kSkipOp];
+    const int groups = (Cs + 3) / 4;
     float acc = 0.f;
-    for (int i = threadIdx.x; i < PIX * Cs; i += blockDim.x) {
-      const int c = i % Cs, p = i / Cs;
+    for (int it = threadIdx.x; it < groups * PIX; it += blockDim.x) {
+      const int c0 = it / PIX * 4, p = it % PIX;
       const int h = tg.h0 + p / TILE, w = tg.w0 + p % TILE;
-      float gv = 0.f;
+      float4 gv = make_float4(0.f, 0.f, 0.f, 0.f);
       if (h < H && w < W)
-        gv = g[(tg.pixbase + (long long)h * W + w) * Cs + c];
-      dxs[c * PIX + p] = wskip * gv;
-      acc = fmaf(gv, xs[c * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO],
-                 acc);
+        gv = load_g4(g, tg.pixbase + (long long)h * W + w, Cs, c0, vec_g);
+      const int at = (p / TILE + HALO) * PWID + p % TILE + HALO;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j >= Cs) break;
+        dxs[(c0 + j) * PIX + p] = wskip * get4(gv, j);
+        acc = fmaf(get4(gv, j), xs[(c0 + j) * PLANE + at], acc);
+      }
     }
     acc = warp_sum(acc);
-    if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = acc;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      float v = 0.f;
-      for (int w = 0; w < (int)(blockDim.x >> 5); ++w) v += red[w];
-      part_skip[(long long)e * tg.nblk + tg.blk] = v;
-    }
+    if ((threadIdx.x & 31) == 0) red8[threadIdx.x >> 5] = acc;
   }
 
   // the four conv branches' first stage: sep3, sep5, dil3, dil5
+#pragma unroll
   for (int b = 0; b < 4; ++b) {
-    const int kk = (b & 1) ? 5 : 3, dil = b < 2 ? 1 : 2;
-    const int half = (kk - 1) / 2 * dil;
     const int kidx = 2 * b;
-    __syncthreads();
+    __syncthreads();  // the previous branch is done with dbuf, dts, dws
+    auto sep_d = [&](int c0, long long pix, int, int) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      #pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j >= Cs) break;
+        const size_t mid = ((size_t)b * E + e) * Cs + c0 + j;
+        const float rstd = stat[mid * 2 + 1];
+        const float xhat =
+            (to_f32(obuf[mid * M + pix]) - stat[mid * 2]) * rstd;
+        v[j] = rstd * (dzp[mid * M + pix] - mstat[mid * 2] -
+                       xhat * mstat[mid * 2 + 1]);
+      }
+      return make_float4(v[0], v[1], v[2], v[3]);
+    };
+    auto dil_d = [&](int c0, long long pix, int, int) {
+      const float4 gv = load_g4(g, pix, Cs, c0, vec_g);
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      #pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (c0 + j >= Cs) break;
+        const size_t c = ((size_t)b * E + e) * Cs + c0 + j;  // fold slot b
+        const size_t plane = ((size_t)(kFirstFoldSlot + b) * E + e) * Cs +
+                             c0 + j;
+        v[j] = fold_grad(fc + c * 3, get4(gv, j), gbar[e * Cs + c0 + j],
+                         to_f32(obuf[plane * M + pix]));
+      }
+      return make_float4(v[0], v[1], v[2], v[3]);
+    };
+    if (b == 0) stage_region<TILE, HALO, 1>(dbuf, Cs, tg, H, W, sep_d);
+    if (b == 1) stage_region<TILE, HALO, 2>(dbuf, Cs, tg, H, W, sep_d);
+    if (b == 2) stage_region<TILE, HALO, 2>(dbuf, Cs, tg, H, W, dil_d);
+    if (b == 3) stage_region<TILE, HALO, 4>(dbuf, Cs, tg, H, W, dil_d);
     for (int i = threadIdx.x; i < kTaps * Cs; i += blockDim.x)
       dws[i] = ed.dw[(size_t)kidx * kTaps * Cs + i];
-    for (int i = threadIdx.x; i < PLANE * Cs; i += blockDim.x) {
-      const int c = i % Cs, p = i / Cs;
-      const int py = p / PWID - HALO, px = p % PWID - HALO;
-      const int h = tg.h0 + py, w = tg.w0 + px;
-      float d = 0.f;
-      if (h >= 0 && h < H && w >= 0 && w < W && py >= -half &&
-          py < TILE + half && px >= -half && px < TILE + half) {
-        const long long pix = tg.pixbase + (long long)h * W + w;
-        if (b < 2) {  // through the inner BatchNorm of sep conv b
-          const size_t mid = ((size_t)b * E + e) * Cs + c;
-          const float rstd = stat[mid * 2 + 1];
-          const float xhat = (to_f32(obuf[mid * M + pix]) - stat[mid * 2]) *
-                             rstd;
-          d = rstd * (dzp[mid * M + pix] - mstat[mid * 2] -
-                      xhat * mstat[mid * 2 + 1]);
-        } else {
-          const size_t plane = ((size_t)(kFirstFoldSlot + b) * E + e) * Cs + c;
-          d = fold_grad(fc + (((size_t)b * E + e) * Cs + c) * 3,
-                        g[pix * Cs + c], gbar[e * Cs + c],
-                        to_f32(obuf[plane * M + pix]));
-        }
-      }
-      dbuf[c * PLANE + p] = d;
+    const float* pw = ed.pw + (size_t)kidx * Cs * Cs;
+    if (pw_shared<TILE>()) {
+      for (int i = threadIdx.x; i < Cs * Cs; i += blockDim.x) pws[i] = pw[i];
+      pw = pws;
     }
     __syncthreads();
+    if (b == 0) pointwise_t<TILE, HALO, 1>(dbuf, pw, dts, Cs);
+    if (b == 1) pointwise_t<TILE, HALO, 2>(dbuf, pw, dts, Cs);
+    if (b == 2) pointwise_t<TILE, HALO, 2>(dbuf, pw, dts, Cs);
+    if (b == 3) pointwise_t<TILE, HALO, 4>(dbuf, pw, dts, Cs);
+    __syncthreads();
+    const StageOut so{dxs, nullptr, nullptr, nullptr, M};
     const size_t wrow = (size_t)e * 8 + kidx;
-    conv_stage_bwd<TILE, HALO, true>(
-        xs, dbuf, dts, dxs, xs, dws, ed.pw + (size_t)kidx * Cs * Cs,
-        part_dw + wrow * kTaps * Cs * tg.nblk + tg.blk,
-        part_pw + wrow * Cs * Cs * tg.nblk + tg.blk, Cs, kk, dil, tg.nblk);
+    float* pdw = part_dw + wrow * kTaps * Cs * tg.nblk + tg.blk;
+    float* ppw = part_pw + wrow * Cs * Cs * tg.nblk + tg.blk;
+    if (b == 0)
+      stage_bwd<3, 1, TILE, HALO, R, CB, true>(xs, dbuf, dts, dws, so, red,
+                                               pdw, ppw, tg.nblk, tg, H, W,
+                                               Cs);
+    if (b == 1)
+      stage_bwd<5, 1, TILE, HALO, R, CB, true>(xs, dbuf, dts, dws, so, red,
+                                               pdw, ppw, tg.nblk, tg, H, W,
+                                               Cs);
+    if (b == 2)
+      stage_bwd<3, 2, TILE, HALO, R, CB, true>(xs, dbuf, dts, dws, so, red,
+                                               pdw, ppw, tg.nblk, tg, H, W,
+                                               Cs);
+    if (b == 3)
+      stage_bwd<5, 2, TILE, HALO, R, CB, true>(xs, dbuf, dts, dws, so, red,
+                                               pdw, ppw, tg.nblk, tg, H, W,
+                                               Cs);
   }
 
-  // max pool (fold slot 4, plane 6) then avg pool (fold slot 5, plane 7)
-  for (int pool = 0; pool < 2; ++pool) {
-    const int s = 4 + pool;
-    for (int i = threadIdx.x; i < PLANE * Cs; i += blockDim.x) {
-      const int c = i % Cs, p = i / Cs;
-      const int py = p / PWID - HALO, px = p % PWID - HALO;
-      const int h = tg.h0 + py, w = tg.w0 + px;
-      float d = 0.f, o = 0.f;
-      if (h >= 0 && h < H && w >= 0 && w < W && py >= -1 && py <= TILE &&
-          px >= -1 && px <= TILE) {
-        const long long pix = tg.pixbase + (long long)h * W + w;
-        const size_t plane = ((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c;
-        o = to_f32(obuf[plane * M + pix]);
-        d = fold_grad(fc + (((size_t)s * E + e) * Cs + c) * 3,
-                      g[pix * Cs + c], gbar[e * Cs + c], o);
-        if (pool == 1) {
-          const int rows = 1 + (h > 0) + (h < H - 1);
-          const int cols = 1 + (w > 0) + (w < W - 1);
-          d = d / (float)(rows * cols);
+  // max pool (fold slot 4, plane 6) and avg pool (fold slot 5, plane 7): d
+  // of both over the tile and one pixel around it in one pass (max into
+  // dbuf, avg over its window's count into dts), then per tile pixel the
+  // windows that reach it: avg's, then max's. A max window's gradient goes
+  // to its first maximal tap in row-major order among the taps in the
+  // image: its index (0..8, -1 outside the image) is found once per window,
+  // into dts.
+  __syncthreads();
+  {
+    float* const outs[2] = {dbuf, dts};
+    stage_region<TILE, HALO, 1, 2>(outs, Cs, tg, H, W, [&](int c0,
+                                                          long long pix,
+                                                          int h, int w) {
+      const float4 gv = load_g4(g, pix, Cs, c0, vec_g);
+      const float count = (float)((1 + (h > 0) + (h < H - 1)) *
+                                  (1 + (w > 0) + (w < W - 1)));
+      float d[2][4] = {};
+#pragma unroll
+      for (int k = 0; k < 2; ++k)  // fold slots 4 (max) and 5 (avg)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + j < Cs) {
+            const size_t c = ((size_t)(4 + k) * E + e) * Cs + c0 + j;
+            const size_t plane =
+                ((size_t)(kFirstFoldSlot + 4 + k) * E + e) * Cs + c0 + j;
+            d[k][j] = fold_grad(fc + c * 3, get4(gv, j), gbar[e * Cs + c0 + j],
+                                to_f32(obuf[plane * M + pix]));
+          }
+      Vals<2> r;
+      r.v[0] = make_float4(d[0][0], d[0][1], d[0][2], d[0][3]);
+      r.v[1] = make_float4(d[1][0] / count, d[1][1] / count, d[1][2] / count,
+                           d[1][3] / count);
+      return r;
+    });
+  }
+  __syncthreads();
+  for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
+    const int c = it / PIX, p = it % PIX;
+    const int at = c * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO;
+    float acc = 0.f;
+#pragma unroll
+    for (int qy = -1; qy <= 1; ++qy)
+#pragma unroll
+      for (int qx = -1; qx <= 1; ++qx) acc += dts[at + qy * PWID + qx];
+    dxs[it] += acc;
+  }
+  __syncthreads();
+  {
+    constexpr int RW = TILE + 2, NQ = RW * RW;
+    for (int it = threadIdx.x; it < Cs * NQ; it += blockDim.x) {
+      const int c = it / NQ, q = it % NQ;
+      const int y = q / RW - 1, x = q % RW - 1;
+      const int h = tg.h0 + y, w = tg.w0 + x;
+      const int at = c * PLANE + (y + HALO) * PWID + x + HALO;
+      int arg = -1;
+      if (h >= 0 && h < H && w >= 0 && w < W) {
+        float best = 0.f;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          const int ty = t / 3 - 1, tx = t % 3 - 1;
+          if (h + ty < 0 || h + ty >= H || w + tx < 0 || w + tx >= W) continue;
+          const float v = xs[at + ty * PWID + tx];
+          if (arg < 0 || v > best) best = v, arg = t;
         }
       }
-      dbuf[c * PLANE + p] = d;
-      dts[c * PLANE + p] = o;
+      dts[at] = (float)arg;
     }
-    __syncthreads();
-    for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
-      const int c = it / PIX, p = it % PIX;
+  }
+  __syncthreads();
+  for (int it = threadIdx.x; it < Cs * PIX; it += blockDim.x) {
+    const int c = it / PIX, p = it % PIX;
+    const int at = c * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO;
+    float acc = 0.f;
+#pragma unroll
+    for (int t = 0; t < 9; ++t) {  // window q = p - (tap t's offset)
+      const int q = at - (t / 3 - 1) * PWID - (t % 3 - 1);
+      if (dts[q] == (float)t) acc += dbuf[q];
+    }
+    dxs[it] += acc;
+  }
+  __syncthreads();
+
+  // dx of the tile, four channels of a pixel in one store where aligned
+  {
+    T* dxe = dx + (size_t)e * M * Cs;
+    const int groups = (Cs + 3) / 4;
+    for (int it = threadIdx.x; it < groups * PIX; it += blockDim.x) {
+      const int c0 = it / PIX * 4, p = it % PIX;
       const int h = tg.h0 + p / TILE, w = tg.w0 + p % TILE;
       if (h >= H || w >= W) continue;
-      const int at = c * PLANE + (p / TILE + HALO) * PWID + p % TILE + HALO;
-      float acc = 0.f;
-      if (pool == 1) {
-        for (int qy = -1; qy <= 1; ++qy)
-          for (int qx = -1; qx <= 1; ++qx) acc += dbuf[at + qy * PWID + qx];
+      T* dst = dxe + (tg.pixbase + (long long)h * W + w) * Cs + c0;
+      if (vec_g) {  // Cs % 4 == 0
+        st4(dst, make_float4(dxs[c0 * PIX + p], dxs[(c0 + 1) * PIX + p],
+                             dxs[(c0 + 2) * PIX + p],
+                             dxs[(c0 + 3) * PIX + p]));
       } else {
-        const float xv = xs[at];
-        // window q = p + (qy, qx) gives its gradient to its first maximal
-        // tap in row-major order; p is its tap (-qy, -qx)
-        for (int qy = -1; qy <= 1; ++qy) {
-          if (h + qy < 0 || h + qy >= H) continue;
-          for (int qx = -1; qx <= 1; ++qx) {
-            if (w + qx < 0 || w + qx >= W) continue;
-            const int q = at + qy * PWID + qx;
-            const float m = dts[q];
-            if (xv != m) continue;
-            bool first = true;
-            for (int t = 0; t < 9; ++t) {
-              const int ty = t / 3 - 1, tx = t % 3 - 1;
-              if (ty == -qy && tx == -qx) break;  // reached p
-              const int rh = h + qy + ty, rw = w + qx + tx;
-              if (rh < 0 || rh >= H || rw < 0 || rw >= W) continue;
-              if (xs[q + ty * PWID + tx] == m) {
-                first = false;
-                break;
-              }
-            }
-            if (first) acc += dbuf[q];
-          }
-        }
+        #pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c0 + j < Cs)
+          dst[j] = from_f32<T>(dxs[(c0 + j) * PIX + p]);
       }
-      dxs[it] += acc;
     }
-    __syncthreads();
+    if (threadIdx.x == 0) {
+      float v = 0.f;
+      for (int w = 0; w < kNodeWarps; ++w) v += red8[w];
+      part_skip[(long long)e * tg.nblk + tg.blk] = v;
+    }
   }
+  if (!count_done(ctr + e, (unsigned)tg.nblk)) return;
 
-  T* dx = (T*)outs.dx[e];
-  for (int i = threadIdx.x; i < PIX * Cs; i += blockDim.x) {
-    const int c = i % Cs, p = i / Cs;
-    const int h = tg.h0 + p / TILE, w = tg.w0 + p % TILE;
-    if (h < H && w < W)
-      dx[(tg.pixbase + (long long)h * W + w) * Cs + c] =
-          from_f32<T>(dxs[c * PIX + p]);
+  // the edge's last block: d dw, d pw and d w[skip], each the sum over the
+  // blocks; rows 5 and 7 and the taps past a 3 x 3 window are 0
+  const long long nblk = tg.nblk;
+  const int n_dw = 8 * kTaps * Cs, n_pw = 8 * Cs * Cs;
+  float* ddw_e = ddw + (size_t)e * n_dw;
+  float* dpw_e = dpw + (size_t)e * n_pw;
+  for (int i = threadIdx.x; i < n_dw + n_pw; i += blockDim.x) {
+    const int kidx = i < n_dw ? i / (kTaps * Cs) : (i - n_dw) / (Cs * Cs);
+    const int kk = (kidx >> 1) & 1 ? 5 : 3;
+    if (kidx == 5 || kidx == 7)
+      (i < n_dw ? ddw_e[i] : dpw_e[i - n_dw]) = 0.f;
+    else if (i < n_dw && i / Cs % kTaps >= kk * kk)
+      ddw_e[i] = 0.f;
   }
+  // the used (row, tap) pairs in order, then the used pw rows
+  constexpr int kUsedTaps = 9 + 9 + 25 + 25 + 9 + 25;
+  auto used_row = [](int u) { return u < 4 ? u : (u == 4 ? 4 : 6); };
+  auto dw_entry = [&](int i) {
+    int t = i / Cs, u = 0;
+    while (t >= (((used_row(u) >> 1) & 1) ? 25 : 9)) {
+      t -= ((used_row(u) >> 1) & 1) ? 25 : 9;
+      ++u;
+    }
+    return (used_row(u) * kTaps + t) * Cs + i % Cs;
+  };
+  sum_entries(
+      part_dw + (size_t)e * n_dw * nblk, nblk, kUsedTaps * Cs,
+      [&](int i) { return (long long)dw_entry(i); },
+      [&](int i, float v) { ddw_e[dw_entry(i)] = v; });
+  sum_entries(
+      part_pw + (size_t)e * n_pw * nblk, nblk, 6 * Cs * Cs,
+      [&](int i) {
+        return (long long)used_row(i / (Cs * Cs)) * Cs * Cs + i % (Cs * Cs);
+      },
+      [&](int i, float v) {
+        dpw_e[used_row(i / (Cs * Cs)) * Cs * Cs + i % (Cs * Cs)] = v;
+      });
+  sum_entries(
+      part_skip + (size_t)e * nblk, nblk, 1, [](int) { return 0LL; },
+      [&](int, float v) { dwt[e * 8 + kSkipOp] = v; });
 }
 
+// Edge of the square pixel tile of one block of the backward's launches S
+// and X: the forward's.
+inline int bwd_tile(int Cs) { return fwd_tile(Cs); }
+
 template <typename T, int TILE>
-cudaError_t node_bwd(const NodeArgs& args, const NodeDx& outs,
-                     const float* weights, const float* g, const T* obuf,
-                     const float* stat, float* scratch, float* ddw, float* dpw,
-                     float* dwt, int E, int N, int H, int W, int Cs,
-                     cudaStream_t s) {
+cudaError_t node_bwd(const NodeArgs& args, T* dx, const float* weights,
+                     const float* g, const T* obuf, const float* stat,
+                     float* scratch, float* ddw, float* dpw, float* dwt,
+                     int E, int N, int H, int W, int Cs, cudaStream_t s) {
   const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
   const long long nblk = (long long)N * tiles;
   const long long M = (long long)N * H * W;
   const long long nchunk = (M + kChunk - 1) / kChunk;
-  const float inv_count = 1.f / (float)M;
   const BwdScratch b = bwd_scratch(E, M, nblk, Cs);
-  float* part_r = scratch + b.part_r;
-  float* fc = scratch + b.fc;
-  float* gbar = scratch + b.gbar;
-  float* dwpart = scratch + b.dwpart;
-  float* dzp = scratch + b.dzp;
-  float* part_s = scratch + b.part_s;
-  float* mstat = scratch + b.mstat;
-  float* part_dw = scratch + b.part_dw;
-  float* part_pw = scratch + b.part_pw;
-  float* part_skip = scratch + b.part_skip;
-  constexpr int PIX = TILE * TILE;
-  const size_t smem_s = ((size_t)3 * Cs * (TILE + 4) * (TILE + 4) +
-                         (size_t)Cs * PIX + (size_t)kTaps * Cs +
-                         (size_t)Cs * (PIX / 32) * 2) * sizeof(float);
-  const size_t smem_x = ((size_t)3 * Cs * (TILE + 8) * (TILE + 8) +
-                         (size_t)Cs * PIX + (size_t)kTaps * Cs + 8) *
-                        sizeof(float);
-  cudaError_t rc = allow_smem(node_bwd_sep2_kernel<T, TILE>, smem_s);
+  unsigned* ctr = reinterpret_cast<unsigned*>(scratch + b.ctr);
+  const size_t smem_s = bwd_smem_floats<TILE, 2>(Cs) * sizeof(float);
+  const size_t smem_x = bwd_smem_floats<TILE, 4>(Cs) * sizeof(float);
+  cudaError_t rc = allow_smem(node_bwd_s_kernel<T, TILE>, smem_s);
   if (rc != cudaSuccess) return rc;
   rc = allow_smem(node_bwd_x_kernel<T, TILE>, smem_x);
   if (rc != cudaSuccess) return rc;
-
-  node_bwd_reduce_kernel<T><<<dim3((unsigned)nchunk, E), kNodeThreads, 0, s>>>(
-      g, obuf, part_r, E, M, Cs);
-  node_bwd_coef_kernel<<<E * Cs, 128, 0, s>>>(part_r, stat, weights, fc, gbar,
-                                              dwpart, E, Cs, nchunk,
-                                              inv_count);
-  node_bwd_sep2_kernel<T, TILE>
+  rc = cudaMemsetAsync(ctr, 0, 3 * E * sizeof(unsigned), s);
+  if (rc != cudaSuccess) return rc;
+  const int vec_g = Cs % 4 == 0 && (uintptr_t)g % 16 == 0 &&
+                    (uintptr_t)dx % (4 * sizeof(T)) == 0;
+  const int vec_x = edges_vec4(args, E, Cs, sizeof(T));
+  node_bwd_r_kernel<T>
+      <<<dim3((unsigned)nchunk, E * ((Cs + 3) / 4)), kNodeThreads, 0, s>>>(
+      g, obuf, stat, weights, scratch + b.part_r, scratch + b.fc,
+      scratch + b.gbar, dwt, ctr, E, M, Cs, vec_g);
+  node_bwd_s_kernel<T, TILE>
       <<<dim3(tiles, N, 2 * E), kNodeThreads, smem_s, s>>>(
-          args, g, obuf, stat, fc, gbar, dzp, part_s, part_dw, part_pw, E, H,
-          W, Cs);
-  node_sums_kernel<<<2 * E * Cs * 2, 128, 0, s>>>(part_s, mstat, nblk,
-                                                  inv_count, 0);
+          args, g, obuf, stat, scratch + b.fc, scratch + b.gbar,
+          scratch + b.dzp, scratch + b.part_s, scratch + b.part_dw,
+          scratch + b.part_pw, scratch + b.mstat, ctr + E, E, H, W, Cs,
+          vec_g);
   node_bwd_x_kernel<T, TILE><<<dim3(tiles, N, E), kNodeThreads, smem_x, s>>>(
-      args, outs, weights, g, obuf, stat, fc, gbar, dzp, mstat, part_dw,
-      part_pw, part_skip, E, H, W, Cs);
-  node_sums_kernel<<<E * 8 * kTaps * Cs, 128, 0, s>>>(part_dw, ddw, nblk, 1.f,
-                                                      kTaps * Cs);
-  node_sums_kernel<<<E * 8 * Cs * Cs, 128, 0, s>>>(part_pw, dpw, nblk, 1.f,
-                                                   Cs * Cs);
-  node_sums_kernel<<<E * kFoldSlots, 128, 0, s>>>(dwpart, dwt, Cs, 1.f, 0);
-  node_sums_kernel<<<E, 128, 0, s>>>(part_skip, dwt + E * kFoldSlots, nblk,
-                                     1.f, 0);
+      args, dx, weights, g, obuf, stat, scratch + b.fc, scratch + b.gbar,
+      scratch + b.dzp, scratch + b.mstat, scratch + b.part_dw,
+      scratch + b.part_pw, scratch + b.part_skip, ddw, dpw, dwt, ctr + 2 * E,
+      E, H, W, Cs, vec_x, vec_g);
   return cudaGetLastError();
 }
 
-// Edge of the square pixel tile of one block of the backward's launches S
-// and X.
-inline int bwd_tile(int Cs) { return Cs <= 16 ? 16 : 8; }
-
 template <typename T>
-cudaError_t node_bwd_tile(const NodeArgs& args, const NodeDx& outs,
+cudaError_t node_bwd_tile(const NodeArgs& args, void* dx,
                           const float* weights, const float* g,
                           const void* obuf, const float* stat, float* scratch,
                           float* ddw, float* dpw, float* dwt, int E, int N,
                           int H, int W, int Cs, cudaStream_t s) {
-  if (bwd_tile(Cs) == 16)
-    return node_bwd<T, 16>(args, outs, weights, g, (const T*)obuf, stat,
-                           scratch, ddw, dpw, dwt, E, N, H, W, Cs, s);
-  return node_bwd<T, 8>(args, outs, weights, g, (const T*)obuf, stat, scratch,
-                        ddw, dpw, dwt, E, N, H, W, Cs, s);
+  switch (bwd_tile(Cs)) {
+    case 32:
+      return node_bwd<T, 32>(args, (T*)dx, weights, g, (const T*)obuf, stat,
+                             scratch, ddw, dpw, dwt, E, N, H, W, Cs, s);
+    case 16:
+      return node_bwd<T, 16>(args, (T*)dx, weights, g, (const T*)obuf, stat,
+                             scratch, ddw, dpw, dwt, E, N, H, W, Cs, s);
+    default:
+      return node_bwd<T, 8>(args, (T*)dx, weights, g, (const T*)obuf, stat,
+                            scratch, ddw, dpw, dwt, E, N, H, W, Cs, s);
+  }
 }
 
 }  // namespace
@@ -1416,7 +1790,8 @@ int lctvqa_mixed_node_fwd(const void* args, const void* weights, void* obuf,
   return (int)cudaErrorInvalidValue;
 }
 
-// Floats of fp32 scratch lctvqa_mixed_node_bwd needs at these sizes.
+// Floats of fp32 scratch lctvqa_mixed_node_bwd needs at these sizes (the
+// layout is ops/cuda_mixedop.py::node_bwd_scratch's "scratch" part).
 long long lctvqa_mixed_node_bwd_scratch(int E, int N, int H, int W, int Cs) {
   using namespace lctvqa;
   const int tile = bwd_tile(Cs);
@@ -1426,31 +1801,31 @@ long long lctvqa_mixed_node_bwd_scratch(int E, int N, int H, int W, int Cs) {
 }
 
 // args, weights, obuf, stat: as given to and left by lctvqa_mixed_node_fwd on
-// the same inputs. g: [N, H, W, Cs] fp32 contiguous. dxs: NodeDx on the host,
-// E pointers to [N, H, W, Cs] contiguous tensors in `dtype`. scratch: fp32,
-// lctvqa_mixed_node_bwd_scratch floats. ddw: [E, 8, 25, Cs], dpw:
-// [E, 8, Cs, Cs], dwt: [E * 6 + E] fp32 (d weights of the six folded ops as
-// [E, 6] in the order sep3, sep5, dil3, dil5, max, avg, then of skip as [E]).
-int lctvqa_mixed_node_bwd(const void* args, const void* dxs,
-                          const void* weights, const void* g, const void* obuf,
-                          const void* stat, void* scratch, void* ddw,
-                          void* dpw, void* dwt, int E, int N, int H, int W,
-                          int Cs, int dtype, void* stream) {
+// the same inputs. g: [N, H, W, Cs] fp32 contiguous. dx: [E, N, H, W, Cs]
+// contiguous in `dtype`. scratch: fp32, lctvqa_mixed_node_bwd_scratch
+// floats, 16-byte aligned (nothing in it needs zeros: the counters are set
+// here). ddw: [E, 8, 25, Cs], dpw: [E, 8, Cs, Cs], dwt: [E, 8] fp32, every
+// element written (0 at `none`, at the packed rows 5 and 7 and at the taps
+// past a 3 x 3 window).
+int lctvqa_mixed_node_bwd(const void* args, void* dx, const void* weights,
+                          const void* g, const void* obuf, const void* stat,
+                          void* scratch, void* ddw, void* dpw, void* dwt,
+                          int E, int N, int H, int W, int Cs, int dtype,
+                          void* stream) {
   using namespace lctvqa;
   if (E < 1 || E > kMaxEdges || Cs < 1 || Cs > kMaxCs || N < 1 ||
       N > 65535 || H < 1 || W < 1)
     return (int)cudaErrorInvalidValue;
   const NodeArgs& a = *static_cast<const NodeArgs*>(args);
-  const NodeDx& d = *static_cast<const NodeDx*>(dxs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kFloat32)
     return (int)node_bwd_tile<float>(
-        a, d, (const float*)weights, (const float*)g, obuf,
+        a, dx, (const float*)weights, (const float*)g, obuf,
         (const float*)stat, (float*)scratch, (float*)ddw, (float*)dpw,
         (float*)dwt, E, N, H, W, Cs, s);
   if (dtype == kBFloat16)
     return (int)node_bwd_tile<__nv_bfloat16>(
-        a, d, (const float*)weights, (const float*)g, obuf,
+        a, dx, (const float*)weights, (const float*)g, obuf,
         (const float*)stat, (float*)scratch, (float*)ddw, (float*)dpw,
         (float*)dwt, E, N, H, W, Cs, s);
   return (int)cudaErrorInvalidValue;

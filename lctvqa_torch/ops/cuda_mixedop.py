@@ -33,15 +33,16 @@ tensors it launches the kernels or raises. It takes any N >= 1 and any
 H, W: the only condition on an edge is stride 1. A call that no backward
 will read (no input needs a gradient, or grad mode is off) launches the
 forward directly, without the autograd Function. The launch shape
-(`node_tile`) and the one scratch tensor's layout (`node_scratch`) are
-computed here, as the C entry point computes them.
+(`node_tile`) and the layout of each kernel's one tensor (`node_scratch`:
+the forward's scratch; `node_bwd_scratch`: the backward's outputs and
+scratch) are computed here, as the C entry point computes them.
 """
 
 from __future__ import annotations
 
 import array
-import ctypes
 import functools
+import math
 from typing import List, NamedTuple, Sequence
 
 import torch
@@ -64,9 +65,6 @@ MAX_TAPS = 25
 MAX_POOL, AVG_POOL, SKIP, FIRST_BRANCH = 1, 2, 3, 4
 SLOTS = 8  # scratch planes of the kernel per (edge, channel)
 
-# columns of `weights` of the six folded ops in the backward kernel's order
-FOLD_OPS = (4, 5, 6, 7, MAX_POOL, AVG_POOL)
-
 MIXED_NODE = K.register(K.Kernel(
     "mixed_node_fwd", "lctvqa_mixed_node_fwd", [K.PTR] * 6 + [K.INT] * 6))
 MIXED_NODE_BWD = K.register(K.Kernel(
@@ -84,10 +82,6 @@ class NodeWeights(NamedTuple):
 
     dw: Tensor  # [8, 25, Cs]: depthwise taps, row-major over the window
     pw: Tensor  # [8, Cs, Cs]: pointwise matrices as [c_in, c_out]
-
-
-class _Dx(ctypes.Structure):  # NodeDx of mixedop.cu
-    _fields_ = [("dx", ctypes.c_void_p * 8)]
 
 
 def node_weights(p) -> NodeWeights:
@@ -230,6 +224,48 @@ def node_scratch(e: int, n: int, h: int, w: int, cs: int,
             "stat": at_stat, "total": at_stat + SLOTS * e * cs * 2 * 4}
 
 
+_ELEM_BYTES = {torch.bfloat16: 2, f32: 4}
+BWD_CHUNK = 1024  # pixels per block of the backward's launch R
+BWD_SUMS = 7      # sum g, then sum g * o of the six folded ops
+
+
+@functools.lru_cache(maxsize=256)
+def node_bwd_scratch(e: int, n: int, h: int, w: int, cs: int,
+                     dtype: torch.dtype) -> dict:
+    """The backward's one tensor, in bytes: its outputs dx [E, N, H, W, Cs]
+    of the compute dtype, ddw [E, 8, 25, Cs], dpw [E, 8, Cs, Cs] and
+    dweights [E, 8] fp32, then the fp32 scratch laid out as mixedop.cu's
+    bwd_scratch reads it: launch R's per-chunk sums [E, Cs, 7, chunks], the
+    folded BatchNorms' coefficients [6, E, Cs, 3] and gbar [E, Cs], dz
+    [2, E, Cs, N*H*W], S's per-block sums [2, E, Cs, 2, blocks] and their
+    means [2, E, Cs, 2], the per-block d dw [E, 8, 25, Cs, blocks], d pw
+    [E, 8, Cs, Cs, blocks] and d w[skip] [E, blocks], 3E counters. Every
+    part starts on 16 bytes. -> {"blocks", "chunks", and the byte offset of
+    each part, "total"}: blocks per edge of launches S and X (the forward's
+    tile), chunks per edge of launch R."""
+    tile = node_tile(cs)
+    blocks = n * -(-h // tile) * -(-w // tile)
+    m = n * h * w
+    chunks = -(-m // BWD_CHUNK)
+    lay = {"blocks": blocks, "chunks": chunks}
+    at = 0
+    for key, nbytes in (
+            ("dx", e * m * cs * _ELEM_BYTES[dtype]),
+            ("ddw", e * 8 * MAX_TAPS * cs * 4), ("dpw", e * 8 * cs * cs * 4),
+            ("dweights", e * 8 * 4), ("scratch", 0),
+            ("part_r", e * cs * BWD_SUMS * chunks * 4),
+            ("fc", 6 * e * cs * 3 * 4), ("gbar", e * cs * 4),
+            ("dzp", 2 * e * cs * m * 4), ("part_s", 2 * e * cs * 2 * blocks * 4),
+            ("mstat", 2 * e * cs * 2 * 4),
+            ("part_dw", e * 8 * MAX_TAPS * cs * blocks * 4),
+            ("part_pw", e * 8 * cs * cs * blocks * 4),
+            ("part_skip", e * blocks * 4), ("counters", 3 * e * 4)):
+        lay[key] = at
+        at += -(-nbytes // 16) * 16
+    lay["total"] = at
+    return lay
+
+
 def _edge_args(xs: Sequence[Tensor], nodes: Sequence[NodeWeights]):
     """NodeArgs of mixedop.cu (MAX_EDGES NodeEdge structs of six 8-byte
     fields) for the first len(xs) edges, the rest zero; the caller keeps
@@ -278,32 +314,32 @@ def node_fwd_launch(xs: List[Tensor], nodes: List[NodeWeights],
 
 
 def node_bwd_launch(xs: List[Tensor], nodes: List[NodeWeights], weights: Tensor,
-                g: Tensor, obuf: Tensor, stat: Tensor, cs: int, device):
+                    g: Tensor, obuf: Tensor, stat: Tensor, cs: int, device):
     """One launch of the backward kernel on what `node_fwd_launch` took and
-    left; g [N, H, W, Cs] fp32 contiguous.
-    -> (dxs, ddw [E, 8, 25, Cs], dpw [E, 8, Cs, Cs], dweights [E, 8])."""
-    name = MIXED_NODE_BWD.name
+    left; g [N, H, W, Cs] fp32 contiguous. Outputs and scratch are views of
+    one tensor (`node_bwd_scratch`), every output element written by the
+    kernel. -> (dxs, ddw [E, 8, 25, Cs], dpw [E, 8, Cs, Cs],
+    dweights [E, 8])."""
     n, h, w, _ = xs[0].shape
-    e = len(xs)
-    dtype = xs[0].dtype
-    size_fn = K.library().lctvqa_mixed_node_bwd_scratch
-    size_fn.argtypes, size_fn.restype = [K.INT] * 5, ctypes.c_longlong
-    scratch = torch.empty(size_fn(e, n, h, w, cs), dtype=f32, device=device)
-    dx = torch.empty(e, n, h, w, cs, dtype=dtype, device=device)
-    ddw = torch.empty(e, 8, MAX_TAPS, cs, dtype=f32, device=device)
-    dpw = torch.empty(e, 8, cs, cs, dtype=f32, device=device)
-    dwt = torch.empty(e * (len(FOLD_OPS) + 1), dtype=f32, device=device)
-    outs = _Dx()
-    for i in range(e):
-        outs.dx[i] = dx[i].data_ptr()
+    e, dtype = len(xs), xs[0].dtype
+    lay = node_bwd_scratch(e, n, h, w, cs, dtype)
+    buf = torch.empty(lay["total"], dtype=torch.uint8, device=device)
+    base = buf.data_ptr()
+
+    def part(key, dt, shape):
+        nbytes = math.prod(shape) * _ELEM_BYTES[dt]
+        return buf[lay[key]:lay[key] + nbytes].view(dt).view(shape)
+
+    dx = part("dx", dtype, (e, n, h, w, cs))
+    ddw = part("ddw", f32, (e, 8, MAX_TAPS, cs))
+    dpw = part("dpw", f32, (e, 8, cs, cs))
+    dweights = part("dweights", f32, (e, 8))
     args = _edge_args(xs, nodes)
-    MIXED_NODE_BWD.launch(device, args.buffer_info()[0],
-                          ctypes.byref(outs), weights, g, obuf, stat, scratch,
-                          ddw, dpw, dwt, e, n, h, w, cs,
-                          K.dtype_code(name, dtype))
-    dweights = torch.zeros(e, 8, dtype=f32, device=device)
-    dweights[:, list(FOLD_OPS)] = dwt[:e * len(FOLD_OPS)].view(e, -1)
-    dweights[:, SKIP] = dwt[e * len(FOLD_OPS):]
+    MIXED_NODE_BWD.launch(device, args.buffer_info()[0], base + lay["dx"],
+                          weights, g, obuf, stat, base + lay["scratch"],
+                          base + lay["ddw"], base + lay["dpw"],
+                          base + lay["dweights"], e, n, h, w, cs,
+                          K.DTYPE_CODES[dtype])
     return list(dx.unbind(0)), ddw, dpw, dweights
 
 

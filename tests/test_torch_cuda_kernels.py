@@ -27,6 +27,8 @@ autograd through their plain versions: the same code after the forward,
 so 1e-5 s in fp32 and 1e-3 s in bf16.
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -671,3 +673,147 @@ def test_mixed_node_launch_shape_mirror(cuda):
     assert lib.lctvqa_mixed_node_max_cs() == cuda_mixedop.MAX_CS
     for cs in (1, 4, 5, 16, 17, 64):
         assert lib.lctvqa_mixed_node_fwd_tile(cs) == cuda_mixedop.node_tile(cs)
+
+
+# ---------------------------------------------------------------------------
+# the decode's cooperative grid and the node backward's three launches
+# ---------------------------------------------------------------------------
+
+def _decode_case(gen, e, h, vocab, device):
+    qst = {"word2vec": N.embedding_init(gen, vocab, e),
+           "lstm": lstm_init(gen, e, h),
+           "fc2": N.xavier_linear_init(gen, h, vocab)}
+    return {k: {kk: (vv.to(device) if isinstance(vv, torch.Tensor) else
+                     [{n: a.to(device) for n, a in lp.items()} for lp in vv])
+                for kk, vv in v.items()} for k, v in qst.items()}
+
+
+def _first_gaps(qst, img, got, want, dtype):
+    """Plain logit gap between the plain and the kernel token at the first
+    step where a row's tokens differ (the plain decode, teacher-forced)."""
+    from lctvqa_torch.models.qst_encoder import START_TOKEN
+
+    w = cuda_lstm.cell_weights(qst["lstm"]["layers"][0], dtype)
+    gaps = []
+    for r in torch.nonzero((got != want).any(1)).flatten().tolist():
+        t = int(torch.nonzero(got[r] != want[r])[0])
+        h = c = img[r][None].float()
+        x = torch.tanh(N.embed(qst["word2vec"],
+                               torch.tensor([START_TOKEN], device=img.device)))
+        for s in range(t + 1):
+            h, c = cuda_lstm.lstm_cell_plain(w, x, h, c)
+            if s < t:
+                x = N.embed(qst["word2vec"], want[r, s:s + 1].long())
+        logits = N.linear(qst["fc2"], torch.tanh(h), dtype=dtype)[0]
+        gaps.append(float(logits[want[r, t]] - logits[got[r, t]]))
+    return gaps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [1, 8, 63, 64, 65, 130])
+def test_generate_kernel_batch_tiles_at_full_width(cuda, b, dtype):
+    """Tokens equal to the plain decode's at E 300, H 512, V 8192, T 30
+    (in bf16 a differing token must be a near tie: plain logit gap within
+    1e-3), whatever the number of batch tiles."""
+    gen = torch.Generator().manual_seed(40)
+    qst = _decode_case(gen, 300, 512, 8192, cuda)
+    img = N.l2_normalize(torch.randn(b, 512, generator=gen)).to(cuda)
+    got = cuda_generate.greedy_generate(qst, img, 30, dtype)
+    want = cuda_generate.greedy_generate_plain(qst, img, 30, dtype)
+    assert got.shape == (b, 30) and got.dtype == torch.int32
+    gaps = _first_gaps(qst, img, got, want, dtype)
+    if dtype == torch.float32:
+        assert not gaps
+    else:
+        assert all(g <= 1e-3 for g in gaps), gaps
+
+
+def test_generate_kernel_ties_go_to_the_lowest_column(cuda):
+    """Two equal head columns in different head blocks' slices, above all
+    others: every token is the lower one."""
+    gen = torch.Generator().manual_seed(41)
+    qst = _decode_case(gen, 300, 512, 8192, cuda)
+    plan = cuda_generate.generate_plan(
+        300, 512, 8192, torch.bfloat16,
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    lo, hi = 5, 5 + 3 * plan["head_cols"]
+    qst["fc2"]["w"][:, hi] = qst["fc2"]["w"][:, lo]
+    qst["fc2"]["b"][lo] = qst["fc2"]["b"][hi] = 1e4
+    img = N.l2_normalize(torch.randn(9, 512, generator=gen)).to(cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        got = cuda_generate.greedy_generate(qst, img, 7, dtype)
+        assert bool((got == lo).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_generate_kernel_repeats_back_to_back_and_on_another_stream(cuda,
+                                                                    dtype):
+    gen = torch.Generator().manual_seed(42)
+    qst = _decode_case(gen, 300, 512, 8192, cuda)
+    qst = dict(qst, decode=cuda_generate.decode_weights(qst, dtype))
+    img = N.l2_normalize(torch.randn(70, 512, generator=gen)).to(cuda)
+    first = cuda_generate.greedy_generate(qst, img, 30, dtype)
+    again = [cuda_generate.greedy_generate(qst, img, 30, dtype)
+             for _ in range(3)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        other = cuda_generate.greedy_generate(qst, img, 30, dtype)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert all(torch.equal(first, a) for a in again)
+    assert torch.equal(first, other)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("ehv", [(300, 512, 8192), (24, 48, 136),
+                                 (20, 80, 1000)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_generate_plan_on_the_card_is_the_python_mirror(cuda, ehv, dtype):
+    props = torch.cuda.get_device_properties(cuda)
+    got = cuda_generate.generate_plan_on_device(*ehv, dtype, cuda)
+    want = cuda_generate.generate_plan(*ehv, dtype,
+                                       props.multi_processor_count,
+                                       props.shared_memory_per_block_optin)
+    assert got == want
+
+
+@pytest.mark.parametrize("edges", range(1, 9))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_mixed_node_bwd_overhanging_tiles_and_edge_counts(cuda, dtype, edges):
+    """A 9 x 7 plane (a 32 x 32 tile at Cs 4 overhangs it), N = 1, every
+    edge count one launch takes; two calls give the same bits."""
+    gen = torch.Generator().manual_seed(43)
+    xs, ops, wts = _node_case(gen, 1, 9, 7, 16, 4, edges, dtype, cuda)
+    nodes = [cuda_mixedop.node_weights(p) for p in ops]
+    xs = [x[..., :4] for x in xs]
+    g = torch.randn(1, 9, 7, 4, generator=gen).to(cuda)
+    _, obuf, stat = cuda_mixedop.node_fwd_launch(xs, nodes, wts, 4, cuda)
+    got = cuda_mixedop.node_bwd_launch(xs, nodes, wts, g, obuf, stat, 4, cuda)
+    again = cuda_mixedop.node_bwd_launch(xs, nodes, wts, g, obuf, stat, 4,
+                                         cuda)
+    want = cuda_mixedop.mixed_node_bwd_plain(xs, nodes, wts, g, 4)
+    torch.cuda.synchronize()
+    fp32 = dtype == torch.float32
+    for e in range(edges):
+        assert torch.equal(got[0][e], again[0][e])
+        _scaled_close(got[0][e], want[0][e], 1e-4 if fp32 else 2.0 ** -7,
+                      f"dx[{e}]")
+    for i, what in ((1, "d dw"), (2, "d pw"), (3, "d weights")):
+        assert torch.equal(got[i], again[i])
+        _scaled_close(got[i], want[i], 1e-4 if fp32 else 2e-3, what)
+
+
+def test_mixed_node_bwd_scratch_is_the_python_mirror(cuda):
+    lib = _build.library()
+    fn = lib.lctvqa_mixed_node_bwd_scratch
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    for e, n, h, w, c in ((5, 64, 64, 64, 4), (3, 64, 16, 16, 16),
+                          (2, 3, 7, 9, 24), (8, 1, 9, 7, 64)):
+        lay = cuda_mixedop.node_bwd_scratch(e, n, h, w, c, torch.float32)
+        assert fn(e, n, h, w, c) * 4 == lay["total"] - lay["scratch"]

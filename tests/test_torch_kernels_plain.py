@@ -739,3 +739,190 @@ def test_node_forward_wrapper_hands_over_one_scratch(monkeypatch):
                                 nodes[0].pw.data_ptr()]
     assert packed[6] == xs[1].data_ptr() == xs[0].data_ptr() + 8
     assert list(packed[12:]) == [0] * 36
+
+
+# ---------------------------------------------------------------------------
+# the decode kernel's launch shape and scratch, the node backward's one
+# tensor and wrapper (plain Python; the launch is replaced by a recorder)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("emb,hid,vpad,dtype,sms,want", [
+    # full width on 132 SMs: 64 gate blocks of 8 units, 64 head blocks of
+    # 128 columns; bf16 64-row tiles, fp32 16-row gate tiles
+    (300, 512, 8192, torch.bfloat16, 132, (64, 64, 64, 128, 64, 206336)),
+    (300, 512, 8192, torch.float32, 132, (64, 16, 64, 128, 64, 192768)),
+    # 114 SMs: 168 columns a head block, whose slice leaves room for a
+    # 16-row tile only
+    (300, 512, 8192, torch.bfloat16, 114, (64, 64, 49, 168, 16, 217600)),
+    # small widths
+    (24, 48, 136, torch.bfloat16, 132, (6, 64, 17, 8, 64, 58880)),
+    (24, 48, 136, torch.float32, 132, (6, 16, 17, 8, 64, 57600)),
+    (20, 80, 1000, torch.float32, 132, (10, 16, 63, 16, 64, 57600)),
+], ids=lambda v: str(v).replace("torch.", ""))
+def test_generate_plan_shapes(emb, hid, vpad, dtype, sms, want):
+    plan = cuda_generate.generate_plan(emb, hid, vpad, dtype, sms)
+    assert (plan["gate_blocks"], plan["gate_tile"], plan["head_blocks"],
+            plan["head_cols"], plan["head_tile"], plan["smem_bytes"]) == want
+    assert plan["threads"] == 512 and plan["units"] == 8
+    assert plan["blocks"] == plan["gate_blocks"] + plan["head_blocks"] <= sms
+    # every unit and every column has a block, no block is empty
+    assert (plan["gate_blocks"] - 1) * 8 < hid <= plan["gate_blocks"] * 8
+    cols = plan["head_cols"]
+    assert cols % 8 == 0
+    assert (plan["head_blocks"] - 1) * cols < vpad <= plan["head_blocks"] * cols
+    assert plan["smem_bytes"] <= cuda_lstm.SMEM_PER_BLOCK
+
+
+def test_generate_plan_refuses_a_card_too_small():
+    # H = 1024 leaves 4 SMs for a head of 8192 columns in shared memory
+    with pytest.raises(ValueError, match="too large"):
+        cuda_generate.generate_plan(300, 1024, 8192, torch.bfloat16, 132)
+    # no SM left for the head at all
+    with pytest.raises(ValueError, match="resident blocks"):
+        cuda_generate.generate_plan(300, 512, 8192, torch.bfloat16, 64)
+    # a smaller shared-memory limit takes smaller batch tiles
+    plan = cuda_generate.generate_plan(300, 512, 8192, torch.bfloat16, 132,
+                                       smem_max=200000)
+    assert (plan["gate_tile"], plan["head_tile"]) == (32, 32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        cuda_generate.generate_plan(300, 512, 8192, torch.float16, 132)
+
+
+def test_generate_scratch_bytes():
+    # two counters in 256 bytes, 64-bit keys [T, B], the h exchange [2, B,
+    # HX] and the head's input [B, HX] of the dtype, c [B, H] fp32
+    assert cuda_generate.generate_scratch_bytes(64, 30, 512, torch.bfloat16) \
+        == 256 + 8 * 64 * 30 + 3 * 64 * 512 * 2 + 4 * 64 * 512
+    assert cuda_generate.generate_scratch_bytes(3, 7, 50, torch.float32) \
+        == 256 + 176 + 3 * 3 * 56 * 4 + 608
+    for bsz, steps, hid in ((1, 1, 1), (5, 3, 7), (65, 30, 50)):
+        for dtype in (torch.bfloat16, torch.float32):
+            assert cuda_generate.generate_scratch_bytes(
+                bsz, steps, hid, dtype) % 16 == 0
+
+
+def test_generate_wrapper_hands_over_zeroed_scratch(monkeypatch):
+    """The decode's host side without a card: one launch with the tokens
+    [B, T] int32 and one zeroed scratch of generate_scratch_bytes; a grid
+    the card cannot hold raises before anything launches."""
+    rec = _Recorder()
+    monkeypatch.setattr(cuda_generate.GENERATE, "launch", rec)
+    monkeypatch.setattr(cuda_generate.K, "check_cuda_tensors",
+                        lambda *a, **k: torch.device("cpu"))
+    monkeypatch.setattr(cuda_generate, "_sm_count", lambda index: 132)
+    rng = np.random.default_rng(61)
+    emb, hid, vocab, bsz, steps = 12, 8, 21, 3, 5
+
+    def qst_params(hid):
+        def t(*shape):
+            return torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
+        return {"word2vec": {"table": t(vocab, emb)},
+                "lstm": {"layers": [{"w_ih": t(emb, 4 * hid),
+                                     "w_hh": t(hid, 4 * hid),
+                                     "b_ih": t(4 * hid), "b_hh": t(4 * hid)}]},
+                "fc2": {"w": t(hid, vocab), "b": t(vocab)}}
+
+    d = cuda_generate.decode_weights(qst_params(hid), torch.bfloat16)
+    assert d.fc2_w.shape == (hid, 24) and d.fc2_b.shape == (24,)
+    assert bool(torch.isinf(d.fc2_b[vocab:]).all())
+    tokens = cuda_generate._generate_kernel(d, torch.zeros(bsz, hid), steps)
+    (args,) = rec.calls
+    assert args[8] is tokens and tokens.shape == (bsz, steps)
+    assert tokens.dtype == torch.int32
+    scratch = args[9]
+    assert scratch.dtype == torch.uint8 and not bool(scratch.any())
+    assert scratch.numel() == cuda_generate.generate_scratch_bytes(
+        bsz, steps, hid, torch.bfloat16)
+    assert args[10:] == (bsz, steps, emb, hid, 24, 1)
+    # 1,056 hidden units need 132 gate blocks: no SM is left for the head
+    big = cuda_generate.decode_weights(qst_params(1056), torch.bfloat16)
+    with pytest.raises(ValueError, match="resident blocks"):
+        cuda_generate._generate_kernel(big, torch.zeros(bsz, 1056), steps)
+    assert len(rec.calls) == 1
+
+
+@pytest.mark.parametrize("e,n,h,w,cs,dtype,want", [
+    # cell 0 at batch 64: 32 x 32 tiles, 256 blocks and 1024-pixel chunks an
+    # edge; dz is 42 MB of the 57 MB
+    (5, 64, 64, 64, 4, torch.bfloat16,
+     (256, 256, 10485760, 10504480, 10649360, 52674640, 57431184)),
+    (3, 64, 16, 16, 16, torch.bfloat16,
+     (64, 16, 1572864, 1635936, 1661088, 8002464, 12033744)),
+    # an odd shape in fp32: 8 x 8 tiles past 16 channels
+    (2, 3, 7, 9, 24, torch.float32,
+     (6, 1, 36288, 111616, 116608, 194560, 646224)),
+], ids=["cell0", "cell2", "odd"])
+def test_node_bwd_scratch_layout(e, n, h, w, cs, dtype, want):
+    lay = cuda_mixedop.node_bwd_scratch(e, n, h, w, cs, dtype)
+    assert (lay["blocks"], lay["chunks"], lay["ddw"], lay["scratch"],
+            lay["dzp"], lay["part_dw"], lay["total"]) == want
+    tile = cuda_mixedop.node_tile(cs)
+    blocks = n * -(-h // tile) * -(-w // tile)
+    m = n * h * w
+    chunks = -(-m // 1024)
+    assert lay["blocks"] == blocks and lay["chunks"] == chunks
+    size = 2 if dtype == torch.bfloat16 else 4
+    # the outputs first, then the fp32 scratch as mixedop.cu's bwd_scratch
+    # lays it out: parts in this order, each rounded up to 16 bytes
+    parts = [("dx", e * m * cs * size), ("ddw", e * 8 * 25 * cs * 4),
+             ("dpw", e * 8 * cs * cs * 4), ("dweights", e * 8 * 4),
+             ("part_r", e * cs * 7 * chunks * 4), ("fc", 6 * e * cs * 3 * 4),
+             ("gbar", e * cs * 4), ("dzp", 2 * e * cs * m * 4),
+             ("part_s", 2 * e * cs * 2 * blocks * 4),
+             ("mstat", 2 * e * cs * 2 * 4),
+             ("part_dw", e * 8 * 25 * cs * blocks * 4),
+             ("part_pw", e * 8 * cs * cs * blocks * 4),
+             ("part_skip", e * blocks * 4), ("counters", 3 * e * 4)]
+    at = 0
+    for key, nbytes in parts:
+        assert lay[key] == at and at % 16 == 0, key
+        at += -(-nbytes // 16) * 16
+    assert lay["total"] == at
+    assert lay["scratch"] == lay["part_r"]
+
+
+def test_node_backward_wrapper_hands_over_one_tensor(monkeypatch):
+    """node_bwd_launch without a card: one launch whose outputs and
+    scratch are parts of one tensor at node_bwd_scratch's offsets; the
+    returned dx, d dw, d pw and d weights [E, 8] are views of it as the
+    kernel writes them, nothing assembled after the launch."""
+    import ctypes
+
+    rec, packed = _Recorder(), []
+
+    def launch(device, *args):  # NodeArgs lives only for the call
+        packed.extend((ctypes.c_longlong * 48).from_address(args[0]))
+        rec(device, *args)
+
+    monkeypatch.setattr(cuda_mixedop.MIXED_NODE_BWD, "launch", launch)
+    n, h, w, c, cs = 2, 5, 6, 16, 4
+    wide = torch.zeros(n, h, w, c, dtype=torch.bfloat16)
+    xs = [wide[..., :cs], wide[..., 8:8 + cs]]
+    nodes = [cuda_mixedop.NodeWeights(torch.zeros(8, 25, cs),
+                                      torch.zeros(8, cs, cs)) for _ in xs]
+    wts, g = torch.zeros(2, 8), torch.zeros(n, h, w, cs)
+    obuf, stat = torch.zeros(8, 2, cs, n * h * w), torch.zeros(8, 2, cs, 2)
+    dxs, ddw, dpw, dwt = cuda_mixedop.node_bwd_launch(
+        xs, nodes, wts, g, obuf, stat, cs, "cpu")
+    (args,) = rec.calls
+    lay = cuda_mixedop.node_bwd_scratch(2, n, h, w, cs, torch.bfloat16)
+    base = dxs[0].data_ptr() - lay["dx"]
+    assert args[1] == base + lay["dx"]
+    assert args[2] is wts and args[3] is g and args[4] is obuf
+    assert args[5] is stat
+    assert args[6:10] == (base + lay["scratch"], base + lay["ddw"],
+                          base + lay["dpw"], base + lay["dweights"])
+    assert args[10:] == (2, n, h, w, cs, 1)
+    assert [d.shape for d in dxs] == [(n, h, w, cs)] * 2
+    assert all(d.dtype == torch.bfloat16 for d in dxs)
+    assert dxs[1].data_ptr() == base + n * h * w * cs * 2
+    assert ddw.shape == (2, 8, 25, cs) and ddw.data_ptr() == args[7]
+    assert dpw.shape == (2, 8, cs, cs) and dpw.data_ptr() == args[8]
+    assert dwt.shape == (2, 8) and dwt.dtype == torch.float32
+    assert dwt.data_ptr() == args[9] and dwt.is_contiguous()
+    assert dxs[0].untyped_storage().nbytes() == lay["total"]
+    # NodeArgs: eight edges of (x, sn, sh, sw, dw, pw), the rest zero
+    assert list(packed[:6]) == [xs[0].data_ptr(), h * w * c, w * c, c,
+                                nodes[0].dw.data_ptr(),
+                                nodes[0].pw.data_ptr()]
+    assert list(packed[12:]) == [0] * 36
