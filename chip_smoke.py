@@ -8,7 +8,8 @@ NVIDIA GPU.
                                       # step at batch 64 (PERF.md)
     python3 chip_smoke.py --kernel-times [--root DIR]
                                       # only the cell, the node forward and
-                                      # backward, the decode and the W / EF
+                                      # backward, the decode, the BatchNorm
+                                      # forward and backward and the W / EF
                                       # calls, timed; --root takes
                                       # lctvqa_torch from another checkout
                                       # (a git archive of the parent), for
@@ -49,7 +50,10 @@ non-zero:
      out 1e-5 (summation order); bf16 out |kernel - plain| <= 1e-5 +
      2^-7 |plain|: a 1-ulp fp32 difference can round the normalized value
      to the neighbouring bf16, one bf16 ulp away, which is at most 2^-7
-     of the value.
+     of the value. At every shape and dtype pair of bn_fwd and bn_bwd the
+     launch shape the card takes (lctvqa_bn_plan) must be
+     ops/cuda_bn.py::bn_plan's, and two calls in a row must give the same
+     bits.
    - mixed_node_fwd at the four cell shapes with E = 1, 3, 5 where the
      cell has them, N = 1, 8, 64: fp32 1e-5 (summation order). In bf16
      every stage output o is rounded to bf16, and a 1-ulp fp32
@@ -66,8 +70,14 @@ non-zero:
      where it is bf16.
    - mixed_node_bwd at the same cell shapes, E and N, against autograd
      through mixed_node_plain (which treats a stage output's rounding as
-     the identity, as the kernel does), each gradient relative to its own
-     scale s: fp32 1e-4 s (the sums of two BatchNorm backward passes in
+     the identity, as the kernel does) with the sep convs' inner ReLU
+     decisions taken from the kernel's stored stage outputs (an inner
+     BatchNorm output within an ulp of 0 falls on either side in the two
+     forwards; the plain forward's own decisions are logged beside it,
+     with the element and the decisions that differ where it is off),
+     twice: on chip_smoke's draw (N = 1, 8, 64) and, untimed, on a second
+     one (N = 1, 64) that has such an element; each gradient relative to
+     its own scale s: fp32 1e-4 s (the sums of two BatchNorm backward passes in
      another order, and weight gradients that are residues of sums over
      up to 262144 pixels); bf16 2^-7 s for dx, which is rounded to bf16
      once, and 2e-3 s for the fp32 gradients of taps, pointwise matrices
@@ -118,7 +128,8 @@ non-zero:
    finite losses that agree between the two flag sets at the first step
    (fp32 1e-4: the same math in another order of sums); one stage-1 step
    with the flags on launches exactly 14 mixed_node_fwd, 14
-   mixed_node_bwd, 40 bn_fwd and 40 bn_bwd, and none of them with the
+   mixed_node_bwd, 40 bn_fwd and 40 bn_bwd (printed by shape and dtypes,
+   which must add up to the launch counts), and none of them with the
    flags off, and the cell kernel launches in both; with dropout_rate = 0
    the stage-1 loss and its gradient w.r.t. every EF leaf agree between
    the two flag sets on the card and with the CPU (plain versions):
@@ -141,6 +152,8 @@ It prints the card's name and power limit, one JSON line of the kernels
 from __future__ import annotations
 
 import base64
+import collections
+import contextlib
 import json
 import os
 import statistics
@@ -172,6 +185,9 @@ KERNEL_FLAGS = {"default": {},
 # package; the "kernels" flag set turns it on for its runs
 BN_KERNEL = {"default": False, "kernels": True}
 NODE_CALLS_PER_FORWARD = 14
+# the batches of check_node_bwd_kernel's second draw: other random inputs,
+# on which an inner ReLU input of cell0's edge 2 lies within an ulp of 0
+NODE_BWD_FAULT_DRAW = (1, 64)
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, dense bf16 tensor FLOP/s, fp32
 # FLOP/s outside the tensor cores
 H100 = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12}
@@ -631,11 +647,15 @@ def device_times(fn, iters=10):
                                        .elapsed_us() for c in range(iters))
                  / iters) for i in range(per)]
     else:
+        # the profiler misses a call now and then (9 of 10 seen): a kernel
+        # seen n times launches round(n / iters) times a call, each taking
+        # its mean duration
         by_name = {}
         for e in kernels:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
-        rows = [(k[:60], n / iters, us / iters)
+        rows = [(k[:60], max(1, round(n / iters)),
+                 us / n * max(1, round(n / iters)))
                 for k, (n, us) in by_name.items()]
     return sum(r[2] for r in rows), rows
 
@@ -844,6 +864,26 @@ def _times(r) -> str:
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
 
 
+def check_bn_plan(device, x, other, backward: bool, tag: str):
+    """The BatchNorm kernel's launch shape for x on this card (the C side's
+    choice) against the Python mirror, bn_plan; logged once per shape."""
+    from lctvqa_torch.ops import cuda_bn
+
+    c = x.shape[-1]
+    m = x.numel() // c
+    props = torch.cuda.get_device_properties(device)
+    want = cuda_bn.bn_plan(m, c, x.dtype, other, backward,
+                           props.multi_processor_count,
+                           props.shared_memory_per_block_optin)
+    plan = cuda_bn.bn_plan_on_device(m, c, x.dtype, other, backward, device)
+    expect(all(plan[k] == want[k] for k in plan),
+           f"{tag}: the card chose the launch {plan}, bn_plan {want}")
+    log(f"{tag}: {plan['blocks']} blocks of {plan['threads']} threads, "
+        f"{plan['rows']} rows each, {plan['staged']} of them in "
+        f"{plan['smem_bytes']} B of shared memory")
+    return plan
+
+
 def check_bn_kernel(device, time_fn=time_ms):
     """bn_fwd at the supernet's shapes -> {(shape, in, out): {...}}."""
     import torch.nn.functional as F
@@ -858,7 +898,10 @@ def check_bn_kernel(device, time_fn=time_ms):
             x = base.to(in_dt)
             nchw = x.permute(0, 3, 1, 2)  # a channels-last view, no copy
             for out_name, out_dt in DTYPES.items():
-                got = cuda_bn.batchnorm_fwd(x, out_dtype=out_dt)
+                tag = f"bn_fwd {shape} {in_name}->{out_name}"
+                check_bn_plan(device, x, out_dt, False, tag)
+                got, stat, _ = cuda_bn.batchnorm_fwd_stat(x, out_dt)
+                again, stat2, _ = cuda_bn.batchnorm_fwd_stat(x, out_dt)
                 want = cuda_bn.batchnorm_plain(x, out_dtype=out_dt)
                 torch.cuda.synchronize()
                 diff = (got.float() - want.float()).abs()
@@ -866,11 +909,12 @@ def check_bn_kernel(device, time_fn=time_ms):
                          if out_name == "float32"
                          else 1e-5 + 2.0 ** -7 * want.float().abs())
                 err = float(diff.max())
-                tag = f"bn_fwd {shape} {in_name}->{out_name}"
                 expect(got.dtype == out_dt and got.shape == x.shape
                        and bool((diff <= limit).all()),
                        f"{tag}: max |kernel - plain| = {err} exceeds its "
                        "limit")
+                expect(torch.equal(got, again) and torch.equal(stat, stat2),
+                       f"{tag}: two calls in a row differ")
                 n = x.numel()
                 ms, by = bound(n * (x.element_size() + got.element_size()),
                                5 * n, "float32")
@@ -973,18 +1017,22 @@ def check_bn_bwd_kernel(device, time_fn=time_ms):
             _, stat, _ = cuda_bn.batchnorm_fwd_stat(x)
             for g_name, g_dt in DTYPES.items():
                 g = gbase.to(g_dt)
+                tag = f"bn_bwd {shape} x {x_name} g {g_name}"
+                check_bn_plan(device, x, g_dt, True, tag)
                 got = cuda_bn.batchnorm_bwd(x, g, stat)
+                again = cuda_bn.batchnorm_bwd(x, g, stat)
                 want = cuda_bn.batchnorm_bwd_plain(
                     x, g, cuda_bn.batchnorm_stats_plain(x))
                 torch.cuda.synchronize()
                 err, scale = _grad_err(got, want)
                 tol = 1e-5 if x_name == "float32" else 2.0 ** -7
-                tag = f"bn_bwd {shape} x {x_name} g {g_name}"
                 expect(got.dtype == x_dt and got.shape == x.shape
                        and bool(torch.isfinite(got.float()).all())
                        and err <= tol * scale,
                        f"{tag}: max |kernel - plain| = {err} exceeds "
                        f"{tol} * {scale}")
+                expect(torch.equal(got, again),
+                       f"{tag}: two calls in a row differ")
                 n = x.numel()
                 ms, by = bound(n * (2 * x.element_size() + g.element_size()),
                                10 * n, "float32")
@@ -1002,6 +1050,80 @@ def check_bn_bwd_kernel(device, time_fn=time_ms):
     return results
 
 
+def _device_times_or_none(fn, iters):
+    """device_times of a PyTorch call that serves only as a yardstick; None
+    where this PyTorch build does not take it."""
+    try:
+        return device_times(fn, iters)[0]
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"library call not profiled: {type(e).__name__}: {e}")
+        return None
+
+
+def bn_device_times(device, iters=10):
+    """bn_fwd and bn_bwd at every BN_SHAPES entry and dtype pair (forward:
+    x, y; backward: x, g): the event-timed call, the device time of each
+    launch of one call (torch.profiler), the host's enqueue, and the
+    library call's time and device time (F.batch_norm(training=True) on the
+    channels-last view; autograd's backward of it) -> {"fwd": {(shape, x,
+    y): {...}}, "bwd": {(shape, x, g): {...}}}. Takes any tree's cuda_bn."""
+    import torch.nn.functional as F
+
+    from lctvqa_torch.ops import cuda_bn
+
+    gen = torch.Generator().manual_seed(SEED + 22)
+    out = {"fwd": {}, "bwd": {}}
+    for shape in BN_SHAPES:
+        base = (1.5 * torch.randn(shape, generator=gen) + 0.3).to(device)
+        gbase = torch.randn(shape, generator=gen).to(device)
+        for a_name, a_dt in DTYPES.items():
+            x = base.to(a_dt)
+            nchw = x.permute(0, 3, 1, 2)  # a channels-last view, no copy
+            _, stat, _ = cuda_bn.batchnorm_fwd_stat(x)
+            xl = nchw.detach().requires_grad_()
+            yl = F.batch_norm(xl, None, None, training=True, eps=1e-5)
+            for b_name, b_dt in DTYPES.items():
+                g = gbase.to(b_dt)
+                gl = g.to(yl.dtype).permute(0, 3, 1, 2)
+                calls = {
+                    "fwd": (lambda: cuda_bn.batchnorm_fwd(x, out_dtype=b_dt),
+                            lambda: F.batch_norm(nchw, None, None,
+                                                 training=True, eps=1e-5)),
+                    "bwd": (lambda: cuda_bn.batchnorm_bwd(x, g, stat),
+                            lambda: torch.autograd.grad(yl, xl, gl,
+                                                        retain_graph=True))}
+                n = x.numel()
+                bounds = {"fwd": bound(n * (x.element_size()
+                                            + g.element_size()), 5 * n,
+                                       "float32"),
+                          "bwd": bound(n * (2 * x.element_size()
+                                            + g.element_size()), 10 * n,
+                                       "float32")}
+                for kind, (fn, lib) in calls.items():
+                    total, rows = device_times(fn, iters)
+                    r = out[kind][(shape, a_name, b_name)] = {
+                        "bound_ms": bounds[kind][0], "device_us": total,
+                        "launches": sum(row[1] for row in rows),
+                        "ms": time_ms(fn), "enqueue_us": host_enqueue_us(fn),
+                        "library_ms": time_library(lib),
+                        "library_device_us": _device_times_or_none(lib,
+                                                                   iters),
+                        "rows": rows}
+                    tag = (f"bn_{kind} {shape} {a_name} "
+                           f"{'->' if kind == 'fwd' else 'g'} {b_name}")
+                    _device_line(tag, total, rows)
+                    lib_ms, lib_us = r["library_ms"], r["library_device_us"]
+                    log(f"{tag}: {r['ms']:.4f} ms a call (events), host "
+                        f"enqueue {r['enqueue_us']:.1f} us, device "
+                        f"{total:.1f} us, bound {1e3 * r['bound_ms']:.1f} "
+                        f"us; library "
+                        + (f"{lib_ms:.4f} ms" if lib_ms is not None
+                           else "not timed")
+                        + (f", device {lib_us:.1f} us" if lib_us is not None
+                           else ""))
+    return out
+
+
 def node_bwd_bound(n, h, w, cs, edges, dname):
     """Each edge's Cs-channel slice and the fp32 output gradient read once,
     each dx written once (the weight gradients are a few KB); about three
@@ -1014,15 +1136,34 @@ def node_bwd_bound(n, h, w, cs, edges, dname):
     return bound(2 * edges * elems * wb + elems * 4, flops, "float32")
 
 
-def check_node_bwd_kernel(device, batches=BATCHES, time_fn=time_ms):
-    """mixed_node_bwd at the four cell shapes ->
-    {(cell, E, N, dtype): {...}}. `err` is the largest error of any
-    gradient relative to that gradient's scale."""
+def _untimed(fn, **kwargs) -> float:
+    return 0.0
+
+
+def check_node_bwd_kernel(device, batches=BATCHES, time_fn=time_ms,
+                          fault_draw=NODE_BWD_FAULT_DRAW):
+    """mixed_node_bwd at the four cell shapes -> {(cell, E, N, dtype):
+    {...}} (of the draw `batches`). `err` is the largest error of any
+    gradient relative to that gradient's scale against the plain backward
+    that takes the kernel's inner ReLU decisions, `autograd_err` against
+    autograd through the plain forward. Then, untimed, the same on the
+    inputs of `fault_draw`, which gave the inner ReLU decisions that the
+    two forwards take differently (ROADMAP.md section 3)."""
+    results = _node_bwd_draw(device, batches, time_fn)
+    if fault_draw:
+        _node_bwd_draw(device, fault_draw, _untimed)
+    return results
+
+
+def node_bwd_cases(device, batches):
+    """check_node_bwd_kernel's inputs in the order of its draw (a seeded
+    torch.Generator, so that a draw is the same on every card): for each
+    cell shape, N in `batches`, E and dtype, (cell, N, E, dtype name, the
+    edge slices xs, their packed weights, the weights [E, 8], g)."""
     from lctvqa_torch.models import search
     from lctvqa_torch.ops import cuda_mixedop as M
 
     gen = torch.Generator().manual_seed(SEED + 21)
-    results = {}
     for cell, (h, w, c, edge_counts) in NODE_SHAPES.items():
         cs = c // 4
         ops = [_to(search.mixed_op_init(gen, c, 1, 4), device)
@@ -1036,43 +1177,126 @@ def check_node_bwd_kernel(device, batches=BATCHES, time_fn=time_ms):
                 wts = (torch.softmax(torch.randn(edges, 8, generator=gen), 1)
                        * torch.softmax(torch.randn(edges, generator=gen),
                                        0)[:, None]).to(device)
-                nodes = all_nodes[:edges]
                 for dname, dtype in DTYPES.items():
                     xs = [s.to(dtype)[..., :cs] for s in states[:edges]]
-                    _, obuf, stat = M.node_fwd_launch(xs, nodes, wts, cs,
-                                                      device)
-                    got = M.node_bwd_launch(xs, nodes, wts, g, obuf, stat, cs,
-                                            device)
-                    want = M.mixed_node_bwd_plain(xs, nodes, wts, g, cs)
-                    torch.cuda.synchronize()
-                    fp32 = dname == "float32"
-                    tols = [1e-4 if fp32 else 2.0 ** -7] * edges + [
-                        1e-4 if fp32 else 2e-3] * 3
-                    pairs = list(zip(got[0], want[0])) + list(zip(got[1:],
-                                                                  want[1:]))
-                    rel, ok = 0.0, True
-                    for (a, b), tol in zip(pairs, tols):
-                        err, scale = _grad_err(a, b)
-                        ok = ok and bool(torch.isfinite(a.float()).all()) \
-                            and err <= tol * scale
-                        rel = max(rel, err / max(scale, 1e-30))
-                    tag = (f"mixed_node_bwd {cell} {h}x{w} Cs={cs} E={edges} "
-                           f"N={n} {dname}")
-                    expect(ok and got[0][0].dtype == dtype
-                           and got[3].shape == (edges, 8),
-                           f"{tag}: a gradient differs from the plain "
-                           f"version's by {rel} of its scale")
-                    ms, by = node_bwd_bound(n, h, w, cs, edges, dname)
-                    r = results[(cell, edges, n, dname)] = {
-                        "err": rel, "bound_ms": ms, "bound_by": by,
-                        "library_ms": None,
-                        "ms": time_fn(lambda: M.node_bwd_launch(
-                            xs, nodes, wts, g, obuf, stat, cs, device)),
-                        "plain_ms": time_fn(lambda: M.mixed_node_bwd_plain(
-                            xs, nodes, wts, g, cs), reps=3, warmup=1)}
-                    log(f"kernel {tag}: {_times(r)}")
-                    del obuf, stat, got, want
+                    yield cell, n, edges, dname, xs, all_nodes[:edges], wts, g
+
+
+def _node_bwd_draw(device, batches, time_fn):
+    from lctvqa_torch.ops import cuda_mixedop as M
+
+    results = {}
+    for cell, n, edges, dname, xs, nodes, wts, g in node_bwd_cases(device,
+                                                                   batches):
+        h, w, c, _ = NODE_SHAPES[cell]
+        cs, dtype = c // 4, DTYPES[dname]
+        _, obuf, stat = M.node_fwd_launch(xs, nodes, wts, cs,
+                                          device)
+        got = M.node_bwd_launch(xs, nodes, wts, g, obuf, stat, cs,
+                                device)
+        auto = M.mixed_node_bwd_plain(xs, nodes, wts, g, cs)
+        # a tree older than the decision-matched reference
+        # (--root) is held against autograd alone
+        want = (M.mixed_node_bwd_plain(xs, nodes, wts, g, cs,
+                                       kept=(obuf, stat))
+                if hasattr(M, "sep_inner_inputs_kept") else auto)
+        torch.cuda.synchronize()
+        fp32 = dname == "float32"
+        tols = [1e-4 if fp32 else 2.0 ** -7] * edges + [
+            1e-4 if fp32 else 2e-3] * 3
+        ok, rel, _ = _node_grads_within(got, want, tols)
+        _, rel_auto, worst = _node_grads_within(got, auto, tols)
+        tag = (f"mixed_node_bwd {cell} {h}x{w} Cs={cs} E={edges} "
+               f"N={n} {dname}")
+        expect(ok and got[0][0].dtype == dtype
+               and got[3].shape == (edges, 8),
+               f"{tag}: a gradient differs from the plain "
+               f"version's by {rel} of its scale")
+        log(f"{tag}: against autograd through the plain forward "
+            f"(its own ReLU decisions) {rel_auto:.3e} of scale")
+        if rel_auto > tols[0] and worst < edges and hasattr(
+                M, "sep_inner_inputs_kept"):
+            explain_node_bwd(xs, nodes, cs, obuf, stat,
+                             got[0][worst], auto[0][worst],
+                             worst, tag)
+        ms, by = node_bwd_bound(n, h, w, cs, edges, dname)
+        r = results[(cell, edges, n, dname)] = {
+            "err": rel, "autograd_err": rel_auto,
+            "bound_ms": ms, "bound_by": by,
+            "library_ms": None,
+            "ms": time_fn(lambda: M.node_bwd_launch(
+                xs, nodes, wts, g, obuf, stat, cs, device)),
+            "plain_ms": time_fn(lambda: M.mixed_node_bwd_plain(
+                xs, nodes, wts, g, cs), reps=3, warmup=1)}
+        log(f"kernel {tag}: {_times(r)}")
+        del obuf, stat, got, want, auto
     return results
+
+
+def _node_grads_within(got, want, tols):
+    """mixed_node_bwd's outputs against a plain version's, each gradient
+    relative to its own scale -> (all finite and within `tols`, the
+    largest relative error, the index of the gradient that has it: edge
+    e's dx is e, then d dw, d pw, d weights)."""
+    pairs = list(zip(got[0], want[0])) + list(zip(got[1:], want[1:]))
+    rel, ok, worst = 0.0, True, 0
+    for i, ((a, b), tol) in enumerate(zip(pairs, tols)):
+        err, scale = _grad_err(a, b)
+        ok = ok and bool(torch.isfinite(a.float()).all()) \
+            and err <= tol * scale
+        if err / max(scale, 1e-30) > rel:
+            rel, worst = err / max(scale, 1e-30), i
+    return ok, rel, worst
+
+
+def explain_node_bwd(xs, nodes, cs, obuf, stat, dx, dx_auto, e, tag):
+    """Where the kernel's dx of edge e differs most from autograd through
+    the plain forward: the element, the stage outputs the kernel stored
+    there and the plain version's recomputed ones, and every inner ReLU
+    decision and max-pool tap that the two forwards take differently on
+    this edge, with its distance from the element. A decision flips where
+    the inner BatchNorm's output lies within an ulp of 0; a tap differs
+    where a 3x3 window of x holds its maximum twice."""
+    import torch.nn.functional as F
+
+    from lctvqa_torch.ops import cuda_mixedop as M
+
+    n, h, w, _ = xs[e].shape
+    diff = (dx.float() - dx_auto.float()).abs()
+    at = np.unravel_index(int(diff.argmax()), tuple(diff.shape))
+    pix = (at[0] * h + at[1]) * w + at[2]
+    log(f"{tag}: edge {e} dx worst at (n, h, w, c) = {tuple(map(int, at))}: "
+        f"kernel {float(dx[at]):.6e}, autograd {float(dx_auto[at]):.6e}, "
+        f"|diff| {float(diff[at]):.3e}; x there {float(xs[e][at]):.6e}")
+    kept = M.sep_inner_inputs_kept(obuf, stat, (n, h, w))[e]
+    plain = M.sep_inner_inputs_plain([xs[e]], [nodes[e]], cs)[0]
+    for b, name in enumerate(("sep_conv_3x3", "sep_conv_5x5")):
+        log(f"  {name} stage 1 at the element's pixel, channels 0..{cs - 1}:"
+            f" stored o {obuf[b, e, :, pix].float().tolist()}, inner ReLU "
+            f"input kernel {kept[b][at[:3]].tolist()}, plain "
+            f"{plain[b][at[:3]].tolist()}")
+        flips = ((kept[b] > 0) != (plain[b] > 0)).nonzero().tolist()
+        log(f"  {name}: {len(flips)} inner ReLU decision(s) differ on this "
+            "edge")
+        for q in flips[:8]:
+            q = tuple(q)
+            dist = max(abs(q[1] - int(at[1])), abs(q[2] - int(at[2])))
+            log(f"    at {q} (same image: {q[0] == int(at[0])}, "
+                f"{dist} px away): kernel {float(kept[b][q]):.3e}, plain "
+                f"{float(plain[b][q]):.3e}, stored o "
+                f"{float(obuf[b, e, q[3], (q[0] * h + q[1]) * w + q[2]]):.9e}")
+    # max-pool taps: the kernel takes the first maximal tap of each window
+    # in row-major order, PyTorch's max_pool2d its own choice
+    x32 = xs[e][..., :cs].float().permute(0, 3, 1, 2)
+    _, idx = F.max_pool2d(x32, 3, 1, 1, return_indices=True)
+    win = F.unfold(F.pad(x32, (1, 1, 1, 1), value=-float("inf")), 3)
+    first = win.view(n, cs, 9, h * w).argmax(2)  # first maximal tap
+    ty, tx = first // 3 - 1, first % 3 - 1
+    pos = torch.arange(h * w, device=x32.device)
+    want = (pos // w + ty) * w + (pos % w + tx)
+    taps = (idx.view(n, cs, h * w) != want).nonzero().tolist()
+    log(f"  max pool: {len(taps)} window(s) whose tap differs on this edge"
+        + "".join(f"; at (n, c, pixel) {tuple(t)}" for t in taps[:8]))
 
 
 def check_pool_gradients(device):
@@ -1650,6 +1874,35 @@ def _grads_agree(got, want, tag):
         f"{TRAIN_GRAD_FLOOR} of the largest, {top:.3e})")
 
 
+@contextlib.contextmanager
+def bn_shape_tally():
+    """Counts the BatchNorm wrappers' calls by (kernel, shape, dtypes) while
+    open, by wrapping cuda_bn's batchnorm_fwd_stat and batchnorm_bwd (a call
+    on the card is one launch)."""
+    from lctvqa_torch.ops import cuda_bn
+
+    tally = collections.Counter()
+    fwd, bwd = cuda_bn.batchnorm_fwd_stat, cuda_bn.batchnorm_bwd
+
+    def name(dtype):
+        return str(dtype or torch.float32).replace("torch.", "")
+
+    def fwd_counted(x, out_dtype=None, eps=cuda_bn.EPS):
+        tally[("bn_fwd", tuple(x.shape), name(x.dtype), name(out_dtype))] += 1
+        return fwd(x, out_dtype, eps)
+
+    def bwd_counted(x, g, stat):
+        tally[("bn_bwd", tuple(x.shape), name(x.dtype), name(g.dtype))] += 1
+        return bwd(x, g, stat)
+
+    cuda_bn.batchnorm_fwd_stat, cuda_bn.batchnorm_bwd = (fwd_counted,
+                                                         bwd_counted)
+    try:
+        yield tally
+    finally:
+        cuda_bn.batchnorm_fwd_stat, cuda_bn.batchnorm_bwd = fwd, bwd
+
+
 def train_run(arrays, device, dtype: str, fname: str, root: str, steps=4):
     """A few stage 1 + stage 2 steps and one eval through Experiment.
     -> (first stage-1 loss, launches of the whole run)."""
@@ -1668,10 +1921,20 @@ def train_run(arrays, device, dtype: str, fname: str, root: str, steps=4):
         # one stage-1 step alone, for its launch counts
         batch = dev_batch(next(batches))
         before = _build.launch_counts()
-        (exp.ef_params, exp.ef_opt, loss0, _, _) = exp.steps["stage1"](
-            exp.ef_params, exp.arch, exp.ef_opt, batch, exp.gen)
-        torch.cuda.synchronize()
+        with bn_shape_tally() as tally:
+            (exp.ef_params, exp.ef_opt, loss0, _, _) = exp.steps["stage1"](
+                exp.ef_params, exp.arch, exp.ef_opt, batch, exp.gen)
+            torch.cuda.synchronize()
         calls = _delta(before, _build.launch_counts())
+        if fname == "kernels":
+            for kind in ("bn_fwd", "bn_bwd"):
+                mine = {k[1:]: v for k, v in sorted(tally.items())
+                        if k[0] == kind}
+                log(f"{tag}: one stage-1 step's {kind} launches by (shape, "
+                    f"dtypes): {mine}")
+                expect(sum(mine.values()) == calls[kind],
+                       f"{tag}: {kind} calls by shape {sum(mine.values())}"
+                       f" against {calls[kind]} launches")
         want = (STAGE1_LAUNCHES if fname == "kernels"
                 else dict.fromkeys(STAGE1_LAUNCHES, 0))
         log(f"{tag}: one stage-1 step launched "
@@ -1885,6 +2148,14 @@ def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
                             fp32_device_us=cell_dev["float32"]["kernel_us"],
                             fp32_library_device_us=cell_dev["float32"][
                                 "library_us"])
+        if name in ("bn_fwd", "bn_bwd"):  # the stride-2 edges' inner BN
+            small = (bn if name == "bn_fwd" else bn_bwd)[
+                ((64, 32, 32, 8), "bfloat16", "bfloat16")]
+            rows[-1].update(small_shape="[64,32,32,8] bfloat16, bfloat16",
+                            small_ms=small["ms"],
+                            small_plain_ms=small["plain_ms"],
+                            small_bound_ms=small["bound_ms"],
+                            small_library_ms=small["library_ms"])
         if name in ("mixed_node_fwd", "mixed_node_bwd"):
             d = (node_dev if name == "mixed_node_fwd"
                  else node_bwd_dev)[NODE_PROFILE[0]]
@@ -1916,8 +2187,9 @@ def kernel_times(device, card: str, tree: str) -> int:
     shape of check_node_kernel and the node backward at every shape of
     check_node_bwd_kernel, both with their per-launch device times at
     NODE_PROFILE, greedy_generate against its plain version with its
-    device time and host enqueue at B = 1, 8, 64 in both dtypes, and the
-    W and EF answer_logits / generate loop at the default flags. One JSON line of the numbers, also written to
+    device time and host enqueue at B = 1, 8, 64 in both dtypes, bn_fwd
+    and bn_bwd at every BatchNorm shape and dtype pair (bn_device_times),
+    and the W and EF answer_logits / generate loop at the default flags. One JSON line of the numbers, also written to
     chiprun_out/kernel_times_<tree>_<pid>.json."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1928,8 +2200,9 @@ def kernel_times(device, card: str, tree: str) -> int:
     cell_dev = cell_device_times(device, mcfg)
     node = check_node_kernel(device)
     node_dev = node_device_times(device)
-    node_bwd = check_node_bwd_kernel(device)
+    node_bwd = check_node_bwd_kernel(device, fault_draw=None)
     node_bwd_dev = node_bwd_device_times(device)
+    bn_dev = bn_device_times(device)
     gen = check_kernels(device, mcfg,
                         names=("greedy_generate",))["greedy_generate"]
     gen_dev = generate_device_times(device, mcfg)
@@ -1960,6 +2233,9 @@ def kernel_times(device, card: str, tree: str) -> int:
                      for (b, d), r in gen.items()},
         "generate_device": {f"B={b} {d}": r
                             for (b, d), r in gen_dev.items()},
+        "bn_device": {kind: {f"{list(shape)} {a} {b}": r
+                             for (shape, a, b), r in rows_.items()}
+                      for kind, rows_ in bn_dev.items()},
         "throughput": [{"model": n, "fn": f, "dtype": d, "ms": ms}
                        for n, f, d, _, _, ms in rows]}
     out_dir = Path("chiprun_out")
@@ -1981,8 +2257,9 @@ def main(argv=None) -> int:
                       help="only build, then profile the darts EF call")
     mode.add_argument("--kernel-times", action="store_true",
                       help="only build, then time the cell, the node "
-                      "forward and backward, the decode and the W / EF "
-                      "calls (the before/after run)")
+                      "forward and backward, the decode, the BatchNorm "
+                      "forward and backward and the W / EF calls (the "
+                      "before/after run)")
     parser.add_argument("--root", default=None,
                         help="take lctvqa_torch from this checkout (e.g. "
                         "a git archive of another commit) instead of the "

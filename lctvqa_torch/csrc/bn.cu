@@ -12,36 +12,78 @@
 //                   xhat = (x - mean) * r from the forward's `stat`; g fp32
 //                   or bf16, sums in fp32, dx in x's dtype
 //
-// The backward is bound the same way (bytes: x and g read, dx written) and
-// built the same way: per-block partials of sum g and sum g * xhat, a
-// fixed-order finalize, then one elementwise pass.
+// What bounds it on an H100: bytes. It does 5 (backward 10) operations per
+// element it moves, so the least time is one read of x (and g) and one
+// write of y (dx) at the memory rate. The TPU kernel gets its "one read,
+// one write" by holding the whole tensor in VMEM. Here each call is a
+// memset of the barrier's counter and one cooperative launch of a
+// persistent grid, every block resident at once, at most one an SM. Block
+// b owns the rows [b R, (b + 1) R) of the [M, C] view, a contiguous range
+// of bytes, and:
+//   1. copies the first `staged` rows of its share (of x, and of g in the
+//      backward) into shared memory: one thread issues four bulk copies
+//      (TMA, cp.async.bulk), each completing on its own mbarrier;
+//   2. sums per channel the rows past `staged` straight from device memory,
+//      then each copy's rows as it lands: x and x^2 (forward), g and
+//      g * xhat (backward);
+//   3. writes one partial [2, C]: a warp's rows by shuffles, then the
+//      block's warps in order;
+//   4. crosses one grid barrier (lstm_seq.cuh's: a counter that only grows);
+//   5. adds the partials of all blocks in block order into the statistics:
+//      every block takes the same sums in the same order, so every block
+//      holds the same bits; block 0 writes the forward's `stat`;
+//   6. normalizes its staged rows from shared memory and the rest from
+//      device memory (their second read, mostly from the 50 MB L2), and
+//      writes y (dx).
+// Where a block reads rows twice, the staged rows' copies and the outputs
+// take an evict-first L2 policy and the first read of the other rows an
+// evict-last one, so that their second read finds them in L2 (on an H100
+// at [64,64,64,32] with fp32 x this took the backward from 52 to 41 us).
+// The barrier's counter is the only atomic and every sum is taken in a
+// fixed order, so two calls give the same bits, which a served answer
+// needs. The grid follows the shape: a block per 16 KiB of the tensor (x
+// and g in the backward), at most one an SM, so that a 1 MB tensor does
+// not pay for a barrier of 132 blocks. lctvqa_bn_plan reports the launch
+// shape, ops/cuda_bn.py::bn_plan mirrors it.
 //
-// What bounds it on an H100: bytes. It does 5 operations per element it
-// moves, so the least time is one read of x and one write of y at the
-// memory rate. The TPU kernel gets its "one read, one write" by holding
-// the whole tensor in VMEM; no block here holds a 16 MiB tensor and blocks
-// run in no order, so the statistics need a grid-wide dependency. Design:
-// three launches on one stream.
-//   1. bn_stats: each block sums x and x^2 per channel over its share of
-//      the rows and writes one partial per block. No atomics: the partials
-//      are added in a fixed order, so a result does not change from run to
-//      run, which a served answer should not.
-//   2. bn_finalize: one thread per channel adds the partials in block
-//      order and writes mean and 1/sqrt(var + eps).
-//   3. bn_normalize: reads x a second time (from the 50 MB L2 when the
-//      tensor fits there) and writes y.
-// The lane-packing of the TPU kernel (_select_matrix) is a TPU layout
-// device and has no counterpart. Threads form `rows` x `lanes`: a lane owns
-// VEC neighbouring channels (VEC = 4 when C is a multiple of 4, so an fp32
-// thread moves 16 bytes at a time), and neighbouring threads read
-// neighbouring addresses.
+// On chip at the supernet's six shapes on a 132-SM H100 (227 KB of shared
+// memory a block): blocks, and the share of the rows staged in shared
+// memory, the rest read twice (bn_plan's numbers):
+//   shape          forward, x fp32 | bf16     backward, x and g: fp32 bf16 |
+//                                                 fp32 fp32 | bf16 bf16
+//   [64,64,64,16]  132 100% | 132 100%        132 100% | 132 90% | 132 100%
+//   [64,64,64,32]  132  90% | 132 100%        132  60% | 132 45% | 132  90%
+//   [64,32,32,64]  132 100% | 132 100%        132 100% | 132 88% | 132 100%
+//   [64,16,16,64]  132 | 128, all staged      132 | 132 | 132, all staged
+//   [64,32,32,8]   128 |  64, all staged      132 | 132 | 128, all staged
+//   [64,16,16,16]   64 |  32, all staged       96 | 128 |  64, all staged
+// A block has 256 threads where it stages its whole share and 512 where it
+// reads rows from device memory itself (twice as many loads in flight);
+// they form `rows` x `lanes`: a lane owns VEC neighbouring channels (4
+// when C is a multiple of 4, so that a thread moves 16 bytes of fp32 at a
+// time; else 1, and the staging is plain copies), lanes is the power of two
+// at or above C / VEC, at most 32, and neighbouring threads touch
+// neighbouring addresses in shared and device memory alike. The
+// lane-packing of the TPU kernel (_select_matrix) is a TPU layout device
+// and has no counterpart.
+#include <algorithm>
+#include <cstdint>
+
 #include "lstm_common.cuh"
+#include "lstm_seq.cuh"
 
 namespace lctvqa {
 namespace {
+namespace bn {
 
-constexpr int kBnThreads = 256;
-constexpr int kBnMaxBlocks = 264;  // two per SM of an H100
+// threads a block: 256 where a block's whole share is staged (cheaper
+// reductions and barrier), 512 where rows are read from device memory by
+// the threads themselves (twice as many loads in flight)
+constexpr int kFewThreads = 256, kManyThreads = 512;
+constexpr int kStages = 4;               // bulk copies of the staging
+constexpr int kSyncBytes = 16;           // the barrier's counter, padded
+constexpr long long kBlockBytes = 16384; // bytes of the tensor a block
+constexpr int kMaxDevices = 64;
 
 template <typename T, int VEC>
 __device__ __forceinline__ void load_vec(const T* p, float v[VEC]);
@@ -99,29 +141,413 @@ __device__ __forceinline__ void store_vec<__nv_bfloat16, 4>(
   *reinterpret_cast<uint2*>(p) = q;
 }
 
-// partial: [gridDim.x, 2, C] (sum, sum of squares). Thread (r, lane) with
-// tid = r * lanes + lane walks rows r, r + rows, ... of this block's share.
-template <typename T, int VEC>
-__global__ void bn_stats_kernel(const T* __restrict__ x,
-                                float* __restrict__ partial, long long M,
-                                int C, int lanes, int rows) {
-  extern __shared__ float red[];  // [rows * lanes][2 * VEC]
-  const int lane = threadIdx.x % lanes;
-  const int r = threadIdx.x / lanes;
+// L2 policies where a block reads rows twice (HINT, the plans with
+// kManyThreads): the staged rows and the outputs are touched once and
+// evicted first, the rows past the staged ones are kept until their second
+// read, which is their last use (ld.lu). Where every row is staged the
+// copies and stores take the default policy.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(p));
+  return p;
+}
+
+// load_vec of a row that is read again after the barrier: kept in L2.
+template <bool HINT, typename T, int VEC>
+__device__ __forceinline__ void load_keep(const T* p, float v[VEC],
+                                          uint64_t pol) {
+  if constexpr (HINT && VEC == 4 && sizeof(T) == 4) {
+    float4 q;
+    asm volatile("ld.global.L2::cache_hint.v4.f32 {%0,%1,%2,%3}, [%4], %5;\n"
+                 : "=f"(q.x), "=f"(q.y), "=f"(q.z), "=f"(q.w)
+                 : "l"(p), "l"(pol));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (HINT && VEC == 4) {
+    uint2 q;
+    asm volatile("ld.global.L2::cache_hint.v2.u32 {%0,%1}, [%2], %3;\n"
+                 : "=r"(q.x), "=r"(q.y)
+                 : "l"(p), "l"(pol));
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+    v[0] = __low2float(a); v[1] = __high2float(a);
+    v[2] = __low2float(b); v[3] = __high2float(b);
+  } else {
+    load_vec<T, VEC>(p, v);
+  }
+}
+
+// load_vec of that row's second read, its last use (.lu).
+template <bool HINT, typename T, int VEC>
+__device__ __forceinline__ void load_last(const T* p, float v[VEC]) {
+  if constexpr (HINT && VEC == 4 && sizeof(T) == 4) {
+    const float4 q = __ldlu(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+  } else if constexpr (HINT && VEC == 4) {
+    const uint2 q = __ldlu(reinterpret_cast<const uint2*>(p));
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+    v[0] = __low2float(a); v[1] = __high2float(a);
+    v[2] = __low2float(b); v[3] = __high2float(b);
+  } else {
+    load_vec<T, VEC>(p, v);
+  }
+}
+
+// store_vec of an output: streamed (.cs) under HINT.
+template <bool HINT, typename T, int VEC>
+__device__ __forceinline__ void store_out(T* p, const float v[VEC]) {
+  if constexpr (HINT && VEC == 4 && sizeof(T) == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (HINT && VEC == 4) {
+    const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+    const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+    uint2 q;
+    q.x = *reinterpret_cast<const unsigned*>(&a);
+    q.y = *reinterpret_cast<const unsigned*>(&b);
+    __stcs(reinterpret_cast<uint2*>(p), q);
+  } else {
+    store_vec<T, VEC>(p, v);
+  }
+}
+
+// What a launch is told of its plan; offsets in bytes of dynamic shared
+// memory: staged x rows at 0, staged g rows at g_at (backward), the
+// reduction scratch at red_at, the statistics at stat_at, the staging's
+// kStages mbarriers at bar_at.
+struct Layout {
+  long long M;  // rows of the [M, C] view
+  int C;
+  int lanes;    // threads across one row's channel groups
+  int rows;     // rows of a block's share
+  int staged;   // of them held in shared memory
+  int g_at, red_at, stat_at, bar_at;
+};
+
+struct Plan {
+  int threads, blocks, rows, staged, smem;
+  Layout lay;
+};
+
+inline long long round_up_ll(long long v, long long m) {
+  return (v + m - 1) / m * m;
+}
+
+// The launch plan at (M, C) for x of ex bytes an element and g of eg (0 in
+// the forward) with `threads` threads a block on a card of `sms` SMs and
+// `smem_max` bytes of shared memory a block; false where the reductions
+// alone do not fit.
+inline bool make_plan_at(long long M, int C, int ex, int eg, int threads,
+                         int sms, int smem_max, Plan* p) {
+  const int vec = C % 4 == 0 ? 4 : 1;
+  const int groups = C / vec;
+  int lanes = 1;
+  while (lanes < groups && lanes < 32) lanes *= 2;
+  const long long red = std::max(threads / 32 * lanes * 2 * vec, threads);
+  const long long stat = (eg ? 4LL : 2LL) * C;
+  const long long fixed =
+      4 * round_up_ll(red, 4) + 4 * round_up_ll(stat, 4) + 8 * kStages;
+  // rows per block whose bytes start on 16 (the bulk copies)
+  long long unit = 1;
+  if (vec == 4)
+    while (unit * C * ex % 16 || unit * C * eg % 16) unit *= 2;
+  const long long row_bytes = (long long)C * (ex + eg);
+  long long blocks = (M * row_bytes + kBlockBytes - 1) / kBlockBytes;
+  blocks = std::min<long long>(std::max<long long>(blocks, 1), sms);
+  const long long rows = round_up_ll((M + blocks - 1) / blocks, unit);
+  blocks = (M + rows - 1) / rows;
+  const long long room = smem_max - fixed - 32;  // 32: two regions' padding
+  if (room < 0 || rows > INT32_MAX) return false;
+  const long long staged = std::min(rows, room / row_bytes / unit * unit);
+  const long long xb = round_up_ll(staged * C * ex, 16);
+  const long long gb = round_up_ll(staged * C * eg, 16);
+  p->threads = threads;
+  p->blocks = (int)blocks;
+  p->rows = (int)rows;
+  p->staged = (int)staged;
+  p->smem = (int)(xb + gb + fixed);
+  const long long stat_at = xb + gb + 4 * round_up_ll(red, 4);
+  p->lay = {M,           C,       lanes,          (int)rows,
+            (int)staged, (int)xb, (int)(xb + gb), (int)stat_at,
+            (int)(stat_at + 4 * round_up_ll(stat, 4))};
+  return true;
+}
+
+// The plan with kFewThreads where it stages every row, else kManyThreads.
+inline bool make_plan(long long M, int C, int ex, int eg, int sms,
+                      int smem_max, Plan* p) {
+  if (!make_plan_at(M, C, ex, eg, kFewThreads, sms, smem_max, p))
+    return false;
+  return p->staged == p->rows ||
+         make_plan_at(M, C, ex, eg, kManyThreads, sms, smem_max, p);
+}
+
+// ---------------------------------------------------------------------------
+// device code
+// ---------------------------------------------------------------------------
+
+// The staged rows whole once groups 0..k of a copy of `bytes` have landed.
+__device__ __forceinline__ int rows_landed(long long bytes,
+                                           long long row_bytes, int k,
+                                           int staged) {
+  if (k == kStages - 1) return staged;
+  const long long hi = bytes / 16 * (k + 1) / kStages;
+  return (int)min((long long)staged, hi * 16 / row_bytes);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar))
+        : "memory");
+  } while (!done);
+}
+
+// Group k's 16-byte pieces of a copy of `bytes` bytes: [lo, hi) in bytes.
+__device__ __forceinline__ void bulk_range(long long bytes, int k,
+                                           long long* lo, long long* hi) {
+  const long long pieces = bytes / 16;
+  *lo = pieces * k / kStages * 16;
+  *hi = pieces * (k + 1) / kStages * 16;
+}
+
+// By one thread: group k of a copy of `bytes` bytes from src to dst (both
+// aligned to 16) as one bulk copy whose bytes complete on `bar`.
+template <bool HINT>
+__device__ __forceinline__ void bulk_group(unsigned char* dst,
+                                           const unsigned char* src,
+                                           long long bytes, int k,
+                                           uint64_t* bar) {
+  long long lo, hi;
+  bulk_range(bytes, k, &lo, &hi);
+  if (hi <= lo) return;
+  if constexpr (HINT)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst + lo)),
+        "l"(src + lo), "r"((uint32_t)(hi - lo)), "r"(smem_u32(bar)),
+        "l"(l2_evict_first())
+        : "memory");
+  else
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst + lo)),
+        "l"(src + lo), "r"((uint32_t)(hi - lo)), "r"(smem_u32(bar))
+        : "memory");
+}
+
+__device__ __forceinline__ uint32_t bulk_bytes(long long bytes, int k) {
+  long long lo, hi;
+  bulk_range(bytes, k, &lo, &hi);
+  return (uint32_t)(hi - lo);
+}
+
+// The last bytes % 16 (0 or 8) of a copy, which no bulk piece takes.
+__device__ __forceinline__ void copy_rest(unsigned char* dst,
+                                          const unsigned char* src,
+                                          long long bytes) {
+  if (bytes % 16) {
+    const long long at = bytes / 16 * 16;
+    *reinterpret_cast<uint2*>(dst + at) =
+        *reinterpret_cast<const uint2*>(src + at);
+  }
+}
+
+// The first row at or after `lo` that thread row r takes: rows r, r +
+// rstep, ... of the share, whatever the staging's group boundaries, so that
+// a thread's sums do not depend on them.
+__device__ __forceinline__ int first_row(int lo, int r, int rstep) {
+  return lo + (r - lo % rstep + rstep) % rstep;
+}
+
+// The block's sums s, q of channels [col, col + VEC) into out[col + k] and
+// out[C + col + k]: a warp's rows by a butterfly over the row bits of the
+// lane, then the warps in order.
+template <int VEC, int NT>
+__device__ __forceinline__ void block_partial(float s[VEC], float q[VEC],
+                                              float* red, float* out, int C,
+                                              int col, bool active, int lane,
+                                              int lanes) {
+  for (int off = lanes; off < 32; off <<= 1) {
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      s[k] += __shfl_xor_sync(0xffffffffu, s[k], off);
+      q[k] += __shfl_xor_sync(0xffffffffu, q[k], off);
+    }
+  }
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) < lanes) {
+    float* mine = red + (size_t)(warp * lanes + lane) * 2 * VEC;
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      mine[k] = s[k];
+      mine[VEC + k] = q[k];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < lanes && active) {
+    float ts[VEC], tq[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) ts[k] = tq[k] = 0.f;
+    for (int w = 0; w < NT / 32; ++w) {
+      const float* other = red + (size_t)(w * lanes + lane) * 2 * VEC;
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        ts[k] += other[k];
+        tq[k] += other[VEC + k];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      out[col + k] = ts[k];
+      out[C + col + k] = tq[k];
+    }
+  }
+  __syncthreads();
+}
+
+// st[v] = the sum over blocks b < G of partial[b * nv + v], v < nv, in a
+// fixed order, so that every block takes the same sums. Where nv / 4 is a
+// power of two up to 32, a thread takes one float4 of values (q) of blocks
+// j, j + ways, ... (eight 16-byte loads in flight; a warp reads 512
+// contiguous bytes), a butterfly adds a warp's threads of one q, and the
+// warps' sums are added in order through `red` (NT / 32 x nv floats, which
+// the plan's reduction scratch holds wherever this path is taken). Else a
+// thread adds one value's blocks in order.
+template <int NT>
+__device__ __forceinline__ void finish_sums(const float* partial, float* red,
+                                            float* st, int nv, int G) {
+  const int nq = nv / 4;
+  if (nv % 4 == 0 && nq <= 32 && (nq & (nq - 1)) == 0) {
+    const int q = threadIdx.x % nq, j = threadIdx.x / nq;
+    const int ways = NT / nq;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int b = j; b < G; b += 8 * ways) {
+      float4 t[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int bi = b + i * ways;
+        t[i] = bi < G ? __ldcg(reinterpret_cast<const float4*>(
+                            partial + (long long)bi * nv) + q)
+                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc.x += t[i].x;
+        acc.y += t[i].y;
+        acc.z += t[i].z;
+        acc.w += t[i].w;
+      }
+    }
+    for (int off = nq; off < 32; off <<= 1) {
+      acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
+      acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
+      acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
+      acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
+    }
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) < nq)
+      reinterpret_cast<float4*>(red)[warp * nq + q] = acc;
+    __syncthreads();
+    if (threadIdx.x < nv) {
+      float sum = red[threadIdx.x];
+      for (int w = 1; w < NT / 32; ++w) sum += red[w * nv + threadIdx.x];
+      st[threadIdx.x] = sum;
+    }
+  } else {
+    for (int v = threadIdx.x; v < nv; v += NT) {
+      float acc = 0.f;
+      for (int b = 0; b < G; ++b)
+        acc += __ldcg(partial + (long long)b * nv + v);
+      st[v] = acc;
+    }
+  }
+  __syncthreads();
+}
+
+// partial: [gridDim.x, 2, C] (sum, sum of squares); stat: [2, C].
+template <typename T, typename TO, int VEC, int NT>
+__global__ void __launch_bounds__(NT, 1)
+    bn_fwd_kernel(const T* __restrict__ x, TO* __restrict__ y,
+                  float* __restrict__ stat, unsigned* __restrict__ ctr,
+                  float* __restrict__ partial, Layout L, float inv_count,
+                  float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kHint = NT == kManyThreads;  // rows read twice
+  const int C = L.C;
+  const long long r0 = (long long)blockIdx.x * L.rows;
+  const int nrows = (int)min((long long)L.rows, L.M - r0);
+  const int nst = min(L.staged, nrows);
+  const T* xb = x + r0 * C;
+  TO* yb = y + r0 * C;
+  const T* xs = reinterpret_cast<const T*>(smem);
+  float* red = reinterpret_cast<float*>(smem + L.red_at);
+  float* st = reinterpret_cast<float*>(smem + L.stat_at);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_at);
+  const long long row_bytes = (long long)C * sizeof(T);
+  const long long xbytes = nst * row_bytes;
+  const unsigned char* xsrc = reinterpret_cast<const unsigned char*>(xb);
+  if constexpr (VEC == 4) {
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < kStages; ++k) bar_init(&bars[k]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int k = 0; k < kStages; ++k) {
+        bar_expect(&bars[k], bulk_bytes(xbytes, k));
+        bulk_group<kHint>(smem, xsrc, xbytes, k, &bars[k]);
+      }
+    }
+    if (threadIdx.x == 32) copy_rest(smem, xsrc, xbytes);
+  } else {
+    T* dst = reinterpret_cast<T*>(smem);
+    for (long long i = threadIdx.x; i < (long long)nst * C; i += NT)
+      dst[i] = xb[i];
+  }
+  __syncthreads();  // the mbarriers initialized; plain copies visible
+
+  const int lanes = L.lanes, lane = threadIdx.x % lanes;
+  const int r = threadIdx.x / lanes, rstep = NT / lanes;
   const int groups = C / VEC;
+  const uint64_t keep = l2_evict_last();
   for (int g0 = 0; g0 < groups; g0 += lanes) {
-    const int g = g0 + lane;
-    const bool active = g < groups;
+    const int grp = g0 + lane, col = grp * VEC;
+    const bool active = grp < groups;
     float s[VEC], q[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) s[k] = q[k] = 0.f;
-    if (active) {
-      const long long step = (long long)gridDim.x * rows;
+    if (active) {  // the rows past the staged ones, from device memory
 #pragma unroll 4
-      for (long long row = (long long)blockIdx.x * rows + r; row < M;
-           row += step) {
+      for (int row = first_row(nst, r, rstep); row < nrows;
+           row += rstep) {
         float v[VEC];
-        load_vec<T, VEC>(x + row * C + (long long)g * VEC, v);
+        load_keep<kHint, T, VEC>(xb + (long long)row * C + col, v, keep);
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
           s[k] += v[k];
@@ -129,140 +555,150 @@ __global__ void bn_stats_kernel(const T* __restrict__ x,
         }
       }
     }
-    float* mine = red + (size_t)threadIdx.x * 2 * VEC;
+    int lo = 0;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      mine[k] = s[k];
-      mine[VEC + k] = q[k];
-    }
-    __syncthreads();
-    if (active && r == 0) {
-      for (int r2 = 1; r2 < rows; ++r2) {
-        const float* other = red + (size_t)(r2 * lanes + lane) * 2 * VEC;
+    for (int k = 0; k < kStages; ++k) {
+      if (VEC == 4 && g0 == 0) bar_wait(&bars[k]);
+      const int hi = rows_landed(xbytes, row_bytes, k, nst);
+      if (active) {
+#pragma unroll 4
+        for (int row = first_row(lo, r, rstep); row < hi;
+             row += rstep) {
+          float v[VEC];
+          load_vec<T, VEC>(xs + (long long)row * C + col, v);
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) {
-          s[k] += other[k];
-          q[k] += other[VEC + k];
+          for (int j = 0; j < VEC; ++j) {
+            s[j] += v[j];
+            q[j] = fmaf(v[j], v[j], q[j]);
+          }
         }
       }
-      float* out = partial + (size_t)blockIdx.x * 2 * C + (size_t)g * VEC;
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        out[k] = s[k];
-        out[C + k] = q[k];
-      }
+      lo = hi;
     }
-    __syncthreads();
+    block_partial<VEC, NT>(s, q, red, partial + (long long)blockIdx.x * 2 * C, C,
+                       col, active, lane, lanes);
   }
-}
 
-// stat: [2, C] (mean, 1/sqrt(var + eps)).
-__global__ void bn_finalize_kernel(const float* __restrict__ partial,
-                                   float* __restrict__ stat, int blocks,
-                                   int C, float inv_count, float eps) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float s = 0.f, q = 0.f;
-  for (int b = 0; b < blocks; ++b) {
-    s += partial[(size_t)b * 2 * C + c];
-    q += partial[(size_t)b * 2 * C + C + c];
+  seq::grid_arrive(ctr);
+  seq::grid_wait(ctr, gridDim.x);
+  finish_sums<NT>(partial, red, st, 2 * C, gridDim.x);
+  for (int c = threadIdx.x; c < C; c += NT) {
+    const float mean = st[c] * inv_count;
+    const float var = st[C + c] * inv_count - mean * mean;
+    const float rstd = 1.f / sqrtf(var + eps);
+    st[c] = mean;
+    st[C + c] = rstd;
+    if (blockIdx.x == 0) {
+      stat[c] = mean;
+      stat[C + c] = rstd;
+    }
   }
-  const float mean = s * inv_count;
-  const float var = q * inv_count - mean * mean;
-  stat[c] = mean;
-  stat[C + c] = 1.f / sqrtf(var + eps);
-}
+  __syncthreads();
 
-template <typename T, typename TO, int VEC>
-__global__ void bn_normalize_kernel(const T* __restrict__ x,
-                                    const float* __restrict__ stat,
-                                    TO* __restrict__ y, long long M, int C,
-                                    int lanes, int rows) {
-  const int lane = threadIdx.x % lanes;
-  const int r = threadIdx.x / lanes;
-  const int groups = C / VEC;
-  const long long step = (long long)gridDim.x * rows;
-  for (int g = lane; g < groups; g += lanes) {
+  for (int g0 = 0; g0 < groups; g0 += lanes) {
+    const int grp = g0 + lane, col = grp * VEC;
+    if (grp >= groups) continue;
     float mean[VEC], rstd[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      mean[k] = stat[g * VEC + k];
-      rstd[k] = stat[C + g * VEC + k];
+      mean[k] = st[col + k];
+      rstd[k] = st[C + col + k];
     }
 #pragma unroll 4
-    for (long long row = (long long)blockIdx.x * rows + r; row < M;
-         row += step) {
-      const long long at = row * C + (long long)g * VEC;
+    for (int row = r; row < nst; row += rstep) {
+      const long long at = (long long)row * C + col;
       float v[VEC];
-      load_vec<T, VEC>(x + at, v);
+      load_vec<T, VEC>(xs + at, v);
 #pragma unroll
       for (int k = 0; k < VEC; ++k) v[k] = (v[k] - mean[k]) * rstd[k];
-      store_vec<TO, VEC>(y + at, v);
+      store_out<kHint, TO, VEC>(yb + at, v);
+    }
+#pragma unroll 4
+    for (int row = first_row(nst, r, rstep); row < nrows;
+           row += rstep) {
+      const long long at = (long long)row * C + col;
+      float v[VEC];
+      load_last<kHint, T, VEC>(xb + at, v);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) v[k] = (v[k] - mean[k]) * rstd[k];
+      store_out<kHint, TO, VEC>(yb + at, v);
     }
   }
 }
 
-template <typename T, typename TO, int VEC>
-cudaError_t bn_fwd(const void* x, void* y, void* partial, void* stat,
-                   long long M, int C, float eps, cudaStream_t s) {
-  const int groups = C / VEC;
-  const int lanes = groups < kBnThreads ? groups : kBnThreads;
-  const int rows = kBnThreads / lanes;
-  const int threads = rows * lanes;
-  long long want = (M + rows - 1) / rows;
-  const int blocks = (int)(want < kBnMaxBlocks ? want : kBnMaxBlocks);
-  const size_t shmem = (size_t)threads * 2 * VEC * sizeof(float);
-  bn_stats_kernel<T, VEC><<<blocks, threads, shmem, s>>>(
-      (const T*)x, (float*)partial, M, C, lanes, rows);
-  bn_finalize_kernel<<<(C + 255) / 256, 256, 0, s>>>(
-      (const float*)partial, (float*)stat, blocks, C, 1.f / (float)M, eps);
-  // the normalize pass has no reduction, so it takes more blocks
-  want = (M + rows - 1) / rows;
-  const int nblocks = (int)(want < 8 * kBnMaxBlocks ? want : 8 * kBnMaxBlocks);
-  bn_normalize_kernel<T, TO, VEC><<<nblocks, threads, 0, s>>>(
-      (const T*)x, (const float*)stat, (TO*)y, M, C, lanes, rows);
-  return cudaGetLastError();
-}
+// partial: [gridDim.x, 2, C] (sum g, sum g * xhat); stat: the forward's.
+template <typename T, typename TG, int VEC, int NT>
+__global__ void __launch_bounds__(NT, 1)
+    bn_bwd_kernel(const T* __restrict__ x, const TG* __restrict__ g,
+                  const float* __restrict__ stat, T* __restrict__ dx,
+                  unsigned* __restrict__ ctr, float* __restrict__ partial,
+                  Layout L, float inv_count) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr bool kHint = NT == kManyThreads;  // rows read twice
+  const int C = L.C;
+  const long long r0 = (long long)blockIdx.x * L.rows;
+  const int nrows = (int)min((long long)L.rows, L.M - r0);
+  const int nst = min(L.staged, nrows);
+  const T* xb = x + r0 * C;
+  const TG* gb = g + r0 * C;
+  T* db = dx + r0 * C;
+  const T* xs = reinterpret_cast<const T*>(smem);
+  const TG* gs = reinterpret_cast<const TG*>(smem + L.g_at);
+  float* red = reinterpret_cast<float*>(smem + L.red_at);
+  float* st = reinterpret_cast<float*>(smem + L.stat_at);  // [4, C]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L.bar_at);
+  const long long xrow = (long long)C * sizeof(T);
+  const long long grow = (long long)C * sizeof(TG);
+  const long long xbytes = nst * xrow, gbytes = nst * grow;
+  const unsigned char* xsrc = reinterpret_cast<const unsigned char*>(xb);
+  const unsigned char* gsrc = reinterpret_cast<const unsigned char*>(gb);
+  if constexpr (VEC == 4) {
+    if (threadIdx.x == 0) {
+      for (int k = 0; k < kStages; ++k) bar_init(&bars[k]);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      for (int k = 0; k < kStages; ++k) {
+        bar_expect(&bars[k], bulk_bytes(xbytes, k) + bulk_bytes(gbytes, k));
+        bulk_group<kHint>(smem, xsrc, xbytes, k, &bars[k]);
+        bulk_group<kHint>(smem + L.g_at, gsrc, gbytes, k, &bars[k]);
+      }
+    }
+    if (threadIdx.x == 32) {
+      copy_rest(smem, xsrc, xbytes);
+      copy_rest(smem + L.g_at, gsrc, gbytes);
+    }
+  } else {
+    T* xd = reinterpret_cast<T*>(smem);
+    TG* gd = reinterpret_cast<TG*>(smem + L.g_at);
+    for (long long i = threadIdx.x; i < (long long)nst * C; i += NT) {
+      xd[i] = xb[i];
+      gd[i] = gb[i];
+    }
+  }
+  for (int c = threadIdx.x; c < 2 * C; c += NT) st[c] = stat[c];
+  __syncthreads();
 
-template <typename T, typename TO>
-cudaError_t bn_fwd_vec(const void* x, void* y, void* partial, void* stat,
-                       long long M, int C, float eps, cudaStream_t s) {
-  if (C % 4 == 0) return bn_fwd<T, TO, 4>(x, y, partial, stat, M, C, eps, s);
-  return bn_fwd<T, TO, 1>(x, y, partial, stat, M, C, eps, s);
-}
-
-// partial: [gridDim.x, 2, C] (sum g, sum g * xhat); the layout and thread
-// plan of bn_stats_kernel.
-template <typename T, typename TG, int VEC>
-__global__ void bn_bwd_stats_kernel(const T* __restrict__ x,
-                                    const TG* __restrict__ g,
-                                    const float* __restrict__ stat,
-                                    float* __restrict__ partial, long long M,
-                                    int C, int lanes, int rows) {
-  extern __shared__ float red[];  // [rows * lanes][2 * VEC]
-  const int lane = threadIdx.x % lanes;
-  const int r = threadIdx.x / lanes;
+  const int lanes = L.lanes, lane = threadIdx.x % lanes;
+  const int r = threadIdx.x / lanes, rstep = NT / lanes;
   const int groups = C / VEC;
+  const uint64_t keep = l2_evict_last();
   for (int g0 = 0; g0 < groups; g0 += lanes) {
-    const int grp = g0 + lane;
+    const int grp = g0 + lane, col = grp * VEC;
     const bool active = grp < groups;
     float s[VEC], q[VEC], mean[VEC], rstd[VEC];
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) s[k] = q[k] = mean[k] = rstd[k] = 0.f;
-    if (active) {
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        mean[k] = stat[grp * VEC + k];
-        rstd[k] = stat[C + grp * VEC + k];
-      }
-      const long long step = (long long)gridDim.x * rows;
+    for (int k = 0; k < VEC; ++k) {
+      s[k] = q[k] = 0.f;
+      mean[k] = active ? st[col + k] : 0.f;
+      rstd[k] = active ? st[C + col + k] : 0.f;
+    }
+    if (active) {  // the rows past the staged ones, from device memory
 #pragma unroll 4
-      for (long long row = (long long)blockIdx.x * rows + r; row < M;
-           row += step) {
-        const long long at = row * C + (long long)grp * VEC;
+      for (int row = first_row(nst, r, rstep); row < nrows;
+           row += rstep) {
+        const long long at = (long long)row * C + col;
         float v[VEC], gv[VEC];
-        load_vec<T, VEC>(x + at, v);
-        load_vec<TG, VEC>(g + at, gv);
+        load_keep<kHint, T, VEC>(xb + at, v, keep);
+        load_keep<kHint, TG, VEC>(gb + at, gv, keep);
 #pragma unroll
         for (int k = 0; k < VEC; ++k) {
           s[k] += gv[k];
@@ -270,167 +706,301 @@ __global__ void bn_bwd_stats_kernel(const T* __restrict__ x,
         }
       }
     }
-    float* mine = red + (size_t)threadIdx.x * 2 * VEC;
+    int lo = 0;
 #pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      mine[k] = s[k];
-      mine[VEC + k] = q[k];
-    }
-    __syncthreads();
-    if (active && r == 0) {
-      for (int r2 = 1; r2 < rows; ++r2) {
-        const float* other = red + (size_t)(r2 * lanes + lane) * 2 * VEC;
+    for (int k = 0; k < kStages; ++k) {
+      if (VEC == 4 && g0 == 0) bar_wait(&bars[k]);
+      const int hi = min(rows_landed(xbytes, xrow, k, nst),
+                         rows_landed(gbytes, grow, k, nst));
+      if (active) {
+#pragma unroll 4
+        for (int row = first_row(lo, r, rstep); row < hi;
+             row += rstep) {
+          const long long at = (long long)row * C + col;
+          float v[VEC], gv[VEC];
+          load_vec<T, VEC>(xs + at, v);
+          load_vec<TG, VEC>(gs + at, gv);
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) {
-          s[k] += other[k];
-          q[k] += other[VEC + k];
+          for (int j = 0; j < VEC; ++j) {
+            s[j] += gv[j];
+            q[j] = fmaf(gv[j], (v[j] - mean[j]) * rstd[j], q[j]);
+          }
         }
       }
-      float* out = partial + (size_t)blockIdx.x * 2 * C + (size_t)grp * VEC;
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) {
-        out[k] = s[k];
-        out[C + k] = q[k];
-      }
+      lo = hi;
     }
-    __syncthreads();
+    block_partial<VEC, NT>(s, q, red, partial + (long long)blockIdx.x * 2 * C, C,
+                       col, active, lane, lanes);
   }
-}
 
-// gstat: [2, C] (mean of g, mean of g * xhat).
-__global__ void bn_bwd_finalize_kernel(const float* __restrict__ partial,
-                                       float* __restrict__ gstat, int blocks,
-                                       int C, float inv_count) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float s = 0.f, q = 0.f;
-  for (int b = 0; b < blocks; ++b) {
-    s += partial[(size_t)b * 2 * C + c];
-    q += partial[(size_t)b * 2 * C + C + c];
-  }
-  gstat[c] = s * inv_count;
-  gstat[C + c] = q * inv_count;
-}
+  seq::grid_arrive(ctr);
+  seq::grid_wait(ctr, gridDim.x);
+  finish_sums<NT>(partial, red, st + 2 * C, 2 * C, gridDim.x);
+  for (int c = threadIdx.x; c < 2 * C; c += NT)
+    st[2 * C + c] *= inv_count;  // mean g, mean g * xhat
+  __syncthreads();
 
-template <typename T, typename TG, int VEC>
-__global__ void bn_bwd_dx_kernel(const T* __restrict__ x,
-                                 const TG* __restrict__ g,
-                                 const float* __restrict__ stat,
-                                 const float* __restrict__ gstat,
-                                 T* __restrict__ dx, long long M, int C,
-                                 int lanes, int rows) {
-  const int lane = threadIdx.x % lanes;
-  const int r = threadIdx.x / lanes;
-  const int groups = C / VEC;
-  const long long step = (long long)gridDim.x * rows;
-  for (int grp = lane; grp < groups; grp += lanes) {
+  for (int g0 = 0; g0 < groups; g0 += lanes) {
+    const int grp = g0 + lane, col = grp * VEC;
+    if (grp >= groups) continue;
     float mean[VEC], rstd[VEC], gm[VEC], gxm[VEC];
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
-      mean[k] = stat[grp * VEC + k];
-      rstd[k] = stat[C + grp * VEC + k];
-      gm[k] = gstat[grp * VEC + k];
-      gxm[k] = gstat[C + grp * VEC + k];
+      mean[k] = st[col + k];
+      rstd[k] = st[C + col + k];
+      gm[k] = st[2 * C + col + k];
+      gxm[k] = st[3 * C + col + k];
     }
 #pragma unroll 4
-    for (long long row = (long long)blockIdx.x * rows + r; row < M;
-         row += step) {
-      const long long at = row * C + (long long)grp * VEC;
+    for (int row = r; row < nst; row += rstep) {
+      const long long at = (long long)row * C + col;
       float v[VEC], gv[VEC];
-      load_vec<T, VEC>(x + at, v);
-      load_vec<TG, VEC>(g + at, gv);
+      load_vec<T, VEC>(xs + at, v);
+      load_vec<TG, VEC>(gs + at, gv);
 #pragma unroll
       for (int k = 0; k < VEC; ++k) {
         const float xhat = (v[k] - mean[k]) * rstd[k];
         v[k] = rstd[k] * (gv[k] - gm[k] - xhat * gxm[k]);
       }
-      store_vec<T, VEC>(dx + at, v);
+      store_out<kHint, T, VEC>(db + at, v);
+    }
+#pragma unroll 4
+    for (int row = first_row(nst, r, rstep); row < nrows;
+           row += rstep) {
+      const long long at = (long long)row * C + col;
+      float v[VEC], gv[VEC];
+      load_last<kHint, T, VEC>(xb + at, v);
+      load_last<kHint, TG, VEC>(gb + at, gv);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float xhat = (v[k] - mean[k]) * rstd[k];
+        v[k] = rstd[k] * (gv[k] - gm[k] - xhat * gxm[k]);
+      }
+      store_out<kHint, T, VEC>(db + at, v);
     }
   }
 }
 
-template <typename T, typename TG, int VEC>
-cudaError_t bn_bwd(const void* x, const void* g, const void* stat, void* dx,
-                   void* partial, void* gstat, long long M, int C,
-                   cudaStream_t s) {
-  const int groups = C / VEC;
-  const int lanes = groups < kBnThreads ? groups : kBnThreads;
-  const int rows = kBnThreads / lanes;
-  const int threads = rows * lanes;
-  const long long want = (M + rows - 1) / rows;
-  const int blocks = (int)(want < kBnMaxBlocks ? want : kBnMaxBlocks);
-  const size_t shmem = (size_t)threads * 2 * VEC * sizeof(float);
-  bn_bwd_stats_kernel<T, TG, VEC><<<blocks, threads, shmem, s>>>(
-      (const T*)x, (const TG*)g, (const float*)stat, (float*)partial, M, C,
-      lanes, rows);
-  bn_bwd_finalize_kernel<<<(C + 255) / 256, 256, 0, s>>>(
-      (const float*)partial, (float*)gstat, blocks, C, 1.f / (float)M);
-  const int nblocks = (int)(want < 8 * kBnMaxBlocks ? want : 8 * kBnMaxBlocks);
-  bn_bwd_dx_kernel<T, TG, VEC><<<nblocks, threads, 0, s>>>(
-      (const T*)x, (const TG*)g, (const float*)stat, (const float*)gstat,
-      (T*)dx, M, C, lanes, rows);
-  return cudaGetLastError();
+// ---------------------------------------------------------------------------
+// host side
+// ---------------------------------------------------------------------------
+
+struct Card {
+  int sms, smem;
+};
+
+// The current device's SM count and shared memory a block may opt into,
+// asked once per device; an error where it has no cooperative launch.
+inline cudaError_t current_card(int* dev, Card* card) {
+  static Card cards[kMaxDevices];
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return err;
+  if (*dev < kMaxDevices && cards[*dev].sms) {
+    *card = cards[*dev];
+    return cudaSuccess;
+  }
+  int coop = 0;
+  Card c{};
+  cudaDeviceGetAttribute(&c.sms, cudaDevAttrMultiProcessorCount, *dev);
+  cudaDeviceGetAttribute(&c.smem, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         *dev);
+  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, *dev);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  if (*dev < kMaxDevices) cards[*dev] = c;
+  *card = c;
+  return cudaSuccess;
+}
+
+inline int elem_bytes(int dtype) { return dtype == kBFloat16 ? 2 : 4; }
+
+inline cudaError_t plan_for(long long M, int C, int x_dtype, int g_dtype,
+                            int* dev, Card* card, Plan* plan) {
+  if (M < 1 || C < 1 || (x_dtype != kFloat32 && x_dtype != kBFloat16))
+    return cudaErrorInvalidValue;
+  cudaError_t err = current_card(dev, card);
+  if (err != cudaSuccess) return err;
+  const int eg = g_dtype < 0 ? 0 : elem_bytes(g_dtype);
+  if (!make_plan(M, C, elem_bytes(x_dtype), eg, card->sms, card->smem, plan))
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// Opt `fn` into the card's shared memory once per device.
+inline cudaError_t allow_smem(const void* fn, bool* done, int dev,
+                              int smem) {
+  if (dev < kMaxDevices && done[dev]) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess && dev < kMaxDevices) done[dev] = true;
+  return err;
+}
+
+template <typename T, typename TO, int VEC, int NT>
+cudaError_t launch_fwd(const void* x, void* y, void* stat, void* scratch,
+                       const Plan& p, int dev, int smem_max, float eps,
+                       cudaStream_t s) {
+  static bool done[kMaxDevices];
+  const void* fn = (const void*)bn_fwd_kernel<T, TO, VEC, NT>;
+  cudaError_t err = allow_smem(fn, done, dev, smem_max);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(scratch, 0, kSyncBytes, s);
+  if (err != cudaSuccess) return err;
+  const T* xp = (const T*)x;
+  TO* yp = (TO*)y;
+  float* sp = (float*)stat;
+  unsigned* ctr = (unsigned*)scratch;
+  float* partial = (float*)((unsigned char*)scratch + kSyncBytes);
+  Layout lay = p.lay;
+  float inv = 1.f / (float)lay.M;
+  void* args[] = {&xp, &yp, &sp, &ctr, &partial, &lay, &inv, &eps};
+  return cudaLaunchCooperativeKernel(fn, dim3(p.blocks), dim3(NT), args,
+                                     (size_t)p.smem, s);
+}
+
+template <typename T, typename TO>
+cudaError_t launch_fwd_vec(const void* x, void* y, void* stat, void* scratch,
+                           const Plan& p, int dev, int smem_max, float eps,
+                           cudaStream_t s) {
+  const bool few = p.threads == kFewThreads;
+  if (p.lay.C % 4 == 0)
+    return few ? launch_fwd<T, TO, 4, kFewThreads>(x, y, stat, scratch, p,
+                                                   dev, smem_max, eps, s)
+               : launch_fwd<T, TO, 4, kManyThreads>(x, y, stat, scratch, p,
+                                                    dev, smem_max, eps, s);
+  return few ? launch_fwd<T, TO, 1, kFewThreads>(x, y, stat, scratch, p, dev,
+                                                 smem_max, eps, s)
+             : launch_fwd<T, TO, 1, kManyThreads>(x, y, stat, scratch, p, dev,
+                                                  smem_max, eps, s);
+}
+
+template <typename T, typename TG, int VEC, int NT>
+cudaError_t launch_bwd(const void* x, const void* g, const void* stat,
+                       void* dx, void* scratch, const Plan& p, int dev,
+                       int smem_max, cudaStream_t s) {
+  static bool done[kMaxDevices];
+  const void* fn = (const void*)bn_bwd_kernel<T, TG, VEC, NT>;
+  cudaError_t err = allow_smem(fn, done, dev, smem_max);
+  if (err != cudaSuccess) return err;
+  err = cudaMemsetAsync(scratch, 0, kSyncBytes, s);
+  if (err != cudaSuccess) return err;
+  const T* xp = (const T*)x;
+  const TG* gp = (const TG*)g;
+  const float* sp = (const float*)stat;
+  T* dp = (T*)dx;
+  unsigned* ctr = (unsigned*)scratch;
+  float* partial = (float*)((unsigned char*)scratch + kSyncBytes);
+  Layout lay = p.lay;
+  float inv = 1.f / (float)lay.M;
+  void* args[] = {&xp, &gp, &sp, &dp, &ctr, &partial, &lay, &inv};
+  return cudaLaunchCooperativeKernel(fn, dim3(p.blocks), dim3(NT), args,
+                                     (size_t)p.smem, s);
 }
 
 template <typename T, typename TG>
-cudaError_t bn_bwd_vec(const void* x, const void* g, const void* stat,
-                       void* dx, void* partial, void* gstat, long long M,
-                       int C, cudaStream_t s) {
-  if (C % 4 == 0)
-    return bn_bwd<T, TG, 4>(x, g, stat, dx, partial, gstat, M, C, s);
-  return bn_bwd<T, TG, 1>(x, g, stat, dx, partial, gstat, M, C, s);
+cudaError_t launch_bwd_vec(const void* x, const void* g, const void* stat,
+                           void* dx, void* scratch, const Plan& p, int dev,
+                           int smem_max, cudaStream_t s) {
+  const bool few = p.threads == kFewThreads;
+  if (p.lay.C % 4 == 0)
+    return few ? launch_bwd<T, TG, 4, kFewThreads>(x, g, stat, dx, scratch, p,
+                                                   dev, smem_max, s)
+               : launch_bwd<T, TG, 4, kManyThreads>(x, g, stat, dx, scratch,
+                                                    p, dev, smem_max, s);
+  return few ? launch_bwd<T, TG, 1, kFewThreads>(x, g, stat, dx, scratch, p,
+                                                 dev, smem_max, s)
+             : launch_bwd<T, TG, 1, kManyThreads>(x, g, stat, dx, scratch, p,
+                                                  dev, smem_max, s);
 }
 
+}  // namespace bn
 }  // namespace
 }  // namespace lctvqa
 
 extern "C" {
 
-// The number of per-block partials lctvqa_bn_fwd writes at most: `partial`
-// must hold this many times 2 * C floats.
-int lctvqa_bn_max_blocks() { return lctvqa::kBnMaxBlocks; }
+// The launch shape of lctvqa_bn_fwd (g_dtype < 0) or lctvqa_bn_bwd at
+// (M, C) on the current device: out = {blocks, threads, rows a block,
+// rows staged in shared memory, bytes of shared memory}.
+int lctvqa_bn_plan(long long M, int C, int x_dtype, int g_dtype, int* out) {
+  using namespace lctvqa;
+  int dev = 0;
+  bn::Card card;
+  bn::Plan p;
+  const cudaError_t err = bn::plan_for(M, C, x_dtype, g_dtype, &dev, &card,
+                                       &p);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = p.blocks;
+  out[1] = p.threads;
+  out[2] = p.rows;
+  out[3] = p.staged;
+  out[4] = p.smem;
+  return 0;
+}
 
-// x: [M, C] contiguous in `in_dtype`; y: [M, C] in `out_dtype`; partial:
-// fp32 scratch [lctvqa_bn_max_blocks(), 2, C]; stat: fp32 [2, C], left
-// holding mean and 1/sqrt(var + eps). M >= 1, C >= 1.
-int lctvqa_bn_fwd(const void* x, void* y, void* partial, void* stat,
-                  long long M, int C, float eps, int in_dtype, int out_dtype,
-                  void* stream) {
+// x: [M, C] contiguous in `in_dtype`, 16-byte aligned where C % 4 == 0;
+// y: [M, C] in `out_dtype`; stat: fp32 [2, C], left holding mean and
+// 1/sqrt(var + eps); scratch: the barrier's counter (16 bytes, zeroed
+// here), then fp32 [blocks, 2, C]; 4-byte aligned, 16 where C is even;
+// `blocks` is the plan's (ops/cuda_bn.py::bn_plan; a plan of another size
+// is refused). M >= 1, C >= 1.
+int lctvqa_bn_fwd(const void* x, void* y, void* stat, void* scratch,
+                  int blocks, long long M, int C, float eps, int in_dtype,
+                  int out_dtype, void* stream) {
   using namespace lctvqa;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t rc = cudaErrorInvalidValue;
+  int dev = 0;
+  bn::Card card;
+  bn::Plan p;
+  cudaError_t rc = bn::plan_for(M, C, in_dtype, -1, &dev, &card, &p);
+  if (rc != cudaSuccess) return (int)rc;
+  if (p.blocks != blocks) return (int)cudaErrorInvalidValue;
+  rc = cudaErrorInvalidValue;
   if (in_dtype == kFloat32 && out_dtype == kFloat32)
-    rc = bn_fwd_vec<float, float>(x, y, partial, stat, M, C, eps, s);
+    rc = bn::launch_fwd_vec<float, float>(x, y, stat, scratch, p, dev,
+                                          card.smem, eps, s);
   else if (in_dtype == kFloat32 && out_dtype == kBFloat16)
-    rc = bn_fwd_vec<float, __nv_bfloat16>(x, y, partial, stat, M, C, eps, s);
+    rc = bn::launch_fwd_vec<float, __nv_bfloat16>(x, y, stat, scratch, p,
+                                                  dev, card.smem, eps, s);
   else if (in_dtype == kBFloat16 && out_dtype == kFloat32)
-    rc = bn_fwd_vec<__nv_bfloat16, float>(x, y, partial, stat, M, C, eps, s);
+    rc = bn::launch_fwd_vec<__nv_bfloat16, float>(x, y, stat, scratch, p,
+                                                  dev, card.smem, eps, s);
   else if (in_dtype == kBFloat16 && out_dtype == kBFloat16)
-    rc = bn_fwd_vec<__nv_bfloat16, __nv_bfloat16>(x, y, partial, stat, M, C,
-                                                  eps, s);
+    rc = bn::launch_fwd_vec<__nv_bfloat16, __nv_bfloat16>(
+        x, y, stat, scratch, p, dev, card.smem, eps, s);
   return (int)rc;
 }
 
-// x: [M, C] contiguous in `x_dtype`; g: [M, C] contiguous in `g_dtype`;
-// stat: the forward's fp32 [2, C]; dx: [M, C] in `x_dtype`; partial: fp32
-// scratch [lctvqa_bn_max_blocks(), 2, C]; gstat: fp32 scratch [2, C].
+// x: [M, C] contiguous in `x_dtype`; g: [M, C] contiguous in `g_dtype`,
+// both 16-byte aligned where C % 4 == 0; stat: the forward's fp32 [2, C];
+// dx: [M, C] in `x_dtype`; scratch and blocks as for lctvqa_bn_fwd, with
+// the backward's plan.
 int lctvqa_bn_bwd(const void* x, const void* g, const void* stat, void* dx,
-                  void* partial, void* gstat, long long M, int C, int x_dtype,
+                  void* scratch, int blocks, long long M, int C, int x_dtype,
                   int g_dtype, void* stream) {
   using namespace lctvqa;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t rc = cudaErrorInvalidValue;
+  int dev = 0;
+  bn::Card card;
+  bn::Plan p;
+  if (g_dtype != kFloat32 && g_dtype != kBFloat16)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t rc = bn::plan_for(M, C, x_dtype, g_dtype, &dev, &card, &p);
+  if (rc != cudaSuccess) return (int)rc;
+  if (p.blocks != blocks) return (int)cudaErrorInvalidValue;
+  rc = cudaErrorInvalidValue;
   if (x_dtype == kFloat32 && g_dtype == kFloat32)
-    rc = bn_bwd_vec<float, float>(x, g, stat, dx, partial, gstat, M, C, s);
+    rc = bn::launch_bwd_vec<float, float>(x, g, stat, dx, scratch, p, dev,
+                                          card.smem, s);
   else if (x_dtype == kFloat32 && g_dtype == kBFloat16)
-    rc = bn_bwd_vec<float, __nv_bfloat16>(x, g, stat, dx, partial, gstat, M,
-                                          C, s);
+    rc = bn::launch_bwd_vec<float, __nv_bfloat16>(x, g, stat, dx, scratch, p,
+                                                  dev, card.smem, s);
   else if (x_dtype == kBFloat16 && g_dtype == kFloat32)
-    rc = bn_bwd_vec<__nv_bfloat16, float>(x, g, stat, dx, partial, gstat, M,
-                                          C, s);
+    rc = bn::launch_bwd_vec<__nv_bfloat16, float>(x, g, stat, dx, scratch, p,
+                                                  dev, card.smem, s);
   else if (x_dtype == kBFloat16 && g_dtype == kBFloat16)
-    rc = bn_bwd_vec<__nv_bfloat16, __nv_bfloat16>(x, g, stat, dx, partial,
-                                                  gstat, M, C, s);
+    rc = bn::launch_bwd_vec<__nv_bfloat16, __nv_bfloat16>(
+        x, g, stat, dx, scratch, p, dev, card.smem, s);
   return (int)rc;
 }
 

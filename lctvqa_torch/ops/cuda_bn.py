@@ -10,12 +10,21 @@ computes `dx = rstd * (g - mean(g) - xhat * mean(g * xhat))` with fp32
 sums and casts it to x's dtype. A wrapper takes the plain version only
 for CPU tensors; for a CUDA tensor it launches the kernel or raises.
 Unlike the TPU kernels there is no size limit above which a wrapper
-gives way to the plain version: the kernels take every shape.
+gives way to the plain version: the kernels take any M and any C up to
+thousands of channels.
+
+Each kernel call is a memset of a barrier counter and one cooperative
+launch of a persistent grid that stages its rows of the tensor in shared
+memory across one grid barrier (bn.cu). Its launch shape comes from
+`bn_plan`, the Python mirror of the C side's choice, cached per shape and
+card; the counter, the per-block partials and the forward's stat are one
+allocation (`bn_scratch`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -29,10 +38,24 @@ EPS = 1e-5
 
 BN_FWD = K.register(K.Kernel(
     "bn_fwd", "lctvqa_bn_fwd",
-    [K.PTR] * 4 + [ctypes.c_longlong, K.INT, ctypes.c_float, K.INT, K.INT]))
+    [K.PTR] * 4 + [K.INT, ctypes.c_longlong, K.INT, ctypes.c_float, K.INT,
+                   K.INT]))
 BN_BWD = K.register(K.Kernel(
     "bn_bwd", "lctvqa_bn_bwd",
-    [K.PTR] * 6 + [ctypes.c_longlong, K.INT, K.INT, K.INT]))
+    [K.PTR] * 5 + [K.INT, ctypes.c_longlong, K.INT, K.INT, K.INT]))
+
+# bn.cu's constants: threads a block where the whole share is staged and
+# where it is not, bulk copies of the staging (an 8-byte mbarrier each),
+# bytes of the tensor a block takes, the barrier counter's bytes before the
+# partials
+FEW_THREADS, MANY_THREADS = 256, 512
+STAGES = 4
+BLOCK_BYTES = 16384
+SYNC_BYTES = 16
+# an H100 SXM's SMs and the shared memory a block may opt into
+H100_SMS = 132
+SMEM_PER_BLOCK = 232448
+_ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 
 
 # ---------------------------------------------------------------------------
@@ -71,17 +94,123 @@ def batchnorm_bwd_plain(x: Tensor, g: Tensor, stat: Tensor) -> Tensor:
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _aligned(x: Tensor) -> Tensor:
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _plan_at(m: int, c: int, ex: int, eg: int, threads: int, sm_count: int,
+             smem_max: int) -> dict:
+    """`bn_plan` at `threads` threads a block, for x of `ex` bytes an
+    element and g of `eg` (0 in the forward): bn.cu's make_plan_at."""
+    vec = 4 if c % 4 == 0 else 1
+    groups = c // vec
+    lanes = 1
+    while lanes < groups and lanes < 32:
+        lanes *= 2
+    red = max(threads // 32 * lanes * 2 * vec, threads)
+    fixed = (4 * _round_up(red, 4) + 4 * _round_up((4 if eg else 2) * c, 4)
+             + 8 * STAGES)
+    unit = 1
+    if vec == 4:
+        while unit * c * ex % 16 or unit * c * eg % 16:
+            unit *= 2
+    row_bytes = c * (ex + eg)
+    blocks = min(max(-(-m * row_bytes // BLOCK_BYTES), 1), sm_count)
+    rows = _round_up(-(-m // blocks), unit)
+    blocks = -(-m // rows)
+    room = smem_max - fixed - 32
+    if room < 0:
+        raise ValueError(f"bn: C={c} too large: the statistics need "
+                         f"{fixed} bytes of shared memory, a block has "
+                         f"{smem_max}")
+    staged = min(rows, room // row_bytes // unit * unit)
+    smem = (_round_up(staged * c * ex, 16) + _round_up(staged * c * eg, 16)
+            + fixed)
+    return {"blocks": blocks, "threads": threads, "rows": rows,
+            "staged": staged, "smem_bytes": smem, "vec": vec, "lanes": lanes}
+
+
+@functools.lru_cache(maxsize=1024)
+def bn_plan(m: int, c: int, x_dtype: torch.dtype, out_dtype: torch.dtype,
+            backward: bool = False, sm_count: int = H100_SMS,
+            smem_max: int = SMEM_PER_BLOCK) -> dict:
+    """The launch shape of the forward kernel (backward=False; out_dtype is
+    y's dtype, which does not change it) or the backward kernel (out_dtype
+    is g's dtype) over an [m, c] tensor on a card of `sm_count` SMs and
+    `smem_max` bytes of shared memory a block, as bn.cu's make_plan chooses
+    it: a block per 16 KiB of the tensor (x, and g in the backward), at
+    most one an SM; each block's share a whole number of rows that starts
+    on 16 bytes; as many of them staged in shared memory as fit beside the
+    reduction scratch (warps x lanes x 2 VEC floats, at least a float a
+    thread), the statistics (2 C floats, 4 C in the backward) and the
+    staging's STAGES mbarriers; FEW_THREADS threads a block where that
+    stages every row, else MANY_THREADS. -> {"blocks", "threads", "rows" (a
+    block's share), "staged", "smem_bytes", "vec", "lanes"}. Raises
+    ValueError where the statistics alone do not fit."""
+    ex = _ELEM_BYTES[x_dtype]
+    eg = _ELEM_BYTES[out_dtype] if backward else 0
+    plan = _plan_at(m, c, ex, eg, FEW_THREADS, sm_count, smem_max)
+    if plan["staged"] < plan["rows"]:
+        plan = _plan_at(m, c, ex, eg, MANY_THREADS, sm_count, smem_max)
+    return plan
+
+
+def bn_scratch(plan: dict, c: int) -> dict:
+    """A call's one allocation, fp32 [rows, C], in bytes: the forward's stat
+    [2, C] (mean, 1/sqrt(var + eps)), the barrier's counter, the per-block
+    partials [blocks, 2, C]; 16-byte aligned where C is even, which is
+    where the kernels read the partials 16 bytes at a time. -> {"counter",
+    "partial", "total", "rows"}: byte offsets, the bytes used, the rows of
+    C floats that hold them."""
+    counter = 8 * c
+    total = counter + SYNC_BYTES + plan["blocks"] * 2 * c * 4
+    return {"counter": counter, "partial": counter + SYNC_BYTES,
+            "total": total, "rows": -(-total // (4 * c))}
+
+
+@functools.lru_cache(maxsize=None)
+def _card(index: int) -> Tuple[int, int]:
+    """(SMs, shared memory a block may opt into) of CUDA device `index`."""
+    props = torch.cuda.get_device_properties(index)
+    return props.multi_processor_count, props.shared_memory_per_block_optin
+
+
+def bn_plan_on_device(m: int, c: int, x_dtype: torch.dtype,
+                      out_dtype: torch.dtype, backward: bool,
+                      device: torch.device) -> dict:
+    """The launch shape the C entry point takes on `device` (it asks the
+    card): `bn_plan`'s keys without vec and lanes."""
+    fn = K.library().lctvqa_bn_plan
+    fn.argtypes = [ctypes.c_longlong, K.INT, K.INT, K.INT,
+                   ctypes.POINTER(K.INT * 5)]
+    fn.restype = K.INT
+    plan = (K.INT * 5)()
+    g_code = K.dtype_code("bn", out_dtype) if backward else -1
+    with torch.cuda.device(device):
+        rc = fn(m, c, K.dtype_code("bn", x_dtype), g_code, ctypes.byref(plan))
+    if rc != 0:
+        msg = K.library().lctvqa_cuda_error_string(rc).decode()
+        raise RuntimeError(f"bn: no launch shape for M={m}, C={c} on "
+                           f"{device}: {msg} (cudaError {rc})")
+    return dict(zip(("blocks", "threads", "rows", "staged", "smem_bytes"),
+                    plan))
+
+
+def _aligned(x: Tensor, c: int) -> Tensor:
     x = x.contiguous()
-    if x.data_ptr() % 16:  # the kernels move 16 bytes at a time
+    if c % 4 == 0 and x.data_ptr() % 16:  # the kernels copy 16 bytes
         x = x.clone()
     return x
 
 
-def _scratch(c: int, device) -> Tensor:
-    """Per-block partial sums [blocks, 2, C] of either kernel."""
-    blocks = K.library().lctvqa_bn_max_blocks()
-    return torch.empty(blocks, 2, c, dtype=f32, device=device)
+def _launch_buffer(x: Tensor, c: int, other: torch.dtype, backward: bool):
+    """The plan on x's device and the call's one allocation (`bn_scratch`)
+    -> (blocks, the allocation [rows, C] fp32, the counter's address)."""
+    plan = bn_plan(x.numel() // c, c, x.dtype, other, backward,
+                   *_card(x.device.index))
+    lay = bn_scratch(plan, c)
+    buf = torch.empty((lay["rows"], c), dtype=f32, device=x.device)
+    return plan["blocks"], buf, buf.data_ptr() + lay["counter"]
 
 
 def batchnorm_fwd_stat(x: Tensor, out_dtype: Optional[torch.dtype] = None,
@@ -93,17 +222,21 @@ def batchnorm_fwd_stat(x: Tensor, out_dtype: Optional[torch.dtype] = None,
         y = (x.to(f32) - stat[0]) * stat[1]
         return (y if out_dtype is None else y.to(out_dtype)), stat, x
     name = BN_FWD.name
-    device = K.check_cuda_tensors(name, x=x)
+    if x.device.type != "cuda":
+        K.check_cuda_tensors(name, x=x)
     out_dtype = out_dtype or f32
-    K.check(x.dim() >= 2 and x.numel() > 0, name,
-            f"needs a non-empty [..., C] tensor, got {tuple(x.shape)}")
+    if x.dim() < 2 or x.numel() == 0:
+        raise ValueError(f"{name}: needs a non-empty [..., C] tensor, got "
+                         f"{tuple(x.shape)}")
+    in_code = K.dtype_code(name, x.dtype)
+    out_code = K.dtype_code(name, out_dtype)
     c = x.shape[-1]
-    x = _aligned(x)
-    y = torch.empty(x.shape, dtype=out_dtype, device=device)
-    stat = torch.empty(2, c, dtype=f32, device=device)
-    BN_FWD.launch(device, x, y, _scratch(c, device), stat, x.numel() // c, c,
-                  eps, K.dtype_code(name, x.dtype),
-                  K.dtype_code(name, out_dtype))
+    x = _aligned(x, c)
+    blocks, buf, scratch = _launch_buffer(x, c, out_dtype, False)
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    stat = buf[:2]
+    BN_FWD.launch(x.device, x, y, stat, scratch, blocks, x.numel() // c, c,
+                  eps, in_code, out_code)
     return y, stat, x
 
 
@@ -114,20 +247,21 @@ def batchnorm_bwd(x: Tensor, g: Tensor, stat: Tensor) -> Tensor:
     if x.device.type == "cpu":
         return batchnorm_bwd_plain(x, g, stat)
     name = BN_BWD.name
-    device = K.check_cuda_tensors(name, x=x, g=g, stat=stat)
+    if not (x.device.type == "cuda" and g.device == x.device
+            and stat.device == x.device):
+        K.check_cuda_tensors(name, x=x, g=g, stat=stat)
     c = x.shape[-1]
-    K.check(x.dim() >= 2 and x.numel() > 0 and g.shape == x.shape, name,
-            f"needs x and g of one non-empty [..., C] shape, got "
-            f"{tuple(x.shape)} and {tuple(g.shape)}")
-    K.check(stat.shape == (2, c) and stat.dtype == f32
-            and stat.is_contiguous(), name,
-            f"stat must be contiguous fp32 [2, {c}]")
-    x, g = _aligned(x), _aligned(g)
+    if x.dim() < 2 or x.numel() == 0 or g.shape != x.shape:
+        raise ValueError(f"{name}: needs x and g of one non-empty [..., C] "
+                         f"shape, got {tuple(x.shape)} and {tuple(g.shape)}")
+    if stat.shape != (2, c) or stat.dtype != f32 or not stat.is_contiguous():
+        raise ValueError(f"{name}: stat must be contiguous fp32 [2, {c}]")
+    x_code, g_code = K.dtype_code(name, x.dtype), K.dtype_code(name, g.dtype)
+    x, g = _aligned(x, c), _aligned(g, c)
+    blocks, buf, scratch = _launch_buffer(x, c, g.dtype, True)
     dx = torch.empty_like(x)
-    gstat = torch.empty(2, c, dtype=f32, device=device)
-    BN_BWD.launch(device, x, g, stat, dx, _scratch(c, device), gstat,
-                  x.numel() // c, c, K.dtype_code(name, x.dtype),
-                  K.dtype_code(name, g.dtype))
+    BN_BWD.launch(x.device, x, g, stat, dx, scratch, blocks, x.numel() // c,
+                  c, x_code, g_code)
     return dx
 
 

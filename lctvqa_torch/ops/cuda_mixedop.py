@@ -152,10 +152,13 @@ def _stage(y32: Tensor, w: NodeWeights, row: int, kk: int, dil: int,
 
 
 def mixed_node_plain(xs: Sequence[Tensor], nodes: Sequence[NodeWeights],
-                     weights: Tensor, cs: int) -> Tensor:
+                     weights: Tensor, cs: int, masks=None) -> Tensor:
     """xs: E tensors [N, H, W, >= cs] of one compute dtype; weights [E, 8]
     fp32 -> [N, H, W, cs] fp32. Every intermediate is an fp32 tensor that
-    holds values of the compute dtype."""
+    holds values of the compute dtype. `masks`, where given, holds per edge
+    the two sep convs' inner ReLU decisions ([N, H, W, cs] bool, sep3 then
+    sep5), which then replace the decisions this version's own forward
+    would take (see `mixed_node_bwd_plain`)."""
     weights = weights.to(f32)
     dtype = xs[0].dtype
     xs = [x[..., :cs].to(f32) for x in xs]
@@ -178,11 +181,13 @@ def mixed_node_plain(xs: Sequence[Tensor], nodes: Sequence[NodeWeights],
 
     for b, (_, kk, dil, two_stage) in enumerate(BRANCHES):
         os = []
-        for x, w in zip(xs, nodes):
+        for e, (x, w) in enumerate(zip(xs, nodes)):
             o = _stage(torch.relu(x), w, 2 * b, kk, dil, dtype)
             if two_stage:
                 mean, rstd = _stats(o)
-                y = _round(torch.relu((o - mean) * rstd), dtype)
+                z = (o - mean) * rstd
+                y = _round(torch.relu(z) if masks is None
+                           else torch.where(masks[e][b], z, 0.0), dtype)
                 o = _stage(y, w, 2 * b + 1, kk, 1, dtype)
             os.append(o)
         fold(os, FIRST_BRANCH + b)
@@ -343,18 +348,56 @@ def node_bwd_launch(xs: List[Tensor], nodes: List[NodeWeights], weights: Tensor,
     return list(dx.unbind(0)), ddw, dpw, dweights
 
 
+def sep_inner_inputs_plain(xs: Sequence[Tensor],
+                           nodes: Sequence[NodeWeights], cs: int):
+    """Per edge, the inputs of the two sep convs' inner ReLU, (o - mean) *
+    rstd of the first stage's output o, as `mixed_node_plain` computes
+    them: [[sep3, sep5] [N, H, W, cs] fp32 for each edge]."""
+    dtype = xs[0].dtype
+    out = []
+    for x, w in zip(xs, nodes):
+        x = torch.relu(x[..., :cs].to(f32))
+        zs = []
+        for b, (_, kk, dil, _) in enumerate(BRANCHES[:2]):
+            o = _stage(x, w, 2 * b, kk, dil, dtype)
+            mean, rstd = _stats(o)
+            zs.append((o - mean) * rstd)
+        out.append(zs)
+    return out
+
+
+def sep_inner_inputs_kept(obuf: Tensor, stat: Tensor, shape):
+    """The same from what the forward kernel kept (`node_fwd_launch`'s obuf
+    [8, E, Cs, N*H*W] and stat [8, E, Cs, 2]; slots 0 and 1 are the sep
+    convs' first stages), computed as the kernel computes them; shape is
+    (N, H, W)."""
+    o = obuf[:2].to(f32)
+    z = (o - stat[:2, :, :, :1]) * stat[:2, :, :, 1:]
+    z = z.view(2, o.shape[1], o.shape[2], *shape).permute(1, 0, 3, 4, 5, 2)
+    return [list(zs.unbind(0)) for zs in z.unbind(0)]
+
+
 def mixed_node_bwd_plain(xs: Sequence[Tensor], nodes: Sequence[NodeWeights],
-                         weights: Tensor, g: Tensor, cs: int):
+                         weights: Tensor, g: Tensor, cs: int, kept=None):
     """The backward's plain version: autograd through `mixed_node_plain`.
     -> (dxs [N, H, W, cs] in the compute dtype, ddw [E, 8, 25, Cs],
-    dpw [E, 8, Cs, Cs], dweights [E, 8])."""
+    dpw [E, 8, Cs, Cs], dweights [E, 8]). `kept`, the (obuf, stat) that
+    `node_fwd_launch` left, makes the sep convs' inner ReLUs take the
+    kernel's decisions: where the inner BatchNorm's output lies within an
+    ulp of 0, the kernel's stored forward and this version's recomputed
+    one can fall on either side, and the gradient through that element is
+    then kept by one and dropped by the other."""
+    masks = None if kept is None else [  # the kernel's xhat > 0
+        [z > 0 for z in zs]
+        for zs in sep_inner_inputs_kept(*kept, xs[0].shape[:3])]
     with torch.enable_grad():
         xs = [x[..., :cs].detach().requires_grad_() for x in xs]
         dws = [nw.dw.detach().requires_grad_() for nw in nodes]
         pws = [nw.pw.detach().requires_grad_() for nw in nodes]
         wts = weights.detach().to(f32).requires_grad_()
         out = mixed_node_plain(xs, [NodeWeights(d, p)
-                                    for d, p in zip(dws, pws)], wts, cs)
+                                    for d, p in zip(dws, pws)], wts, cs,
+                               masks)
         e = len(xs)
         grads = torch.autograd.grad(out, [*xs, *dws, *pws, wts], g.to(f32))
     return (list(grads[:e]), torch.stack(grads[e:2 * e]),

@@ -817,3 +817,150 @@ def test_mixed_node_bwd_scratch_is_the_python_mirror(cuda):
                           (2, 3, 7, 9, 24), (8, 1, 9, 7, 64)):
         lay = cuda_mixedop.node_bwd_scratch(e, n, h, w, c, torch.float32)
         assert fn(e, n, h, w, c) * 4 == lay["total"] - lay["scratch"]
+
+
+# the BatchNorm kernels' cooperative grid: the supernet's shapes, odd ones,
+# repeatability, the barrier counter across calls and streams
+# ---------------------------------------------------------------------------
+
+BN_SHAPES = [(64, 64, 64, 16), (64, 64, 64, 32), (64, 32, 32, 64),
+             (64, 16, 16, 64), (64, 32, 32, 8),
+             (64, 16, 16, 16)]  # chip_smoke.BN_SHAPES
+# M = 1 with C = 3 (the scalar path); an odd M with C = 12 (rows that are
+# not a multiple of a block's, bf16 rows of 24 bytes: a block's share must
+# start on 16); C = 4 with an odd last share (an 8-byte last copy in bf16);
+# C = 1028 (more channel groups than lanes, more sums than threads)
+BN_ODD_SHAPES = [(1, 1, 1, 3), (3, 37, 41, 12), (3, 49, 71, 4),
+                 (2, 3, 5, 1028)]
+
+
+def _bn_case(shape, x_dtype, g_dtype, device, seed=24):
+    gen = torch.Generator().manual_seed(seed)
+    x = (1.5 * torch.randn(shape, generator=gen) + 0.3).to(device, x_dtype)
+    g = torch.randn(shape, generator=gen).to(device, g_dtype)
+    return x, g
+
+
+def _bn_plans_agree(device, x, other):
+    c = x.shape[-1]
+    props = torch.cuda.get_device_properties(device)
+    for backward in (False, True):
+        want = cuda_bn.bn_plan(x.numel() // c, c, x.dtype, other, backward,
+                               props.multi_processor_count,
+                               props.shared_memory_per_block_optin)
+        got = cuda_bn.bn_plan_on_device(x.numel() // c, c, x.dtype, other,
+                                        backward, device)
+        assert got == {k: want[k] for k in got}, (backward, got, want)
+
+
+@pytest.mark.parametrize("b_dtype", [torch.float32, torch.bfloat16],
+                         ids=["y_g_float32", "y_g_bfloat16"])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", BN_SHAPES + BN_ODD_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bn_kernels_match_plain_repeat_and_follow_the_plan(cuda, shape,
+                                                           x_dtype, b_dtype):
+    """Forward (y in b_dtype) and backward (g in b_dtype): the launch shape
+    the card takes is bn_plan's, two calls give the same bits, and both
+    match their plain versions at chip_smoke's tolerances."""
+    x, g = _bn_case(shape, x_dtype, b_dtype, cuda)
+    _bn_plans_agree(cuda, x, b_dtype)
+    before = _build.launch_counts()
+    y, stat, _ = cuda_bn.batchnorm_fwd_stat(x, b_dtype)
+    y2, stat2, _ = cuda_bn.batchnorm_fwd_stat(x, b_dtype)
+    dx = cuda_bn.batchnorm_bwd(x, g, stat)
+    dx2 = cuda_bn.batchnorm_bwd(x, g, stat)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["bn_fwd"] == before["bn_fwd"] + 2
+    assert after["bn_bwd"] == before["bn_bwd"] + 2
+    assert torch.equal(y, y2) and torch.equal(stat, stat2)
+    assert torch.equal(dx, dx2)
+    want = cuda_bn.batchnorm_plain(x, out_dtype=b_dtype)
+    assert y.dtype == b_dtype and y.shape == x.shape
+    torch.testing.assert_close(
+        y.float(), want.float(), atol=1e-5,
+        rtol=1e-5 if b_dtype == torch.float32 else 2.0 ** -7)
+    dwant = cuda_bn.batchnorm_bwd_plain(x, g,
+                                        cuda_bn.batchnorm_stats_plain(x))
+    assert dx.dtype == x_dtype and dx.shape == x.shape
+    _scaled_close(dx, dwant, 1e-5 if x_dtype == torch.float32 else 2.0 ** -7,
+                  "dx", floor=float(g.float().abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(64, 32, 32, 8), (64, 64, 64, 32)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_bn_kernels_back_to_back_and_on_two_streams(cuda, shape):
+    """Each call zeroes its own barrier counter in its own scratch: calls
+    back to back on one stream and interleaved on two streams give the
+    bits of a lone call."""
+    x, g = _bn_case(shape, torch.float32, torch.bfloat16, cuda, seed=25)
+    y0, stat0, _ = cuda_bn.batchnorm_fwd_stat(x, torch.bfloat16)
+    dx0 = cuda_bn.batchnorm_bwd(x, g, stat0)
+    torch.cuda.synchronize()
+
+    def calls(n):
+        out = []
+        for _ in range(n):
+            y, stat, _ = cuda_bn.batchnorm_fwd_stat(x, torch.bfloat16)
+            out.append((y, stat, cuda_bn.batchnorm_bwd(x, g, stat)))
+        return out
+
+    runs = calls(6)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                runs += calls(1)
+    torch.cuda.synchronize()
+    for y, stat, dx in runs:
+        assert torch.equal(y, y0) and torch.equal(stat, stat0)
+        assert torch.equal(dx, dx0)
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repo root, for its input draws."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mixed_node_bwd_on_the_draw_with_relu_ties(cuda, dtype):
+    """cell0 of chip_smoke's second node-backward draw (N = 1, 64; E = 3,
+    5), where an inner ReLU input of edge 2 lies within an ulp of 0 and the
+    kernel's stored forward and the plain version's recomputed one decide
+    it differently: the kernel against the plain backward that takes the
+    kernel's decisions, at chip_smoke's tolerances."""
+    smoke = _chip_smoke()
+    seen = 0
+    for cell, n, edges, dname, xs, nodes, wts, g in smoke.node_bwd_cases(
+            cuda, smoke.NODE_BWD_FAULT_DRAW):
+        if cell != "cell0":
+            break
+        if dname != dtype:
+            continue
+        cs = xs[0].shape[-1]
+        _, obuf, stat = cuda_mixedop.node_fwd_launch(xs, nodes, wts, cs, cuda)
+        got = cuda_mixedop.node_bwd_launch(xs, nodes, wts, g, obuf, stat, cs,
+                                           cuda)
+        want = cuda_mixedop.mixed_node_bwd_plain(xs, nodes, wts, g, cs,
+                                                 kept=(obuf, stat))
+        torch.cuda.synchronize()
+        fp32 = dtype == "float32"
+        for e in range(edges):
+            _scaled_close(got[0][e], want[0][e], 1e-4 if fp32 else 2.0 ** -7,
+                          f"N={n} E={edges} dx[{e}]")
+        for i, what in ((1, "d dw"), (2, "d pw"), (3, "d weights")):
+            _scaled_close(got[i], want[i], 1e-4 if fp32 else 2e-3,
+                          f"N={n} E={edges} {what}")
+        seen += 1
+    assert seen == 4

@@ -926,3 +926,193 @@ def test_node_backward_wrapper_hands_over_one_tensor(monkeypatch):
                                 nodes[0].dw.data_ptr(),
                                 nodes[0].pw.data_ptr()]
     assert list(packed[12:]) == [0] * 36
+
+
+# ---------------------------------------------------------------------------
+# the BatchNorm kernels' launch plan and scratch (plain Python; the launch
+# is replaced by a recorder), the node backward's decision-matched plain
+# version
+# ---------------------------------------------------------------------------
+
+BN_PLAN_SHAPES = [(64, 64, 64, 16), (64, 64, 64, 32), (64, 32, 32, 64),
+                  (64, 16, 16, 64), (64, 32, 32, 8), (64, 16, 16, 16),
+                  (1, 1, 1, 3), (3, 37, 41, 12), (3, 49, 71, 4),
+                  (2, 3, 5, 1028), (1, 1, 1, 8)]
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("sms,smem", [(132, 232448), (114, 232448),
+                                      (16, 101376)])
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_bn_plan_fits_the_card_and_covers_every_row(backward, sms, smem):
+    """bn_plan at every shape and dtype pair: at most one block an SM (what
+    a cooperative launch of one block an SM can hold), 256 threads a block
+    where every row is staged and 512 where not, shares
+    that cover the M rows with none empty and start on 16 bytes where the
+    kernel copies 16 bytes at a time, staged rows and the reductions within
+    shared memory."""
+    for shape in BN_PLAN_SHAPES:
+        c = shape[-1]
+        m = int(np.prod(shape[:-1]))
+        for xd in (F32, BF16):
+            for od in (F32, BF16):
+                p = cuda_bn.bn_plan(m, c, xd, od, backward, sms, smem)
+                ex = 4 if xd == F32 else 2
+                eg = (4 if od == F32 else 2) if backward else 0
+                assert p["threads"] == (256 if p["staged"] == p["rows"]
+                                        else 512)
+                assert 1 <= p["blocks"] <= sms
+                assert (p["blocks"] - 1) * p["rows"] < m <= (
+                    p["blocks"] * p["rows"])
+                assert 0 <= p["staged"] <= p["rows"]
+                assert p["smem_bytes"] <= smem
+                assert p["smem_bytes"] >= p["staged"] * c * (ex + eg)
+                assert p["vec"] == (4 if c % 4 == 0 else 1)
+                assert p["lanes"] in (1, 2, 4, 8, 16, 32)
+                assert p["lanes"] * p["vec"] >= min(c, 32 * p["vec"])
+                if p["vec"] == 4:
+                    assert p["rows"] * c * ex % 16 == 0
+                    assert p["rows"] * c * eg % 16 == 0
+                # a 1 MB tensor does not take every SM
+                if m * c * (ex + eg) <= 2 ** 20:
+                    assert p["blocks"] <= 64
+
+
+@pytest.mark.parametrize("m,c,xd,od,backward,want", [
+    # [64,64,64,32] fp32 -> bf16: 132 blocks of 512 threads, 1781 of 1986
+    # rows on chip
+    (262144, 32, F32, BF16, False, (132, 512, 1986, 1781, 232352)),
+    # its backward with g bf16: 1186 rows of x and g on chip
+    (262144, 32, F32, BF16, True, (132, 512, 1986, 1186, 232352)),
+    # bf16 in: all of it on chip, 256 threads a block
+    (262144, 32, BF16, BF16, False, (132, 256, 1986, 1986, 129440)),
+    # the stride-2 edges' inner BatchNorm: fewer blocks, all on chip
+    (65536, 8, F32, BF16, False, (128, 256, 512, 512, 17504)),
+    (16384, 16, BF16, BF16, False, (32, 256, 512, 512, 17568)),
+    (16384, 16, F32, BF16, True, (96, 256, 171, 171, 17728)),
+    # C = 3: one channel a lane, any row start
+    (1, 3, F32, F32, False, (1, 256, 1, 1, 1104)),
+])
+def test_bn_plan_values(m, c, xd, od, backward, want):
+    """bn_plan on a 132-SM card with 227 KB of shared memory a block:
+    blocks, threads, rows a block, rows staged, shared memory (the card
+    tests hold bn_plan equal to the C side's own choice)."""
+    p = cuda_bn.bn_plan(m, c, xd, od, backward)
+    assert (p["blocks"], p["threads"], p["rows"], p["staged"],
+            p["smem_bytes"]) == want
+
+
+def test_bn_plan_refuses_what_shared_memory_cannot_hold():
+    with pytest.raises(ValueError, match="too large"):
+        cuda_bn.bn_plan(4, 60000, F32, F32, True)
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+def test_bn_wrappers_hand_over_one_scratch(monkeypatch, backward):
+    """batchnorm_fwd_stat / batchnorm_bwd without a card: one launch with
+    the plan's block count and one fp32 allocation [rows, C] that holds the
+    forward's stat [2, C], then the barrier's counter (the scratch pointer
+    handed over) and blocks x 2C partials."""
+    rec = _Recorder()
+    kernel = cuda_bn.BN_BWD if backward else cuda_bn.BN_FWD
+    monkeypatch.setattr(kernel, "launch", rec)
+    monkeypatch.setattr(cuda_bn, "_card", lambda index: (132, 232448))
+    shape, c = (64, 16, 16, 16), 16
+    x = torch.empty(shape, device="meta")
+    plan = cuda_bn.bn_plan(16384, c, F32, BF16, backward)
+    lay = cuda_bn.bn_scratch(plan, c)
+    assert lay["counter"] == 2 * c * 4 and lay["partial"] == lay["counter"] + 16
+    assert lay["total"] == lay["partial"] + plan["blocks"] * 2 * c * 4
+    assert lay["rows"] * c * 4 >= lay["total"] > (lay["rows"] - 1) * c * 4
+    with pytest.raises(ValueError, match="CUDA"):  # meta is not the card
+        (cuda_bn.batchnorm_bwd(x, x, x[0, 0, :2]) if backward
+         else cuda_bn.batchnorm_fwd_stat(x))
+    monkeypatch.setattr(cuda_bn.K, "check_cuda_tensors",
+                        lambda *a, **k: torch.device("meta"))
+    allocs = []
+    real_empty = torch.empty
+
+    def empty(*args, **kwargs):
+        allocs.append(real_empty(*args, **kwargs))
+        return allocs[-1]
+
+    monkeypatch.setattr(cuda_bn.torch, "empty", empty)
+    if backward:
+        g = real_empty(shape, device="meta", dtype=BF16)
+        stat = real_empty(2, c, device="meta")
+        dx = cuda_bn.batchnorm_bwd(x, g, stat)
+        (args,) = rec.calls
+        assert args[:4] == (x, g, stat, dx) and dx.dtype == F32
+        assert args[5:] == (plan["blocks"], 16384, c, 0, 1)
+        scratch = args[4]
+    else:
+        y, stat, x_read = cuda_bn.batchnorm_fwd_stat(x, BF16)
+        (args,) = rec.calls
+        assert args[:3] == (x, y, stat) and x_read is x
+        assert y.dtype == BF16 and y.shape == shape
+        assert stat.shape == (2, c) and stat.is_contiguous()
+        assert stat.storage_offset() == 0
+        assert args[4:] == (plan["blocks"], 16384, c, cuda_bn.EPS, 0, 1)
+        scratch = args[3]
+    buf = allocs[0]
+    assert buf.shape == (lay["rows"], c) and buf.dtype == F32
+    assert scratch == buf.data_ptr() + lay["counter"]
+    if not backward:
+        assert stat.untyped_storage().data_ptr() == buf.data_ptr()
+
+
+def _kept_from_plain(xs, nodes, cs):
+    """obuf / stat as the forward kernel leaves them for slots 0 and 1 (the
+    sep convs' first stages), made from the plain version's values."""
+    n, h, w, _ = xs[0].shape
+    e_count, m = len(xs), n * h * w
+    obuf = torch.zeros(8, e_count, cs, m)
+    stat = torch.zeros(8, e_count, cs, 2)
+    for e, (x, nw) in enumerate(zip(xs, nodes)):
+        x = torch.relu(x[..., :cs].float())
+        for b, (_, kk, dil, _) in enumerate(cuda_mixedop.BRANCHES[:2]):
+            o = cuda_mixedop._stage(x, nw, 2 * b, kk, dil, torch.float32)
+            mean, rstd = cuda_mixedop._stats(o)
+            obuf[b, e] = o.permute(3, 0, 1, 2).reshape(cs, m)
+            stat[b, e, :, 0], stat[b, e, :, 1] = mean, rstd
+    return obuf, stat
+
+
+def test_node_bwd_plain_takes_the_kept_relu_decisions():
+    """mixed_node_bwd_plain(kept=...) reads the inner ReLU decisions from
+    the kernel's stored stage outputs: where they equal its own it gives
+    autograd's gradients (up to the order of autograd's sums), and one
+    decision taken the other way moves dx only around that pixel."""
+    gen = torch.Generator().manual_seed(71)
+    n, h, w, c, cs, edges = 2, 9, 8, 16, 4, 3
+    ops = [t_search.mixed_op_init(gen, c, 1, 4) for _ in range(edges)]
+    nodes = [cuda_mixedop.node_weights(p) for p in ops]
+    xs = [torch.randn(n, h, w, c, generator=gen)[..., :cs]
+          for _ in range(edges)]
+    wts = torch.softmax(torch.randn(edges, 8, generator=gen), 1)
+    g = torch.randn(n, h, w, cs, generator=gen)
+    obuf, stat = _kept_from_plain(xs, nodes, cs)
+    kept = cuda_mixedop.sep_inner_inputs_kept(obuf, stat, (n, h, w))
+    plain = cuda_mixedop.sep_inner_inputs_plain(xs, nodes, cs)
+    for e in range(edges):
+        for b in range(2):
+            assert torch.equal(kept[e][b], plain[e][b])
+    auto = cuda_mixedop.mixed_node_bwd_plain(xs, nodes, wts, g, cs)
+    same = cuda_mixedop.mixed_node_bwd_plain(xs, nodes, wts, g, cs,
+                                             kept=(obuf, stat))
+    for a, b in zip(auto[0] + list(auto[1:]), same[0] + list(same[1:])):
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max())
+    # edge 1's sep3 inner input at a positive pixel, stored just below 0
+    e, q = 1, (1, 4, 3, 2)
+    assert float(kept[e][0][q]) > 0
+    pix = (q[0] * h + q[1]) * w + q[2]
+    obuf[0, e, q[3], pix] = stat[0, e, q[3], 0] - 1e-6
+    flip = cuda_mixedop.mixed_node_bwd_plain(xs, nodes, wts, g, cs,
+                                             kept=(obuf, stat))
+    diff = (flip[0][e] - auto[0][e]).abs()
+    at = divmod(int(diff.flatten().argmax()), w * cs)
+    worst = (at[0] // h, at[0] % h, at[1] // cs)
+    assert worst[0] == q[0] and abs(worst[1] - q[1]) <= 1
+    assert abs(worst[2] - q[2]) <= 1
+    for other in (0, 2):
+        assert torch.equal(flip[0][other], same[0][other])
