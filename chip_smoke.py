@@ -6,6 +6,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --profile   # only torch.profiler loops over the
                                       # darts EF call and over one train
                                       # step at batch 64 (PERF.md)
+    python3 chip_smoke.py --stage3    # only the pool gradients and phase 9
     python3 chip_smoke.py --kernel-times [--root DIR]
                                       # only the cell, the node forward and
                                       # backward, the decode, the BatchNorm
@@ -91,7 +92,9 @@ non-zero:
      and 1e-3 s in bf16.
    - the port's avg and max pool gradients on a channel slice, card
      against CPU, 1e-6 (PyTorch's own channels-last avg_pool2d backward,
-     which is wrong on the card in PyTorch 2.11, is logged beside them).
+     which is wrong on the card in PyTorch 2.11, is logged beside them),
+     and the avg pool's second order as stage 3 takes it (a
+     Hessian-vector product through a cubed output), 1e-6 (1 + max).
 3. Full-width W, fixed-EF and darts-EF params (and the supernet's arch
    parameters) from seeded torch.Generators, converted to the JAX
    layout, written as three artifacts with lctvqa_torch.export's
@@ -144,6 +147,25 @@ non-zero:
    checkpoint is written, read back by a
    resumed Experiment and found equal bit for bit. Then ms per stage-1
    and stage-2 step and pairs/s (informational).
+9. Stage 3 at full width (ModelConfig's defaults, batch 64, the same
+   synthetic data) through Experiment with stage 3 on before every batch
+   (exact-indirect, remat on): two train_steps in bf16 (stage 3, stage 1,
+   stage 2 each) at each flag set, launch counts zeroed before each run.
+   Checks: the W'-val loss and every other loss finite; every arch leaf
+   moved and finite after the steps; no kernel counter moves inside any
+   stage-3 call (it runs the plain versions); with the flags on, a
+   stage-1 step launches what phase 8 counts (STAGE1_LAUNCHES) and the
+   training kernels launch in the run; a checkpoint written after stage
+   3 and read back by a resumed Experiment equal bit for bit, arch and
+   its Adam state included. One arch gradient per mode (exact-indirect
+   with remat and without, exact, fd) in bf16 at batch 64: finite,
+   nonzero, no launch; ms per call and peak device memory printed
+   (informational). The card against the CPU: the exact-indirect
+   gradient in fp32, dropout off (W's VGG dropout, hard-coded at 0.5,
+   replaced by the identity on both sides), full widths at batch
+   STAGE3_CPU_BATCH = 8, cut from 64 only to keep the CPU's side short:
+   the W'-val loss within STAGE3_LOSS_TOL (1 + |loss|) and each arch
+   leaf within STAGE3_GRAD_TOL of its scale (see there).
 
 It prints the card's name and power limit, one JSON line of the kernels
 (times, bounds and launch counts), and last {"ok": true, "device": {...}}.
@@ -227,6 +249,16 @@ L2_FLUSH_BYTES = 128 * 2 ** 20  # more than the card's 50 MB L2
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 2e-3
 TRAIN_GRAD_FLOOR = 1e-5
+# phase 9: the card against the CPU, exact-indirect fp32 at this batch. The
+# arch gradient is a second derivative through four cells of
+# batch-statistics BatchNorm over 8 rows, which amplify the summation-order
+# difference of the two devices as in phase 8's first-order check (2e-3 of
+# a leaf's scale there), here once in each of the two backward passes:
+# 5e-3 of each leaf's scale (6.4e-4 seen). The W'-val loss is a forward
+# only: 1e-4, as phase 8's
+STAGE3_CPU_BATCH = 8
+STAGE3_LOSS_TOL = 1e-4
+STAGE3_GRAD_TOL = 5e-3
 LSTM_KERNELS = ("lstm_cell", "lstm_seq_final", "lstm_seq_all",
                 "greedy_generate")
 FAILURES: list = []
@@ -1333,6 +1365,22 @@ def check_pool_gradients(device):
                     f"|diff| {err:.3e}")
                 expect(err <= 1e-6, f"{name} gradient on the card differs "
                        f"from the CPU's by {err}")
+        # the avg pool's second order, as stage 3 takes it: a
+        # Hessian-vector product through a loss that cubes the output
+        v = torch.randn(x.shape, generator=gen)
+        hvps = []
+        for dev in ("cpu", device):
+            xd = x.to(dev).requires_grad_()
+            (gd,) = torch.autograd.grad(
+                (fns["avg_pool"](xd) ** 3).sum(), xd, create_graph=True)
+            hvps.append(torch.autograd.grad((gd * v.to(dev)).sum(),
+                                            xd)[0].cpu())
+        err = float((hvps[0] - hvps[1]).abs().max())
+        log(f"avg_pool second order, stride {stride}: card vs CPU max "
+            f"|diff| {err:.3e} (largest {float(hvps[0].abs().max()):.3e})")
+        expect(err <= 1e-6 * (1 + float(hvps[0].abs().max())),
+               f"avg_pool's second order on the card differs from the "
+               f"CPU's by {err}")
 
 
 def check_lstm_functions(device, mcfg, b=64):
@@ -2107,6 +2155,257 @@ def profile_train(arrays, device, root: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: stage 3
+# ---------------------------------------------------------------------------
+
+def stage3_config(dtype: str, fname: str, root: str, dropout=None):
+    """train_config with stage 3 on before every batch (exact-indirect,
+    remat on: TrainConfig's defaults)."""
+    import dataclasses
+
+    cfg = train_config(dtype, fname, root, dropout)
+    return cfg.replace(
+        train=dataclasses.replace(cfg.train, skip_stage3=False,
+                                  arch_update_freq=1),
+        exp_name=f"stage3_{dtype}_{fname}")
+
+
+def record_stages(exp, names, record: list) -> None:
+    """Wraps the Experiment's step functions `names`: each call appends
+    (name, ms on the host clock between two synchronizes, launches of
+    every kernel counter) to `record`."""
+    from lctvqa_torch.ops import _build
+
+    for name in names:
+        def wrapped(*args, _fn=exp.steps[name], _name=name, **kwargs):
+            torch.cuda.synchronize()
+            before = _build.launch_counts()
+            t0 = time.perf_counter()
+            out = _fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            record.append((_name, 1e3 * (time.perf_counter() - t0),
+                           _delta(before, _build.launch_counts())))
+            return out
+
+        exp.steps[name] = wrapped
+
+
+def stage3_run(arrays, device, fname: str, root: str, steps: int = 2):
+    """`steps` train steps (stage 3, stage 1, stage 2 each) in bf16 through
+    Experiment.train_step at full width, then a checkpoint read back.
+    -> (stage-3 ms per call, launches of the whole run)."""
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.optim.optimizers import tree_leaves
+    from lctvqa_torch.train.experiment import Experiment
+
+    tag = f"stage3 bfloat16 {fname}"
+    with kernel_flags(fname):
+        run_before = _build.launch_counts()
+        cfg = stage3_config("bfloat16", fname, root)
+        exp = Experiment(cfg, device=device,
+                         data=pipeline.loader_from_arrays(arrays))
+        record = []
+        record_stages(exp, ("stage3", "stage1", "stage2"), record)
+        batches, valid = iter(exp._batches("train")), exp._cycled_valid()
+        arch0 = [a.clone() for a in _leaves(exp.arch)]
+        outs = [exp.train_step(next(batches), next(valid))
+                for _ in range(steps)]
+        s3 = [float(o[5]) for o in outs]
+        losses = [float(o[i]) for o in outs for i in (0, 3)]
+        expect(all(np.isfinite(s3 + losses)), f"{tag}: a loss is not "
+               f"finite: W'-val {s3}, EF and W {losses}")
+        moved = all(bool(torch.isfinite(b).all()) and not torch.equal(a, b)
+                    for a, b in zip(arch0, _leaves(exp.arch)))
+        expect(moved and exp.arch_opt["step"] == steps,
+               f"{tag}: arch not moved by every stage-3 step, or not finite")
+        want1 = (STAGE1_LAUNCHES if fname == "kernels"
+                 else dict.fromkeys(STAGE1_LAUNCHES, 0))
+        for name, ms, calls in record:
+            if name == "stage3":
+                launched = {k: v for k, v in calls.items() if v}
+                expect(not launched, f"{tag}: a stage-3 call launched "
+                       f"kernels: {launched}")
+            if name == "stage1":
+                expect(all(calls[k] == v for k, v in want1.items()),
+                       f"{tag}: stage-1 launches {calls}, expected {want1}")
+        s3_ms = [ms for name, ms, _ in record if name == "stage3"]
+        log(f"{tag}: W'-val losses {s3}, EF and W losses {losses}; "
+            "launches by stage call: "
+            + "; ".join(f"{n} {ms:.0f} ms "
+                        f"{ {k: v for k, v in c.items() if v} }"
+                        for n, ms, c in record))
+        # a checkpoint written after stage 3, read back equal
+        exp.save_model()
+        again = Experiment(cfg.replace(resume=True), device=device,
+                           data=pipeline.loader_from_arrays(arrays))
+        same = all(torch.equal(a, b) for tree, other in (
+            (again.arch, exp.arch), (again.arch_opt["m"], exp.arch_opt["m"]),
+            (again.arch_opt["v"], exp.arch_opt["v"]),
+            (again.ef_params, exp.ef_params), (again.w_params, exp.w_params),
+            (again.ef_opt["v"], exp.ef_opt["v"]))
+            for a, b in zip(tree_leaves(tree), tree_leaves(other)))
+        expect(same and again.arch_opt["step"] == exp.arch_opt["step"]
+               and again.arch_opt["lr"] == exp.arch_opt["lr"],
+               f"{tag}: the checkpoint read back differs")
+        launches = _delta(run_before, _build.launch_counts())
+    del exp, again
+    torch.cuda.empty_cache()
+    return s3_ms, launches
+
+
+def _stage3_batches(exp, rows=None):
+    """A train and a validation batch as the architect takes them:
+    normalized images on the Experiment's device, `rows` of each."""
+    from lctvqa_torch.data.pipeline import normalize_images
+    from lctvqa_torch.train.experiment import dev_batch
+
+    out = []
+    for batch in (dev_batch(next(iter(exp._batches("train")))),
+                  exp._to_device(next(exp._cycled_valid()))):
+        out.append({"image": normalize_images(batch["image_u8"][:rows]),
+                    "question": batch["question"][:rows],
+                    "answer_label": batch["answer_label"][:rows]})
+    return out
+
+
+def stage3_modes(arrays, device, root: str, card: str):
+    """One arch gradient per architect mode at full width, bf16, batch 64
+    (two calls each, timed on the host clock between synchronizes): finite
+    and nonzero, no kernel launched; the peak device memory of an
+    exact-indirect call with remat and without."""
+    import dataclasses
+
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.optim.architect_lct import make_lct_arch_grad
+    from lctvqa_torch.train.experiment import Experiment
+
+    cfg = stage3_config("bfloat16", "default", root).replace(
+        exp_name="stage3_modes")
+    exp = Experiment(cfg, device=device,
+                     data=pipeline.loader_from_arrays(arrays))
+    tb, vb = _stage3_batches(exp)
+    lr = exp._epoch_lr()
+    for mode, remat in (("exact-indirect", True), ("exact-indirect", False),
+                        ("exact", True), ("fd", True)):
+        fn = make_lct_arch_grad(exp.cfg.model, dataclasses.replace(
+            exp.cfg.train, stage3_remat=remat), mode)
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = _build.launch_counts()
+            t0 = time.perf_counter()
+            g, val_loss = fn(exp.arch, exp.ef_params, exp.w_params, tb, vb,
+                             lr, lr, exp.gen)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            calls = _delta(before, _build.launch_counts())
+        peak = torch.cuda.max_memory_allocated()
+        flat = torch.cat([v.flatten().float() for v in _leaves(g)])
+        tag = f"stage3 {mode} remat {remat} bfloat16 B=64"
+        expect(bool(torch.isfinite(flat).all()) and float(flat.abs().max()) > 0
+               and bool(torch.isfinite(val_loss)),
+               f"{tag}: arch gradient not finite and nonzero")
+        expect(not any(calls.values()), f"{tag}: launched kernels {calls}")
+        log(f"{tag}: {times[0]:.0f} ms, then {times[1]:.0f} ms a call (host "
+            f"clock between synchronizes); peak device memory "
+            f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above "
+            f"the {base / 2**30:.2f} GiB held before the call; W'-val loss "
+            f"{float(val_loss):.4f}, largest |grad| "
+            f"{float(flat.abs().max()):.3e} on {card}")
+    del exp
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def identity_dropout():
+    """Dropout as the identity while open: W's VGG has a hard-coded rate
+    of 0.5, whose masks the card's and the CPU's generators draw from
+    different streams."""
+    from lctvqa_torch.ops import nn as N
+
+    was = N.dropout
+    N.dropout = lambda x, *args, **kwargs: x
+    try:
+        yield
+    finally:
+        N.dropout = was
+
+
+def check_stage3_against_cpu(arrays, device, root: str):
+    """The exact-indirect arch gradient and W'-val loss on the card against
+    the CPU: fp32, dropout off, full widths at batch STAGE3_CPU_BATCH."""
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.optim.architect_lct import make_lct_arch_grad
+    from lctvqa_torch.optim.optimizers import tree_map
+    from lctvqa_torch.train.experiment import Experiment
+
+    cfg = stage3_config("float32", "default", root, dropout=0.0).replace(
+        exp_name="stage3_cpu")
+    exp = Experiment(cfg, device=device,
+                     data=pipeline.loader_from_arrays(arrays))
+    batches = _stage3_batches(exp, rows=STAGE3_CPU_BATCH)
+    fn = make_lct_arch_grad(exp.cfg.model, exp.cfg.train, "exact-indirect")
+    out = []
+    with identity_dropout():
+        for dev in (device, torch.device("cpu")):
+            move = lambda t: t.detach().to(dev)  # noqa: E731
+            t0 = time.perf_counter()
+            g, val_loss = fn(*(tree_map(move, t) for t in (
+                exp.arch, exp.ef_params, exp.w_params, *batches)),
+                exp._epoch_lr(), exp._epoch_lr(),
+                torch.Generator(device=dev).manual_seed(SEED))
+            out.append(([v.cpu() for v in _leaves(g)], float(val_loss)))
+            log(f"stage3 against the CPU: exact-indirect fp32 B="
+                f"{STAGE3_CPU_BATCH} on {dev.type} took "
+                f"{time.perf_counter() - t0:.1f} s (the batch is cut from 64 "
+                "only to keep the CPU's side short)")
+    del exp
+    torch.cuda.empty_cache()
+    (g_card, v_card), (g_cpu, v_cpu) = out
+    err = abs(v_card - v_cpu)
+    expect(err <= STAGE3_LOSS_TOL * (1 + abs(v_cpu)),
+           f"stage3 against the CPU: W'-val loss {v_card} vs {v_cpu}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_card, g_cpu)):
+        err, scale = _grad_err(a, b)
+        worst = max(worst, err / max(STAGE3_GRAD_TOL * scale, 1e-30))
+        expect(bool(torch.isfinite(a).all()) and scale > 0
+               and err <= STAGE3_GRAD_TOL * scale,
+               f"stage3 against the CPU: arch leaf {i} {tuple(a.shape)} "
+               f"differs by {err} (scale {scale})")
+    log(f"stage3 against the CPU: W'-val loss {v_card:.6f} vs {v_cpu:.6f}; "
+        f"{len(g_cpu)} arch leaves, worst error {worst:.3f} of its limit "
+        f"({STAGE3_GRAD_TOL} of the leaf's scale)")
+
+
+def stage3_phase(arrays, device, root: str, card: str) -> None:
+    """Phase 9: stage3_run at both flag sets (the counts zeroed before
+    each), stage3_modes, check_stage3_against_cpu."""
+    from lctvqa_torch.ops import _build
+
+    t0 = time.perf_counter()
+    for fname in KERNEL_FLAGS:
+        _build.reset_launch_counts()
+        s3_ms, launches = stage3_run(arrays, device, fname, root)
+        log(f"launches in the bfloat16 {fname} stage-3 run: "
+            f"{ {k: v for k, v in launches.items() if v} }")
+        for name, (_, _, run, path) in KERNELS.items():
+            if path == "train" and run == fname:
+                expect(launches[name] > 0, f"{name} never launched in the "
+                       f"{fname} stage-3 run's stages 1 and 2")
+        log(f"stage3 exact-indirect bfloat16 B=64 {fname}: "
+            + ", ".join(f"{ms:.0f}" for ms in s3_ms)
+            + f" ms a call in Experiment.train_step on {card}")
+    stage3_modes(arrays, device, root, card)
+    check_stage3_against_cpu(arrays, device, root)
+    log(f"stage-3 phase took {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
                 cell_dev, node_dev, gen_plan, gen_dev, node_bwd_dev):
@@ -2255,6 +2554,9 @@ def main(argv=None) -> int:
     mode = parser.add_mutually_exclusive_group()
     mode.add_argument("--profile", action="store_true",
                       help="only build, then profile the darts EF call")
+    mode.add_argument("--stage3", action="store_true",
+                      help="only build, then the avg pool's gradients and "
+                      "phase 9 (stage 3)")
     mode.add_argument("--kernel-times", action="store_true",
                       help="only build, then time the cell, the node "
                       "forward and backward, the decode, the BatchNorm "
@@ -2301,6 +2603,12 @@ def main(argv=None) -> int:
 
     if args.kernel_times:
         return kernel_times(device, card, args.root or ".")
+    if args.stage3:
+        check_pool_gradients(device)
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+            stage3_phase(train_arrays(), device, tmp, card)
+        log(card)
+        return 1 if FAILURES else 0
     if args.profile:
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
             paths = write_artifacts(Path(tmp), names=("darts",))
@@ -2406,6 +2714,9 @@ def main(argv=None) -> int:
                    f"kernels {b}")
         check_train_gradients(arrays, device, tmp)
         log(f"training timed on {card}")
+
+        # 9. the third path: stage 3, each run with the counts at 0
+        stage3_phase(arrays, device, tmp, card)
 
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
                        launches, seq_plan, cell_dev, node_dev, gen_plan,

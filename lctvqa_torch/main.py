@@ -1,12 +1,13 @@
 """CLI entry point of the port (counterpart of lctvqa/main.py).
 
-    python -m lctvqa_torch.main --skip_stage3 --exp my_exp --input_dir ...
+    python -m lctvqa_torch.main --exp my_exp --input_dir ...
 
-Trains the EF and W models on the CUDA device; `--device cpu` runs the
-same loop on the CPU, for a check. The flags are the JAX CLI's where
-they mean something here. Flags of paths that are not ported yet raise
-and name the ROADMAP.md queue that brings them; among them a run without
-`--skip_stage3`, which keeps the JAX CLI's default (stage 3 on).
+Runs the LCT search on the CUDA device: stage 3 (the architecture
+update, `--architect_mode`, unless `--skip_stage3`), stage 1 and stage 2
+on the EF and W models, then validation; `--device cpu` runs the same
+loop on the CPU, for a check. The flags are the JAX CLI's where they
+mean something here. Flags of paths that are not ported yet raise and
+name the ROADMAP.md queue that brings them.
 """
 
 from __future__ import annotations
@@ -56,6 +57,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "them in validation")
     p.add_argument("--preload_images", type=str, default="auto",
                    choices=["auto", "ram", "lazy"])
+    p.add_argument("--architect_mode", type=str, default="exact-indirect",
+                   choices=["exact", "exact-indirect", "fd"])
+    p.add_argument("--stage3_remat", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="recompute the architect's inner-unroll forwards in "
+                        "its outer backward (torch.utils.checkpoint); "
+                        "always on for exact-indirect, as in the JAX CLI")
     p.add_argument("--no_fold_bn", action="store_true",
                    help="explicit per-op BN instead of the folded mixture")
     p.add_argument("--pallas_mixed_op", action="store_true",
@@ -98,11 +106,6 @@ def check_ported(args) -> None:
         if getattr(args, flag):
             raise NotImplementedError(
                 f"--{flag} is not ported: ROADMAP.md, {where}")
-    if args.arch_type == "darts" and not args.skip_stage3:
-        raise NotImplementedError(
-            "stage 3 (the architecture update through the tri-level "
-            "architect) is not ported: it needs second derivatives through "
-            "the kernels (ROADMAP.md, queue 1 item 3). Pass --skip_stage3")
 
 
 def config_from_args(args) -> Config:
@@ -126,7 +129,8 @@ def config_from_args(args) -> Config:
         batch_size=args.batch_size, train_portion=args.train_portion,
         arch_update_freq=args.arch_update_freq,
         skip_stage2=args.skip_stage2, skip_stage3=args.skip_stage3,
-        seed=args.seed,
+        seed=args.seed, architect_mode=args.architect_mode,
+        stage3_remat=args.stage3_remat,
         report_freq=10 if args.arch_type == "darts" else 100)
     data = DataConfig(input_dir=args.input_dir,
                       num_workers=args.num_workers,

@@ -13,6 +13,12 @@ default; the `bn_capture`/`bn_eval` contexts reproduce a reference run's
 eval-mode running statistics when asked. Affine-free BatchNorm of a CUDA
 tensor goes through the BatchNorm kernels (`ops/cuda_bn.py`, forward and
 backward) when `USE_PALLAS_BN` is on, except under either context.
+
+The `second_order` context is for code that differentiates a gradient
+(the architects of stage 3): in it `batchnorm` takes the plain route
+whatever `USE_PALLAS_BN` says, and an fp32 convolution on the card is a
+plain `F.conv2d` under cuDNN without TF32, since `_ExactConvFn`'s
+backward cannot be differentiated again.
 """
 
 from __future__ import annotations
@@ -98,6 +104,25 @@ class _ExactConvFn(torch.autograd.Function):
         return dx, dw, None, None, None, None
 
 
+_SECOND_ORDER: contextvars.ContextVar = contextvars.ContextVar(
+    "lctvqa_torch_second_order", default=False)
+
+
+@contextlib.contextmanager
+def second_order():
+    """Twice-differentiable routes in the scope: the plain BatchNorm, and
+    fp32 convolutions as plain `F.conv2d` with cuDNN's TF32 off. The TF32
+    switch is process-wide, so a backward that autograd runs later on
+    another thread still sees it off as long as the scope is open: open
+    it around the whole differentiation, not only around the forward."""
+    tok = _SECOND_ORDER.set(True)
+    try:
+        with _no_tf32():
+            yield
+    finally:
+        _SECOND_ORDER.reset(tok)
+
+
 def conv2d(params, x: torch.Tensor, stride: IntOrPair = 1,
            padding: IntOrPair = 0, dilation: IntOrPair = 1, groups: int = 1,
            dtype: Optional[torch.dtype] = None,
@@ -107,7 +132,8 @@ def conv2d(params, x: torch.Tensor, stride: IntOrPair = 1,
     and the result is produced in it (fp32 accumulation inside), then
     cast to `out_dtype` (default fp32) before the bias: the JAX package's
     rounding. An fp32 conv stays fp32: cuDNN's TF32, on by default, is
-    turned off for it, forward and backward."""
+    turned off for it, forward and backward (first order only, except
+    under `second_order`)."""
     x, w = _nchw(x), params["w"]
     if dtype is not None:
         x, w = x.to(dtype), w.to(dtype)
@@ -119,7 +145,8 @@ def conv2d(params, x: torch.Tensor, stride: IntOrPair = 1,
         # pixels, the factorized reduce of a reduction cell; PyTorch 2.11
         # and 2.13): hand it an NCHW-contiguous input
         x = x.contiguous()
-    if x.dtype == f32 and x.device.type == "cuda":
+    if (x.dtype == f32 and x.device.type == "cuda"
+            and not _SECOND_ORDER.get()):
         y = _ExactConvFn.apply(x, w, _pair(stride), _pair(padding),
                                _pair(dilation), groups).to(out_dtype)
     else:
@@ -254,7 +281,7 @@ def batchnorm(params, x: torch.Tensor, eps: float = 1e-5,
     if ctx is not None:
         return _batchnorm_ctx(ctx, params, x, eps, out_dtype)
     if (USE_PALLAS_BN and not params and x.dim() == 4 and eps == 1e-5
-            and x.device.type != "cpu"):
+            and x.device.type != "cpu" and not _SECOND_ORDER.get()):
         return cuda_bn.batchnorm_fwd(x, out_dtype=out_dtype)
     return batchnorm_plain(params, x, eps, out_dtype)
 
@@ -269,7 +296,8 @@ class _AvgPoolFn(torch.autograd.Function):
     NCHW-contiguous tensors. PyTorch 2.11's CUDA avg_pool2d backward
     returns a shifted gradient when its tensors are channels-last (the
     forward, and max and adaptive pooling, are right); on contiguous ones
-    it agrees with the CPU."""
+    it agrees with the CPU. The backward is itself differentiable: its
+    derivative is an avg_pool2d forward of the incoming gradient."""
 
     @staticmethod
     def forward(ctx, x, window, stride, padding, count_include_pad):

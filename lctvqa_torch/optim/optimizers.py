@@ -14,6 +14,7 @@ torch's and optax's: eps 1e-8 outside the root, bias correction on both
 moments. A leaf whose gradient is None (the frozen VGG trunk, which is
 detached in the forward) counts as a zero gradient: its moments stay 0
 and it does not move, exactly as under the JAX package's stop_gradient.
+`sgd_step` is the architects' inner unroll, w' = w - lr * g.
 """
 
 from __future__ import annotations
@@ -44,6 +45,18 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
     return None if tree is None else fn(tree, *rest)
+
+
+def with_grad(tree: Any) -> Any:
+    """The same storage as fresh leaves that require a gradient."""
+    return tree_map(lambda t: t.detach().requires_grad_(), tree)
+
+
+def tree_from_leaves(tree: Any, leaves) -> Any:
+    """A tree shaped like `tree` whose leaves are `leaves`, in
+    `tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,11 +104,10 @@ class Optimizer:
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(torch._foreach_div(ms, c1), denom)
         new = torch._foreach_add(leaves, upd, alpha=-state["lr"])
-        it_p, it_m, it_v = iter(new), iter(ms), iter(vs)
-        return (tree_map(lambda _: next(it_p), params),
+        return (tree_from_leaves(params, new),
                 {"step": step, "lr": state["lr"],
-                 "m": tree_map(lambda _: next(it_m), params),
-                 "v": tree_map(lambda _: next(it_v), params)})
+                 "m": tree_from_leaves(params, ms),
+                 "v": tree_from_leaves(params, vs)})
 
 
 def model_optimizer(cfg: TrainConfig) -> Optimizer:
@@ -119,3 +131,15 @@ def step_lr(base_lr: float, epoch: int, step_size: int, gamma: float) -> float:
 def set_learning_rate(opt_state: dict, lr: float) -> dict:
     opt_state["lr"] = float(lr)
     return opt_state
+
+
+def sgd_step(params, grads, lr):
+    """One plain SGD step w' = w - lr * g over a tree (the architects'
+    inner unroll, without momentum or weight decay, both zero in the
+    reference). `grads` are the leaves' gradients in `tree_leaves` order;
+    a leaf whose gradient is None (the frozen VGG trunk, a leaf the loss
+    does not reach) stays as it is. Differentiable: under
+    `create_graph` the step carries the gradient's own graph."""
+    return tree_from_leaves(params, [p if g is None else p - lr * g
+                                     for p, g in zip(tree_leaves(params),
+                                                     grads)])

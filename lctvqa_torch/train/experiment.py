@@ -1,12 +1,15 @@
 """LCT Experiment: the training loop (port of
 lctvqa/train/experiment.py).
 
-Epoch loop: STAGE 1, the EF weight update, then STAGE 2, the W update on
-real and EF-generated pseudo QA; then validation (loss, multi-choice
-accuracy with and without <unk>), the StepLR decay and a checkpoint of
-both models. Stage 3, the architecture update, is not ported (ROADMAP.md,
-queue 1 item 3): a config that asks for it raises. BLEU4 of the generated
-questions, the statistics files and their plots come with the eval slice.
+Epoch loop: every `arch_update_freq` batches STAGE 3, the architecture
+update through the tri-level architect on a validation batch (a cycled
+validation iterator), then on every batch STAGE 1, the EF weight update,
+and STAGE 2, the W update on real and EF-generated pseudo QA; then
+validation (loss, multi-choice accuracy with and without <unk>), the
+StepLR decay and a checkpoint of both models. Stage 3 is skipped with
+`skip_stage3` and for the fixed VGG EF, which has no arch. BLEU4 of the
+generated questions, the statistics files and their plots come with the
+eval slice.
 
 One process, one device, no mesh. Losses and counters stay on the device
 during an epoch: the host reads one value per `report_freq` steps and
@@ -15,6 +18,8 @@ the sums once at the epoch's end.
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import logging
 import os
 import sys
@@ -50,11 +55,14 @@ class Experiment:
             raise RuntimeError(
                 "training runs on a CUDA device and none is available; pass "
                 "device='cpu' (--device cpu) to run on the CPU")
-        if not cfg.train.skip_stage3 and cfg.model.arch_type == "darts":
-            raise NotImplementedError(
-                "stage 3 (the architecture update) is not ported: it needs "
-                "second derivatives through the kernels (ROADMAP.md, queue 1 "
-                "item 3); set skip_stage3 (--skip_stage3)")
+        forced_remat = (cfg.train.architect_mode == "exact-indirect"
+                        and not cfg.train.stage3_remat
+                        and not cfg.train.skip_stage3)
+        if forced_remat:
+            # the JAX package's rule: at full width its exact-indirect
+            # program does not fit a v5e without remat, so it always remats
+            cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                        stage3_remat=True))
         self.cfg = cfg
         self.name = cfg.exp_name
         self.exp_dir = os.path.join(cfg.root_stats_dir, self.name)
@@ -84,7 +92,7 @@ class Experiment:
         self.steps = make_lct_steps(cfg, self.ans_vocab.unk2idx, self.device)
         self.ef_opt = self.steps["ef_tx"].init(self.ef_params)
         self.w_opt = self.steps["w_tx"].init(self.w_params)
-        # built and stored for the checkpoint; stepped by stage 3 only
+        # stepped by stage 3 only
         self.arch_opt = (self.steps["arch_tx"].init(self.arch)
                          if self.arch is not None else None)
 
@@ -100,6 +108,9 @@ class Experiment:
         self._load_experiment()
         self.log(f"seed: {seed}")
         self.log(f"device: {self.device}")
+        if forced_remat:
+            self.log("stage3_remat is forced on for architect_mode "
+                     "exact-indirect, as in the JAX package")
         self.log(f"config: {cfg}")
         if cfg.train.packed_dispatch:
             self.log("packed_dispatch is a way of passing the JAX package's "
@@ -171,12 +182,35 @@ class Experiment:
         return search.genotype(self.arch, self.cfg.model.darts_steps,
                                self.cfg.model.darts_multiplier)
 
+    def _cycled_valid(self):
+        """Validation batches for stage 3, on the host, without end: the
+        first pass's batches over again, as itertools.cycle repeats them
+        in the JAX package."""
+        return itertools.cycle(pipeline.epoch_batches(
+            self.data["valid"], self.cfg.train.batch_size, self.np_rng,
+            max_num_ans=self.cfg.data.max_num_ans))
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: torch.as_tensor(v, device=self.device)
+                for k, v in dev_batch(batch).items()}
+
     # ------------------------------------------------------------------
-    def train_step(self, batch):
-        """Stage 1, then stage 2 unless skipped, on one device batch.
-        -> (ef_loss, corr1, corr2, w_loss or None, w_corr or None), all
-        0-d tensors on the device."""
+    def train_step(self, batch, val_batch=None):
+        """Stage 3 on (batch, val_batch) when a validation batch is given
+        (its W'-val loss logged), then stage 1, then stage 2 unless
+        skipped, on one batch. -> (ef_loss, corr1, corr2, w_loss or None,
+        w_corr or None, stage-3 loss or None), all 0-d tensors on the
+        device."""
         batch = dev_batch(batch)
+        s3_loss = None
+        if val_batch is not None:
+            lr = self._epoch_lr()
+            with self.timer.stage("stage3"):
+                self.arch, self.arch_opt, s3_loss = self.steps["stage3"](
+                    self.arch, self.arch_opt, self.ef_params, self.w_params,
+                    batch, self._to_device(val_batch), lr, lr, self.gen)
+                shown = float(s3_loss)  # read back for the log, as JAX does
+            self.log(f"| TRAIN SET | STAGE3 | W'-Val-Loss: {shown:.4f}")
         bn_stats = None
         with self.timer.stage("stage1"):
             out = self.steps["stage1"](self.ef_params, self.arch,
@@ -187,20 +221,20 @@ class Experiment:
                                                           bn_stats)
             self.ef_params, self.ef_opt, loss, c1, c2 = out
         if self.cfg.train.skip_stage2:
-            return loss, c1, c2, None, None
+            return loss, c1, c2, None, None, s3_loss
         with self.timer.stage("stage2"):
             self.w_params, self.w_opt, loss2, wc = self.steps["stage2"](
                 self.w_params, self.w_opt, self.ef_params, self.arch, batch,
                 self.gen, self.sample_gen)
-        return loss, c1, c2, loss2, wc
+        return loss, c1, c2, loss2, wc, s3_loss
 
     def train_epoch(self):
         t = self.cfg.train
         dataset = self.data["train"]
         n = (len(dataset) // t.batch_size) * t.batch_size
         batch_step_size = max(len(dataset) // t.batch_size, 1)
-        # quirk parity: the reference reads W's learning rate from the EF
-        # scheduler; the two are the same value
+        # quirk parity: the reference reads W's learning rate (and stage
+        # 3's ef_lr and w_lr) from the EF scheduler; they are one value
         lr = self._epoch_lr()
         set_learning_rate(self.ef_opt, lr)
         set_learning_rate(self.w_opt, lr)
@@ -208,11 +242,15 @@ class Experiment:
         ef_losses, w_losses = [], []
         ef_c1s, ef_c2s, w_corrs = [], [], []
         last_batch = None
+        valid_iter = self._cycled_valid()
+        do_stage3 = self.arch is not None and not t.skip_stage3
         head = (f"Epoch [{self.current_epoch + 1:02d}/{self.epochs:02d}], "
                 "Step [{:04d}/" + f"{batch_step_size:04d}], ")
         for batch_idx, batch in enumerate(self._batches("train")):
             last_batch = batch
-            loss, c1, c2, loss2, wc = self.train_step(batch)
+            val_batch = (next(valid_iter) if do_stage3
+                         and batch_idx % self.arch_update_freq == 0 else None)
+            loss, c1, c2, loss2, wc, _ = self.train_step(batch, val_batch)
             ef_losses.append(loss)
             ef_c1s.append(c1)
             ef_c2s.append(c2)

@@ -4,13 +4,12 @@ Each step is a plain function on param trees, an optimizer state and a
 batch whose tensors lie on the device: it normalizes the uint8 images
 there, runs forward and backward, applies the optimizer and returns the
 new trees. Losses and counters come back as 0-d tensors on the device;
-nothing in a step reads a value back to the host. Randomness comes from
-explicit `torch.Generator`s on the device: one for dropout, one for
-sampling the generated questions.
-
-Stage 3 (the architecture step through the tri-level architect) needs
-second derivatives through the kernels and is not ported: ROADMAP.md,
-queue 1 item 3.
+nothing in a step reads a value back to the host but stage 3's four
+dropout seeds. Randomness comes from explicit `torch.Generator`s on the
+device: one for dropout, one for sampling the generated questions.
+Stage 3, the architecture step, differentiates through two unrolled SGD
+steps (optim/architect_lct.py) and runs the plain versions of the
+kernels.
 """
 
 from __future__ import annotations
@@ -25,25 +24,22 @@ from lctvqa_torch.models import vqa_ef, vqa_w
 from lctvqa_torch.ops import conv as C
 from lctvqa_torch.ops.losses import (cross_entropy,
                                      sequence_teacher_forcing_ce, soft_xent)
+from lctvqa_torch.optim.architect_lct import make_lct_arch_grad
 from lctvqa_torch.optim.optimizers import (arch_optimizer, model_optimizer,
-                                           tree_leaves, tree_map)
+                                           tree_leaves, with_grad)
 from lctvqa_torch.train.metrics import mask_unk, num_correct
 
 
-def with_grad(params):
-    """The same storage as fresh leaves that require a gradient."""
-    return tree_map(lambda t: t.detach().requires_grad_(), params)
-
-
 def make_lct_steps(cfg: Config, unk_idx: int, device):
-    """Build the stage1/stage2/eval step functions and the optimizers.
-    Returns a dict of callables, as the JAX package's does."""
+    """Build the stage1/stage2/stage3/eval step functions and the
+    optimizers. Returns a dict of callables, as the JAX package's does."""
     mcfg, tcfg = cfg.model, cfg.train
     mean, std = cfg.data.mean, cfg.data.std
     device = torch.device(device)
     ef_tx = model_optimizer(tcfg)
     w_tx = model_optimizer(tcfg)
     arch_tx = arch_optimizer(tcfg)
+    lct_arch_grad = make_lct_arch_grad(mcfg, tcfg)
 
     def _img(batch):
         return normalize_images(batch["image_u8"].to(device), mean, std)
@@ -101,11 +97,20 @@ def make_lct_steps(cfg: Config, unk_idx: int, device):
                 + (out2.argmax(1) == pseudo_ans.argmax(1)).sum())
         return w_params, w_opt_state, loss.detach(), corr
 
-    def stage3(*args, **kwargs):
-        raise NotImplementedError(
-            "stage 3 (the architecture step) is not ported: it needs second "
-            "derivatives through the kernels (ROADMAP.md, queue 1 item 3); train "
-            "with skip_stage3")
+    # ---------------- STAGE 3: architecture step
+    def stage3(arch, arch_opt_state, ef_params, w_params, train_batch,
+               val_batch, ef_lr, w_lr, gen):
+        """The arch gradient through the tri-level unroll, then one step
+        of `arch_tx`. -> (arch, arch_opt_state, unrolled validation loss).
+        The BatchNorm running statistics are not touched."""
+        tb, vb = ({"image": _img(b), "question": b["question"],
+                   "answer_label": b["answer_label"]}
+                  for b in (train_batch, val_batch))
+        g_a, val_loss = lct_arch_grad(arch, ef_params, w_params, tb, vb,
+                                      ef_lr, w_lr, gen)
+        arch, arch_opt_state = arch_tx.update(arch, tree_leaves(g_a),
+                                              arch_opt_state)
+        return arch, arch_opt_state, val_loss
 
     # ---------------- validation
     @torch.no_grad()

@@ -70,8 +70,22 @@ def test_darts_stage1_matches_jax_over_three_steps(jax_ref):
         np.testing.assert_allclose(float(got), float(want), rtol=tol,
                                    atol=tol)
         assert (int(c1), int(c2)) == (int(wc1), int(wc2))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        ts["stage3"]()
+    # stage 3 runs (W's VGG19 needs 32 pixels): a finite W'-val loss, a
+    # changed arch and a stepped arch optimizer (tests/test_torch_
+    # architect*.py hold it against the JAX package)
+    _, t32 = _cfgs(img_size=32)
+    ts = t_steps.make_lct_steps(t32, 1, "cpu")
+    gen = torch.Generator().manual_seed(1)
+    ef_params, arch = vqa_ef.init_ef_model(gen, t32.model)
+    w_params = vqa_w.init_w_model(gen, t32.model)
+    arch_opt = ts["arch_tx"].init(arch)
+    new, arch_opt, loss = ts["stage3"](
+        arch, arch_opt, ef_params, w_params, _t(_batch(t32.model, seed=1)),
+        _t(_batch(t32.model, seed=2)), 1e-3, 1e-3, gen)
+    assert loss.dim() == 0 and np.isfinite(float(loss))
+    assert arch_opt["step"] == 1
+    assert all(torch.isfinite(a).all() and not torch.equal(a, b)
+               for a, b in zip(tree_leaves(new), tree_leaves(arch)))
 
 
 def test_stage2_with_given_pseudo_questions_matches_jax_loss():
@@ -360,6 +374,39 @@ def test_checkpoint_round_trip_port_and_jax(tmp_path, jax_ref):
     assert np.isfinite(float(out[2]))
 
 
+def test_checkpoint_with_a_stepped_arch_opt_converts_both_ways(tmp_path):
+    """An arch optimizer state that stage 3 has stepped (twice, by the JAX
+    package's arch_tx on given gradients) converts from the JAX package's
+    checkpoint to the port's and back exactly: step count and moments."""
+    j_cfg, t_cfg = _cfgs()
+    params, arch = j_ef.init_ef_model(jax.random.PRNGKey(21), j_cfg.model)
+    arch_tx = j_optim.arch_optimizer(j_cfg.train)
+    state = arch_tx.init(arch)
+    rng = np.random.default_rng(22)
+    for _ in range(2):
+        g = jax.tree_util.tree_map(lambda a: jnp.asarray(
+            rng.standard_normal(a.shape).astype(np.float32)), arch)
+        _, state = arch_tx.update(g, state, arch)
+    j_path = str(tmp_path / "jax.ckpt")
+    j_ckpt.save_state(j_path, {"arch": arch, "arch_opt": state, "epoch": 1},
+                      config=j_cfg)
+    port = convert.checkpoint_from_jax(
+        checkpoint.load_state(j_path),
+        arch_lr=t_cfg.train.arch_learning_rate)
+    assert port["arch_opt"]["step"] == 2
+    assert port["arch_opt"]["lr"] == pytest.approx(6e-4)
+    t_path = str(tmp_path / "torch.ckpt")
+    checkpoint.save_state(t_path, port)
+    back = convert.checkpoint_to_jax(j_ckpt.load_state(t_path),
+                                     {"arch_opt": arch_tx.init(arch)})
+    assert (jax.tree_util.tree_structure(back["arch_opt"])
+            == jax.tree_util.tree_structure(state))
+    for a, b in zip(jax.tree_util.tree_leaves(back["arch_opt"]),
+                    jax.tree_util.tree_leaves(state)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    assert int(np.asarray(back["arch_opt"][1].count)) == 2
+
+
 def test_checkpoint_refuses_a_pickle(tmp_path):
     path = tmp_path / "legacy.ckpt"
     path.write_bytes(b"\\x80\\x04not a zip")
@@ -429,15 +476,42 @@ def test_experiment_runs_saves_and_resumes(synth, tmp_path, flags):
 
 
 def test_experiment_needs_a_card_unless_asked_for_the_cpu(synth, tmp_path):
+    """Without a card the default device raises; on the CPU, asked for, an
+    Experiment with stage 3 on builds and trains an epoch: stage 3 before
+    every batch (arch_update_freq 1), its W'-val loss logged, the arch
+    moved and its optimizer stepped once a batch."""
     _, arrays = synth
     cfg = _experiment_cfg(tmp_path)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Experiment(cfg, data=pipeline.loader_from_arrays(arrays))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        Experiment(cfg.replace(train=dataclasses.replace(
-            cfg.train, skip_stage3=False)), device="cpu",
-            data=pipeline.loader_from_arrays(arrays))
+    exp = Experiment(cfg.replace(train=dataclasses.replace(
+        cfg.train, skip_stage3=False)), device="cpu",
+        data=pipeline.loader_from_arrays(arrays))
+    assert exp.cfg.train.stage3_remat and exp.arch_update_freq == 1
+    arch = [a.clone() for a in tree_leaves(exp.arch)]
+    exp.train_epoch()
+    n_batches = len(exp.data["train"]) // cfg.train.batch_size
+    assert exp.arch_opt["step"] == exp.ef_opt["step"] == n_batches
+    assert all(torch.isfinite(b).all() and not torch.equal(a, b)
+               for a, b in zip(arch, tree_leaves(exp.arch)))
+    log = (tmp_path / "exp" / "log.txt").read_text()
+    assert log.count("| TRAIN SET | STAGE3 | W'-Val-Loss: ") == n_batches
+    assert "stage3:" in log  # the stage timer's line
+
+
+def test_fixed_ef_has_no_arch_and_skips_stage3(synth, tmp_path):
+    """The fixed VGG19 EF has no arch parameters: with stage 3 asked for,
+    an epoch runs stages 1 and 2 alone, as in the JAX package."""
+    _, arrays = synth
+    cfg = _experiment_cfg(tmp_path, arch_type="fixed")
+    exp = Experiment(cfg.replace(train=dataclasses.replace(
+        cfg.train, skip_stage3=False)), device="cpu",
+        data=pipeline.loader_from_arrays(arrays))
+    assert exp.arch is None and exp.arch_opt is None
+    exp.train_epoch()
+    assert exp.ef_opt["step"] > 0
+    assert "STAGE3" not in (tmp_path / "exp" / "log.txt").read_text()
 
 
 def test_epoch_lr_and_arch_update_freq(synth, tmp_path):
@@ -470,8 +544,46 @@ def test_cli_trains_one_epoch_on_the_cpu(synth, tmp_path):
     assert state["epoch"] == 1 and state["ef_opt"]["step"] == 3
 
 
+def test_cli_runs_the_three_stages_on_the_cpu(synth, tmp_path):
+    """`python -m lctvqa_torch.main --tiny --device cpu` without
+    `--skip_stage3`: stage 3 before the first batch (the update frequency
+    floors at 100), stages 1 and 2, validation; its log has the STAGE3
+    line and its checkpoint a stepped arch optimizer, which `--resume`
+    reads back. The resumed run takes the other architect flags."""
+    d, _ = synth
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    argv = ["--tiny", "--device", "cpu", "--input_dir", d, "--img_size", "32",
+            "--batch_size", "8", "--compute_dtype", "float32", "--exp", "s3"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "lctvqa_torch.main", *argv, "--num_epochs",
+         "1"], cwd=tmp_path, env=env, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = tmp_path / "experiment_data" / "s3"
+    log = (out / "log.txt").read_text()
+    assert log.count("| TRAIN SET | STAGE3 | W'-Val-Loss: ") == 1
+    assert "| VALID SET | Epoch [01/01], Loss:" in log
+    assert "stage3_remat is forced on" not in log
+    state = checkpoint.load_state(str(out / "ef_model.ckpt"))
+    assert state["arch_opt"]["step"] == 1 and state["ef_opt"]["step"] == 3
+
+    from lctvqa_torch import main as t_main
+    cwd = os.getcwd()
+    os.chdir(tmp_path)
+    try:
+        exp = t_main.main(argv + ["--resume", "--num_epochs", "2",
+                                  "--architect_mode", "fd",
+                                  "--no-stage3_remat"])
+    finally:
+        os.chdir(cwd)
+    assert exp.cfg.train.architect_mode == "fd"
+    assert not exp.cfg.train.stage3_remat
+    assert exp.current_epoch == 1 and exp.arch_opt["step"] == 2
+    assert log.count("STAGE3") < (out / "log.txt").read_text().count("STAGE3")
+
+
 @pytest.mark.parametrize("argv,match", [
-    ([], "queue 1 item 3"),
+    (["--package", "unified"], "queue 1 item 5"),
     (["--skip_stage3", "--package", "darts"], "queue 1 item 5"),
     (["--skip_stage3", "--arch_type", "derived"], "Derived"),
     (["--skip_stage3", "--fuse_mixed_ops"], "Not ported"),
