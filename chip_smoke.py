@@ -7,6 +7,11 @@ NVIDIA GPU.
                                       # darts EF call and over one train
                                       # step at batch 64 (PERF.md)
     python3 chip_smoke.py --stage3    # only the pool gradients and phase 9
+    python3 chip_smoke.py --derived   # only phase 10
+    python3 chip_smoke.py --grad-spread
+                                      # only how far the derived EF's fp32
+                                      # gradients move under one rounding
+                                      # of the input (B = 8 and 64)
     python3 chip_smoke.py --kernel-times [--root DIR]
                                       # only the cell, the node forward and
                                       # backward, the decode, the BatchNorm
@@ -47,7 +52,8 @@ non-zero:
      the decode's device time and host enqueue at B = 64. The cell's and nn.LSTMCell's
      device time per call at B = 64 (torch.profiler) and their host
      enqueue times are printed too.
-   - bn_fwd at the supernet's six shapes, fp32 and bf16 in and out: fp32
+   - bn_fwd at the supernet's six shapes and the derived net's
+     [64,32,32,32], fp32 and bf16 in and out: fp32
      out 1e-5 (summation order); bf16 out |kernel - plain| <= 1e-5 +
      2^-7 |plain|: a 1-ulp fp32 difference can round the normalized value
      to the neighbouring bf16, one bf16 ulp away, which is at most 2^-7
@@ -65,7 +71,7 @@ non-zero:
      the same size. The limit is 4 * 2^-7 * max|w| absolute. At
      NODE_PROFILE's two shapes the device time of each launch of one call
      (torch.profiler) and the host's enqueue time are printed.
-   - bn_bwd at the same six shapes, x and g each fp32 or bf16, against
+   - bn_bwd at the same seven shapes, x and g each fp32 or bf16, against
      batchnorm_bwd_plain, relative to the gradient's scale s = max|plain|:
      1e-5 s where dx is fp32 (summation order), one bf16 ulp, 2^-7 s,
      where it is bf16.
@@ -167,8 +173,36 @@ non-zero:
    the W'-val loss within STAGE3_LOSS_TOL (1 + |loss|) and each arch
    leaf within STAGE3_GRAD_TOL of its scale (see there).
 
+10. The derived network of PC_DARTS_cifar (ModelConfig's widths, its
+   cells the genotype's) through Experiment in bf16 at batch 64 on the
+   same synthetic data, with npy records (data.synthetic.make_npy_records)
+   for validation's BLEU4, at each flag set, the counts zeroed before each
+   run: one train step under the BatchNorm tally (launches by shape and
+   dtypes, which must add up to the launch counts; the kernels at the new
+   [64,32,32,32], cell 1's stride-2 max pool, with the flags on and at no
+   shape without), four more timed by stage, validation. Checks: finite
+   losses; no stage-3 call and no mixed-op launch; with the flags on the
+   BatchNorm, sequence, decode and cell kernels launch, with them off only
+   the cell; validation logs a BLEU4 in [0, 100]; the kernel-flag run's
+   checkpoint read back equal. Stage 1's loss and gradients with dropout
+   off in fp32 at batch DERIVED_CPU_BATCH = 64: the two flag sets and the
+   CPU against each other at phase 8's tolerances (at 8 rows, moving the
+   input by one rounding moves the gradient on one device as far as the
+   card lies from the CPU, past that limit: --grad-spread).
+   lctvqa_torch.eval's main on the kernel-flag run's experiment (the
+   card's loader in place
+   of the h5 files, which need h5py): 256 items, accuracy and BLEU4 in
+   range. A derived-EF artifact served over HTTP with its genotype at
+   both flag sets (the BatchNorm, sequence and decode kernels launch with
+   the flags on and not off, the mixed-op kernels never), through
+   ServingModel at batch 64 held as phase 5 holds the darts EF (features
+   1e-5, logits 1e-4, tokens equal or a near tie within 2e-4), against the
+   CPU as in phase 6, and answer_logits / generate ms a call at B=64 bf16
+   (informational). The phase's wall time is printed.
+
 It prints the card's name and power limit, one JSON line of the kernels
-(times, bounds and launch counts), and last {"ok": true, "device": {...}}.
+(times, bounds and launch counts; `derived_launches` are phase 10's
+kernel-flag training run's), and last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -216,9 +250,12 @@ H100 = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12}
 # (H, W, C of the cell's states, numbers of stride-1 edges a node has there)
 NODE_SHAPES = {"cell0": (64, 64, 16, (3, 5)), "cell1": (32, 32, 32, (1, 3)),
                "cell2": (16, 16, 64, (1, 3)), "cell3": (16, 16, 64, (3, 5))}
-# cell preprocess outputs, then the sep convs' inner BN on stride-2 edges
+# cell preprocess outputs, then the sep convs' inner BN on stride-2 edges,
+# then the derived net's stride-2 max pool of cell 1 (its other pool BNs
+# are at [64,64,64,16] and [64,16,16,64])
 BN_SHAPES = ((64, 64, 64, 16), (64, 64, 64, 32), (64, 32, 32, 64),
-             (64, 16, 16, 64), (64, 32, 32, 8), (64, 16, 16, 16))
+             (64, 16, 16, 64), (64, 32, 32, 8), (64, 16, 16, 16),
+             (64, 32, 32, 32))
 # name -> (source, TPU kernel it replaces, flag set that runs it, path whose
 # run gives its launch count: HTTP serving or training)
 KERNELS = {
@@ -261,6 +298,21 @@ STAGE3_LOSS_TOL = 1e-4
 STAGE3_GRAD_TOL = 5e-3
 LSTM_KERNELS = ("lstm_cell", "lstm_seq_final", "lstm_seq_all",
                 "greedy_generate")
+# phase 10: the derived network retrained, served and evaluated
+DERIVED_GENOTYPE = "PC_DARTS_cifar"
+# artifact -> the genotype its ServingModel is given (the artifact does
+# not carry it)
+ARTIFACT_GENOTYPE = {"derived": DERIVED_GENOTYPE}
+# EF encoders whose BatchNorm is batch-statistics (DARTS_* tolerances)
+BATCH_STAT_EFS = ("darts", "derived")
+# the card against the CPU, stage 1's loss and gradients at this batch:
+# phase 8's. At 8 rows the fp32 gradient is too ill-conditioned for phase
+# 8's tolerance: moving the input by one rounding (--grad-spread) moves
+# it, on one device, as far as the card lies from the CPU (3.1 of the
+# limit); at 64 rows both stay near half of it
+DERIVED_CPU_BATCH = 64
+# synthetic data of phases 8-10 (train_arrays, and phase 10's npy records)
+TRAIN_DATA = {"num_images": 256, "num_questions": 512}
 FAILURES: list = []
 
 
@@ -1452,14 +1504,20 @@ def vocab_words(mcfg):
 
 def model_configs():
     """Full width: ModelConfig's defaults, whose encoder is the PC-DARTS
-    supernet, and the same with the fixed VGG19 encoder."""
+    supernet, and the same with the fixed VGG19 encoder and with the
+    derived network of DERIVED_GENOTYPE (its cells' shape, 4 nodes and 4
+    concatenated, is the defaults')."""
     import dataclasses
 
     from lctvqa_torch.config import ModelConfig
 
+    from lctvqa_torch.models import genotypes
+
     darts = ModelConfig()
     fixed = dataclasses.replace(darts, arch_type="fixed")
-    return {"w": fixed, "ef": fixed, "darts": darts}
+    derived = dataclasses.replace(darts, arch_type="derived",
+                                  genotype=getattr(genotypes, DERIVED_GENOTYPE))
+    return {"w": fixed, "ef": fixed, "darts": darts, "derived": derived}
 
 
 def write_artifacts(out_dir: Path, names=("w", "ef", "darts")):
@@ -1558,6 +1616,7 @@ def serve_run(paths, device, flags, n_answer=24, n_generate=12,
             t0 = time.perf_counter()
             srv = serve.make_server(path, port=0, window_ms=5.0,
                                     max_batch=max_batch, device=device,
+                                    genotype=ARTIFACT_GENOTYPE.get(name),
                                     compute_dtype="float32", **flags)
             calls = srv.RequestHandlerClass.service.warmup()
             threading.Thread(target=srv.serve_forever, daemon=True).start()
@@ -1722,15 +1781,17 @@ def check_against_cpu(paths, device):
         u8 = rng.integers(0, 256, (2, s, s, 3), dtype=np.uint8)
         qst = rng.integers(0, mcfg.qst_vocab_size, (2, mcfg.max_qst_len),
                            dtype=np.int32)
-        tol = DARTS_LOGIT_TOL if name == "darts" else LOGIT_TOL
+        tol = DARTS_LOGIT_TOL if name in BATCH_STAT_EFS else LOGIT_TOL
         art = read_artifact(path)
-        ref = ServingModel(art, "cpu", compute_dtype="float32")
+        genotype = ARTIFACT_GENOTYPE.get(name)
+        ref = ServingModel(art, "cpu", compute_dtype="float32",
+                           genotype=genotype)
         want = ref.answer_logits(u8, qst)
         want_gen = ref.generate(u8) if name != "w" else None
         for fname in KERNEL_FLAGS:
             with kernel_flags(fname) as flags:
                 model = ServingModel(art, device, compute_dtype="float32",
-                                     **flags)
+                                     genotype=genotype, **flags)
                 got = model.answer_logits(u8, qst).cpu()
                 err = float((got - want).abs().max())
                 expect(got.shape == (2, mcfg.ans_vocab_size)
@@ -1744,7 +1805,7 @@ def check_against_cpu(paths, device):
                     expect(tok.shape == (2, mcfg.max_qst_len)
                            and tok.dtype == torch.int32,
                            f"{name} {fname}: generate shape/dtype")
-                    if name == "darts":
+                    if name in BATCH_STAT_EFS:
                         _features_agree(_image_features(model, u8),
                                         _image_features(ref, u8),
                                         f"{name} {fname} vs CPU")
@@ -1772,11 +1833,12 @@ def throughput(paths, device, batch=64, iters=5,
         u8 = torch.from_numpy(rng.integers(0, 256, (batch, s, s, 3),
                                            dtype=np.uint8))
         qst = torch.zeros(batch, seq, dtype=torch.int32)
-        for dtype in (("bfloat16",) if name == "darts"
+        for dtype in (("bfloat16",) if name in BATCH_STAT_EFS
                       else ("bfloat16", "float32")):
             for fname in flag_sets:
                 with kernel_flags(fname) as flags:
                     model = ServingModel(art, device, compute_dtype=dtype,
+                                         genotype=ARTIFACT_GENOTYPE.get(name),
                                          **flags)
                     fns = {"answer_logits":
                            lambda: model.answer_logits(u8, qst)}
@@ -1876,26 +1938,29 @@ def train_arrays():
 
     mcfg = model_configs()["darts"]
     return synthetic.make_arrays(
-        num_images=256, num_questions=512, img_size=mcfg.img_size,
+        **TRAIN_DATA, img_size=mcfg.img_size,
         n_answers=mcfg.ans_vocab_size, seed=SEED,
         max_qst_len=mcfg.max_qst_len, qst_vocab_size=mcfg.qst_vocab_size)
 
 
 def _delta(before, after):
-    return {k: after[k] - before[k] for k in after}
+    # a kernel's counter exists once its wrapper module is imported
+    return {k: after[k] - before.get(k, 0) for k in after}
 
 
-def _ef_loss_grads(exp, batch, device):
+def _ef_loss_grads(exp, batch, device, rows=None):
     """Stage 1's loss and its gradient per EF leaf on `device`, from the
-    Experiment's params (dropout is off in its config)."""
+    Experiment's params (dropout is off in its config), on the batch's
+    first `rows` rows (all by default)."""
     from lctvqa_torch.data.pipeline import normalize_images
     from lctvqa_torch.models import vqa_ef
     from lctvqa_torch.optim.optimizers import tree_leaves, tree_map
     from lctvqa_torch.train.steps import with_grad
 
-    move = lambda t: t.detach().to(device)  # noqa: E731
-    params = with_grad(tree_map(move, exp.ef_params))
-    arch = tree_map(move, exp.arch)
+    move = lambda t: t[:rows].detach().to(device)  # noqa: E731
+    params = with_grad(tree_map(lambda t: t.detach().to(device),
+                                exp.ef_params))
+    arch = tree_map(lambda t: t.detach().to(device), exp.arch)
     img = normalize_images(move(batch["image_u8"]))
     loss = vqa_ef.ef_loss(params, arch, exp.cfg.model, img,
                           move(batch["question"]),
@@ -1903,8 +1968,9 @@ def _ef_loss_grads(exp, batch, device):
                           gen=torch.Generator(device=device).manual_seed(0))
     leaves = tree_leaves(params)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    return float(loss), [torch.zeros(p.shape) if g is None else g.cpu()
-                         for p, g in zip(leaves, grads)]
+    return float(loss.detach()), [
+        torch.zeros(p.shape) if g is None else g.cpu()
+        for p, g in zip(leaves, grads)]
 
 
 def _grads_agree(got, want, tag):
@@ -2406,6 +2472,305 @@ def stage3_phase(arrays, device, root: str, card: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the derived network
+# ---------------------------------------------------------------------------
+
+def derived_config(dtype: str, fname: str, root: str, records: str,
+                   dropout=None):
+    """train_config with the derived EF of DERIVED_GENOTYPE; validation's
+    BLEU4 reads `records`' valid.npy."""
+    import dataclasses
+
+    cfg = train_config(dtype, fname, root, dropout)
+    return cfg.replace(
+        model=dataclasses.replace(
+            cfg.model, arch_type="derived",
+            genotype=model_configs()["derived"].genotype),
+        data=dataclasses.replace(cfg.data, input_dir=records),
+        exp_name=f"derived_{dtype}_{fname}")
+
+
+def derived_run(arrays, records, device, fname: str, root: str,
+                steps: int = 4, resume: bool = False):
+    """A stage-1 + stage-2 train step under the BatchNorm tally, `steps`
+    more timed by stage, then validation (its BLEU4 read from the log),
+    in bf16 at full width through Experiment; with `resume` a checkpoint
+    written and read back. -> (exp_name, launches of the whole run)."""
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.optim.optimizers import tree_leaves
+    from lctvqa_torch.train.experiment import Experiment
+
+    tag = f"derived bfloat16 {fname}"
+    with kernel_flags(fname):
+        run_before = _build.launch_counts()
+        cfg = derived_config("bfloat16", fname, root, records)
+        exp = Experiment(cfg, device=device,
+                         data=pipeline.loader_from_arrays(arrays))
+        expect(exp.arch is None and exp.arch_opt is None,
+               f"{tag}: a derived EF has no arch")
+        record = []
+        record_stages(exp, ("stage3", "stage1", "stage2"), record)
+        batches = iter(exp._batches("train"))
+        with bn_shape_tally() as tally:
+            out = exp.train_step(next(batches))
+            torch.cuda.synchronize()
+        first = _delta(run_before, _build.launch_counts())
+        losses = [float(out[0]), float(out[3])]
+        for _ in range(steps):
+            out = exp.train_step(next(batches))
+            losses += [float(out[0]), float(out[3])]
+        expect(all(np.isfinite(losses)), f"{tag}: a loss is not finite: "
+               f"{losses}")
+        expect(not any(name == "stage3" for name, _, _ in record),
+               f"{tag}: stage 3 ran for a net without an arch")
+        for kind in ("bn_fwd", "bn_bwd"):
+            mine = {k[1:]: v for k, v in sorted(tally.items())
+                    if k[0] == kind}
+            log(f"{tag}: one train step's {kind} launches by (shape, "
+                f"dtypes): {mine}")
+            expect(sum(mine.values()) == first[kind],
+                   f"{tag}: {kind} calls by shape {sum(mine.values())} "
+                   f"against {first[kind]} launches")
+            at = sum(v for k, v in mine.items() if k[0] == (64, 32, 32, 32))
+            expect((at > 0) == (fname == "kernels"),
+                   f"{tag}: {kind} launched {at} times at [64,32,32,32]")
+        exp.val()
+        log_text = (Path(exp.exp_dir) / "log.txt").read_text()
+        bleu = [float(line.split("BLEU4: ")[1].split()[0])
+                for line in log_text.splitlines() if "BLEU4: " in line]
+        expect(len(bleu) == 1 and 0.0 <= bleu[0] <= 100.0,
+               f"{tag}: validation's BLEU4 {bleu}")
+        if resume:
+            exp.save_model()
+            again = Experiment(cfg.replace(resume=True), device=device,
+                               data=pipeline.loader_from_arrays(arrays))
+            same = all(torch.equal(a, b) for tree, other in (
+                (again.ef_params, exp.ef_params),
+                (again.ef_opt["m"], exp.ef_opt["m"]),
+                (again.w_params, exp.w_params))
+                for a, b in zip(tree_leaves(tree), tree_leaves(other)))
+            expect(same and again.arch is None
+                   and again.cfg.model.genotype == cfg.model.genotype
+                   and again.ef_opt["step"] == exp.ef_opt["step"],
+                   f"{tag}: the checkpoint read back differs")
+            del again
+        launches = _delta(run_before, _build.launch_counts())
+    timed = {n: [ms for name, ms, _ in record[2:] if name == n]
+             for n in ("stage1", "stage2")}
+    s1, s2 = (statistics.median(timed[n]) for n in ("stage1", "stage2"))
+    per_step = {n: {k: v for k, v in c.items() if v}
+                for n, _, c in record[:2]}
+    log(f"{tag}: EF losses {losses[0::2]}, W losses {losses[1::2]}, "
+        f"validation BLEU4 {bleu}")
+    log(f"{tag}: launches per step by stage {per_step}; stage 1 "
+        f"{s1:.1f} ms/step, stage 2 {s2:.1f} ms/step, "
+        f"{64e3 / (s1 + s2):.1f} pairs/s (medians of {steps} steps, host "
+        f"clock between synchronizes)")
+    name = exp.exp_dir
+    del exp
+    torch.cuda.empty_cache()
+    return os.path.basename(name), launches
+
+
+def _limit_ratios(got, want):
+    """Each leaf's error as a share of phase 8's limit, largest first:
+    [(share, leaf, shape, error, scale)]."""
+    top = max(float(w.abs().max()) for w in want)
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        err, scale = _grad_err(a, b)
+        limit = TRAIN_GRAD_TOL * scale + TRAIN_GRAD_FLOOR * top
+        out.append((err / limit, i, tuple(a.shape), err, scale))
+    return sorted(out, reverse=True)
+
+
+def derived_gradient_spread(device, batches=(8, 64)):
+    """How far stage 1's fp32 gradients of the derived EF (dropout off,
+    default flags) move when the input moves by one rounding (the image
+    normalization's mean one fp32 ulp up), on the card and on the CPU,
+    beside the card against the CPU, at each batch: each as the largest
+    share of phase 8's limit over the leaves (--grad-spread)."""
+    from lctvqa_torch.data import pipeline, synthetic
+    from lctvqa_torch.train.experiment import Experiment
+
+    fn = pipeline.normalize_images
+    with tempfile.TemporaryDirectory(dir=Path.cwd()) as root:
+        records = str(Path(root) / "records")
+        synthetic.make_npy_records(records, **TRAIN_DATA, n_answers=1000,
+                                   seed=SEED)
+        cfg = derived_config("float32", "default", root, records,
+                             dropout=0.0)
+        exp = Experiment(cfg, device=device,
+                         data=pipeline.loader_from_arrays(train_arrays()))
+        batch = next(iter(exp._batches("train")))
+        res = {}
+        for b in batches:
+            for name, d in (("card", device), ("cpu", torch.device("cpu"))):
+                res[(name, b)] = _ef_loss_grads(exp, batch, d, rows=b)
+                was = fn.__defaults__
+                fn.__defaults__ = (tuple(float(torch.nextafter(
+                    torch.tensor(m), torch.tensor(1.0))) for m in was[0]),
+                    *was[1:])
+                try:
+                    res[(name + " one ulp", b)] = _ef_loss_grads(
+                        exp, batch, d, rows=b)
+                finally:
+                    fn.__defaults__ = was
+        del exp
+    for b in batches:
+        for x, y in (("card", "cpu"), ("cpu one ulp", "cpu"),
+                     ("card one ulp", "card")):
+            (lx, gx), (ly, gy) = res[(x, b)], res[(y, b)]
+            r = _limit_ratios(gx, gy)
+            log(f"gradient spread B={b} {x} vs {y}: loss {lx:.7f} vs "
+                f"{ly:.7f}; worst {r[0][0]:.3f} of phase 8's limit, "
+                f"{sum(q[0] > 1 for q in r)} of {len(r)} leaves over it; "
+                + "; ".join(f"leaf {i} {sh} err {e:.2e} scale {sc:.2e}"
+                            for _, i, sh, e, sc in r[:3]))
+
+
+def check_derived_gradients(arrays, records, device, root: str):
+    """Stage 1's loss and gradients of the derived EF, dropout off, fp32,
+    batch DERIVED_CPU_BATCH: the two flag sets on the card against each
+    other and against the CPU, at phase 8's tolerances."""
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.train.experiment import Experiment
+
+    out = {}
+    for fname in KERNEL_FLAGS:
+        with kernel_flags(fname):
+            cfg = derived_config("float32", fname, root, records,
+                                 dropout=0.0).replace(
+                exp_name=f"derived_grads_{fname}")
+            exp = Experiment(cfg, device=device,
+                             data=pipeline.loader_from_arrays(arrays))
+            batch = next(iter(exp._batches("train")))
+            out[fname] = _ef_loss_grads(exp, batch, device,
+                                        rows=DERIVED_CPU_BATCH)
+            if fname == "default":
+                out["cpu"] = _ef_loss_grads(exp, batch, torch.device("cpu"),
+                                            rows=DERIVED_CPU_BATCH)
+            del exp
+    torch.cuda.empty_cache()
+    for a, b in (("kernels", "default"), ("default", "cpu"),
+                 ("kernels", "cpu")):
+        err = abs(out[a][0] - out[b][0])
+        expect(err <= TRAIN_LOSS_TOL + TRAIN_LOSS_TOL * abs(out[b][0]),
+               f"derived gradients: stage-1 loss {a} {out[a][0]} vs {b} "
+               f"{out[b][0]}")
+        _grads_agree(out[a][1], out[b][1],
+                     f"derived gradients B={DERIVED_CPU_BATCH} {a} vs {b}")
+
+
+def check_derived_serving(path, device, card: str):
+    """The derived-EF artifact over HTTP at both flag sets (launch counts
+    zeroed before each), through ServingModel at a batch of 64 (answer
+    logits, image features and greedy tokens of the two flag sets held as
+    phase 5 holds the darts EF's), against the CPU (phase 6), and
+    answer_logits / generate timed at B=64 bf16."""
+    from lctvqa_torch.export import ServingModel, read_artifact
+    from lctvqa_torch.ops import _build
+
+    for fname in KERNEL_FLAGS:
+        _build.reset_launch_counts()
+        with kernel_flags(fname) as flags:
+            serve_run({"derived": path}, device, flags, n_answer=8,
+                      n_generate=8)
+        calls = _build.launch_counts()
+        log(f"derived serving {fname}: launches "
+            f"{ {k: v for k, v in calls.items() if v} }")
+        on = fname == "kernels"
+        expect(calls["mixed_node_fwd"] == calls["mixed_node_bwd"] == 0
+               and (calls["bn_fwd"] > 0) == on
+               and (calls["greedy_generate"] > 0) == on
+               and (calls["lstm_seq_all"] > 0) == on,
+               f"derived serving {fname}: launches {calls}")
+    art = read_artifact(path)
+    mcfg = model_configs()["derived"]
+    rng = np.random.default_rng(SEED + 6)
+    s = mcfg.img_size
+    u8 = rng.integers(0, 256, (64, s, s, 3), dtype=np.uint8)
+    qst = rng.integers(0, mcfg.qst_vocab_size, (64, mcfg.max_qst_len),
+                       dtype=np.int32)
+    out, models = {}, {}
+    for fname in KERNEL_FLAGS:
+        with kernel_flags(fname) as flags:
+            model = models[fname] = ServingModel(
+                art, device, compute_dtype="float32",
+                genotype=DERIVED_GENOTYPE, **flags)
+            out[fname] = (model.answer_logits(u8, qst), model.generate(u8)[0],
+                          _image_features(model, u8))
+    _features_agree(out["kernels"][2], out["default"][2],
+                    "derived B=64, kernels vs default")
+    a, b = out["default"][0], out["kernels"][0]
+    err = float((a - b).abs().max())
+    expect(bool(torch.isfinite(b).all()) and _within([b], [a],
+                                                     DARTS_LOGIT_TOL),
+           f"derived B=64: answer logits of the two flag sets differ by "
+           f"{err}")
+    log(f"derived B=64: answer logits default vs kernels max |diff| "
+        f"{err:.3e}")
+    _tokens_agree(models["default"], u8, out["kernels"][1],
+                  out["default"][1], "derived B=64")
+    del models, out
+    check_against_cpu({"derived": path}, device)
+    for name, fn_name, dtype, fname, rate, ms in throughput(
+            {"derived": path}, device):
+        log(f"derived {fn_name} B=64 {dtype} {fname}: {ms:.2f} ms a call "
+            f"({rate:.1f} pairs/s) on {card}")
+
+
+def derived_phase(arrays, device, root: str, card: str) -> dict:
+    """Phase 10: npy records for validation's and eval's BLEU4, derived_run
+    at both flag sets (the counts zeroed before each), the gradients
+    against the CPU, eval on the trained experiment, the artifact served.
+    -> the kernel-flag run's launches."""
+    from lctvqa_torch import eval as t_eval
+    from lctvqa_torch.data import pipeline, synthetic
+    from lctvqa_torch.ops import _build
+
+    t0 = time.perf_counter()
+    mcfg = model_configs()["derived"]
+    records = str(Path(root) / "derived_records")
+    synthetic.make_npy_records(records, **TRAIN_DATA,
+                               n_answers=mcfg.ans_vocab_size, seed=SEED)
+    launches = {}
+    for fname in KERNEL_FLAGS:
+        _build.reset_launch_counts()
+        exp_name, launches[fname] = derived_run(
+            arrays, records, device, fname, root,
+            resume=fname == "kernels")
+        log(f"launches in the bfloat16 {fname} derived run: "
+            f"{ {k: v for k, v in launches[fname].items() if v} }")
+    kern = launches["kernels"]
+    expect(kern["mixed_node_fwd"] == kern["mixed_node_bwd"] == 0
+           and all(kern[k] > 0 for k in ("bn_fwd", "bn_bwd", "lstm_seq_all",
+                                         "lstm_seq_final", "greedy_generate",
+                                         "lstm_cell")),
+           f"derived kernels run: launches {kern}")
+    expect(all(v == 0 for k, v in launches["default"].items()
+               if k != "lstm_cell") and launches["default"]["lstm_cell"] > 0,
+           f"derived default run: launches {launches['default']}")
+    check_derived_gradients(arrays, records, device, root)
+    # eval on the kernel-flag run's checkpoint (its flags are the
+    # checkpoint's config), the card's loader in place of the h5 files
+    with kernel_flags("kernels"):
+        t1 = time.perf_counter()
+        res = t_eval.main(["--exp", exp_name, "--root_stats_dir", root,
+                           "--input_dir", records, "--batch_size", "64",
+                           "--num_batches", "4", "--device", device.type],
+                          data=pipeline.loader_from_arrays(arrays))
+    expect(res["n"] == 256 and 0.0 <= res["acc"] <= 1.0
+           and 0.0 <= res["bleu4"] <= 100.0, f"derived eval: {res}")
+    log(f"derived eval: {res} in {time.perf_counter() - t1:.1f} s")
+    paths = write_artifacts(Path(root), names=("derived",))
+    check_derived_serving(paths["derived"], device, card)
+    log(f"derived phase took {time.perf_counter() - t0:.1f} s")
+    return kern
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
                 cell_dev, node_dev, gen_plan, gen_dev, node_bwd_dev):
@@ -2557,6 +2922,13 @@ def main(argv=None) -> int:
     mode.add_argument("--stage3", action="store_true",
                       help="only build, then the avg pool's gradients and "
                       "phase 9 (stage 3)")
+    mode.add_argument("--derived", action="store_true",
+                      help="only build, then phase 10 (the derived network "
+                      "retrained, evaluated and served)")
+    mode.add_argument("--grad-spread", action="store_true",
+                      help="only build, then how far the derived EF's fp32 "
+                      "gradients move under one rounding of the input, "
+                      "beside the card against the CPU")
     mode.add_argument("--kernel-times", action="store_true",
                       help="only build, then time the cell, the node "
                       "forward and backward, the decode, the BatchNorm "
@@ -2609,6 +2981,15 @@ def main(argv=None) -> int:
             stage3_phase(train_arrays(), device, tmp, card)
         log(card)
         return 1 if FAILURES else 0
+    if args.derived:
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+            derived_phase(train_arrays(), device, tmp, card)
+        log(card)
+        return 1 if FAILURES else 0
+    if args.grad_spread:
+        derived_gradient_spread(device)
+        log(card)
+        return 0
     if args.profile:
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
             paths = write_artifacts(Path(tmp), names=("darts",))
@@ -2718,9 +3099,15 @@ def main(argv=None) -> int:
         # 9. the third path: stage 3, each run with the counts at 0
         stage3_phase(arrays, device, tmp, card)
 
+        # 10. the fourth path: the derived network, each run with the
+        # counts at 0
+        derived_launches = derived_phase(arrays, device, tmp, card)
+
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
                        launches, seq_plan, cell_dev, node_dev, gen_plan,
                        gen_dev, node_bwd_dev)
+    for row in rows:  # the bf16 derived training run with the kernel flags
+        row["derived_launches"] = derived_launches[row["name"]]
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed:")
         for f in FAILURES:

@@ -5,10 +5,13 @@ names. This package imports `torch`, never `jax`, and nothing of
 `lctvqa`: it keeps its own copy of what it needs from there (config,
 text, genotypes, the artifact reader and writer).
 
-Ported so far: the serving path over an exported artifact (W model, EF
-model with the fixed VGG19 encoder or the PC-DARTS supernet) and six
-kernels in CUDA (`csrc/`): the four LSTM-family kernels, the node-batched
-mixed op and the batch-stat BatchNorm, forward.
+Ported so far: serving an exported artifact (W model, EF model with the
+fixed VGG19 encoder, the PC-DARTS supernet or a derived network), the
+LCT search (`main.py`, stages 3, 1 and 2), the genotype decode, the
+derived retrain and the checkpoint eval with BLEU4 (`genotype.py`,
+`eval.py`), and eight kernels in CUDA (`csrc/`): the four LSTM-family
+kernels, the node-batched mixed op and the batch-stat BatchNorm, forward
+and backward.
 """
 
 __version__ = "0.1.0"

@@ -29,8 +29,10 @@ class ModelConfig:
     img_size: int = 64
     dropout_rate: float = 0.5
     # 'fixed' -> VGG19 image encoder; 'darts' -> PC-DARTS search network;
-    # 'derived' -> fixed network built from `genotype` (not ported yet).
+    # 'derived' -> fixed network built from `genotype` (models/derived.py).
     arch_type: str = "darts"
+    # the Genotype (models/genotypes.py) of arch_type='derived': a preset
+    # or a search result (genotype.py::resolve_genotype)
     genotype: object = None
     pretrained_enc: bool = True
     # test-only shrink knobs for the VGG19 trunk (production: 1.0 / 4096)

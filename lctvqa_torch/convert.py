@@ -4,9 +4,10 @@ The port keeps the JAX package's tree structure (dicts, lists, tuples)
 and its layouts with one exception:
 
 - conv weights, the only 4-D leaves: HWIO (JAX) <-> OIHW (torch). The one
-  rule covers every conv of the search tree: a depthwise [k, k, 1, C]
-  becomes [C, 1, k, k], a 1x7 [1, 7, ci, co] becomes [co, ci, 1, 7], a
-  7x1 likewise;
+  rule covers every conv of the search tree and of a derived network's
+  (whose BatchNorm scales and biases are 1-D and stay): a depthwise [k,
+  k, 1, C] becomes [C, 1, k, k], a 1x7 [1, 7, ci, co] (AmoebaNet's
+  conv_7x1_1x7) becomes [co, ci, 1, 7], a 7x1 likewise;
 - arch parameters (alphas [edges, 8], betas [edges]) stay as they are;
 - linear weights stay [in, out] in both, so the port computes x @ w;
 - LSTM w_ih [in, 4H] and w_hh [H, 4H] stay as they are, with b_ih and

@@ -6,16 +6,30 @@ split `enc_qst`, `qst_len`, `enc_ans`, `img_id`, `images`, `coco_ids`,
 and the two vocabularies as word lists. `make_dataset` writes them in the
 on-disk formats of the offline build scripts (`vocab_questions.txt`,
 `vocab_answers.txt`, `qst-ans.h5`, `images.h5`), which either package's
-loader opens. Unlike the JAX package's generator it does not go through
-raw VQA jsons and writes no npy records: the npy loader is not ported.
+loader opens, and beside them `make_npy_records`'s files. Unlike the JAX
+package's generator it does not build the h5 files from the raw jsons.
+
+`make_npy_records` writes the JAX package's raw VQA v2 jsons
+(`Questions/`, `Annotations/`) and the `train.npy` / `valid.npy` records
+built from them, the same records as the JAX package's for the same
+seed and sizes; the reference questions of the BLEU4 in validation and
+eval (`train/metrics.py::VqaStruct`) come from `valid.npy`. Their image
+names are those of the h5 splits' image ids, so the two halves describe
+the same images. It needs neither h5py nor an answer vocabulary file.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Dict, Optional
+import random
+import re
+from collections import defaultdict
+from typing import Dict, List, Optional
 
 import numpy as np
+
+from lctvqa_torch.text import tokenize
 
 _WORDS = ("what", "is", "the", "color", "of", "cat", "dog", "car", "man",
           "woman", "holding", "many", "how", "where", "red", "blue", "green",
@@ -23,6 +37,8 @@ _WORDS = ("what", "is", "the", "color", "of", "cat", "dog", "car", "man",
 _ANSWERS = ("yes", "no", "red", "blue", "green", "two", "three", "cat",
             "dog", "white", "black", "1", "2", "frisbee", "tennis")
 META = ("<pad>", "<unk>", "<start>", "<end>")
+RAW_SPLITS = ("train2014", "val2014")
+_NON_WORD = re.compile(r"[^\w\s]")
 SPLITS = ("train", "val")
 
 
@@ -84,7 +100,7 @@ def make_dataset(out_dir: str, num_images: int = 8, num_questions: int = 24,
 
     arrays = make_arrays(num_images, num_questions, img_size, n_answers, seed,
                          **kwargs)
-    os.makedirs(out_dir, exist_ok=True)
+    make_npy_records(out_dir, num_images, num_questions, n_answers, seed)
     for name, key in (("vocab_questions.txt", "qst_words"),
                       ("vocab_answers.txt", "ans_words")):
         with open(os.path.join(out_dir, name), "w") as f:
@@ -101,4 +117,101 @@ def make_dataset(out_dir: str, num_images: int = 8, num_questions: int = 24,
             g = im.create_group(split)
             g.create_dataset("images", data=data["images"])
             g.create_dataset("coco_ids", data=data["coco_ids"])
+    return {"dir": out_dir}
+
+
+# ---------------------------------------------------------------------------
+# raw VQA jsons and npy records
+# ---------------------------------------------------------------------------
+
+def raw_vqa_json(num_images: int = 8, num_questions: int = 24,
+                 seed: int = 0) -> Dict[str, tuple]:
+    """split -> (questions, annotations) in the VQA v2 schema: per
+    question 3-6 random words, ten answers, seven in ten of them its main
+    answer."""
+    rng = random.Random(seed)
+    out = {}
+    for si, split in enumerate(RAW_SPLITS):
+        questions, annotations = [], []
+        img_base = 1000 * (si + 1)
+        for qi in range(num_questions):
+            image_id = img_base + qi % num_images
+            question_id = img_base * 100 + qi
+            qwords = rng.sample(_WORDS, rng.randint(3, 6))
+            questions.append({
+                "question": " ".join(qwords).capitalize() + "?",
+                "image_id": image_id,
+                "question_id": question_id,
+            })
+            main_answer = rng.choice(_ANSWERS)
+            answers = []
+            for ai in range(10):
+                a = main_answer if rng.random() < 0.7 else rng.choice(
+                    _ANSWERS)
+                answers.append({"answer": a, "answer_confidence": "yes",
+                                "answer_id": ai + 1})
+            annotations.append({
+                "question_id": question_id,
+                "image_id": image_id,
+                "question_type": "what",
+                "answer_type": "other",
+                "answers": answers,
+                "multiple_choice_answer": main_answer,
+            })
+        out[split] = (questions, annotations)
+    return out
+
+
+def _top_answers(raw, n_answers: int) -> List[str]:
+    """The answer vocabulary of the offline build: `<unk>` and the n - 1 most
+    frequent punctuation-free answers over both splits."""
+    counts: Dict[str, int] = defaultdict(int)
+    for split in RAW_SPLITS:
+        for ann in raw[split][1]:
+            for answer in ann["answers"]:
+                if not _NON_WORD.search(answer["answer"]):
+                    counts[answer["answer"]] += 1
+    ranked = sorted(counts, key=counts.get, reverse=True)
+    return ["<unk>"] + ranked[:n_answers - 1]
+
+
+def make_npy_records(out_dir: str, num_images: int = 8,
+                     num_questions: int = 24, n_answers: int = 16,
+                     seed: int = 0) -> Dict[str, str]:
+    """Write the raw jsons and `train.npy` / `valid.npy` (object arrays of
+    one dict per question: image name and path, question id, string and
+    tokens, all answers, the answers in the vocabulary or ["<unk>"])."""
+    raw = raw_vqa_json(num_images, num_questions, seed)
+    valid_set = set(_top_answers(raw, n_answers))
+    for sub in ("Questions", "Annotations"):
+        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+    for split, out_name in zip(RAW_SPLITS, ("train.npy", "valid.npy")):
+        questions, annotations = raw[split]
+        meta = {"data_type": "mscoco", "data_subtype": split}
+        with open(os.path.join(
+                out_dir, "Questions",
+                f"v2_OpenEnded_mscoco_{split}_questions.json"), "w") as f:
+            json.dump({**meta, "questions": questions}, f)
+        with open(os.path.join(
+                out_dir, "Annotations",
+                f"v2_mscoco_{split}_annotations.json"), "w") as f:
+            json.dump({**meta, "annotations": annotations}, f)
+        anns = {a["question_id"]: a for a in annotations}
+        records = []
+        for q in questions:
+            name = f"COCO_{split}_{q['image_id']:012d}"
+            all_answers = [a["answer"]
+                           for a in anns[q["question_id"]]["answers"]]
+            valid = [a for a in all_answers if a in valid_set]
+            records.append(dict(
+                image_name=name,
+                image_path=os.path.join(out_dir, split, name + ".jpg"),
+                question_id=q["question_id"],
+                question_str=q["question"],
+                question_tokens=tokenize(q["question"]),
+                all_answers=all_answers,
+                valid_answers=valid if valid else ["<unk>"],
+            ))
+        np.save(os.path.join(out_dir, out_name),
+                np.array(records, dtype=object))
     return {"dir": out_dir}

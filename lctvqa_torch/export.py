@@ -15,9 +15,13 @@ the kernel flags come from `ModelConfig`'s defaults (bf16 operands, the
 LSTM cell kernel on) unless the caller overrides them.
 
 Served: W artifacts (`answer_logits`) and EF artifacts with the fixed
-VGG19 encoder or the PC-DARTS supernet (`answer_logits`, `generate`;
-the supernet's arch parameters ride in the bundle). int8 artifacts, EF
-artifacts with a derived encoder and unified artifacts raise. Writing
+VGG19 encoder, the PC-DARTS supernet or a derived network (`answer_logits`,
+`generate`). The supernet's arch parameters ride in the bundle. A derived
+network's genotype does not: the JAX package writes it only into its
+StableHLO programs, so the caller names it (`load_artifact(path,
+genotype=...)`, serve's `--genotype`: a preset, a search checkpoint or a
+repr file), and a genotype whose network does not have the artifact's
+param shapes raises. int8 artifacts and unified artifacts raise. Writing
 `torch.export` programs is not ported yet.
 """
 
@@ -36,7 +40,8 @@ import torch
 from lctvqa_torch import convert
 from lctvqa_torch.config import ModelConfig
 from lctvqa_torch.data.pipeline import normalize_images
-from lctvqa_torch.models import search, vqa_ef, vqa_w
+from lctvqa_torch.models import derived, search, vqa_ef, vqa_w
+from lctvqa_torch.models.genotypes import Genotype
 from lctvqa_torch.ops import cuda_generate
 from lctvqa_torch.ops import nn as N
 from lctvqa_torch.ops.cuda_lstm import cell_weights
@@ -173,14 +178,59 @@ def _darts_dims(params) -> Dict[str, int]:
             search.OUTPUT_SIZE * search.OUTPUT_SIZE * c_last))
 
 
-def model_config(meta: Dict[str, Any], params, **overrides) -> ModelConfig:
-    """ModelConfig of an artifact: dims from the param shapes and meta,
-    everything else from ModelConfig's defaults and `overrides`."""
+def _shapes(tree, path=""):
+    """(path, shape) of every leaf of a param tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _shapes(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _shapes(v, f"{path}/{i}")
+    else:
+        yield path, tuple(tree.shape)
+
+
+def _derived_dims(params, genotype: Genotype) -> Dict[str, Any]:
+    """A derived network's dims from its param shapes (JAX layout) and its
+    genotype, which must build a network of exactly those shapes."""
+    tree = params["derived"]
+    cells = tree["cells"]
+    n_cells = len(cells)
+    c_first = cells[0]["pre1"]["conv"]["w"].shape[3]
+    first_reduces = 0 in (n_cells // 3, 2 * n_cells // 3)
+    init_ch = c_first // 2 if first_reduces else c_first
+    dims = dict(arch_type="derived", genotype=genotype, darts_layers=n_cells,
+                darts_init_ch=init_ch,
+                darts_stem_multiplier=tree["stem_conv"]["w"].shape[3]
+                // init_ch,
+                darts_steps=len(genotype.normal) // 2,
+                darts_multiplier=len(genotype.normal_concat))
+    got = dict(_shapes(tree))
+    want = dict(_shapes(convert.to_jax(derived.derived_network_init(
+        torch.Generator(), dataclasses.replace(ModelConfig(), **dims),
+        genotype))))
+    if got != want:
+        where = next((f"{p}: {got.get(p)} in the artifact, {want.get(p)} "
+                      "from the genotype" for p in sorted({*got, *want})
+                      if got.get(p) != want.get(p)))
+        raise ValueError(f"the genotype {genotype} builds another network "
+                         f"than the artifact's derived params ({where})")
+    return dims
+
+
+def model_config(meta: Dict[str, Any], params, genotype=None,
+                 **overrides) -> ModelConfig:
+    """ModelConfig of an artifact: dims from the param shapes and meta
+    (and a derived network's `genotype`), everything else from
+    ModelConfig's defaults and `overrides`."""
     qst = params["qst"]
     layers = qst["lstm"]["layers"]
     vocab, word_embed = qst["word2vec"]["table"].shape
     if "darts" in params:
         encoder = dict(arch_type="darts", **_darts_dims(params))
+    elif "derived" in params:
+        vqa_ef.check_arch_type("derived", genotype)
+        encoder = _derived_dims(params, genotype)
     else:
         encoder = dict(arch_type="fixed",
                        vgg_fc_dim=params["vgg"]["fc7"]["w"].shape[1])
@@ -229,14 +279,17 @@ class ServingModel:
     Config overrides (`compute_dtype`, `use_pallas_lstm`,
     `pallas_seq_lstm`, `pallas_generate`, `pallas_mixed_op`) pick the
     numerics and the kernels. The weights are cast for the compute dtype
-    and packed for the kernels once, here.
+    and packed for the kernels once, here. `genotype` (a Genotype, or a
+    preset name, search checkpoint or repr file that resolve_genotype
+    reads) is a derived network's, which the artifact does not carry.
 
     A supernet's BatchNorm is batch-statistics (no artifact carries
     running statistics), so a row's answer depends on the other rows of
     the batch it is computed in."""
 
     def __init__(self, artifact: Dict[str, Any],
-                 device: Union[str, torch.device] = "cuda", **overrides):
+                 device: Union[str, torch.device] = "cuda",
+                 genotype: Union[None, str, Genotype] = None, **overrides):
         meta = artifact["meta"]
         family = meta.get("family")
         if meta.get("int8"):
@@ -255,7 +308,9 @@ class ServingModel:
                 raise ValueError(
                     f"artifact meta says arch_type={meta['arch_type']!r} "
                     f"but its params hold a {arch_type!r} encoder")
-            vqa_ef.check_arch_type(arch_type)
+        if isinstance(genotype, str):
+            from lctvqa_torch.genotype import resolve_genotype
+            genotype = resolve_genotype(genotype)
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but no CUDA device is "
@@ -263,7 +318,7 @@ class ServingModel:
                                "serve on the CPU")
         self.meta = meta
         self.family = family
-        self.config = model_config(meta, params, **overrides)
+        self.config = model_config(meta, params, genotype, **overrides)
         dtype = N.torch_dtype(self.config.compute_dtype)
         self.params = _prepare(
             convert.from_jax(params, self.device), dtype,
@@ -310,6 +365,8 @@ class ServingModel:
 
 
 def load_artifact(path: str, device: Union[str, torch.device] = "cuda",
-                  trusted: bool = False, **overrides) -> ServingModel:
+                  trusted: bool = False,
+                  genotype: Union[None, str, Genotype] = None,
+                  **overrides) -> ServingModel:
     return ServingModel(read_artifact(path, trusted=trusted), device,
-                        **overrides)
+                        genotype, **overrides)

@@ -5,9 +5,12 @@
 Runs the LCT search on the CUDA device: stage 3 (the architecture
 update, `--architect_mode`, unless `--skip_stage3`), stage 1 and stage 2
 on the EF and W models, then validation; `--device cpu` runs the same
-loop on the CPU, for a check. The flags are the JAX CLI's where they
-mean something here. Flags of paths that are not ported yet raise and
-name the ROADMAP.md queue that brings them.
+loop on the CPU, for a check. `--arch_type derived --genotype G`
+retrains the network of a searched (or preset) genotype instead: stages
+1 and 2 and validation, as a derived net has no arch to update. The
+flags are the JAX CLI's where they mean something here. Flags of paths
+that are not ported yet raise and name the ROADMAP.md queue that brings
+them.
 """
 
 from __future__ import annotations
@@ -82,6 +85,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="path to a torchvision vgg19 state_dict")
     p.add_argument("--tiny", action="store_true",
                    help="shrink the model for a check")
+    p.add_argument("--genotype", type=str, default="",
+                   help="genotype for --arch_type derived: a preset name "
+                        "(e.g. PC_DARTS_cifar, DARTS_V2), a search "
+                        "checkpoint path (arch decoded on the spot), or a "
+                        "text file with a Genotype(...) repr")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'; nothing falls back")
     # accepted so that they can be refused by name
@@ -98,10 +106,6 @@ def check_ported(args) -> None:
         raise NotImplementedError(
             f"--package {args.package} (train/experiment_darts.py) is not "
             "ported: ROADMAP.md, queue 1 item 5")
-    if args.arch_type == "derived":
-        raise NotImplementedError(
-            "--arch_type derived (models/derived.py) is not ported: "
-            "ROADMAP.md, queue 1 item 4 ('Derived')")
     for flag, where in NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(
@@ -109,10 +113,15 @@ def check_ported(args) -> None:
 
 
 def config_from_args(args) -> Config:
+    genotype = None
+    if args.genotype:
+        from lctvqa_torch.genotype import resolve_genotype
+        genotype = resolve_genotype(args.genotype)
     model = ModelConfig(arch_type=args.arch_type,
                         pretrained_enc=not args.no_pretrain_enc,
                         img_size=args.img_size,
                         compute_dtype=args.compute_dtype,
+                        genotype=genotype,
                         bn_eval_stats=args.bn_eval_stats,
                         fold_bn_mixture=not args.no_fold_bn,
                         pallas_mixed_op=args.pallas_mixed_op,
@@ -124,6 +133,11 @@ def config_from_args(args) -> Config:
             lstm_hidden_size=16, max_qst_len=8, darts_init_ch=4,
             darts_layers=1, darts_steps=2, darts_multiplier=2,
             vgg_width_mult=1 / 16, vgg_fc_dim=32)
+    if genotype is not None:
+        # the cell's shape is the genotype's
+        model = dataclasses.replace(
+            model, darts_steps=len(genotype.normal) // 2,
+            darts_multiplier=len(genotype.normal_concat))
     train = TrainConfig(
         w_lambda=args.w_lambda, num_epochs=args.num_epochs,
         batch_size=args.batch_size, train_portion=args.train_portion,
@@ -143,6 +157,8 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     check_ported(args)
     cfg = config_from_args(args)
+    from lctvqa_torch.models.vqa_ef import check_arch_type
+    check_arch_type(cfg.model.arch_type, cfg.model.genotype)
 
     # vocab sizes come from the dataset on disk
     from lctvqa_torch.text import VocabDict

@@ -1,10 +1,9 @@
 """EF model, the question-generating "test-creator" (port of
 lctvqa/models/vqa_ef.py). The image encoder is the PC-DARTS search
-network (`arch_type="darts"`, with its arch parameters in `arch`) or
-VGG19 (`arch_type="fixed"`, `arch` None).
-
-Derived nets (`arch_type="derived"`) are not ported yet (ROADMAP.md,
-queue 1 item 4, "Derived"), and asking for them raises.
+network (`arch_type="darts"`, with its arch parameters in `arch`), a
+derived network built from `cfg.genotype` (`arch_type="derived"`,
+models/derived.py) or VGG19 (`arch_type="fixed"`); `arch` is None for
+the last two.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from lctvqa_torch.config import ModelConfig
-from lctvqa_torch.models import search, vgg
+from lctvqa_torch.models import derived, search, vgg
 from lctvqa_torch.models.qst_encoder import (ef_qst_encoder,
                                              ef_qst_encoder_init,
                                              ef_qst_generate)
@@ -23,23 +22,27 @@ from lctvqa_torch.ops.losses import (cross_entropy,
                                      sequence_teacher_forcing_ce)
 
 
-def check_arch_type(arch_type: str) -> None:
-    if arch_type not in ("fixed", "darts"):
-        raise NotImplementedError(
-            f"EF arch_type={arch_type!r} is not ported yet: derived nets "
-            "come with models/derived.py (ROADMAP.md, queue 1 item 4, "
-            "'Derived'); arch_type='darts' (the supernet) and 'fixed' "
-            "(VGG19) run")
+def check_arch_type(arch_type: str, genotype=None) -> None:
+    if arch_type not in ("fixed", "darts", "derived"):
+        raise ValueError(f"unknown EF arch_type {arch_type!r}: 'darts' (the "
+                         "supernet), 'derived' or 'fixed' (VGG19)")
+    if arch_type == "derived" and genotype is None:
+        raise ValueError("arch_type='derived' needs genotype (--genotype: a "
+                         "preset, a search checkpoint or a repr file)")
 
 
 def init_ef_model(gen: torch.Generator, cfg: ModelConfig, vgg_params=None):
     """Returns (params, arch); arch is None for arch_type='fixed'."""
-    check_arch_type(cfg.arch_type)
+    check_arch_type(cfg.arch_type, cfg.genotype)
     params, arch = {}, None
     if cfg.arch_type == "darts":
         params["darts"] = search.network_init(gen, cfg)
         in_features = search.network_out_features(cfg)
         arch = search.arch_init(gen, cfg)
+    elif cfg.arch_type == "derived":
+        params["derived"] = derived.derived_network_init(gen, cfg,
+                                                         cfg.genotype)
+        in_features = derived.derived_out_features(cfg, cfg.genotype)
     else:
         params["vgg"] = (vgg_params if vgg_params is not None else
                          vgg.vgg19_init(gen, cfg.vgg_width_mult,
@@ -61,7 +64,7 @@ def ef_img_encode(params, arch, cfg: ModelConfig, img: torch.Tensor,
                   gen: Optional[torch.Generator] = None,
                   deterministic: bool = True) -> torch.Tensor:
     """Image -> L2-normalized embed_size feature."""
-    check_arch_type(cfg.arch_type)
+    check_arch_type(cfg.arch_type, cfg.genotype)
     dt = N.torch_dtype(cfg.compute_dtype)
     if cfg.arch_type == "darts":
         if cfg.fuse_mixed_ops:
@@ -70,6 +73,9 @@ def ef_img_encode(params, arch, cfg: ModelConfig, img: torch.Tensor,
                 "running the supernet and is not ported (ROADMAP.md, 'Not "
                 "ported')")
         feat = search.network_apply(params["darts"], arch, cfg, img, dtype=dt)
+    elif cfg.arch_type == "derived":
+        feat = derived.derived_network_apply(params["derived"], cfg,
+                                             cfg.genotype, img, dtype=dt)
     else:
         vgg_params = params["vgg"]
         if cfg.pretrained_enc:  # frozen iff pretrained

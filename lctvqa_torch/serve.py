@@ -36,7 +36,12 @@ statistics of the dispatched batch, so an answer depends on the other
 requests of its group and on those pad rows: a group of 3 is answered as
 the batch of 4 whose last row repeats the first.
 
+A derived-EF artifact does not carry its genotype: `--genotype` names it
+(a preset, a search checkpoint or a repr file).
+
     python -m lctvqa_torch.serve --artifact w.lctx --warmup
+    python -m lctvqa_torch.serve --artifact ef_serving.lctx \
+        --genotype PC_DARTS_cifar
 """
 
 from __future__ import annotations
@@ -314,12 +319,13 @@ class VqaHTTPServer(ThreadingHTTPServer):
 def make_server(artifact_path: str, host: str = "127.0.0.1", port: int = 0,
                 window_ms: float = 5.0, max_batch: int = 64,
                 trusted: bool = False, device: str = "cuda",
-                **overrides) -> VqaHTTPServer:
+                genotype=None, **overrides) -> VqaHTTPServer:
     """Build (but don't start) the HTTP server; `.server_address[1]` is the
-    bound port. `overrides` are ModelConfig fields (compute_dtype and the
-    kernel flags)."""
+    bound port. `genotype` is a derived EF's (export.ServingModel);
+    `overrides` are ModelConfig fields (compute_dtype and the kernel
+    flags)."""
     model = load_artifact(artifact_path, device=device, trusted=trusted,
-                          **overrides)
+                          genotype=genotype, **overrides)
     service = TorchVqaService(model, window_ms=window_ms,
                               max_batch=max_batch)
     handler = type("Handler", (_Handler,), {"service": service})
@@ -347,11 +353,15 @@ def main(argv=None):
                    choices=("bfloat16", "float32"),
                    help="matmul operand dtype; the artifact does not record "
                         "the one it was trained with")
+    p.add_argument("--genotype", type=str, default=None,
+                   help="a derived EF artifact's genotype: a preset name, a "
+                        "search checkpoint or a Genotype-repr file")
     args = p.parse_args(argv)
 
     srv = make_server(args.artifact, args.host, args.port, args.window_ms,
                       args.max_batch, trusted=args.trusted,
-                      device=args.device, compute_dtype=args.compute_dtype)
+                      device=args.device, genotype=args.genotype,
+                      compute_dtype=args.compute_dtype)
     host, port = srv.server_address[:2]
     svc: TorchVqaService = srv.RequestHandlerClass.service  # type: ignore
     if args.warmup:

@@ -1,13 +1,17 @@
 """Checkpoint / resume (port of lctvqa/train/checkpoint.py).
 
 The same pickle-free file: a ZIP of raw little-endian leaf bytes and a
-JSON skeleton of the containers. The port writes plain dicts, lists,
-tuples, scalars and arrays only (a config goes in as nested dicts), so
-the JAX package's loader reads a port checkpoint with nothing to
-resolve. The port's loader reads the JAX package's files as well: a
-namedtuple node (an optax optimizer state) becomes a `NamedTupleNode`
-that keeps its class name and values, a dataclass node (a Config) a
-dict of its fields. Nothing named in a file is ever imported.
+JSON skeleton of the containers. The port writes dicts, lists, tuples,
+scalars and arrays, and tags its config dataclasses and its `Genotype`
+with the JAX package's names for them (`lctvqa.config` / `Config` and so
+on, `lctvqa.models.genotypes` / `Genotype`; strings only, nothing is
+imported), so the JAX package's loader rebuilds them as its own classes:
+the port's config fields are a subset of that package's. The port's
+loader reads the files of either package: a namedtuple node (an optax
+optimizer state, a Genotype) becomes a `NamedTupleNode` that keeps its
+class name and values, a dataclass node (a Config) a dict of its fields.
+Nothing named in a file is ever imported. `config_from_state` turns a
+checkpoint's config, of either package, into the port's `Config`;
 `lctvqa_torch.convert` turns the trees of either package into the
 other's.
 """
@@ -23,6 +27,9 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from lctvqa_torch import config as port_config
+from lctvqa_torch.models.genotypes import Genotype
+
 
 class NamedTupleNode(NamedTuple):
     """A namedtuple of a foreign checkpoint: its class and its values."""
@@ -30,6 +37,13 @@ class NamedTupleNode(NamedTuple):
     module: str
     name: str
     values: tuple
+
+
+def _jax_module(mod: str) -> str:
+    """The JAX package's module of the same name: lctvqa_torch.x ->
+    lctvqa.x."""
+    root, _, rest = mod.partition(".")
+    return "lctvqa." + rest if root == "lctvqa_torch" else mod
 
 
 def _encode(obj: Any, leaves: list):
@@ -41,12 +55,21 @@ def _encode(obj: Any, leaves: list):
     if isinstance(obj, NamedTupleNode):
         return {"nt": {"mod": obj.module, "name": obj.name,
                        "v": [_encode(v, leaves) for v in obj.values]}}
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):  # a Genotype
+        cls = type(obj)
+        return {"nt": {"mod": _jax_module(cls.__module__),
+                       "name": cls.__qualname__,
+                       "v": [_encode(v, leaves) for v in obj]}}
     if isinstance(obj, list):
         return {"l": [_encode(v, leaves) for v in obj]}
     if isinstance(obj, tuple):
         return {"tu": [_encode(v, leaves) for v in obj]}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return _encode(dataclasses.asdict(obj), leaves)
+        cls = type(obj)
+        return {"dc": {"mod": _jax_module(cls.__module__),
+                       "name": cls.__qualname__,
+                       "f": {f.name: _encode(getattr(obj, f.name), leaves)
+                             for f in dataclasses.fields(obj)}}}
     if isinstance(obj, torch.Tensor):
         obj = obj.detach().cpu().numpy()
     leaves.append(np.asarray(obj))
@@ -106,6 +129,44 @@ def load_state(path: str) -> Any:
                           np.dtype(spec["dtype"])).reshape(spec["shape"])
             for i, spec in enumerate(tree["leaves"])]
     return _decode(tree["skeleton"], leaves)
+
+
+# config fields of the JAX package that the port has no use for
+_JAX_ONLY_FIELDS = {"Config": ("mesh",)}
+_SECTIONS = {"model": port_config.ModelConfig,
+             "train": port_config.TrainConfig,
+             "data": port_config.DataConfig}
+
+
+def _dataclass_from(cls, fields: dict):
+    """A config dataclass of the port from a checkpoint's dict of fields
+    (nested sections, a genotype as the NamedTupleNode of either
+    package's Genotype)."""
+    known = {f.name for f in dataclasses.fields(cls)}
+    unknown = set(fields) - known - set(_JAX_ONLY_FIELDS.get(
+        cls.__name__, ()))
+    if unknown:
+        raise ValueError(f"checkpoint config has {cls.__name__} fields the "
+                         f"port does not know: {sorted(unknown)}")
+    kw = {k: v for k, v in fields.items() if k in known}
+    if cls is port_config.Config:
+        for name, sub in _SECTIONS.items():
+            if name in kw:
+                kw[name] = _dataclass_from(sub, kw[name])
+    elif isinstance(kw.get("genotype"), NamedTupleNode):
+        kw["genotype"] = Genotype(*kw["genotype"].values)
+    return cls(**kw)
+
+
+def config_from_state(state) -> Optional[port_config.Config]:
+    """The port's Config of a loaded checkpoint of either package (its
+    "config" entry, a dict of fields as `load_state` returns it), or None
+    where the file has none. Fields the port does not have raise, but
+    for the JAX package's `mesh`, which is dropped."""
+    cfg = state.get("config") if isinstance(state, dict) else None
+    if cfg is None:
+        return None
+    return _dataclass_from(port_config.Config, cfg)
 
 
 def exists(path: str) -> bool:

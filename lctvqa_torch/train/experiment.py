@@ -5,11 +5,12 @@ Epoch loop: every `arch_update_freq` batches STAGE 3, the architecture
 update through the tri-level architect on a validation batch (a cycled
 validation iterator), then on every batch STAGE 1, the EF weight update,
 and STAGE 2, the W update on real and EF-generated pseudo QA; then
-validation (loss, multi-choice accuracy with and without <unk>), the
-StepLR decay and a checkpoint of both models. Stage 3 is skipped with
-`skip_stage3` and for the fixed VGG EF, which has no arch. BLEU4 of the
-generated questions, the statistics files and their plots come with the
-eval slice.
+validation (loss, multi-choice accuracy with and without <unk>, BLEU4
+of the greedy questions against the reference questions of the npy
+records, on a worker thread), the StepLR decay and a checkpoint of both
+models. Stage 3 is skipped with `skip_stage3` and for the fixed VGG and
+derived EFs, which have no arch. The statistics files and their plots
+are not ported yet (ROADMAP.md, queue 1 item 6).
 
 One process, one device, no mesh. Losses and counters stay on the device
 during an epoch: the host reads one value per `report_freq` steps and
@@ -23,6 +24,7 @@ import itertools
 import logging
 import os
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
 import numpy as np
@@ -34,6 +36,7 @@ from lctvqa_torch.data import pipeline
 from lctvqa_torch.models import search, vqa_ef, vqa_w
 from lctvqa_torch.optim.optimizers import set_learning_rate, step_lr, tree_map
 from lctvqa_torch.train import checkpoint
+from lctvqa_torch.train.metrics import VqaStruct, calc_bleu_scores
 from lctvqa_torch.train.steps import make_lct_steps
 from lctvqa_torch.train.timing import StageTimer
 
@@ -48,8 +51,11 @@ class Experiment:
                  vgg_params=None):
         """`data`: a loader dict ({"train", "valid"} datasets, e.g. from
         `pipeline.loader_from_arrays`); by default the h5 files of
-        `cfg.data.input_dir` are opened. `device`: the CUDA device, or
-        "cpu" where the caller asks for it; a missing card raises."""
+        `cfg.data.input_dir` are opened. The reference questions of
+        validation's BLEU4 are `cfg.data.input_dir`'s `valid.npy`, which
+        must exist unless `data` is given (validation then reports no
+        BLEU4 where there is none). `device`: the CUDA device, or "cpu"
+        where the caller asks for it; a missing card raises."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -81,6 +87,10 @@ class Experiment:
             preload=cfg.data.preload_images)
         self.qst_vocab = self.data["train"].qst_vocab
         self.ans_vocab = self.data["train"].ans_vocab
+        records = os.path.join(cfg.data.input_dir, "valid.npy")
+        self.vqa_struct = (VqaStruct(cfg.data.input_dir, "valid.npy")
+                           if data is None or os.path.exists(records)
+                           else None)
 
         to_dev = lambda t: t.to(self.device)  # noqa: E731
         ef_params, arch = vqa_ef.init_ef_model(init_gen, cfg.model,
@@ -309,18 +319,32 @@ class Experiment:
                      f"ans: {self.ans_vocab.idx2word(int(gen_pred[i]))}")
 
     # ------------------------------------------------------------------
+    def _bleu(self, names, gen_qst) -> float:
+        """BLEU4 of one batch's greedy questions (on the BLEU thread: the
+        copy to the host waits there, not in the loop)."""
+        return calc_bleu_scores(names, gen_qst.cpu().numpy(), self.qst_vocab,
+                                self.vqa_struct)
+
     def val(self):
         t = self.cfg.train
         dataset = self.data["valid"]
         n = (len(dataset) // t.batch_size) * t.batch_size
         batch_step_size = max(len(dataset) // t.batch_size, 1)
         losses, c1s, c2s = [], [], []
+        # BLEU (host work) runs on one worker thread, off the steps' path
+        bleu_pool = (ThreadPoolExecutor(max_workers=1)
+                     if self.vqa_struct is not None else None)
+        bleu_futures = []
         for batch_idx, batch in enumerate(self._batches("valid",
                                                         shuffle=False)):
-            loss, c1, c2, _, _ = self._eval_step(batch)
+            loss, c1, c2, gen_qst, _ = self._eval_step(batch)
             losses.append(loss)
             c1s.append(c1)
             c2s.append(c2)
+            if bleu_pool is not None:
+                names = dataset.image_names(np.asarray(batch["index"]))
+                bleu_futures.append(bleu_pool.submit(self._bleu, names,
+                                                     gen_qst))
             if batch_idx % 100 == 0:
                 self.log(
                     f"| VALID SET | Epoch [{self.current_epoch + 1:02d}/"
@@ -329,13 +353,18 @@ class Experiment:
         running_loss = float(torch.stack(losses).sum()) if losses else 0.0
         corr1 = int(torch.stack(c1s).sum()) if c1s else 0
         corr2 = int(torch.stack(c2s).sum()) if c2s else 0
+        bleu = ""
+        if bleu_pool is not None:
+            total_b4 = sum(f.result() for f in bleu_futures)
+            bleu_pool.shutdown()
+            bleu = f" BLEU4: {total_b4 / batch_step_size:.4f}"
         self.val_ef_loss.append(running_loss / batch_step_size)
         self.val_ef_acc.append(corr2 / max(n, 1))
         self.log(
             f"| VALID SET | Epoch [{self.current_epoch + 1:02d}/"
             f"{self.epochs:02d}], Loss: {self.val_ef_loss[-1]:.4f} "
             f"Acc(Exp1): {corr1 / max(n, 1):.4f}, "
-            f"Acc(Exp2): {self.val_ef_acc[-1]:.4f}")
+            f"Acc(Exp2): {self.val_ef_acc[-1]:.4f}{bleu}")
 
     # ------------------------------------------------------------------
     def save_model(self):

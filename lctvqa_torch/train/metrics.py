@@ -1,12 +1,91 @@
-"""Device-side counters (port of the jnp half of lctvqa/train/metrics.py).
-Each returns 0-d tensors on the device of its inputs; nothing here reads a
-value back to the host. BLEU against the reference questions is host
-work and comes with the eval slice.
+"""Metrics (port of lctvqa/train/metrics.py). Device side: multi-choice
+correctness and question token-error counts, each a 0-d tensor on the
+device of its inputs (nothing reads a value back to the host). Host
+side: BLEU4 of generated questions against the reference questions of
+the npy records (`VqaStruct`, `calc_bleu_scores`), kept off the step's
+path. BLEU4 is nltk's `sentence_bleu` with `SmoothingFunction().method1`
+(the JAX package's), computed here in plain Python: the port does not
+need nltk.
 """
 
 from __future__ import annotations
 
+import math
+import os
+from collections import Counter, defaultdict
+from typing import Sequence
+
+import numpy as np
 import torch
+
+
+class VqaStruct:
+    """image_name -> [question tokens] (and question + answer, for the
+    unified model) reference maps for BLEU, from an npy records file."""
+
+    def __init__(self, input_dir: str, data_file: str = "valid.npy",
+                 seed: int = 0):
+        self.vqa = np.load(os.path.join(input_dir, data_file),
+                           allow_pickle=True)
+        self.img_to_qst = defaultdict(list)
+        self.img_to_qa = defaultdict(list)
+        rng = np.random.RandomState(seed)
+        for entry in self.vqa:
+            name = entry["image_name"]
+            self.img_to_qst[name].append(entry["question_tokens"])
+            if "valid_answers" in entry:
+                ans = entry["valid_answers"][
+                    rng.randint(len(entry["valid_answers"]))]
+                self.img_to_qa[name].append(
+                    entry["question_tokens"] + ["<sep>", ans])
+
+    def get_ref_qst(self, img_name: str):
+        ref = self.img_to_qst[img_name]
+        if not ref:
+            raise KeyError(f"no reference question for {img_name}")
+        return ref
+
+
+def _ngrams(words, n: int) -> Counter:
+    return Counter(tuple(words[i:i + n]) for i in range(len(words) - n + 1))
+
+
+def BLEU4(ref_qst, pred_qst) -> float:
+    """100 x sentence BLEU with uniform 4-gram weights and method-1
+    smoothing (a precision with no match counts 0.1 matches), as nltk
+    computes it: clipped n-gram precisions, the brevity penalty against
+    the closest reference length (the shorter on a tie), 0 when no word
+    matches."""
+    precisions = []
+    for n in range(1, 5):
+        counts = _ngrams(pred_qst, n)
+        best: dict = {}
+        for ref in ref_qst:
+            ref_counts = _ngrams(ref, n)
+            for gram in counts:
+                best[gram] = max(best.get(gram, 0), ref_counts[gram])
+        matched = sum(min(c, best[g]) for g, c in counts.items())
+        total = max(1, sum(counts.values()))
+        if n == 1 and matched == 0:
+            return 0.0
+        precisions.append((matched if matched else 0.1) / total)
+    hyp_len = len(pred_qst)
+    ref_len = min((len(r) for r in ref_qst),
+                  key=lambda n: (abs(n - hyp_len), n))
+    bp = 1.0 if hyp_len > ref_len else math.exp(1 - ref_len / hyp_len)
+    return 100 * (bp * math.exp(math.fsum(0.25 * math.log(p)
+                                          for p in precisions)))
+
+
+def calc_bleu_scores(image_names: Sequence[str], pred_qsts, qst_vocab,
+                     vqa_struct: VqaStruct) -> float:
+    """Mean BLEU4 of generated questions against all reference questions
+    of their image. pred_qsts: int array [B, T]."""
+    preds = [qst_vocab.arr2qst(np.asarray(q)).split() for q in pred_qsts]
+    total = 0.0
+    for name, pred in zip(image_names, preds):
+        total += BLEU4(vqa_struct.get_ref_qst(name), pred)
+    return total / len(image_names)
 
 
 def num_correct(pred: torch.Tensor, multi_choice: torch.Tensor) -> torch.Tensor:

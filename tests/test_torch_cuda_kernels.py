@@ -825,7 +825,7 @@ def test_mixed_node_bwd_scratch_is_the_python_mirror(cuda):
 
 BN_SHAPES = [(64, 64, 64, 16), (64, 64, 64, 32), (64, 32, 32, 64),
              (64, 16, 16, 64), (64, 32, 32, 8),
-             (64, 16, 16, 16)]  # chip_smoke.BN_SHAPES
+             (64, 16, 16, 16), (64, 32, 32, 32)]  # chip_smoke.BN_SHAPES
 # M = 1 with C = 3 (the scalar path); an odd M with C = 12 (rows that are
 # not a multiple of a block's, bf16 rows of 24 bytes: a block's share must
 # start on 16); C = 4 with an odd last share (an 8-byte last copy in bf16);

@@ -241,7 +241,7 @@ def test_unservable_artifacts_raise(artifacts, monkeypatch):
     derived = dict(ef, derived=ef["vgg"])
     for name, params, meta, exc, match in (
             ("derived", derived, _meta("ef", arch_type="derived"),
-             NotImplementedError, "derived"),
+             ValueError, "needs genotype"),
             ("mismatch", ef, _meta("ef", arch_type="darts"), ValueError,
              "arch_type"),
             ("int8", artifacts["w"][1], _meta("w", int8=True),

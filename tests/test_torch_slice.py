@@ -147,6 +147,10 @@ def test_torchvision_state_dict_loads_as_is(w_params):
 
 
 def test_ef_other_encoders_raise():
-    with pytest.raises(NotImplementedError, match="derived"):
-        t_ef.init_ef_model(torch.Generator().manual_seed(0),
-                           dataclasses.replace(MCFG, arch_type="derived"))
+    """A derived EF without its genotype raises (the JAX package's assert),
+    and so does an arch_type neither package has."""
+    for arch_type, match in (("derived", "needs genotype"),
+                             ("unified", "unknown EF arch_type")):
+        with pytest.raises(ValueError, match=match):
+            t_ef.init_ef_model(torch.Generator().manual_seed(0),
+                               dataclasses.replace(MCFG, arch_type=arch_type))

@@ -585,7 +585,6 @@ def test_cli_runs_the_three_stages_on_the_cpu(synth, tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--package", "unified"], "queue 1 item 5"),
     (["--skip_stage3", "--package", "darts"], "queue 1 item 5"),
-    (["--skip_stage3", "--arch_type", "derived"], "Derived"),
     (["--skip_stage3", "--fuse_mixed_ops"], "Not ported"),
     (["--skip_stage3", "--remat_cells"], "Not ported"),
     (["--skip_stage3", "--pack_conv_branches"], "Not ported"),
@@ -598,5 +597,18 @@ def test_cli_flags_of_unported_paths_raise(argv, match):
 
     with pytest.raises(NotImplementedError, match=match):
         t_main.main(argv + ["--input_dir", "/nonexistent"])
+
+
+def test_cli_derived_needs_a_genotype():
+    """--arch_type derived runs since the derived net is ported; without
+    --genotype it raises before any data is read, as the JAX package's
+    assert does, and an unknown genotype names the presets."""
+    from lctvqa_torch import main as t_main
+
+    with pytest.raises(ValueError, match="needs genotype"):
+        t_main.main(["--arch_type", "derived", "--input_dir", "/nonexistent"])
+    with pytest.raises(ValueError, match="PC_DARTS_cifar"):
+        t_main.main(["--arch_type", "derived", "--genotype", "NoSuchNet",
+                     "--input_dir", "/nonexistent"])
     args = t_main.build_parser().parse_args([])
     assert args.device == "cuda" and not args.skip_stage3
