@@ -8,6 +8,8 @@ NVIDIA GPU.
                                       # step at batch 64 (PERF.md)
     python3 chip_smoke.py --stage3    # only the pool gradients and phase 9
     python3 chip_smoke.py --derived   # only phase 10
+    python3 chip_smoke.py --darts     # only the decode at the unified
+                                      # vocabulary and phase 11
     python3 chip_smoke.py --grad-spread
                                       # only how far the derived EF's fp32
                                       # gradients move under one rounding
@@ -32,7 +34,9 @@ non-zero:
    convolutions in this phase. Tolerances, as |kernel - plain| <= tol +
    tol * |plain| unless said otherwise:
    - LSTM cell, sequences, decode (E 300, H 512, T 30, V 8192; B = 1, 8,
-     64): fp32 h/c 1e-5 (summation order); bf16 h/c 1e-3 (the same plus h
+     64; the decode also at V = 8197, the unified vocabulary padded to
+     full width, whose head the kernel pads to 8200 with columns that
+     never win, its plan again generate_plan's): fp32 h/c 1e-5 (summation order); bf16 h/c 1e-3 (the same plus h
      rounded to bf16 every step, where a 1-ulp fp32 difference can round
      the other way: about 1e-4 at most); tokens equal, except that a
      differing bf16 token must be a near tie: its plain logit within 1e-3
@@ -200,9 +204,44 @@ non-zero:
    CPU as in phase 6, and answer_logits / generate ms a call at B=64 bf16
    (informational). The phase's wall time is printed.
 
+11. The darts and unified families (train/experiment_darts.py) at full
+   width on npy records (data.synthetic.make_npy_records at phase 8's
+   sizes, with data/vocab.py's question and answer vocabularies, the
+   three vocabularies padded with filler words to 8192, 1000 and
+   UNIFIED_VOCAB = 8197 words), their images make_arrays' through the npy
+   loader's in-RAM table (every record's image checked to be there). Each
+   family's experiment in bf16 at both flag sets, the counts zeroed
+   before each run: one epoch over half the training records (4 steps,
+   an arch step at batches 0 and 2: the default mode, exact-indirect,
+   which this family runs as the finite difference), validation, the
+   checkpoints. Checks: finite losses; every arch leaf moved and finite;
+   no launch inside an arch step; with the flags on a train step launches
+   exactly STAGE1_LAUNCHES and one lstm_seq_all, and a validation batch
+   one greedy_generate, with them off no node or BatchNorm launch and no
+   decode; accuracy in [0, 1], BLEU4 in [0, 100]; the three checkpoints
+   read back by a resumed experiment equal bit for bit, Adam states
+   included; a qst_only step from a fresh Adam state leaves the answer
+   head's bits. The first train loss of each family in fp32 at the two
+   flag sets within TRAIN_LOSS_TOL. One arch gradient per mode (fd,
+   exact) in bf16 at B=64: finite, nonzero, no launch, ms and peak
+   memory printed; the exact one in fp32, dropout off, at
+   STAGE3_CPU_BATCH rows on the card against the CPU at phase 9's
+   tolerances. The LCT loop on the npy loader (use_old_dataloader): two
+   steps and validation, finite losses, BLEU4 in range. The unified
+   artifact of the kernel-flag run (export.export_state) served over HTTP
+   at both flag sets: /generate answers {"qa", "answer"}, /answer is a
+   4xx, the decode and node kernels launch with the flags on and not off;
+   ServingModel.generate at B=64 on the card against the CPU, tokens
+   equal or a near tie (phase 5's rule), and its ms a call in bf16; the
+   darts family's EF checkpoint served once as an "ef" artifact. Train
+   and arch step times, trained pairs/s and the phase's wall time are
+   printed.
+
 It prints the card's name and power limit, one JSON line of the kernels
-(times, bounds and launch counts; `derived_launches` are phase 10's
-kernel-flag training run's), and last {"ok": true, "device": {...}}.
+(times, bounds and launch counts; `derived_launches`, `darts_launches`
+and `unified_launches` are phases 10 and 11's kernel-flag training runs';
+the decode's row carries its V = 8197 case under `unified_vocab`), and
+last {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -218,6 +257,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -311,8 +351,13 @@ BATCH_STAT_EFS = ("darts", "derived")
 # it, on one device, as far as the card lies from the CPU (3.1 of the
 # limit); at 64 rows both stay near half of it
 DERIVED_CPU_BATCH = 64
-# synthetic data of phases 8-10 (train_arrays, and phase 10's npy records)
+# synthetic data of phases 8-11 (train_arrays, and the npy records of
+# phases 10 and 11)
 TRAIN_DATA = {"num_images": 256, "num_questions": 512}
+# phase 11: the unified vocabulary padded to this size (V % 8 = 5, so the
+# decode kernel's head is padded), and an arch step every this many batches
+UNIFIED_VOCAB = 8197
+DARTS_ARCH_FREQ = 2
 FAILURES: list = []
 
 
@@ -1705,7 +1750,8 @@ def _tokens_agree(model, u8, got_tok, want_tok, tag) -> None:
         return
     with torch.inference_mode():
         feat = _image_features(model, u8)
-        gaps = _token_gaps(model.params["qst"], feat, got_tok.to(feat.device),
+        decoder = model.params["qa" if "qa" in model.params else "qst"]
+        gaps = _token_gaps(decoder, feat, got_tok.to(feat.device),
                            want_tok.to(feat.device), torch.float32)
     for gap in gaps:
         log(f"{tag}: a token differs at a logit gap of {gap}")
@@ -2771,6 +2817,529 @@ def derived_phase(arrays, device, root: str, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the darts and unified families
+# ---------------------------------------------------------------------------
+
+def pad_vocab(path: Path, size: int, prefix: str) -> None:
+    """Pad a vocabulary file to `size` words with filler words after the
+    real ones, as make_arrays pads its question vocabulary."""
+    words = path.read_text().splitlines()
+    expect(len(words) <= size, f"{path.name}: {len(words)} words, more than "
+           f"the model's {size}")
+    words += [f"{prefix}{i}" for i in range(size - len(words))]
+    path.write_text("".join(w + "\n" for w in words))
+
+
+def darts_records(root: str, arrays):
+    """npy records at TRAIN_DATA's sizes with their vocabularies, padded to
+    full width (8192 question words, 1000 answers, UNIFIED_VOCAB unified
+    words), and make_arrays' images for the same seed as the npy loader's
+    in-RAM table, every record's image in it. -> (directory, images)."""
+    from lctvqa_torch.data import pipeline_npy, synthetic, vocab
+
+    mcfg = model_configs()["darts"]
+    d = Path(root) / "darts_records"
+    synthetic.make_npy_records(str(d), **TRAIN_DATA,
+                               n_answers=mcfg.ans_vocab_size, seed=SEED)
+    vocab.make_vocab_questions(str(d / "Questions"),
+                               str(d / "vocab_questions.txt"))
+    vocab.make_vocab_answers(str(d / "Annotations"),
+                             str(d / "vocab_answers.txt"),
+                             n_answers=mcfg.ans_vocab_size)
+    for name, size, prefix in (
+            ("vocab_questions.txt", mcfg.qst_vocab_size, "w"),
+            ("vocab_answers.txt", mcfg.ans_vocab_size, "a"),
+            ("vocab_unified.txt", UNIFIED_VOCAB, "u")):
+        pad_vocab(d / name, size, prefix)
+    images = {s: arrays[s] for s in ("train", "val")}
+    ids = {s: {int(c) for c in arrays[s]["coco_ids"]} for s in images}
+    for f in ("train.npy", "valid.npy"):
+        for rec in np.load(d / f, allow_pickle=True):
+            split, coco_id = pipeline_npy.image_table_key(rec["image_name"])
+            expect(coco_id in ids[split], f"{f}: the image of "
+                   f"{rec['image_name']} is not in make_arrays' table")
+    return str(d), images
+
+
+def darts_config(dtype: str, fname: str, root: str, records: str,
+                 family: str, dropout=None, **train_kw):
+    """train_config on the npy records: half the training questions (4
+    batches of 64), an arch step every DARTS_ARCH_FREQ batches (the
+    default mode, exact-indirect, which this family runs as the finite
+    difference)."""
+    import dataclasses
+
+    cfg = train_config(dtype, fname, root, dropout)
+    return cfg.replace(
+        train=dataclasses.replace(cfg.train, train_portion=0.5,
+                                  arch_update_freq=DARTS_ARCH_FREQ,
+                                  **train_kw),
+        data=dataclasses.replace(cfg.data, input_dir=records),
+        exp_name=f"{family}_{dtype}_{fname}")
+
+
+def darts_experiment(family: str, cfg, device, records: str, images,
+                     **kwargs):
+    """DartsExperiment or DartsExperimentUnified on the npy loader's
+    in-RAM route."""
+    from lctvqa_torch.data import pipeline_npy
+    from lctvqa_torch.train.experiment_darts import (DartsExperiment,
+                                                     DartsExperimentUnified)
+
+    cls = DartsExperimentUnified if family == "unified" else DartsExperiment
+    data = pipeline_npy.get_npy_loader(
+        records, max_qst_length=cfg.model.max_qst_len,
+        img_size=cfg.model.img_size, unified=family == "unified",
+        train_portion=cfg.train.train_portion, images=images)
+    return cls(cfg, device=device, data=data, **kwargs)
+
+
+def _launched(calls) -> dict:
+    return {k: v for k, v in calls.items() if v}
+
+
+def darts_run(records, images, device, family: str, fname: str, root: str):
+    """One epoch of `family` in bf16 at full width through its experiment
+    (4 train steps, arch steps at batches 0 and 2, validation over 8
+    batches, the checkpoints), each step call timed and its launches
+    counted; the checkpoints read back by a resumed experiment. With
+    the kernel flags, a qst_only train step of the darts family.
+    -> (ms per train and arch step, exp name, launches of the run)."""
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.optim.optimizers import tree_leaves
+    from lctvqa_torch.train.experiment_darts import make_darts_steps
+
+    tag = f"{family} bfloat16 {fname}"
+    want_train = dict(STAGE1_LAUNCHES, lstm_seq_all=1)
+    with kernel_flags(fname):
+        run_before = _build.launch_counts()
+        cfg = darts_config("bfloat16", fname, root, records, family)
+        exp = darts_experiment(family, cfg, device, records, images)
+        record = []
+        record_stages(exp, ("arch", "train", "eval"), record)
+        arch0 = [a.clone() for a in tree_leaves(exp.arch)]
+        t0 = time.perf_counter()
+        exp.run()
+        wall = time.perf_counter() - t0
+        losses = exp.train_loss + exp.val_loss
+        expect(all(np.isfinite(losses)), f"{tag}: a loss is not finite: "
+               f"{losses}")
+        moved = all(bool(torch.isfinite(b).all()) and not torch.equal(a, b)
+                    for a, b in zip(arch0, tree_leaves(exp.arch)))
+        expect(moved and exp.arch_opt["step"] == 2 and exp.opt["step"] == 4,
+               f"{tag}: arch steps {exp.arch_opt['step']}, train steps "
+               f"{exp.opt['step']}, every arch leaf moved: {moved}")
+        on = fname == "kernels"
+        for name, ms, calls in record:
+            calls, got = collections.Counter(calls), _launched(calls)
+            if name == "arch":
+                expect(not got, f"{tag}: an arch step launched {got}")
+            elif name == "train":
+                expect(got == want_train if on else not any(
+                    calls[k] for k in STAGE1_LAUNCHES),
+                    f"{tag}: a train step launched {got}")
+            else:
+                expect(calls["greedy_generate"] == (1 if on else 0),
+                       f"{tag}: a validation batch launched {got}")
+        expect(0.0 <= exp.val_acc[-1] <= 1.0
+               and 0.0 <= exp.val_b4[-1] <= 100.0,
+               f"{tag}: validation accuracy {exp.val_acc}, BLEU4 "
+               f"{exp.val_b4}")
+        if family == "darts" and on:
+            # question-only: the answer head gets no gradient and, from a
+            # fresh Adam state, keeps its bits
+            steps = make_darts_steps(exp.cfg, exp.ans_vocab.unk2idx,
+                                     qst_only=True)
+            batch = exp._to_device(next(exp.data["train"].batches(
+                cfg.train.batch_size, np.random.default_rng(SEED))))
+            new, _, loss = steps["train"](exp.params,
+                                          steps["tx"].init(exp.params),
+                                          exp.arch, batch, exp.gen)
+            head = [(a, b) for k in ("fc1", "fc2") for a, b in zip(
+                tree_leaves(new[k]), tree_leaves(exp.params[k]))]
+            expect(np.isfinite(float(loss))
+                   and all(torch.equal(a, b) for a, b in head)
+                   and not torch.equal(new["img_fc"]["w"],
+                                       exp.params["img_fc"]["w"]),
+                   f"{tag}: a qst_only step moved the answer head, or "
+                   "nothing else")
+        again = darts_experiment(family, cfg.replace(resume=True), device,
+                                 records, images)
+        same = all(torch.equal(a, b) for tree, other in (
+            (again.params, exp.params), (again.arch, exp.arch),
+            (again.opt["m"], exp.opt["m"]), (again.opt["v"], exp.opt["v"]),
+            (again.arch_opt["m"], exp.arch_opt["m"]),
+            (again.arch_opt["v"], exp.arch_opt["v"]))
+            for a, b in zip(tree_leaves(tree), tree_leaves(other)))
+        expect(same and again.current_epoch == 1
+               and again.opt["step"] == exp.opt["step"]
+               and again.arch_opt["step"] == exp.arch_opt["step"]
+               and again.val_b4 == exp.val_b4
+               and again.cfg.model == exp.cfg.model,
+               f"{tag}: the checkpoints read back differ")
+        launches = collections.Counter(_delta(run_before,
+                                              _build.launch_counts()))
+    ms = {n: [m for name, m, _ in record if name == n]
+          for n in ("train", "arch", "eval")}
+    train_ms = statistics.median(ms["train"][1:])
+    log(f"{tag}: train losses {exp.train_loss}, validation loss "
+        f"{exp.val_loss}, accuracy {exp.val_acc}, BLEU4 {exp.val_b4}; "
+        "launches a train step "
+        f"{_launched(next(c for n, _, c in record if n == 'train'))}")
+    log(f"{tag}: train step {train_ms:.1f} ms (median of "
+        f"{len(ms['train']) - 1} after the first; "
+        + ", ".join(f"{m:.1f}" for m in ms["train"]) + "), "
+        f"{64e3 / train_ms:.1f} trained pairs/s; arch step "
+        + ", ".join(f"{m:.0f}" for m in ms["arch"]) + " ms; validation "
+        f"batch {statistics.median(ms['eval']):.1f} ms (median); the epoch "
+        f"{wall:.1f} s (host clock between synchronizes)")
+    name = os.path.basename(exp.exp_dir)
+    del exp, again
+    torch.cuda.empty_cache()
+    return {"train_ms": train_ms, "arch_ms": ms["arch"]}, name, launches
+
+
+def darts_first_losses(records, images, device, root: str):
+    """The first train step's loss of each family in fp32 at the two flag
+    sets (the same batch and dropout draws): within TRAIN_LOSS_TOL, as in
+    phase 8."""
+    for family in ("darts", "unified"):
+        first = {}
+        for fname in KERNEL_FLAGS:
+            with kernel_flags(fname):
+                cfg = darts_config("float32", fname, root, records, family)
+                exp = darts_experiment(family, cfg.replace(
+                    exp_name=f"first_{family}_{fname}"), device, records,
+                    images)
+                batch = next(iter(exp._batches("train")))
+                out = exp.steps["train"](exp.params, exp.opt, exp.arch,
+                                         exp._to_device(batch), exp.gen)
+                first[fname] = float(out[2])
+                del exp
+        a, b = first["default"], first["kernels"]
+        expect(abs(a - b) <= TRAIN_LOSS_TOL * (1 + abs(a)),
+               f"{family} fp32: first train loss default {a} vs kernels {b}")
+        log(f"{family} fp32: first train loss default {a:.6f}, kernels "
+            f"{b:.6f}")
+    torch.cuda.empty_cache()
+
+
+def darts_arch_modes(records, images, device, root: str, card: str):
+    """One arch step per mode (fd, the default's, and exact) in bf16 at
+    B=64, two calls each: the gradient finite and nonzero, no launch; ms
+    per call and peak device memory (informational). Then the exact arch
+    gradient in fp32, dropout off, at STAGE3_CPU_BATCH rows on the card
+    against the CPU: validation loss within STAGE3_LOSS_TOL (1 + |loss|),
+    each arch leaf within STAGE3_GRAD_TOL of its scale."""
+    from lctvqa_torch.data.pipeline import normalize_images
+    from lctvqa_torch.models import vqa_ef
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.optim.architect import make_darts_arch_grad
+    from lctvqa_torch.optim.architect_lct import plain_model_config
+    from lctvqa_torch.optim.optimizers import tree_map
+
+    out = {}
+    cfg = darts_config("bfloat16", "default", root, records, "darts")
+    exp = darts_experiment("darts", cfg.replace(exp_name="darts_modes"),
+                           device, records, images)
+    tb, vb = (exp._to_device(next(exp.data[split].batches(
+        cfg.train.batch_size, np.random.default_rng(SEED))))
+        for split in ("train", "valid"))
+    batches = [{"image": normalize_images(b["image_u8"]),
+                "question": b["question"],
+                "answer_label": b["answer_label"]} for b in (tb, vb)]
+    mcfg = plain_model_config(exp.cfg.model)
+    lr = exp._epoch_lr()
+
+    def loss_fn(p, a, batch, gen):
+        return vqa_ef.ef_loss(p, a, mcfg, batch["image"], batch["question"],
+                              batch["answer_label"], gen=gen,
+                              deterministic=False)
+
+    for mode in ("fd", "exact"):
+        fn = make_darts_arch_grad(loss_fn, mode)
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = _build.launch_counts()
+            t0 = time.perf_counter()
+            g, val_loss = fn(exp.params, exp.arch, *batches, lr, exp.gen)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            calls = _launched(_delta(before, _build.launch_counts()))
+        peak = torch.cuda.max_memory_allocated()
+        flat = torch.cat([v.flatten().float() for v in _leaves(g)])
+        tag = f"darts arch {mode} bfloat16 B=64"
+        expect(bool(torch.isfinite(flat).all()) and float(flat.abs().max())
+               > 0 and bool(torch.isfinite(val_loss)),
+               f"{tag}: arch gradient not finite and nonzero")
+        expect(not calls, f"{tag}: launched kernels {calls}")
+        out[mode] = times
+        log(f"{tag}: {times[0]:.0f} ms, then {times[1]:.0f} ms a call (host "
+            f"clock between synchronizes); peak device memory "
+            f"{peak / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above "
+            f"the {base / 2**30:.2f} GiB held before; validation loss "
+            f"{float(val_loss):.4f}, largest |grad| "
+            f"{float(flat.abs().max()):.3e} on {card}")
+    # the card against the CPU, exact, fp32, dropout off
+    mcfg32 = plain_model_config(darts_config(
+        "float32", "default", root, records, "darts", dropout=0.0).model)
+
+    def loss32(p, a, batch, gen):
+        return vqa_ef.ef_loss(p, a, mcfg32, batch["image"], batch["question"],
+                              batch["answer_label"], gen=gen,
+                              deterministic=False)
+
+    res = []
+    for dev in (device, torch.device("cpu")):
+        move = lambda t: t[:STAGE3_CPU_BATCH].detach().to(dev)  # noqa: E731
+        t0 = time.perf_counter()
+        g, val_loss = make_darts_arch_grad(loss32, "exact")(
+            tree_map(lambda t: t.detach().to(dev), exp.params),
+            tree_map(lambda t: t.detach().to(dev), exp.arch),
+            *[tree_map(move, b) for b in batches], lr,
+            torch.Generator(device=dev).manual_seed(SEED))
+        res.append(([v.cpu() for v in _leaves(g)], float(val_loss)))
+        log(f"darts arch exact fp32 B={STAGE3_CPU_BATCH} on {dev.type} took "
+            f"{time.perf_counter() - t0:.1f} s")
+    del exp
+    torch.cuda.empty_cache()
+    (g_card, v_card), (g_cpu, v_cpu) = res
+    expect(abs(v_card - v_cpu) <= STAGE3_LOSS_TOL * (1 + abs(v_cpu)),
+           f"darts arch against the CPU: validation loss {v_card} vs {v_cpu}")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(g_card, g_cpu)):
+        err, scale = _grad_err(a, b)
+        worst = max(worst, err / max(STAGE3_GRAD_TOL * scale, 1e-30))
+        expect(bool(torch.isfinite(a).all()) and scale > 0
+               and err <= STAGE3_GRAD_TOL * scale,
+               f"darts arch against the CPU: leaf {i} {tuple(a.shape)} "
+               f"differs by {err} (scale {scale})")
+    log(f"darts arch against the CPU: validation loss {v_card:.6f} vs "
+        f"{v_cpu:.6f}; {len(g_cpu)} arch leaves, worst error {worst:.3f} of "
+        f"its limit ({STAGE3_GRAD_TOL} of the leaf's scale)")
+    return out
+
+
+def npy_lct_run(records, images, device, root: str):
+    """The LCT loop on the npy loader (use_old_dataloader) at the kernel
+    flags, bf16: two train steps (stages 1 and 2) and validation; finite
+    losses, BLEU4 in [0, 100]."""
+    import dataclasses
+
+    from lctvqa_torch.data import pipeline_npy
+    from lctvqa_torch.train.experiment import Experiment
+
+    with kernel_flags("kernels"):
+        cfg = train_config("bfloat16", "kernels", root)
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, input_dir=records, use_old_dataloader=True),
+            exp_name="lct_npy")
+        data = pipeline_npy.get_npy_loader(
+            records, max_qst_length=cfg.model.max_qst_len,
+            img_size=cfg.model.img_size, images=images)
+        exp = Experiment(cfg, device=device, data=data)
+        batches = iter(exp._batches("train"))
+        t0 = time.perf_counter()
+        outs = [exp.train_step(next(batches)) for _ in range(2)]
+        exp.val()
+        losses = [float(o[i]) for o in outs for i in (0, 3)] + exp.val_ef_loss
+        bleu = [float(line.split("BLEU4: ")[1].split()[0]) for line in (
+            Path(exp.exp_dir) / "log.txt").read_text().splitlines()
+            if "BLEU4: " in line]
+    expect(all(np.isfinite(losses)) and len(bleu) == 1
+           and 0.0 <= bleu[0] <= 100.0,
+           f"LCT on the npy loader: losses {losses}, BLEU4 {bleu}")
+    log(f"LCT on the npy loader, bfloat16 kernels: EF and W losses "
+        f"{losses[:4]}, validation loss {losses[4]:.4f}, BLEU4 {bleu}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    del exp
+    torch.cuda.empty_cache()
+
+
+def _post_status(port: int, path: str, payload):
+    """_post, with an HTTP error's status and body as its result."""
+    try:
+        return _post(port, path, payload)
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def serve_family(path, device, fname: str, n=16):
+    """One artifact over HTTP at a flag set, fp32: concurrent /generate
+    requests and one /answer. A unified artifact's /generate answers
+    {"qa", "answer"} and its /answer is a 400; an EF artifact's answer
+    with vocabulary words. -> launches of the run."""
+    from lctvqa_torch import serve
+    from lctvqa_torch.ops import _build
+
+    _build.reset_launch_counts()
+    with kernel_flags(fname) as flags:
+        srv = serve.make_server(path, port=0, window_ms=5.0, max_batch=64,
+                                device=device, compute_dtype="float32",
+                                **flags)
+        svc = srv.RequestHandlerClass.service
+        svc.warmup()
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            port = srv.server_address[1]
+            s = svc.meta["img_size"]
+            u8 = np.random.default_rng(SEED + 7).integers(
+                0, 256, (n, s, s, 3), dtype=np.uint8)
+
+            def ask(i):
+                return _post_status(port, "/generate", {
+                    "image_b64": base64.b64encode(u8[i].tobytes()).decode()})
+
+            with ThreadPoolExecutor(16) as pool:
+                gen = list(pool.map(ask, range(n)))
+            ans = _post_status(port, "/answer", {
+                "image_b64": base64.b64encode(u8[0].tobytes()).decode(),
+                "question": "what color is the cat"})
+        finally:
+            srv.shutdown()
+            srv.server_close()
+    family = svc.meta["family"]
+    tag = f"serve {family} {fname}"
+    if family == "unified":
+        words = set(svc.meta["unified_words"])
+        expect(all(st == 200 and set(b) == {"qa", "answer"}
+                   and all(w in words for w in b["qa"].split())
+                   for st, b in gen), f"{tag}: /generate {gen[:2]}")
+        expect(400 <= ans[0] < 500, f"{tag}: /answer answered {ans}")
+    else:
+        words = svc.meta["ans_words"]
+        expect(all(st == 200 and b.get("answer") in words
+                   and isinstance(b.get("question"), str) for st, b in gen)
+               and ans[0] == 200 and ans[1].get("answer") in words,
+               f"{tag}: /generate {gen[:2]}, /answer {ans}")
+    log(f"{tag}: {n} /generate, e.g. {gen[0][1]}; /answer {ans[0]}")
+    return collections.Counter(_build.launch_counts())
+
+
+def check_unified_serving(path, device, card: str):
+    """The unified artifact: ServingModel.generate on the card (fp32, the
+    kernel flags) against the CPU at B=64, tokens equal or a near tie
+    (phase 5's rule); generate's ms a call at B=64 bf16 with the kernel
+    flags (informational)."""
+    from lctvqa_torch.export import ServingModel, read_artifact
+
+    art = read_artifact(path)
+    s = art["meta"]["img_size"]
+    u8 = np.random.default_rng(SEED + 8).integers(0, 256, (64, s, s, 3),
+                                                  dtype=np.uint8)
+    ref = ServingModel(art, "cpu", compute_dtype="float32")
+    want = ref.generate(u8)
+    with kernel_flags("kernels") as flags:
+        model = ServingModel(art, device, compute_dtype="float32", **flags)
+        got = model.generate(u8).cpu()
+        expect(got.shape == want.shape == (64, art["meta"]["max_qst_len"])
+               and got.dtype == torch.int32, "unified generate shape/dtype")
+        _features_agree(_image_features(model, u8), _image_features(ref, u8),
+                        "unified B=64 vs CPU")
+        _tokens_agree(ref, u8, got, want, "unified B=64 vs CPU")
+        log(f"unified B=64 vs CPU: {int((got == want).all(1).sum())} of 64 "
+            f"streams equal; answers e.g. {model.generated_answers(u8[:2])}")
+        bf16 = ServingModel(art, device, compute_dtype="bfloat16", **flags)
+        ms = time_ms(lambda: bf16.generate(u8), reps=10)
+    log(f"unified generate B=64 bfloat16 kernels: {ms:.2f} ms a call "
+        f"({64e3 / ms:.1f} streams/s) on {card}")
+    del model, bf16, ref
+    torch.cuda.empty_cache()
+
+
+def darts_artifact(root: str, exp_name: str, records: str, name: str):
+    """export_state on a trained DARTS-family experiment's vqa_model.ckpt
+    and arch_par.ckpt, written as an artifact file."""
+    from lctvqa_torch.export import export_state, save_artifact
+    from lctvqa_torch.train import checkpoint
+
+    d = Path(root) / exp_name
+    state = {**checkpoint.load_state(str(d / "vqa_model.ckpt")),
+             **checkpoint.load_state(str(d / "arch_par.ckpt"))}
+    mcfg = checkpoint.config_from_state(state).model
+    path = str(Path(root) / f"{name}.lctx")
+    save_artifact(export_state(state, mcfg, input_dir=records), path)
+    return path
+
+
+def darts_phase(arrays, device, root: str, card: str) -> dict:
+    """Phase 11: npy records padded to full width, each family's run at
+    both flag sets (the counts zeroed before each), the first fp32 losses
+    of the two flag sets, the arch steps by mode and against the CPU, the
+    LCT loop on the npy loader, the unified and darts-EF artifacts
+    served. -> the kernel-flag runs' launches by family."""
+    from lctvqa_torch.ops import _build
+
+    t0 = time.perf_counter()
+    records, images = darts_records(root, arrays)
+    launches, names, times = {}, {}, {}
+    for family in ("darts", "unified"):
+        for fname in KERNEL_FLAGS:
+            _build.reset_launch_counts()
+            times[(family, fname)], names[(family, fname)], got = darts_run(
+                records, images, device, family, fname, root)
+            log(f"launches in the bfloat16 {fname} {family} run: "
+                f"{_launched(got)}")
+            if fname == "kernels":
+                launches[family] = got
+                expect(all(got[k] > 0 for k in (*STAGE1_LAUNCHES,
+                                                "lstm_seq_all",
+                                                "greedy_generate")),
+                       f"{family} kernels run: launches {got}")
+    darts_first_losses(records, images, device, root)
+    arch = darts_arch_modes(records, images, device, root, card)
+    npy_lct_run(records, images, device, root)
+    paths = {family: darts_artifact(root, names[(family, "kernels")],
+                                    records, f"{family}_trained")
+             for family in ("unified", "darts")}
+    for fname in KERNEL_FLAGS:
+        calls = serve_family(paths["unified"], device, fname)
+        on = fname == "kernels"
+        expect((calls["greedy_generate"] > 0) == on
+               and (calls["mixed_node_fwd"] > 0) == on,
+               f"serve unified {fname}: launches {_launched(calls)}")
+        log(f"serve unified {fname}: launches {_launched(calls)}")
+    check_unified_serving(paths["unified"], device, card)
+    calls = serve_family(paths["darts"], device, "kernels")
+    expect(calls["greedy_generate"] > 0, f"serve darts EF: {calls}")
+    for (family, fname), t in times.items():
+        log(f"{family} bfloat16 {fname}: train step {t['train_ms']:.1f} ms, "
+            f"{64e3 / t['train_ms']:.1f} trained pairs/s, arch step "
+            + ", ".join(f"{m:.0f}" for m in t["arch_ms"]) + f" ms on {card}")
+    for mode, t in arch.items():
+        log(f"darts arch {mode} bfloat16 B=64: "
+            + ", ".join(f"{m:.0f}" for m in t) + f" ms a call on {card}")
+    log(f"darts and unified phase took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def check_unified_decode(device):
+    """Phase 2's case for the unified vocabulary: the decode kernel at
+    V = UNIFIED_VOCAB (V % 8 = 5: a padded head), B = 1, 8, 64, both
+    dtypes, against its plain version (phase 2's rule for tokens and
+    near ties), TF32 off; the card's plan is generate_plan's."""
+    import dataclasses
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        mcfg = dataclasses.replace(model_configs()["w"],
+                                   qst_vocab_size=UNIFIED_VOCAB)
+        res = check_kernels(device, mcfg,
+                            names=("greedy_generate",))["greedy_generate"]
+        check_generate_plan(device, mcfg)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
                 cell_dev, node_dev, gen_plan, gen_dev, node_bwd_dev):
@@ -2925,6 +3494,10 @@ def main(argv=None) -> int:
     mode.add_argument("--derived", action="store_true",
                       help="only build, then phase 10 (the derived network "
                       "retrained, evaluated and served)")
+    mode.add_argument("--darts", action="store_true",
+                      help="only build, then the decode kernel at the "
+                      "unified vocabulary and phase 11 (the darts and "
+                      "unified families trained, validated and served)")
     mode.add_argument("--grad-spread", action="store_true",
                       help="only build, then how far the derived EF's fp32 "
                       "gradients move under one rounding of the input, "
@@ -2986,6 +3559,12 @@ def main(argv=None) -> int:
             derived_phase(train_arrays(), device, tmp, card)
         log(card)
         return 1 if FAILURES else 0
+    if args.darts:
+        check_unified_decode(device)
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+            darts_phase(train_arrays(), device, tmp, card)
+        log(card)
+        return 1 if FAILURES else 0
     if args.grad_spread:
         derived_gradient_spread(device)
         log(card)
@@ -3019,6 +3598,7 @@ def main(argv=None) -> int:
     node_bwd_dev = node_bwd_device_times(device, picks=NODE_PROFILE[:1])
     gen_dev = generate_device_times(device, model_configs()["w"],
                                     batches=(64,))
+    gen_unified = check_unified_decode(device)
     check_lstm_functions(device, model_configs()["w"])
     check_pool_gradients(device)
     (torch.backends.cuda.matmul.allow_tf32,
@@ -3103,11 +3683,23 @@ def main(argv=None) -> int:
         # counts at 0
         derived_launches = derived_phase(arrays, device, tmp, card)
 
+        # 11. the fifth and sixth: the darts and unified families, each
+        # run with the counts at 0
+        family_launches = darts_phase(arrays, device, tmp, card)
+
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
                        launches, seq_plan, cell_dev, node_dev, gen_plan,
                        gen_dev, node_bwd_dev)
-    for row in rows:  # the bf16 derived training run with the kernel flags
+    for row in rows:  # the bf16 kernel-flag training runs of 10 and 11
         row["derived_launches"] = derived_launches[row["name"]]
+        row["darts_launches"] = family_launches["darts"][row["name"]]
+        row["unified_launches"] = family_launches["unified"][row["name"]]
+        if row["name"] == "greedy_generate":
+            r = gen_unified[(64, "bfloat16")]
+            row["unified_vocab"] = {
+                "V": UNIFIED_VOCAB, "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "max_abs_err": r["err"],
+                "fp32_ms": gen_unified[(64, "float32")]["ms"]}
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed:")
         for f in FAILURES:

@@ -6,8 +6,10 @@ names. This package imports `torch`, never `jax`, and nothing of
 text, genotypes, the artifact reader and writer).
 
 Ported so far: serving an exported artifact (W model, EF model with the
-fixed VGG19 encoder, the PC-DARTS supernet or a derived network), the
-LCT search (`main.py`, stages 3, 1 and 2), the genotype decode, the
+fixed VGG19 encoder, the PC-DARTS supernet or a derived network, the
+unified QA-stream model), the LCT search (`main.py`, stages 3, 1 and 2,
+on the h5 files or the npy records), the 2-stage DARTS loop and its
+unified variant (`train/experiment_darts.py`), the genotype decode, the
 derived retrain and the checkpoint eval with BLEU4 (`genotype.py`,
 `eval.py`), and eight kernels in CUDA (`csrc/`): the four LSTM-family
 kernels, the node-batched mixed op and the batch-stat BatchNorm, forward

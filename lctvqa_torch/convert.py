@@ -127,8 +127,9 @@ def opt_state_to_jax(state: dict, template):
                                  for s in chain)))
 
 
-_PARAM_KEYS = ("ef_params", "w_params", "arch", "bn_running")
-_OPT_KEYS = ("ef_opt", "w_opt", "arch_opt")
+# the LCT loop's checkpoints, and the DARTS family's ("params", "opt")
+_PARAM_KEYS = ("ef_params", "w_params", "params", "arch", "bn_running")
+_OPT_KEYS = ("ef_opt", "w_opt", "opt", "arch_opt")
 
 
 def checkpoint_from_jax(state: dict, device: Union[str, torch.device] = "cpu",

@@ -10,12 +10,16 @@ loader opens, and beside them `make_npy_records`'s files. Unlike the JAX
 package's generator it does not build the h5 files from the raw jsons.
 
 `make_npy_records` writes the JAX package's raw VQA v2 jsons
-(`Questions/`, `Annotations/`) and the `train.npy` / `valid.npy` records
-built from them, the same records as the JAX package's for the same
-seed and sizes; the reference questions of the BLEU4 in validation and
-eval (`train/metrics.py::VqaStruct`) come from `valid.npy`. Their image
-names are those of the h5 splits' image ids, so the two halves describe
-the same images. It needs neither h5py nor an answer vocabulary file.
+(`Questions/`, `Annotations/`), the unified vocabulary built from them
+(`vocab_unified.txt`, data/vocab.py) and the `train.npy` / `valid.npy`
+records, the same files as the JAX package's for the same seed and
+sizes; the reference questions of the BLEU4 in validation and eval
+(`train/metrics.py::VqaStruct`) come from `valid.npy`. Their image names
+are those of the h5 splits' image ids, so the two halves describe the
+same images. It needs neither h5py nor an answer vocabulary file, and
+writes neither `vocab_questions.txt` nor `vocab_answers.txt`: where only
+npy records are made, the caller writes those two with data/vocab.py's
+builders from the same jsons.
 """
 
 from __future__ import annotations
@@ -23,12 +27,11 @@ from __future__ import annotations
 import json
 import os
 import random
-import re
-from collections import defaultdict
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import numpy as np
 
+from lctvqa_torch.data import vocab
 from lctvqa_torch.text import tokenize
 
 _WORDS = ("what", "is", "the", "color", "of", "cat", "dog", "car", "man",
@@ -38,7 +41,6 @@ _ANSWERS = ("yes", "no", "red", "blue", "green", "two", "three", "cat",
             "dog", "white", "black", "1", "2", "frisbee", "tennis")
 META = ("<pad>", "<unk>", "<start>", "<end>")
 RAW_SPLITS = ("train2014", "val2014")
-_NON_WORD = re.compile(r"[^\w\s]")
 SPLITS = ("train", "val")
 
 
@@ -162,40 +164,35 @@ def raw_vqa_json(num_images: int = 8, num_questions: int = 24,
     return out
 
 
-def _top_answers(raw, n_answers: int) -> List[str]:
-    """The answer vocabulary of the offline build: `<unk>` and the n - 1 most
-    frequent punctuation-free answers over both splits."""
-    counts: Dict[str, int] = defaultdict(int)
-    for split in RAW_SPLITS:
-        for ann in raw[split][1]:
-            for answer in ann["answers"]:
-                if not _NON_WORD.search(answer["answer"]):
-                    counts[answer["answer"]] += 1
-    ranked = sorted(counts, key=counts.get, reverse=True)
-    return ["<unk>"] + ranked[:n_answers - 1]
-
-
 def make_npy_records(out_dir: str, num_images: int = 8,
                      num_questions: int = 24, n_answers: int = 16,
                      seed: int = 0) -> Dict[str, str]:
-    """Write the raw jsons and `train.npy` / `valid.npy` (object arrays of
-    one dict per question: image name and path, question id, string and
-    tokens, all answers, the answers in the vocabulary or ["<unk>"])."""
+    """Write the raw jsons, `vocab_unified.txt` built from them and
+    `train.npy` / `valid.npy` (object arrays of one dict per question:
+    image name and path, question id, string and tokens, all answers, the
+    answers in the vocabulary or ["<unk>"])."""
     raw = raw_vqa_json(num_images, num_questions, seed)
-    valid_set = set(_top_answers(raw, n_answers))
-    for sub in ("Questions", "Annotations"):
-        os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
-    for split, out_name in zip(RAW_SPLITS, ("train.npy", "valid.npy")):
+    questions_dir = os.path.join(out_dir, "Questions")
+    annotations_dir = os.path.join(out_dir, "Annotations")
+    for split in RAW_SPLITS:
         questions, annotations = raw[split]
         meta = {"data_type": "mscoco", "data_subtype": split}
-        with open(os.path.join(
-                out_dir, "Questions",
-                f"v2_OpenEnded_mscoco_{split}_questions.json"), "w") as f:
-            json.dump({**meta, "questions": questions}, f)
-        with open(os.path.join(
-                out_dir, "Annotations",
-                f"v2_mscoco_{split}_annotations.json"), "w") as f:
-            json.dump({**meta, "annotations": annotations}, f)
+        for sub, name, key, items in (
+                (questions_dir, f"v2_OpenEnded_mscoco_{split}_questions.json",
+                 "questions", questions),
+                (annotations_dir, f"v2_mscoco_{split}_annotations.json",
+                 "annotations", annotations)):
+            os.makedirs(sub, exist_ok=True)
+            with open(os.path.join(sub, name), "w") as f:
+                json.dump({**meta, key: items}, f)
+    vocab.make_vocab_unified(questions_dir, annotations_dir,
+                             os.path.join(out_dir, "vocab_unified.txt"),
+                             n_answers=n_answers)
+    # the answer vocabulary of the offline build, not written here
+    valid_set = {"<unk>", *vocab.ranked_answers(annotations_dir)[
+        :n_answers - 1]}
+    for split, out_name in zip(RAW_SPLITS, ("train.npy", "valid.npy")):
+        questions, annotations = raw[split]
         anns = {a["question_id"]: a for a in annotations}
         records = []
         for q in questions:

@@ -1,5 +1,6 @@
 """Artifacts and the serving model (counterpart of lctvqa/export.py's
-`save_artifact`, `read_artifact`, `ServingModel` and `load_artifact`).
+`export_state`, `save_artifact`, `read_artifact`, `ServingModel` and
+`load_artifact`).
 
 An artifact is one ZIP file (no pickle): `meta.json`, `tree.json` (the
 param tree's skeleton and the leaves' dtypes and shapes), `leaves/<i>`
@@ -14,15 +15,21 @@ an artifact's params. Model dimensions come from the param shapes and
 the kernel flags come from `ModelConfig`'s defaults (bf16 operands, the
 LSTM cell kernel on) unless the caller overrides them.
 
-Served: W artifacts (`answer_logits`) and EF artifacts with the fixed
-VGG19 encoder, the PC-DARTS supernet or a derived network (`answer_logits`,
-`generate`). The supernet's arch parameters ride in the bundle. A derived
-network's genotype does not: the JAX package writes it only into its
-StableHLO programs, so the caller names it (`load_artifact(path,
-genotype=...)`, serve's `--genotype`: a preset, a search checkpoint or a
-repr file), and a genotype whose network does not have the artifact's
-param shapes raises. int8 artifacts and unified artifacts raise. Writing
-`torch.export` programs is not ported yet.
+Served: W artifacts (`answer_logits`), EF artifacts with the fixed
+VGG19 encoder, the PC-DARTS supernet or a derived network
+(`answer_logits`, `generate`), and unified artifacts (`generate`: the
+greedy `<start> q <sep> a <end>` stream alone; `generated_answers` reads
+the answer out of it). The supernet's arch parameters ride in the
+bundle. A derived network's genotype does not: the JAX package writes it
+only into its StableHLO programs, so the caller names it
+(`load_artifact(path, genotype=...)`, serve's `--genotype`: a preset, a
+search checkpoint or a repr file), and a genotype whose network does not
+have the artifact's param shapes raises. int8 artifacts raise.
+
+`export_state` makes an artifact of a checkpoint's trees, recognizing
+the family as the JAX package's does (a DARTS-family `vqa_model.ckpt` is
+an EF model, or a unified one where its params hold "qa"); it writes no
+programs: writing `torch.export` programs is not ported yet.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import json
 import os
 import pickle
 import zipfile
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -40,12 +47,14 @@ import torch
 from lctvqa_torch import convert
 from lctvqa_torch.config import ModelConfig
 from lctvqa_torch.data.pipeline import normalize_images
-from lctvqa_torch.models import derived, search, vqa_ef, vqa_w
+from lctvqa_torch.models import (derived, search, unified as unified_model,
+                                 vqa_ef, vqa_w)
 from lctvqa_torch.models.genotypes import Genotype
 from lctvqa_torch.ops import cuda_generate
 from lctvqa_torch.ops import nn as N
 from lctvqa_torch.ops.cuda_lstm import cell_weights
 from lctvqa_torch.ops.cuda_mixedop import node_weights
+from lctvqa_torch.text import VocabDict, extract_answer_words
 
 ARTIFACT_VERSION = 1
 
@@ -133,25 +142,69 @@ def read_artifact(path: str, trusted: bool = False) -> Dict[str, Any]:
     return {"exported": exported, "params": params, "meta": meta}
 
 
-def extract_answer_words(words) -> str:
-    """Words strictly between <sep> and <end> of a decoded unified QA
-    stream."""
-    ans, in_ans = [], False
-    for w in words:
-        if w == "<sep>":
-            in_ans = True
-        elif w == "<end>":
-            break
-        elif in_ans:
-            ans.append(w)
-    return " ".join(ans)
-
-
 # ---------------------------------------------------------------------------
 # the serving model
 # ---------------------------------------------------------------------------
 
-FUNCTIONS = {"w": ("answer_logits",), "ef": ("answer_logits", "generate")}
+FUNCTIONS = {"w": ("answer_logits",), "ef": ("answer_logits", "generate"),
+             "unified": ("generate",)}
+
+
+def _read_vocab(input_dir: Optional[str]) -> Dict[str, Any]:
+    """The word lists of `input_dir`'s vocabulary files that exist."""
+    out = {}
+    for key, fname in (("qst_words", "vocab_questions.txt"),
+                       ("ans_words", "vocab_answers.txt"),
+                       ("unified_words", "vocab_unified.txt")):
+        path = os.path.join(input_dir or "", fname)
+        if input_dir and os.path.exists(path):
+            out[key] = VocabDict(path).word_list
+    return out
+
+
+def export_state(state: Dict[str, Any], mcfg: ModelConfig,
+                 input_dir: Optional[str] = None) -> Dict[str, Any]:
+    """A checkpoint's trees in the port's layout (tensors, or a port
+    checkpoint as `checkpoint.load_state` returns it) -> an artifact dict
+    for `save_artifact`, with no programs under "exported" (the JAX
+    package's StableHLO is not written here). `state` is an
+    `ef_model.ckpt` ({"ef_params", "arch", ...}), a `w_model.ckpt`
+    ({"w_params", ...}) or a DARTS-family `vqa_model.ckpt` ({"params",
+    ...}, with "arch" from `arch_par.ckpt`): a unified model where its
+    params hold "qa", an EF model otherwise. `mcfg` is the config it was
+    trained with; `input_dir`'s vocabularies go into meta, and one whose
+    size is not the model's raises."""
+    if "w_params" in state:
+        family, params = "w", state["w_params"]
+    elif "ef_params" in state:
+        family, params = "ef", state["ef_params"]
+    else:
+        params = state["params"]
+        family = "unified" if "qa" in params else "ef"
+    arch = None if family == "w" else state.get("arch")
+    bundle = {"params": convert.to_jax(convert.as_tensors(params))}
+    if arch is not None:
+        bundle["arch"] = convert.to_jax(convert.as_tensors(arch))
+    from lctvqa_torch import __version__
+    meta = {"artifact_version": ARTIFACT_VERSION, "family": family,
+            "int8": False, "platforms": ["cuda"], "img_size": mcfg.img_size,
+            "max_qst_len": mcfg.max_qst_len,
+            "qst_vocab_size": mcfg.qst_vocab_size,
+            "ans_vocab_size": mcfg.ans_vocab_size,
+            "arch_type": mcfg.arch_type, "epoch": state.get("epoch"),
+            "lctvqa_version": __version__}
+    vocab = _read_vocab(input_dir)
+    checks = ((("unified_words", "qst_vocab_size"),) if family == "unified"
+              else (("qst_words", "qst_vocab_size"),
+                    ("ans_words", "ans_vocab_size")))
+    for key, size_key in checks:
+        words = vocab.get(key)
+        if words is not None and len(words) != meta[size_key]:
+            raise ValueError(f"input_dir vocab mismatch: {key} has "
+                             f"{len(words)} entries but the model's "
+                             f"{size_key} is {meta[size_key]}")
+    meta.update(vocab)
+    return {"exported": {}, "params": bundle, "meta": meta}
 
 
 def _darts_dims(params) -> Dict[str, int]:
@@ -222,8 +275,10 @@ def model_config(meta: Dict[str, Any], params, genotype=None,
                  **overrides) -> ModelConfig:
     """ModelConfig of an artifact: dims from the param shapes and meta
     (and a derived network's `genotype`), everything else from
-    ModelConfig's defaults and `overrides`."""
-    qst = params["qst"]
+    ModelConfig's defaults and `overrides`. A unified tree's stream
+    model is `params["qa"]`, whose vocabulary is the unified one; it has
+    no answer head, and meta gives the answer vocabulary's size."""
+    qst = params["qa"] if "qa" in params else params["qst"]
     layers = qst["lstm"]["layers"]
     vocab, word_embed = qst["word2vec"]["table"].shape
     if "darts" in params:
@@ -242,7 +297,8 @@ def model_config(meta: Dict[str, Any], params, genotype=None,
         lstm_num_layers=len(layers),
         max_qst_len=meta["max_qst_len"],
         qst_vocab_size=vocab,
-        ans_vocab_size=params["fc2"]["w"].shape[1],
+        ans_vocab_size=(params["fc2"]["w"].shape[1] if "fc2" in params
+                        else meta["ans_vocab_size"]),
         img_size=meta["img_size"],
         **encoder, **overrides)
 
@@ -297,17 +353,17 @@ class ServingModel:
                 "int8 artifacts are not ported yet (ROADMAP.md, queue 1 "
                 "item 6); export without --int8")
         if family not in FUNCTIONS:
-            raise NotImplementedError(
-                f"{family!r} artifacts are not ported yet (the unified "
-                "family comes with ROADMAP.md queue 1 item 5)")
+            raise ValueError(f"unknown artifact family {family!r}")
         params = artifact["params"]["params"]
-        if family == "ef":
+        if family != "w":
             arch_type = ("derived" if "derived" in params else
                          "darts" if "darts" in params else "fixed")
             if meta.get("arch_type", arch_type) != arch_type:
                 raise ValueError(
                     f"artifact meta says arch_type={meta['arch_type']!r} "
                     f"but its params hold a {arch_type!r} encoder")
+            if family == "unified":
+                unified_model.check_arch_type(arch_type)
         if isinstance(genotype, str):
             from lctvqa_torch.genotype import resolve_genotype
             genotype = resolve_genotype(genotype)
@@ -330,9 +386,12 @@ class ServingModel:
                              "under params['arch']")
         self.arch = (None if arch is None
                      else convert.from_jax(arch, self.device))
-        if family == "ef" and self.config.pallas_generate:
-            self.params["qst"]["decode"] = cuda_generate.decode_weights(
-                self.params["qst"], dtype)
+        # the decoder: the EF model's question encoder, or the unified
+        # model's stream LSTM and head
+        self._decoder = "qa" if family == "unified" else "qst"
+        if family != "w" and self.config.pallas_generate:
+            dec = self.params[self._decoder]
+            dec["decode"] = cuda_generate.decode_weights(dec, dtype)
 
     @property
     def functions(self):
@@ -344,6 +403,9 @@ class ServingModel:
     @torch.inference_mode()
     def answer_logits(self, u8_images, qst_ids) -> torch.Tensor:
         """uint8 [B, S, S, 3] and int [B, T] -> fp32 logits [B, A]."""
+        if "answer_logits" not in self.functions:
+            raise ValueError(f"{self.family} artifacts have no "
+                             "answer_logits function")
         img = normalize_images(self._tensor(u8_images, torch.uint8))
         qst = self._tensor(qst_ids, torch.int64)
         if self.family == "w":
@@ -353,15 +415,35 @@ class ServingModel:
         return logits
 
     @torch.inference_mode()
-    def generate(self, u8_images) -> Tuple[torch.Tensor, torch.Tensor]:
-        """uint8 [B, S, S, 3] -> (greedy question tokens int32 [B, T],
-        answer ids [B])."""
-        if self.family != "ef":
+    def generate(self, u8_images):
+        """uint8 [B, S, S, 3] -> EF: (greedy question tokens int32 [B, T],
+        answer ids [B]); unified: the greedy `<start> q <sep> a <end>`
+        stream, int32 [B, T]."""
+        if self.family == "w":
             raise ValueError("W-model artifacts have no generate function")
         img = normalize_images(self._tensor(u8_images, torch.uint8))
+        if self.family == "unified":
+            return unified_model.unified_generate(self.params, self.arch,
+                                                  self.config, img)
         qst, ans = vqa_ef.ef_generate(self.params, self.arch, self.config,
                                       img)
         return qst, torch.argmax(ans, dim=1)
+
+    def generated_answers(self, u8_images) -> List[str]:
+        """Answer strings of greedy generation: a unified stream's words
+        strictly between `<sep>` and `<end>`, or the answer vocabulary's
+        word of the EF's answer to its own question (the vocabularies
+        come from the artifact's meta)."""
+        out = self.generate(u8_images)
+        key = "unified_words" if self.family == "unified" else "ans_words"
+        words = self.meta.get(key)
+        if not words:
+            raise ValueError(f"artifact was exported without its "
+                             f"vocabularies; no {key} embedded")
+        if self.family == "unified":
+            return [extract_answer_words([words[int(i)] for i in row])
+                    for row in out.cpu().numpy()]
+        return [words[int(i)] for i in out[1].cpu().numpy()]
 
 
 def load_artifact(path: str, device: Union[str, torch.device] = "cuda",

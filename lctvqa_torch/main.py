@@ -7,10 +7,13 @@ update, `--architect_mode`, unless `--skip_stage3`), stage 1 and stage 2
 on the EF and W models, then validation; `--device cpu` runs the same
 loop on the CPU, for a check. `--arch_type derived --genotype G`
 retrains the network of a searched (or preset) genotype instead: stages
-1 and 2 and validation, as a derived net has no arch to update. The
+1 and 2 and validation, as a derived net has no arch to update.
+`--use_old_dataloader` feeds the loop from the npy records instead of
+the h5 files. `--package darts` runs the 2-stage DARTS loop
+(train/experiment_darts.py; `--qst_only` drops the answer loss) and
+`--package unified` its QA-stream model, both on the npy records. The
 flags are the JAX CLI's where they mean something here. Flags of paths
-that are not ported yet raise and name the ROADMAP.md queue that brings
-them.
+that are not ported raise and name the ROADMAP.md entry that says why.
 """
 
 from __future__ import annotations
@@ -30,8 +33,6 @@ NOT_PORTED = {
     "pack_conv_branches": "'Not ported' (a JAX-only packing of the conv "
                           "branches)",
     "multihost": "queue 1 item 7 (several devices and hosts)",
-    "use_old_dataloader": "queue 1 item 6 (the npy loader, "
-                          "data/pipeline_npy.py)",
 }
 
 
@@ -92,20 +93,23 @@ def build_parser() -> argparse.ArgumentParser:
                         "text file with a Genotype(...) repr")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'; nothing falls back")
-    # accepted so that they can be refused by name
+    p.add_argument("--use_old_dataloader", action="store_true",
+                   help="the LCT loop on the npy records "
+                        "(data/pipeline_npy.py) instead of the h5 files")
+    # experiment family: 'lct' = the 3-stage loop; 'darts' = the 2-stage
+    # DARTS loop; 'unified' = its QA-stream variant
     p.add_argument("--package", type=str, default="lct",
                    choices=["lct", "darts", "unified"])
+    p.add_argument("--qst_only", action="store_true",
+                   help="question-only loss (darts package)")
+    # accepted so that they can be refused by name
     for flag in NOT_PORTED:
         p.add_argument(f"--{flag}", action="store_true")
     return p
 
 
 def check_ported(args) -> None:
-    """Raise for every flag whose path the port does not have yet."""
-    if args.package != "lct":
-        raise NotImplementedError(
-            f"--package {args.package} (train/experiment_darts.py) is not "
-            "ported: ROADMAP.md, queue 1 item 5")
+    """Raise for every flag whose path the port does not have."""
     for flag, where in NOT_PORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(
@@ -148,6 +152,7 @@ def config_from_args(args) -> Config:
         report_freq=10 if args.arch_type == "darts" else 100)
     data = DataConfig(input_dir=args.input_dir,
                       num_workers=args.num_workers,
+                      use_old_dataloader=args.use_old_dataloader,
                       preload_images=args.preload_images)
     return Config(model=model, train=train, data=data, exp_name=args.exp,
                   resume=args.resume)
@@ -178,8 +183,17 @@ def main(argv=None):
             torch.load(args.vgg_weights, map_location="cpu",
                        weights_only=True))
 
-    from lctvqa_torch.train.experiment import Experiment
-    exp = Experiment(cfg, device=args.device, vgg_params=vgg_params)
+    if args.package == "lct":
+        from lctvqa_torch.train.experiment import Experiment
+        exp = Experiment(cfg, device=args.device, vgg_params=vgg_params)
+    elif args.package == "darts":
+        from lctvqa_torch.train.experiment_darts import DartsExperiment
+        exp = DartsExperiment(cfg, qst_only=args.qst_only,
+                              device=args.device)
+    else:
+        from lctvqa_torch.train.experiment_darts import (
+            DartsExperimentUnified)
+        exp = DartsExperimentUnified(cfg, device=args.device)
     exp.run()
     return exp
 

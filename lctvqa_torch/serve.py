@@ -6,8 +6,11 @@ Endpoints (JSON in, JSON out), as the JAX package's:
 - `GET  /healthz`  -> {"ok", "family", "functions"}
 - `GET  /meta`     -> artifact meta (word lists replaced by their sizes)
 - `POST /answer`   -> {"image_b64"|"image", "question"} -> {"answer"}
+                      (W and EF artifacts; a unified artifact's is a 400)
 - `POST /generate` -> {"image_b64"|"image"} -> {"question", "answer"}
-                      (EF artifacts)
+                      (EF artifacts), {"qa", "answer"} (unified
+                      artifacts: the greedy stream without its pads, and
+                      its words between <sep> and <end>)
 
 Images: base64 of an encoded image file (decoded and resized via PIL), or
 base64 of raw uint8 RGB bytes of exactly img_size*img_size*3, or a nested
@@ -42,6 +45,10 @@ A derived-EF artifact does not carry its genotype: `--genotype` names it
     python -m lctvqa_torch.serve --artifact w.lctx --warmup
     python -m lctvqa_torch.serve --artifact ef_serving.lctx \
         --genotype PC_DARTS_cifar
+    python -m lctvqa_torch.serve --artifact unified.lctx
+
+(an artifact of a trained checkpoint: `export.export_state` and
+`export.save_artifact`).
 """
 
 from __future__ import annotations
@@ -62,7 +69,7 @@ import torch
 
 from lctvqa_torch.config import ModelConfig
 from lctvqa_torch.export import ServingModel, load_artifact
-from lctvqa_torch.text import VocabDict, tokenize
+from lctvqa_torch.text import VocabDict, extract_answer_words, tokenize
 
 
 def _to_host(out):
@@ -168,6 +175,7 @@ class TorchVqaService:
         self._qst_vocab = (VocabDict(word_list=self.meta["qst_words"])
                            if self.meta.get("qst_words") else None)
         self._ans_words = self.meta.get("ans_words")
+        self._uni_words = self.meta.get("unified_words")
 
     # -- input decoding ---------------------------------------------------
 
@@ -210,6 +218,8 @@ class TorchVqaService:
     # -- endpoints --------------------------------------------------------
 
     def answer(self, payload: Dict[str, Any]) -> Dict[str, Any]:
+        if "answer_logits" not in self.model.functions:
+            raise ValueError("unified artifacts answer via POST /generate")
         u8 = self._decode_image(payload)
         qst = self._encode_question(payload["question"])
         logits = self.batcher.call("answer_logits", u8, qst)
@@ -224,7 +234,14 @@ class TorchVqaService:
             raise ValueError("W artifacts have no generate function; "
                              "use POST /answer")
         u8 = self._decode_image(payload)
-        tokens, ans_id = self.batcher.call("generate", u8)
+        out = self.batcher.call("generate", u8)
+        if self.model.family == "unified":
+            if not self._uni_words:
+                raise ValueError("no unified vocab embedded in artifact")
+            words = [self._uni_words[int(i)] for i in out]
+            return {"qa": " ".join(w for w in words if w != "<pad>"),
+                    "answer": extract_answer_words(words)}
+        tokens, ans_id = out
         res: Dict[str, Any] = {"answer_id": int(ans_id)}
         if self._qst_vocab is not None:
             res["question"] = self._qst_vocab.arr2qst(tokens)

@@ -60,3 +60,18 @@ class VocabDict:
         """Convert index array to a question string, stripping meta tokens."""
         words = [self.idx2word(int(i)) for i in arr]
         return " ".join(w for w in words if w not in META_TOKENS)
+
+
+def extract_answer_words(words: Iterable[str]) -> str:
+    """The words strictly between `<sep>` and `<end>` of a decoded unified
+    question-and-answer stream."""
+    ans: List[str] = []
+    in_ans = False
+    for w in words:
+        if w == "<sep>":
+            in_ans = True
+        elif w == "<end>":
+            break
+        elif in_ans:
+            ans.append(w)
+    return " ".join(ans)

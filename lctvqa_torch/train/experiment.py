@@ -9,8 +9,10 @@ validation (loss, multi-choice accuracy with and without <unk>, BLEU4
 of the greedy questions against the reference questions of the npy
 records, on a worker thread), the StepLR decay and a checkpoint of both
 models. Stage 3 is skipped with `skip_stage3` and for the fixed VGG and
-derived EFs, which have no arch. The statistics files and their plots
-are not ported yet (ROADMAP.md, queue 1 item 6).
+derived EFs, which have no arch. Batches come from the h5 dataset
+(data/pipeline.py) or, with `use_old_dataloader`, from the npy records
+(data/pipeline_npy.py). The statistics files and their plots are not
+ported yet (ROADMAP.md, queue 1 item 6).
 
 One process, one device, no mesh. Losses and counters stay on the device
 during an epoch: the host reads one value per `report_freq` steps and
@@ -32,7 +34,7 @@ import torch
 
 from lctvqa_torch import convert
 from lctvqa_torch.config import Config
-from lctvqa_torch.data import pipeline
+from lctvqa_torch.data import pipeline, pipeline_npy
 from lctvqa_torch.models import search, vqa_ef, vqa_w
 from lctvqa_torch.optim.optimizers import set_learning_rate, step_lr, tree_map
 from lctvqa_torch.train import checkpoint
@@ -41,26 +43,62 @@ from lctvqa_torch.train.steps import make_lct_steps
 from lctvqa_torch.train.timing import StageTimer
 
 
-def dev_batch(batch: dict) -> dict:
+def dev_batch(batch: dict, keys=pipeline.DEVICE_KEYS) -> dict:
     """The fields a step reads, dropping the host-only ones."""
-    return {k: v for k, v in batch.items() if k in pipeline.DEVICE_KEYS}
+    return {k: v for k, v in batch.items() if k in keys}
+
+
+def training_device(device) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "training runs on a CUDA device and none is available; pass "
+            "device='cpu' (--device cpu) to run on the CPU")
+    return device
+
+
+def setup_logger(exp_dir: str) -> None:
+    """Log to stdout and to `exp_dir`/log.txt."""
+    fmt = "%(asctime)s %(message)s"
+    logging.basicConfig(stream=sys.stdout, level=logging.INFO, format=fmt,
+                        datefmt="%m/%d %I:%M:%S %p", force=True)
+    fh = logging.FileHandler(os.path.join(exp_dir, "log.txt"))
+    fh.setFormatter(logging.Formatter(fmt))
+    logging.getLogger().addHandler(fh)
+
+
+def check_exp_dir(exp_dir: str, resume: bool) -> None:
+    """A directory that holds more than one file is another run's, unless
+    it is resumed."""
+    if (not resume and os.path.exists(exp_dir)
+            and len(os.listdir(exp_dir)) > 1):
+        raise RuntimeError(f"exp dir {exp_dir} not empty; delete it or pass "
+                           "resume=True")
+
+
+def opt_state_from(state, device):
+    """A loaded port optimizer state (numpy leaves) on `device`."""
+    if state is None:
+        return None
+    return {"step": int(state["step"]), "lr": float(state["lr"]),
+            "m": convert.as_tensors(state["m"], device),
+            "v": convert.as_tensors(state["v"], device)}
 
 
 class Experiment:
     def __init__(self, cfg: Config, device="cuda", data: Optional[dict] = None,
                  vgg_params=None):
         """`data`: a loader dict ({"train", "valid"} datasets, e.g. from
-        `pipeline.loader_from_arrays`); by default the h5 files of
-        `cfg.data.input_dir` are opened. The reference questions of
+        `pipeline.loader_from_arrays`, or `pipeline_npy.get_npy_loader`'s
+        with `cfg.data.use_old_dataloader`); by default the h5 files of
+        `cfg.data.input_dir` are opened, or its npy records with
+        `use_old_dataloader`. The reference questions of
         validation's BLEU4 are `cfg.data.input_dir`'s `valid.npy`, which
         must exist unless `data` is given (validation then reports no
         BLEU4 where there is none). `device`: the CUDA device, or "cpu"
         where the caller asks for it; a missing card raises."""
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "training runs on a CUDA device and none is available; pass "
-                "device='cpu' (--device cpu) to run on the CPU")
+        self.device = training_device(device)
         forced_remat = (cfg.train.architect_mode == "exact-indirect"
                         and not cfg.train.stage3_remat
                         and not cfg.train.skip_stage3)
@@ -82,9 +120,18 @@ class Experiment:
             seed + 1)
         init_gen = torch.Generator().manual_seed(seed)
 
-        self.data = data if data is not None else pipeline.get_loader(
-            cfg.data.input_dir, cfg.train.batch_size, cfg.train.train_portion,
-            preload=cfg.data.preload_images)
+        if data is not None:
+            self.data = data
+        elif cfg.data.use_old_dataloader:
+            self.data = pipeline_npy.get_npy_loader(
+                cfg.data.input_dir, max_qst_length=cfg.model.max_qst_len,
+                max_num_ans=cfg.data.max_num_ans,
+                img_size=cfg.model.img_size,
+                train_portion=cfg.train.train_portion)
+        else:
+            self.data = pipeline.get_loader(
+                cfg.data.input_dir, cfg.train.batch_size,
+                cfg.train.train_portion, preload=cfg.data.preload_images)
         self.qst_vocab = self.data["train"].qst_vocab
         self.ans_vocab = self.data["train"].ans_vocab
         records = os.path.join(cfg.data.input_dir, "valid.npy")
@@ -130,29 +177,13 @@ class Experiment:
     def log(self, msg: str):
         logging.info(msg)
 
-    def _setup_logger(self):
-        fmt = "%(asctime)s %(message)s"
-        logging.basicConfig(stream=sys.stdout, level=logging.INFO,
-                            format=fmt, datefmt="%m/%d %I:%M:%S %p",
-                            force=True)
-        fh = logging.FileHandler(os.path.join(self.exp_dir, "log.txt"))
-        fh.setFormatter(logging.Formatter(fmt))
-        logging.getLogger().addHandler(fh)
-        self.log(f"Exp Name: {self.name}")
-
     def _load_experiment(self):
-        os.makedirs(self.cfg.root_stats_dir, exist_ok=True)
-        if os.path.exists(self.exp_dir):
-            if not self.cfg.resume:
-                if len(os.listdir(self.exp_dir)) > 1:
-                    raise RuntimeError(
-                        f"exp dir {self.exp_dir} not empty; delete it or "
-                        "pass resume=True")
-            else:
-                self.load_model()
-        else:
-            os.makedirs(self.exp_dir)
-        self._setup_logger()
+        check_exp_dir(self.exp_dir, self.cfg.resume)
+        if os.path.exists(self.exp_dir) and self.cfg.resume:
+            self.load_model()
+        os.makedirs(self.exp_dir, exist_ok=True)
+        setup_logger(self.exp_dir)
+        self.log(f"Exp Name: {self.name}")
 
     # ------------------------------------------------------------------
     def set_arch_update_freq(self):
@@ -167,13 +198,20 @@ class Experiment:
         return step_lr(t.learning_rate, self.current_epoch, t.step_size,
                        t.lr_decay)
 
+    def _epoch_iter(self, split: str, shuffle=True):
+        """One epoch of host batches: the npy loader's own, or the h5
+        dataset's gathers."""
+        if self.cfg.data.use_old_dataloader:
+            return self.data[split].batches(self.cfg.train.batch_size,
+                                            self.np_rng, shuffle=shuffle)
+        return pipeline.epoch_batches(self.data[split],
+                                      self.cfg.train.batch_size, self.np_rng,
+                                      shuffle=shuffle,
+                                      max_num_ans=self.cfg.data.max_num_ans)
+
     def _batches(self, split: str, shuffle=True):
-        return pipeline.Prefetcher(
-            pipeline.epoch_batches(self.data[split],
-                                   self.cfg.train.batch_size, self.np_rng,
-                                   shuffle=shuffle,
-                                   max_num_ans=self.cfg.data.max_num_ans),
-            self.device, depth=self.cfg.data.prefetch)
+        return pipeline.Prefetcher(self._epoch_iter(split, shuffle),
+                                   self.device, depth=self.cfg.data.prefetch)
 
     # ------------------------------------------------------------------
     def run(self):
@@ -196,9 +234,7 @@ class Experiment:
         """Validation batches for stage 3, on the host, without end: the
         first pass's batches over again, as itertools.cycle repeats them
         in the JAX package."""
-        return itertools.cycle(pipeline.epoch_batches(
-            self.data["valid"], self.cfg.train.batch_size, self.np_rng,
-            max_num_ans=self.cfg.data.max_num_ans))
+        return itertools.cycle(self._epoch_iter("valid"))
 
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v, device=self.device)
@@ -381,21 +417,14 @@ class Experiment:
              "epoch": self.current_epoch + 1},
             config=self.cfg)
 
-    def _opt_from(self, state):
-        if state is None:
-            return None
-        return {"step": int(state["step"]), "lr": float(state["lr"]),
-                "m": convert.as_tensors(state["m"], self.device),
-                "v": convert.as_tensors(state["v"], self.device)}
-
     def load_model(self):
         state = checkpoint.load_state(
             os.path.join(self.exp_dir, "ef_model.ckpt"))
         self.ef_params = convert.as_tensors(state["ef_params"], self.device)
-        self.ef_opt = self._opt_from(state["ef_opt"])
+        self.ef_opt = opt_state_from(state["ef_opt"], self.device)
         if state["arch"] is not None:
             self.arch = convert.as_tensors(state["arch"], self.device)
-        self.arch_opt = self._opt_from(state["arch_opt"])
+        self.arch_opt = opt_state_from(state["arch_opt"], self.device)
         if state.get("bn_running") is not None:
             self.bn_running = convert.as_tensors(state["bn_running"],
                                                  self.device)
@@ -405,4 +434,4 @@ class Experiment:
             w_state = checkpoint.load_state(w_path)
             self.w_params = convert.as_tensors(w_state["w_params"],
                                                self.device)
-            self.w_opt = self._opt_from(w_state["w_opt"])
+            self.w_opt = opt_state_from(w_state["w_opt"], self.device)

@@ -3,7 +3,9 @@ correctness and question token-error counts, each a 0-d tensor on the
 device of its inputs (nothing reads a value back to the host). Host
 side: BLEU4 of generated questions against the reference questions of
 the npy records (`VqaStruct`, `calc_bleu_scores`), kept off the step's
-path. BLEU4 is nltk's `sentence_bleu` with `SmoothingFunction().method1`
+path, and the unified model's: BLEU4 of its question-and-answer streams
+(`calc_bleu_scores_unified`) and the share of exact answer strings
+(`extract_answer`, `unified_ans_acc`). BLEU4 is nltk's `sentence_bleu` with `SmoothingFunction().method1`
 (the JAX package's), computed here in plain Python: the port does not
 need nltk.
 """
@@ -17,6 +19,8 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from lctvqa_torch.text import extract_answer_words
 
 
 class VqaStruct:
@@ -43,6 +47,13 @@ class VqaStruct:
         ref = self.img_to_qst[img_name]
         if not ref:
             raise KeyError(f"no reference question for {img_name}")
+        return ref
+
+    def get_ref_qa(self, img_name: str):
+        ref = self.img_to_qa[img_name]
+        if not ref:
+            raise KeyError(f"no reference question and answer for "
+                           f"{img_name}")
         return ref
 
 
@@ -86,6 +97,34 @@ def calc_bleu_scores(image_names: Sequence[str], pred_qsts, qst_vocab,
     for name, pred in zip(image_names, preds):
         total += BLEU4(vqa_struct.get_ref_qst(name), pred)
     return total / len(image_names)
+
+
+def calc_bleu_scores_unified(image_names: Sequence[str], pred_qas,
+                             unified_vocab, vqa_struct: VqaStruct) -> float:
+    """Mean BLEU4 of generated `<start> q <sep> a <end>` streams against
+    the reference question-and-answer lists of their image."""
+    total = 0.0
+    for name, qa in zip(image_names, pred_qas):
+        total += BLEU4(vqa_struct.get_ref_qa(name),
+                       unified_vocab.arr2qst(np.asarray(qa)).split())
+    return total / len(image_names)
+
+
+def extract_answer(qa_ids, unified_vocab) -> str:
+    """The words strictly between `<sep>` and `<end>` of a stream of ids."""
+    return extract_answer_words([unified_vocab.word_list[int(i)]
+                                 for i in qa_ids])
+
+
+def unified_ans_acc(qa_gt, qa_pred, unified_vocab) -> float:
+    """The share of streams whose answer string is the ground truth's."""
+    if len(qa_gt) != len(qa_pred):
+        raise ValueError(f"{len(qa_gt)} ground-truth streams against "
+                         f"{len(qa_pred)} predicted")
+    corr = sum(extract_answer(g, unified_vocab)
+               == extract_answer(p, unified_vocab)
+               for g, p in zip(qa_gt, qa_pred))
+    return corr / len(qa_gt)
 
 
 def num_correct(pred: torch.Tensor, multi_choice: torch.Tensor) -> torch.Tensor:

@@ -583,13 +583,10 @@ def test_cli_runs_the_three_stages_on_the_cpu(synth, tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--package", "unified"], "queue 1 item 5"),
-    (["--skip_stage3", "--package", "darts"], "queue 1 item 5"),
     (["--skip_stage3", "--fuse_mixed_ops"], "Not ported"),
     (["--skip_stage3", "--remat_cells"], "Not ported"),
     (["--skip_stage3", "--pack_conv_branches"], "Not ported"),
-    (["--skip_stage3", "--multihost"], "queue 1 item 7"),
-    (["--skip_stage3", "--use_old_dataloader"], "queue 1 item 6")],
+    (["--skip_stage3", "--multihost"], "queue 1 item 7")],
     ids=lambda v: "_".join(v).replace("--", "") if isinstance(v, list)
     else None)
 def test_cli_flags_of_unported_paths_raise(argv, match):
