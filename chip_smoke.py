@@ -10,6 +10,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --derived   # only phase 10
     python3 chip_smoke.py --darts     # only the decode at the unified
                                       # vocabulary and phase 11
+    python3 chip_smoke.py --int8      # only phase 12
     python3 chip_smoke.py --grad-spread
                                       # only how far the derived EF's fp32
                                       # gradients move under one rounding
@@ -237,6 +238,29 @@ non-zero:
    and arch step times, trained pairs/s and the phase's wall time are
    printed.
 
+12. int8 serving (lctvqa_torch/quant.py, ops/int8.py) and the export
+   CLI at full width, bf16 with the kernel flags unless said otherwise.
+   Phase 3's W params written as a checkpoint and exported with `python
+   -m lctvqa_torch.export --int8 --check` on the card (the reloaded
+   artifact against the model on the checkpoint's trees: floats within
+   2e-4, tokens exact), served over HTTP (/answer; the sequence kernel and
+   the int8 products launch); every int8 product of a distinct shape the
+   W forward makes at B = 64, 1 and 5 (the padded GEMMs) and the derived
+   EF's at B = 64 held bit for bit to its plain version on the same
+   operands (exact on both); W's B = 64 answers against its fp32 and bf16
+   forwards (agreement printed) and its int8 logits at fp32 compute
+   dtype against the CPU's on INT8_CPU_ROWS rows (INT8_CPU_TOL of their
+   scale: see there). Phase 10's kernel-flag derived EF exported --int8
+   --check, served on /generate (greedy_generate and lstm_seq_all
+   launch), and `lctvqa_torch.eval --int8` on it (accuracy and BLEU4 in
+   range). Phase 8's bf16 kernel-flag experiment resumed for an epoch on
+   a small split, twice: the six statistics files written, then each
+   extended by one value. Printed beside the card's name and power limit:
+   ms per W answer_logits call at B = 64 in int8, bf16 and fp32, weight
+   bytes on the device, the largest patch matrix, the phase's wall time.
+   With --int8 alone the checkpoints of phases 8 and 10 are made here,
+   untrained.
+
 It prints the card's name and power limit, one JSON line of the kernels
 (times, bounds and launch counts; `derived_launches`, `darts_launches`
 and `unified_launches` are phases 10 and 11's kernel-flag training runs';
@@ -358,6 +382,18 @@ TRAIN_DATA = {"num_images": 256, "num_questions": 512}
 # decode kernel's head is padded), and an arch step every this many batches
 UNIFIED_VOCAB = 8197
 DARTS_ARCH_FREQ = 2
+# phase 12: the card's int8 W logits at fp32 compute dtype against the
+# CPU's on this many rows. The int8 products are exact on both and the
+# quantization the same bits (check_quantize_on_card), but the fp32 ops
+# between them are not summed in one order (the question LSTM, the image
+# feature's L2 norm): a code of fc1's input at a rounding tie rounds the
+# other way and moves the logits by one code's share of fc1, which moves
+# fc2's codes in turn: an estimated 5e-3 of the logits' scale at the full
+# widths (2e-3 seen while the card's scales were an ulp off the CPU's),
+# so the limit is 1e-2 of it; without a tie the two agree to about 1e-7
+# of it
+INT8_CPU_ROWS = 8
+INT8_CPU_TOL = 1e-2
 FAILURES: list = []
 
 
@@ -1907,13 +1943,49 @@ def throughput(paths, device, batch=64, iters=5,
     return rows
 
 
+def profile_calls(fn, tag: str, iters: int = 5, top: int = 16):
+    """A torch.profiler loop over `iters` calls of fn after three
+    unprofiled ones: the wall time under the profiler, the device time
+    and the device kernels a call, and the `top` kernels by device time,
+    logged. -> (wall ms, device ms, kernels) a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / iters
+
+    # device kernels are the rows whose own device type is CUDA; an op
+    # row's device time repeats that of the kernels it launched
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    expect(bool(events), f"profile {tag}: the profiler saw no device "
+           "kernel")
+    total_ms = sum(dev_us(e) for e in events) / 1e3 / iters
+    kernels = sum(e.count for e in events) // iters
+    log(f"profile {tag}: wall {wall_ms:.3f} ms/call under the profiler, "
+        f"device {total_ms:.3f} ms/call, {kernels} device kernels/call")
+    for e in sorted(events, key=dev_us, reverse=True)[:top]:
+        log(f"  {dev_us(e) / 1e3 / iters:8.3f} ms/call  "
+            f"{e.count // iters:5d} launches/call  {e.key[:90]}")
+    return wall_ms, total_ms, kernels
+
+
 def profile_darts(path, device, batch=64, iters=5):
     """A torch.profiler loop over the darts EF's answer_logits at batch 64
     in bf16, both flag sets: device time by kernel name and the device's
     busy share of the wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from lctvqa_torch.export import ServingModel, read_artifact
 
     art = read_artifact(path)
@@ -1926,34 +1998,9 @@ def profile_darts(path, device, batch=64, iters=5):
         with kernel_flags(fname) as flags:
             model = ServingModel(art, device, compute_dtype="bfloat16",
                                  **flags)
-            for _ in range(3):
-                model.answer_logits(u8, qst)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    model.answer_logits(u8, qst)
-                torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0) / iters
-        # device kernels are the rows whose own device type is CUDA; an op
-        # row's device time repeats that of the kernels it launched
-        def dev_us(e):
-            return getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-        expect(bool(events), f"profile {fname}: the profiler saw no device "
-               "kernel")
-        total_ms = sum(dev_us(e) for e in events) / 1e3 / iters
-        log(f"profile darts answer_logits B={batch} bf16 {fname}: wall "
-            f"{wall_ms:.3f} ms/call under the profiler, device "
-            f"{total_ms:.3f} ms/call, {sum(e.count for e in events) // iters}"
-            f" device kernels/call")
-        for e in sorted(events, key=dev_us, reverse=True)[:16]:
-            log(f"  {dev_us(e) / 1e3 / iters:8.3f} ms/call  "
-                f"{e.count // iters:5d} launches/call  {e.key[:90]}")
+            profile_calls(lambda: model.answer_logits(u8, qst),
+                          f"darts answer_logits B={batch} bf16 {fname}",
+                          iters)
         del model
     torch.cuda.empty_cache()
 
@@ -3340,6 +3387,379 @@ def check_unified_decode(device):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: int8 serving, the export CLI and the training statistics
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def int8_calls():
+    """Records the int8 products that conv2d and linear ask for while
+    open, with their operands: [(name, args)]. A conv's own GEMM is part
+    of its int8_conv2d call and is not recorded apart."""
+    from lctvqa_torch.ops import int8
+
+    calls, depth = [], [0]
+    conv, mm = int8.int8_conv2d, int8.int8_matmul
+
+    def wrap(name, fn):
+        def recorded(*args):
+            if depth[0] == 0:
+                calls.append((name, args))
+            depth[0] += 1
+            try:
+                return fn(*args)
+            finally:
+                depth[0] -= 1
+        return recorded
+
+    int8.int8_conv2d = wrap("int8_conv2d", conv)
+    int8.int8_matmul = wrap("int8_matmul", mm)
+    try:
+        yield calls
+    finally:
+        int8.int8_conv2d, int8.int8_matmul = conv, mm
+
+
+def check_int8_products(calls, tag: str) -> dict:
+    """Each recorded int8 product of a distinct shape on the card against
+    its plain version on the same operands: equal bit for bit (int32
+    sums of int8 codes are exact on both). -> {(name, shapes): patch
+    matrix bytes (0 for a matmul)}."""
+    from lctvqa_torch.ops import int8
+
+    seen = {}
+    for name, args in calls:
+        key = (name, tuple(tuple(a.shape) if torch.is_tensor(a) else a
+                           for a in args))
+        if key in seen:
+            continue
+        if name == "int8_conv2d":
+            x, w = args[:2]
+            got, want = int8.int8_conv2d(*args), int8.int8_conv2d_plain(*args)
+            seen[key] = int8.patch_bytes(tuple(x.shape), w.shape[2],
+                                         w.shape[3], *args[2:])
+        else:
+            got, want = int8.int8_matmul(*args), int8.int8_matmul_plain(*args)
+            seen[key] = 0
+        torch.cuda.synchronize()
+        expect(got.dtype == torch.int32 and torch.equal(got, want),
+               f"{tag}: {name} at {key[1]} differs from its plain version "
+               f"({int((got.long() - want.long()).abs().max())})")
+    log(f"{tag}: {len(seen)} int8 product shapes, each equal to its plain "
+        f"version: " + "; ".join(
+            f"{n[4:]} {s[0]}x{s[1]}" + (f" {s[2:]}" if len(s) > 2 else "")
+            for n, s in seen))
+    return seen
+
+
+def check_quantize_on_card(device, w_params) -> None:
+    """quant.quantize_model of the full-width W params and quantize_act of
+    a conv input (per sample and per tensor) on the card, equal bit for
+    bit to the CPU's: the same scales (a division, not a product with the
+    reciprocal) and so the same codes."""
+    from lctvqa_torch import quant
+    from lctvqa_torch.ops import conv
+
+    got = _leaves(quant.quantize_model(_to(w_params, device)))
+    want = _leaves(quant.quantize_model(w_params))
+    same = sum(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    expect(same == len(want), f"quantize_model: {len(want) - same} of "
+           f"{len(want)} leaves differ between the card and the CPU")
+    x = torch.randn(64, 64, 64, 64, generator=torch.Generator().manual_seed(
+        SEED + 12)) * torch.rand(64, 1, 1, 1)
+    acts = []
+    for per_sample in (True, False):
+        a = [t.cpu() for t in conv.quantize_act(x.to(device), per_sample)]
+        b = conv.quantize_act(x, per_sample)
+        acts.append(all(torch.equal(u, v) for u, v in zip(a, b)))
+    expect(all(acts), f"quantize_act: the card's codes or scales differ "
+           f"from the CPU's (per sample, per tensor: {acts})")
+    log(f"quantization on the card equals the CPU's: {same}/{len(want)} W "
+        f"leaves, activations per sample and per tensor {acts}")
+
+
+def _tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree)
+               if torch.is_tensor(t))
+
+
+def write_vocab_dir(d: Path, mcfg) -> str:
+    """vocab_questions.txt and vocab_answers.txt of vocab_words, for an
+    export's --input_dir."""
+    d.mkdir(parents=True, exist_ok=True)
+    for fname, words in zip(("vocab_questions.txt", "vocab_answers.txt"),
+                            vocab_words(mcfg)):
+        (d / fname).write_text("\n".join(words) + "\n")
+    return str(d)
+
+
+def serve_int8(path, device, route: str, genotype=None, n=8):
+    """An int8 artifact over HTTP in bf16 with the kernel flags: n
+    concurrent requests on `route` (/answer or /generate), answered with
+    vocabulary words. -> (the kernels' launches, the int8 products) of
+    the run, warmup included."""
+    from lctvqa_torch import serve
+    from lctvqa_torch.ops import _build, int8
+
+    _build.reset_launch_counts()
+    int8.reset_launch_counts()
+    with kernel_flags("kernels") as flags:
+        srv = serve.make_server(path, port=0, window_ms=5.0, max_batch=64,
+                                device=device, genotype=genotype, **flags)
+        svc = srv.RequestHandlerClass.service
+        svc.warmup()
+        threading.Thread(target=srv.serve_forever, daemon=True).start()
+        try:
+            port = srv.server_address[1]
+            s = svc.meta["img_size"]
+            qst_words, _ = vocab_words(model_configs()["w"])
+            rng = np.random.default_rng(SEED + 9)
+            u8 = rng.integers(0, 256, (n, s, s, 3), dtype=np.uint8)
+
+            def ask(i):
+                payload = {"image_b64": base64.b64encode(
+                    u8[i].tobytes()).decode()}
+                if route == "/answer":
+                    payload["question"] = " ".join(rng.choice(qst_words[4:],
+                                                              6))
+                return _post_status(port, route, payload)
+
+            with ThreadPoolExecutor(8) as pool:
+                got = list(pool.map(ask, range(n)))
+        finally:
+            srv.shutdown()
+            srv.server_close()
+    words = svc.meta["ans_words"]
+    tag = f"serve int8 {svc.meta['family']} {route}"
+    expect(svc.meta.get("int8") is True
+           and all(st == 200 and b.get("answer") in words for st, b in got)
+           and (route == "/answer" or all(isinstance(b.get("question"), str)
+                                          for _, b in got)),
+           f"{tag}: {got[:2]}")
+    calls = _launched(_build.launch_counts())
+    log(f"{tag}: {n} requests, e.g. {got[0][1]}; launches {calls}; int8 "
+        f"products {dict(int8.LAUNCHES)}")
+    return calls, dict(int8.LAUNCHES)
+
+
+def int8_w_checks(fp_path, int8_path, device, card: str) -> dict:
+    """The W model int8 against fp on the card: every int8 product shape
+    at B = 64, 1 and 5 held to its plain version; answers at B = 64
+    against the fp32 and bf16 forwards; logits at fp32 compute dtype
+    against the CPU's int8 forward on INT8_CPU_ROWS rows; ms per
+    answer_logits call and weight bytes on the device. -> the readings."""
+    from lctvqa_torch.export import ServingModel, read_artifact
+
+    mcfg = model_configs()["w"]
+    rng = np.random.default_rng(SEED + 10)
+    s, seq = mcfg.img_size, mcfg.max_qst_len
+    u8 = rng.integers(0, 256, (64, s, s, 3), dtype=np.uint8)
+    qst = rng.integers(4, mcfg.qst_vocab_size, (64, seq), dtype=np.int32)
+    fp_art, q_art = read_artifact(fp_path), read_artifact(int8_path)
+    out, ms, dev_bytes, prof = {}, {}, {}, {}
+    for name, art, dtype in (("fp32", fp_art, "float32"),
+                             ("bf16", fp_art, "bfloat16"),
+                             ("int8", q_art, "bfloat16")):
+        before = torch.cuda.memory_allocated()
+        model = ServingModel(art, device, compute_dtype=dtype)
+        dev_bytes[name] = torch.cuda.memory_allocated() - before
+        if name == "int8":
+            with int8_calls() as calls:
+                for b in (64, 1, 5):
+                    model.answer_logits(u8[:b], qst[:b])
+            shapes = check_int8_products(calls, "W int8")
+            del calls
+        out[name] = model.answer_logits(u8, qst).float().cpu()
+        ms[name] = time_ms(lambda: model.answer_logits(u8, qst))
+        if name != "fp32":
+            prof[name] = profile_calls(
+                lambda: model.answer_logits(u8, qst),
+                f"W answer_logits B=64 {name}", top=12)
+        del model
+        torch.cuda.empty_cache()
+    agree = {ref: float((out["int8"].argmax(1) == out[ref].argmax(1))
+                        .float().mean()) for ref in ("fp32", "bf16")}
+    rel = float((out["int8"] - out["fp32"]).norm() / out["fp32"].norm())
+    expect(bool(torch.isfinite(out["int8"]).all())
+           and out["int8"].shape == (64, mcfg.ans_vocab_size),
+           f"W int8 B=64: logits {out['int8'].shape}")
+    # the card against the CPU, int8 at fp32 compute dtype
+    rows = slice(0, INT8_CPU_ROWS)
+    got = ServingModel(q_art, device, compute_dtype="float32").answer_logits(
+        u8[rows], qst[rows]).cpu()
+    want = ServingModel(q_art, "cpu", compute_dtype="float32").answer_logits(
+        u8[rows], qst[rows])
+    err, scale = float((got - want).abs().max()), float(want.abs().max())
+    expect(err <= INT8_CPU_TOL * scale,
+           f"W int8 fp32: card against CPU {err} (scale {scale})")
+    largest = max(shapes.items(), key=lambda kv: kv[1])
+    res = {"ms": ms, "device_bytes": dev_bytes,
+           "profiled": {k: dict(zip(("wall_ms", "device_ms", "kernels"), v))
+                        for k, v in prof.items()},
+           "artifact_leaf_bytes": {
+               "fp32": _tensor_bytes(_as_tensors(fp_art["params"])),
+               "int8": _tensor_bytes(_as_tensors(q_art["params"]))},
+           "agree_with": agree, "rel_logit_err_fp32": rel,
+           "cpu_max_abs_err": err, "cpu_logit_scale": scale,
+           "largest_patch_bytes": largest[1],
+           "largest_patch_at": list(largest[0][1][:2])}
+    log(f"W B=64 answer_logits: int8 {ms['int8']:.3f} ms, bf16 "
+        f"{ms['bf16']:.3f}, fp32 {ms['fp32']:.3f} a call (CUDA events, "
+        f"median of 20); weight bytes on the device int8 "
+        f"{dev_bytes['int8']}, bf16 {dev_bytes['bf16']}, fp32 "
+        f"{dev_bytes['fp32']}; answers agree with fp32 {agree['fp32']:.4f}, "
+        f"bf16 {agree['bf16']:.4f}, relative logit error against fp32 "
+        f"{rel:.4f}; int8 fp32 card against CPU {err:.3e} of scale "
+        f"{scale:.3e} ({INT8_CPU_ROWS} rows); largest patch matrix "
+        f"{largest[1]} bytes at x {largest[0][1][0]}, w {largest[0][1][1]} "
+        f"on {card}")
+    return res
+
+
+def _as_tensors(tree):
+    from lctvqa_torch import convert
+
+    return convert.as_tensors(tree)
+
+
+def stats_epochs(arrays_small, device, root: str) -> None:
+    """Phase 8's bf16 kernel-flag experiment resumed for one epoch on a
+    small split, then once more: the first resumed run writes the six
+    statistics lists (the loop never ran an epoch there), the second
+    extends each by one value and keeps the first."""
+    import dataclasses
+
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.train.experiment import STATS, Experiment
+
+    exp_dir = Path(root) / "bfloat16_kernels"
+    lists = []
+    for epochs in (2, 3):
+        cfg = train_config("bfloat16", "kernels", root)
+        cfg = cfg.replace(resume=True, train=dataclasses.replace(
+            cfg.train, num_epochs=epochs))
+        with kernel_flags("kernels"):
+            exp = Experiment(cfg, device=device,
+                             data=pipeline.loader_from_arrays(arrays_small))
+            exp.run()
+        lists.append({n: json.loads((exp_dir / f"{n}.txt").read_text())
+                      for n in STATS})
+        del exp
+        torch.cuda.empty_cache()
+    first, second = lists
+    expect(all(len(first[n]) == 1 and len(second[n]) == 2
+               and second[n][0] == first[n][0]
+               and np.isfinite(second[n]).all() for n in STATS),
+           f"stats files after two resumed epochs: {lists}")
+    pngs = sorted(p.name for p in exp_dir.glob("*.png"))
+    log(f"stats files of {exp_dir.name} after two resumed epochs: "
+        f"{second}; plots {pngs or 'skipped (no matplotlib)'}")
+
+
+def int8_phase(arrays, device, root: str, card: str, w_path=None) -> dict:
+    """Phase 12: the W and derived-EF checkpoints exported int8 through
+    the CLI (--check on the card), served over HTTP, the products held to
+    their plain versions, eval --int8, and the statistics files of phase
+    8's run. Where an earlier phase did not run (--int8), its artifact,
+    records and experiments are made here, untrained. -> the readings."""
+    from lctvqa_torch import eval as t_eval, export
+    from lctvqa_torch.config import Config, ModelConfig
+    from lctvqa_torch.data import pipeline, synthetic
+    from lctvqa_torch.export import ServingModel, read_artifact
+    from lctvqa_torch.models import vqa_w
+    from lctvqa_torch.train import checkpoint
+    from lctvqa_torch.train.experiment import Experiment
+
+    t0 = time.perf_counter()
+    rootp = Path(root)
+    mcfg = model_configs()["w"]
+    if w_path is None:
+        w_path = write_artifacts(rootp, names=("w",))["w"]
+    # phase 3's W params (write_artifacts' seed for "w") as a checkpoint
+    w_params = vqa_w.init_w_model(torch.Generator().manual_seed(SEED + 1),
+                                  mcfg)
+    check_quantize_on_card(device, w_params)
+    (rootp / "int8_w").mkdir()
+    checkpoint.save_state(str(rootp / "int8_w" / "w_model.ckpt"),
+                          {"w_params": w_params, "epoch": 1},
+                          config=Config(model=ModelConfig(arch_type="fixed")))
+    del w_params
+    vocab = write_vocab_dir(rootp / "int8_vocab", mcfg)
+    t1 = time.perf_counter()
+    w8 = export.main(["--exp", "int8_w", "--root_stats_dir", root,
+                      "--model", "w", "--int8", "--check", "--input_dir",
+                      vocab, "--device", device.type])
+    log(f"export --int8 --check of the W checkpoint: "
+        f"{time.perf_counter() - t1:.1f} s")
+    calls, products = serve_int8(w8, device, "/answer")
+    expect(calls.get("lstm_seq_final", 0) > 0
+           and products["int8_conv2d"] > 0 and products["int8_matmul"] > 0,
+           f"serve int8 W: launches {calls}, int8 products {products}")
+    res = int8_w_checks(w_path, w8, device, card)
+
+    # phase 10's derived EF (its kernel-flag run), int8
+    records = rootp / "derived_records"
+    exp_name = "derived_bfloat16_kernels"
+    if not (rootp / exp_name).exists():
+        synthetic.make_npy_records(str(records), **TRAIN_DATA,
+                                   n_answers=mcfg.ans_vocab_size, seed=SEED)
+        Experiment(derived_config("bfloat16", "kernels", root, str(records)),
+                   device=device,
+                   data=pipeline.loader_from_arrays(arrays)).save_model()
+    d8 = str(rootp / "derived_int8.lctx")
+    export.main(["--exp", exp_name, "--root_stats_dir", root, "--model",
+                 "ef", "--int8", "--check", "--out", d8, "--input_dir",
+                 vocab, "--device", device.type])
+    calls, products = serve_int8(d8, device, "/generate",
+                                 genotype=DERIVED_GENOTYPE)
+    expect(calls.get("greedy_generate", 0) > 0
+           and calls.get("lstm_seq_all", 0) > 0
+           and products["int8_conv2d"] > 0,
+           f"serve int8 derived EF: launches {calls}, products {products}")
+    res["derived_serve_launches"] = calls
+    res["derived_int8_products"] = products
+    with kernel_flags("kernels") as flags:
+        model = ServingModel(read_artifact(d8), device,
+                             genotype=DERIVED_GENOTYPE, **flags)
+        u8 = np.random.default_rng(SEED + 11).integers(
+            0, 256, (64, mcfg.img_size, mcfg.img_size, 3), dtype=np.uint8)
+        qst = np.zeros((64, mcfg.max_qst_len), np.int32)
+        with int8_calls() as rec:
+            model.answer_logits(u8, qst)
+            tok, ans = model.generate(u8)
+        check_int8_products(rec, "derived EF int8")
+        del rec, model
+        expect(tok.shape == (64, mcfg.max_qst_len) and ans.shape == (64,),
+               f"derived int8 generate: {tok.shape}, {ans.shape}")
+        t1 = time.perf_counter()
+        got = t_eval.main(["--exp", exp_name, "--root_stats_dir", root,
+                           "--input_dir", str(records), "--batch_size", "64",
+                           "--num_batches", "2", "--device", device.type,
+                           "--int8"], data=pipeline.loader_from_arrays(arrays))
+    expect(got["n"] == 128 and 0.0 <= got["acc"] <= 1.0
+           and 0.0 <= got["bleu4"] <= 100.0, f"eval --int8: {got}")
+    log(f"eval --int8 of {exp_name}: {got} in "
+        f"{time.perf_counter() - t1:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 8's run: the statistics files, and a resumed epoch
+    if not (rootp / "bfloat16_kernels").exists():
+        with kernel_flags("kernels"):
+            Experiment(train_config("bfloat16", "kernels", root),
+                       device=device,
+                       data=pipeline.loader_from_arrays(arrays)).save_model()
+    dm = model_configs()["darts"]
+    stats_epochs(synthetic.make_arrays(
+        num_images=64, num_questions=128, img_size=dm.img_size,
+        n_answers=dm.ans_vocab_size, seed=SEED + 8,
+        max_qst_len=dm.max_qst_len, qst_vocab_size=dm.qst_vocab_size),
+        device, root)
+    res["wall_s"] = time.perf_counter() - t0
+    log("int8 readings: " + json.dumps(res, default=str))
+    log(f"int8 phase took {res['wall_s']:.1f} s on {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 
 def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
                 cell_dev, node_dev, gen_plan, gen_dev, node_bwd_dev):
@@ -3502,6 +3922,10 @@ def main(argv=None) -> int:
                       help="only build, then how far the derived EF's fp32 "
                       "gradients move under one rounding of the input, "
                       "beside the card against the CPU")
+    mode.add_argument("--int8", action="store_true",
+                      help="only build, then phase 12 (int8 serving, the "
+                      "export CLI and the training statistics), its "
+                      "checkpoints made untrained")
     mode.add_argument("--kernel-times", action="store_true",
                       help="only build, then time the cell, the node "
                       "forward and backward, the decode, the BatchNorm "
@@ -3563,6 +3987,11 @@ def main(argv=None) -> int:
         check_unified_decode(device)
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
             darts_phase(train_arrays(), device, tmp, card)
+        log(card)
+        return 1 if FAILURES else 0
+    if args.int8:
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+            int8_phase(train_arrays(), device, tmp, card)
         log(card)
         return 1 if FAILURES else 0
     if args.grad_spread:
@@ -3686,6 +4115,10 @@ def main(argv=None) -> int:
         # 11. the fifth and sixth: the darts and unified families, each
         # run with the counts at 0
         family_launches = darts_phase(arrays, device, tmp, card)
+
+        # 12. int8 serving through the export CLI, and the statistics of
+        # phase 8's run
+        int8_phase(arrays, device, tmp, card, paths["w"])
 
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
                        launches, seq_plan, cell_dev, node_dev, gen_plan,

@@ -11,9 +11,10 @@ unified QA-stream model), the LCT search (`main.py`, stages 3, 1 and 2,
 on the h5 files or the npy records), the 2-stage DARTS loop and its
 unified variant (`train/experiment_darts.py`), the genotype decode, the
 derived retrain and the checkpoint eval with BLEU4 (`genotype.py`,
-`eval.py`), and eight kernels in CUDA (`csrc/`): the four LSTM-family
-kernels, the node-batched mixed op and the batch-stat BatchNorm, forward
-and backward.
+`eval.py`), int8 serving (`quant.py`) and the export CLI (`export.py`),
+the LCT loop's statistics files (`train/stats.py`), and eight kernels in
+CUDA (`csrc/`): the four LSTM-family kernels, the node-batched mixed op
+and the batch-stat BatchNorm, forward and backward.
 """
 
 __version__ = "0.1.0"

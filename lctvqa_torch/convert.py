@@ -24,7 +24,8 @@ namedtuples. `opt_state_from_jax` reads the latter (live, or as the
 optimizer, so this module needs no optax. Lists of BatchNorm running
 statistics are trees of 1-D leaves and go through `from_jax`/`to_jax` as
 they are. `checkpoint_from_jax`/`checkpoint_to_jax` map a whole
-checkpoint tree.
+checkpoint tree; `checkpoint_trees` reads a checkpoint of either package
+as the port's, `checkpoint_params` only its param trees.
 """
 
 from __future__ import annotations
@@ -130,6 +131,48 @@ def opt_state_to_jax(state: dict, template):
 # the LCT loop's checkpoints, and the DARTS family's ("params", "opt")
 _PARAM_KEYS = ("ef_params", "w_params", "params", "arch", "bn_running")
 _OPT_KEYS = ("ef_opt", "w_opt", "opt", "arch_opt")
+
+
+def is_jax_checkpoint(state: dict) -> bool:
+    """Whether a loaded checkpoint tree is the JAX package's: one of its
+    optimizer states is optax's nest of namedtuples, not the port's
+    {"step", "lr", "m", "v"}. (A file that holds no optimizer state reads
+    as the port's.)"""
+    return any(state.get(k) is not None
+               and not (isinstance(state[k], dict) and "step" in state[k])
+               for k in _OPT_KEYS)
+
+
+def checkpoint_params(state: dict,
+                      device: Union[str, torch.device] = "cpu") -> dict:
+    """The param trees of a loaded checkpoint of either package (those of
+    its "ef_params", "w_params", "params", "arch", "bn_running" that it
+    has) as the port's tensors on `device`; its optimizer states are not
+    read."""
+    trees = {k: state[k] for k in _PARAM_KEYS if state.get(k) is not None}
+    return (checkpoint_from_jax(trees, device) if is_jax_checkpoint(state)
+            else checkpoint_trees(trees, device))
+
+
+def checkpoint_trees(state: dict, device: Union[str, torch.device] = "cpu",
+                     arch_lr: float = 0.0) -> dict:
+    """A loaded checkpoint of either package -> its param trees and
+    optimizer states as the port's, tensors on `device`; a JAX package's
+    is converted (`checkpoint_from_jax`, `arch_lr` the learning rate of
+    its `arch_opt`, which optax does not store)."""
+    if is_jax_checkpoint(state):
+        return checkpoint_from_jax(state, device, arch_lr)
+    out = dict(state)
+    for k in _PARAM_KEYS:
+        if out.get(k) is not None:
+            out[k] = as_tensors(out[k], device)
+    for k in _OPT_KEYS:
+        if out.get(k) is not None:
+            opt = out[k]
+            out[k] = {"step": int(opt["step"]), "lr": float(opt["lr"]),
+                      "m": as_tensors(opt["m"], device),
+                      "v": as_tensors(opt["v"], device)}
+    return out
 
 
 def checkpoint_from_jax(state: dict, device: Union[str, torch.device] = "cpu",

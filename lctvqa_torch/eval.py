@@ -9,8 +9,10 @@ temperature-sampled questions for a few images.
 The model's config comes from the checkpoint (`config_from_state`); a
 checkpoint without one takes `--arch_type`, `--img_size`,
 `--compute_dtype` and the vocabularies' sizes. It runs on the CUDA
-device unless `--device cpu` is given; nothing falls back. `--int8` and
-`--tp` above 1 are not ported and raise.
+device unless `--device cpu` is given; nothing falls back. `--int8`
+quantizes the EF params once (`quant.quantize_model`; the supernet is
+refused) and every forward runs int8. `--tp` above 1 is not ported and
+raises.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from lctvqa_torch import convert
 from lctvqa_torch.config import ModelConfig
 from lctvqa_torch.data import pipeline
 from lctvqa_torch.models import search, vqa_ef
+from lctvqa_torch.quant import quantize_model
 from lctvqa_torch.text import VocabDict
 from lctvqa_torch.train import checkpoint
 from lctvqa_torch.train.metrics import (VqaStruct, calc_bleu_scores, mask_unk,
@@ -48,7 +51,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'; nothing falls back")
     p.add_argument("--int8", action="store_true",
-                   help="not ported (ROADMAP.md, queue 1 item 6)")
+                   help="serve the checkpoint int8-quantized "
+                        "(lctvqa_torch/quant.py; fixed/derived encoders only "
+                        "— decode a searched supernet to a genotype first)")
     p.add_argument("--tp", type=int, default=1,
                    help="model-parallel degree; only 1 is ported "
                         "(ROADMAP.md, queue 1 item 7)")
@@ -57,15 +62,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _load_ef(state: dict, device):
     """(params, arch) as tensors on `device` from a loaded checkpoint of
-    either package: the port's has its Adam state as a dict, the JAX
-    package's as optax's namedtuples, and its conv weights HWIO."""
-    if not isinstance(state.get("ef_opt"), dict):
-        state = convert.checkpoint_from_jax(
-            {k: state.get(k) for k in ("ef_params", "arch")}, device)
-        return state["ef_params"], state["arch"]
-    arch = state.get("arch")
-    return (convert.as_tensors(state["ef_params"], device),
-            None if arch is None else convert.as_tensors(arch, device))
+    either package (a JAX package's is converted)."""
+    trees = convert.checkpoint_params(state, device)
+    return trees["ef_params"], trees.get("arch")
 
 
 def main(argv=None, data: Optional[dict] = None) -> dict:
@@ -75,9 +74,6 @@ def main(argv=None, data: Optional[dict] = None) -> dict:
     reference questions of BLEU4 are `--input_dir`'s `valid.npy` either
     way."""
     args = build_parser().parse_args(argv)
-    if args.int8:
-        raise NotImplementedError("--int8 (quant.py) is not ported: "
-                                  "ROADMAP.md, queue 1 item 6")
     if args.tp > 1:
         raise NotImplementedError("--tp > 1 (parallel/tp.py) is not "
                                   "ported: ROADMAP.md, queue 1 item 7")
@@ -110,6 +106,15 @@ def main(argv=None, data: Optional[dict] = None) -> dict:
                            ans_vocab_size=av.vocab_size,
                            compute_dtype=args.compute_dtype)
     print(f"loaded epoch {state['epoch']} from {exp_dir}")
+    if args.int8:
+        # one tree rewrite; every forward below dispatches int8 on the
+        # quantized conv and linear params
+        if mcfg.arch_type == "darts":
+            raise SystemExit("--int8 cannot serve the darts supernet; "
+                             "retrain with --arch_type derived first "
+                             "(python -m lctvqa_torch.genotype <ckpt>)")
+        ef_params = quantize_model(ef_params)
+        print("serving int8 (weights quantized; LSTM/depthwise stay fp)")
     if arch is not None:
         print("genotype:", search.genotype(arch, mcfg.darts_steps,
                                            mcfg.darts_multiplier))

@@ -19,21 +19,34 @@ Served: W artifacts (`answer_logits`), EF artifacts with the fixed
 VGG19 encoder, the PC-DARTS supernet or a derived network
 (`answer_logits`, `generate`), and unified artifacts (`generate`: the
 greedy `<start> q <sep> a <end>` stream alone; `generated_answers` reads
-the answer out of it). The supernet's arch parameters ride in the
-bundle. A derived network's genotype does not: the JAX package writes it
-only into its StableHLO programs, so the caller names it
-(`load_artifact(path, genotype=...)`, serve's `--genotype`: a preset, a
-search checkpoint or a repr file), and a genotype whose network does not
-have the artifact's param shapes raises. int8 artifacts raise.
+the answer out of it), each fp or int8 (`quant.py`: "w_q" leaves, which
+the weight preparation at load leaves int8), whichever package wrote
+it. The supernet's arch parameters ride in the bundle. A derived
+network's genotype does not: the JAX package writes it only into its
+StableHLO programs, so the caller names it (`load_artifact(path,
+genotype=...)`, serve's `--genotype`: a preset, a search checkpoint or a
+repr file), and a genotype whose network does not have the artifact's
+param shapes raises.
 
 `export_state` makes an artifact of a checkpoint's trees, recognizing
 the family as the JAX package's does (a DARTS-family `vqa_model.ckpt` is
-an EF model, or a unified one where its params hold "qa"); it writes no
-programs: writing `torch.export` programs is not ported yet.
+an EF model, or a unified one where its params hold "qa"), int8 with
+`int8=True`; it writes no programs. The CLI,
+
+    python -m lctvqa_torch.export --exp E --model ef|w|vqa [--int8] \
+        [--input_dir D] [--out F] [--check] [--device cuda|cpu]
+
+reads a checkpoint of either package from `<root_stats_dir>/E` (for
+`vqa` with its `arch_par.ckpt` where there is one), writes the artifact
+and, with `--check`, reloads it through `ServingModel` and holds it
+against the model functions applied to the checkpoint's trees. Writing
+`torch.export` programs under "exported" is the next slice (ROADMAP.md,
+queue 1 item 6b).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -54,6 +67,7 @@ from lctvqa_torch.ops import cuda_generate
 from lctvqa_torch.ops import nn as N
 from lctvqa_torch.ops.cuda_lstm import cell_weights
 from lctvqa_torch.ops.cuda_mixedop import node_weights
+from lctvqa_torch.quant import quantize_model
 from lctvqa_torch.text import VocabDict, extract_answer_words
 
 ARTIFACT_VERSION = 1
@@ -163,7 +177,8 @@ def _read_vocab(input_dir: Optional[str]) -> Dict[str, Any]:
 
 
 def export_state(state: Dict[str, Any], mcfg: ModelConfig,
-                 input_dir: Optional[str] = None) -> Dict[str, Any]:
+                 input_dir: Optional[str] = None,
+                 int8: bool = False) -> Dict[str, Any]:
     """A checkpoint's trees in the port's layout (tensors, or a port
     checkpoint as `checkpoint.load_state` returns it) -> an artifact dict
     for `save_artifact`, with no programs under "exported" (the JAX
@@ -173,7 +188,9 @@ def export_state(state: Dict[str, Any], mcfg: ModelConfig,
     ...}, with "arch" from `arch_par.ckpt`): a unified model where its
     params hold "qa", an EF model otherwise. `mcfg` is the config it was
     trained with; `input_dir`'s vocabularies go into meta, and one whose
-    size is not the model's raises."""
+    size is not the model's raises. `int8` quantizes the params
+    (`quant.quantize_model`); the supernet raises, as in the JAX
+    package."""
     if "w_params" in state:
         family, params = "w", state["w_params"]
     elif "ef_params" in state:
@@ -182,13 +199,20 @@ def export_state(state: Dict[str, Any], mcfg: ModelConfig,
         params = state["params"]
         family = "unified" if "qa" in params else "ef"
     arch = None if family == "w" else state.get("arch")
-    bundle = {"params": convert.to_jax(convert.as_tensors(params))}
+    params = convert.as_tensors(params)
+    if int8:
+        if mcfg.arch_type == "darts" and family != "w":
+            raise ValueError(
+                "--int8 cannot serve the darts supernet; decode a genotype "
+                "and retrain with --arch_type derived first")
+        params = quantize_model(params)
+    bundle = {"params": convert.to_jax(params)}
     if arch is not None:
         bundle["arch"] = convert.to_jax(convert.as_tensors(arch))
     from lctvqa_torch import __version__
     meta = {"artifact_version": ARTIFACT_VERSION, "family": family,
-            "int8": False, "platforms": ["cuda"], "img_size": mcfg.img_size,
-            "max_qst_len": mcfg.max_qst_len,
+            "int8": bool(int8), "platforms": ["cuda"],
+            "img_size": mcfg.img_size, "max_qst_len": mcfg.max_qst_len,
             "qst_vocab_size": mcfg.qst_vocab_size,
             "ans_vocab_size": mcfg.ans_vocab_size,
             "arch_type": mcfg.arch_type, "epoch": state.get("epoch"),
@@ -205,6 +229,12 @@ def export_state(state: Dict[str, Any], mcfg: ModelConfig,
                              f"{size_key} is {meta[size_key]}")
     meta.update(vocab)
     return {"exported": {}, "params": bundle, "meta": meta}
+
+
+def _w(p):
+    """A conv's or linear's weight of either form (fp "w", int8 "w_q"),
+    for its shape."""
+    return p["w"] if "w" in p else p["w_q"]
 
 
 def _darts_dims(params) -> Dict[str, int]:
@@ -232,10 +262,13 @@ def _darts_dims(params) -> Dict[str, int]:
 
 
 def _shapes(tree, path=""):
-    """(path, shape) of every leaf of a param tree."""
+    """(path, shape) of every leaf of a param tree; an int8 weight
+    ("w_q") stands for the weight of its shape, its scales are left
+    out."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _shapes(v, f"{path}/{k}")
+            if k != "w_s":
+                yield from _shapes(v, f"{path}/{'w' if k == 'w_q' else k}")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _shapes(v, f"{path}/{i}")
@@ -249,12 +282,12 @@ def _derived_dims(params, genotype: Genotype) -> Dict[str, Any]:
     tree = params["derived"]
     cells = tree["cells"]
     n_cells = len(cells)
-    c_first = cells[0]["pre1"]["conv"]["w"].shape[3]
+    c_first = _w(cells[0]["pre1"]["conv"]).shape[3]
     first_reduces = 0 in (n_cells // 3, 2 * n_cells // 3)
     init_ch = c_first // 2 if first_reduces else c_first
     dims = dict(arch_type="derived", genotype=genotype, darts_layers=n_cells,
                 darts_init_ch=init_ch,
-                darts_stem_multiplier=tree["stem_conv"]["w"].shape[3]
+                darts_stem_multiplier=_w(tree["stem_conv"]).shape[3]
                 // init_ch,
                 darts_steps=len(genotype.normal) // 2,
                 darts_multiplier=len(genotype.normal_concat))
@@ -288,16 +321,16 @@ def model_config(meta: Dict[str, Any], params, genotype=None,
         encoder = _derived_dims(params, genotype)
     else:
         encoder = dict(arch_type="fixed",
-                       vgg_fc_dim=params["vgg"]["fc7"]["w"].shape[1])
+                       vgg_fc_dim=_w(params["vgg"]["fc7"]).shape[1])
     return dataclasses.replace(
         ModelConfig(),
-        img_embed_size=params["img_fc"]["w"].shape[1],
+        img_embed_size=_w(params["img_fc"]).shape[1],
         word_embed_size=word_embed,
         lstm_hidden_size=layers[0]["w_hh"].shape[0],
         lstm_num_layers=len(layers),
         max_qst_len=meta["max_qst_len"],
         qst_vocab_size=vocab,
-        ans_vocab_size=(params["fc2"]["w"].shape[1] if "fc2" in params
+        ans_vocab_size=(_w(params["fc2"]).shape[1] if "fc2" in params
                         else meta["ans_vocab_size"]),
         img_size=meta["img_size"],
         **encoder, **overrides)
@@ -308,11 +341,17 @@ def _prepare(tree, dtype: Optional[torch.dtype], node_kernel: bool = False):
     call casts them again: linear weights rounded to it (kept fp32), conv
     weights (dense, depthwise and pointwise alike) cast to it, each LSTM
     layer's kernel weights under "cell" and, with `node_kernel`, each
-    stride-1 mixed op's packed fp32 kernel weights under "node"."""
+    stride-1 mixed op's packed fp32 kernel weights under "node". int8
+    weights stay int8 (an int8 linear's [in, out] weight is laid out
+    column-major, the operand layout of the card's int8 GEMM)."""
     if isinstance(tree, list):
         return [_prepare(t, dtype, node_kernel) for t in tree]
     if not isinstance(tree, dict):
         return tree
+    if "w_q" in tree:
+        w_q = tree["w_q"]
+        return {**tree, "w_q": w_q.t().contiguous().t()
+                if w_q.dim() == 2 else w_q}
     if "w_ih" in tree:
         return {**tree, "cell": cell_weights(tree, dtype)}
     if "w" in tree and tree["w"].dim() == 2:
@@ -324,6 +363,15 @@ def _prepare(tree, dtype: Optional[torch.dtype], node_kernel: bool = False):
     if node_kernel and "sep_conv_3x3" in tree and not tree["skip_connect"]:
         out["node"] = node_weights(tree)
     return out
+
+
+def _has_int8(tree) -> bool:
+    """Whether a param tree holds a quantized conv or linear ("w_q")."""
+    if isinstance(tree, dict):
+        return "w_q" in tree or any(_has_int8(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_has_int8(v) for v in tree)
+    return False
 
 
 class ServingModel:
@@ -348,13 +396,14 @@ class ServingModel:
                  genotype: Union[None, str, Genotype] = None, **overrides):
         meta = artifact["meta"]
         family = meta.get("family")
-        if meta.get("int8"):
-            raise NotImplementedError(
-                "int8 artifacts are not ported yet (ROADMAP.md, queue 1 "
-                "item 6); export without --int8")
         if family not in FUNCTIONS:
             raise ValueError(f"unknown artifact family {family!r}")
         params = artifact["params"]["params"]
+        if bool(meta.get("int8")) != _has_int8(params):
+            raise ValueError(
+                f"artifact meta says int8={bool(meta.get('int8'))} but its "
+                f"params hold {'' if _has_int8(params) else 'no '}int8 "
+                "weights")
         if family != "w":
             arch_type = ("derived" if "derived" in params else
                          "darts" if "darts" in params else "fixed")
@@ -452,3 +501,145 @@ def load_artifact(path: str, device: Union[str, torch.device] = "cuda",
                   **overrides) -> ServingModel:
     return ServingModel(read_artifact(path, trusted=trusted), device,
                         genotype, **overrides)
+
+
+# ---------------------------------------------------------------------------
+# the export CLI
+# ---------------------------------------------------------------------------
+
+# the ModelConfig fields a served model takes from the checkpoint's config
+SERVING_FIELDS = ("compute_dtype", "use_pallas_lstm", "pallas_seq_lstm",
+                  "pallas_generate", "pallas_mixed_op", "fold_bn_mixture")
+
+
+def _agree(got, want, what: str) -> None:
+    """Floats within 2e-4, ids and tokens exactly (the JAX package's
+    round-trip check)."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} against "
+                             f"{want.shape}")
+    if np.issubdtype(got.dtype, np.floating):
+        np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4,
+                                   err_msg=what)
+    else:
+        np.testing.assert_array_equal(got, want, err_msg=what)
+
+
+def check_roundtrip(path: str, state: Dict[str, Any], mcfg: ModelConfig,
+                    int8: bool, device: Union[str, torch.device]) -> None:
+    """The artifact at `path`, reloaded through `ServingModel` on
+    `device`, against the model functions applied directly to the
+    checkpoint's trees in `state` (quantized as the export did), at
+    batch sizes 2 and 5 (counterpart of lctvqa/export.py's
+    `_check_roundtrip`). Raises AssertionError where they differ."""
+    device = torch.device(device)
+    model = load_artifact(
+        path, device, genotype=(mcfg.genotype if mcfg.arch_type == "derived"
+                                else None),
+        **{f: getattr(mcfg, f) for f in SERVING_FIELDS})
+    key = next(k for k in ("w_params", "ef_params", "params") if k in state)
+    params = convert.as_tensors(state[key], device)
+    if int8:
+        params = quantize_model(params)
+    arch = None if model.family == "w" else state.get("arch")
+    arch = None if arch is None else convert.as_tensors(arch, device)
+    rng = np.random.default_rng(0)
+    s = mcfg.img_size
+    with torch.inference_mode():
+        for batch in (2, 5):
+            u8 = rng.integers(0, 256, (batch, s, s, 3), dtype=np.uint8)
+            qst = rng.integers(0, mcfg.qst_vocab_size,
+                               (batch, mcfg.max_qst_len), dtype=np.int32)
+            img = normalize_images(torch.from_numpy(u8).to(device))
+            q = torch.from_numpy(qst).to(device, torch.int64)
+            if model.family == "w":
+                _agree(model.answer_logits(u8, qst),
+                       vqa_w.w_forward(params, mcfg, img, q),
+                       f"answer_logits at batch {batch}")
+            elif model.family == "ef":
+                _agree(model.answer_logits(u8, qst),
+                       vqa_ef.ef_forward(params, arch, mcfg, img, q)[0],
+                       f"answer_logits at batch {batch}")
+                tok, ans = vqa_ef.ef_generate(params, arch, mcfg, img)
+                got = model.generate(u8)
+                _agree(got[0], tok, f"generate's tokens at batch {batch}")
+                _agree(got[1], ans.argmax(1),
+                       f"generate's answers at batch {batch}")
+            else:
+                _agree(model.generate(u8),
+                       unified_model.unified_generate(params, arch, mcfg,
+                                                      img),
+                       f"generate at batch {batch}")
+    print(f"check ok: {model.functions} agree at batch sizes 2 and 5 on "
+          f"{device}")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="Export an experiment's checkpoint, written by either "
+        "package, as a serving artifact. No torch.export programs are "
+        "written yet (the next slice, ROADMAP.md queue 1 item 6b): the port "
+        "serves the artifact's params with its own model code.")
+    p.add_argument("--exp", type=str, required=True)
+    p.add_argument("--root_stats_dir", type=str, default="./experiment_data")
+    p.add_argument("--model", type=str, default="ef",
+                   choices=("ef", "w", "vqa"),
+                   help="which checkpoint of the experiment to export; "
+                        "'vqa' is the darts/unified families' "
+                        "vqa_model.ckpt (+ arch_par.ckpt when present)")
+    p.add_argument("--out", type=str, default=None,
+                   help="artifact path (default <exp_dir>/<model>_serving"
+                        ".lctx)")
+    p.add_argument("--int8", action="store_true",
+                   help="export the int8-quantized serving path "
+                        "(lctvqa_torch/quant.py; not the darts supernet)")
+    p.add_argument("--input_dir", type=str, default=None,
+                   help="dataset dir; embeds the vocab word lists so the "
+                        "server can decode answers")
+    p.add_argument("--check", action="store_true",
+                   help="after exporting, reload the artifact and hold it "
+                        "against the model applied to the checkpoint")
+    p.add_argument("--trusted", action="store_true",
+                   help="the JAX package's flag for legacy pickle "
+                        "checkpoints; the port reads only ZIP checkpoints "
+                        "and refuses a pickle with or without it")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="device of --check: 'cuda' (default) or 'cpu'; "
+                        "nothing falls back")
+    return p
+
+
+def main(argv=None) -> str:
+    """-> the artifact's path."""
+    args = build_parser().parse_args(argv)
+    from lctvqa_torch.train import checkpoint
+
+    exp_dir = os.path.join(args.root_stats_dir, args.exp)
+    ckpt = os.path.join(exp_dir, f"{args.model}_model.ckpt")
+    state = checkpoint.load_state(ckpt)
+    cfg = checkpoint.config_from_state(state)
+    if cfg is None:
+        raise SystemExit(f"{ckpt} has no embedded config (legacy "
+                         "checkpoint); re-save it with a current version")
+    if args.model == "vqa":
+        # darts/unified family: the arch rides in a sibling checkpoint
+        ap = os.path.join(exp_dir, "arch_par.ckpt")
+        if checkpoint.exists(ap):
+            state = dict(state, arch=checkpoint.load_state(ap)["arch"])
+    trees = dict(convert.checkpoint_params(state), epoch=state.get("epoch"))
+    artifact = export_state(trees, cfg.model, input_dir=args.input_dir,
+                            int8=args.int8)
+    out = args.out or os.path.join(exp_dir, f"{args.model}_serving.lctx")
+    save_artifact(artifact, out)
+    meta = artifact["meta"]
+    print(f"exported {meta['family']} artifact {FUNCTIONS[meta['family']]} "
+          f"-> {out} ({os.path.getsize(out)} bytes; int8={args.int8}; no "
+          "torch.export programs)")
+    if args.check:
+        check_roundtrip(out, trees, cfg.model, args.int8, args.device)
+    return out
+
+
+if __name__ == "__main__":
+    main()

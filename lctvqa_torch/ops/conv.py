@@ -19,6 +19,10 @@ The `second_order` context is for code that differentiates a gradient
 whatever `USE_PALLAS_BN` says, and an fp32 convolution on the card is a
 plain `F.conv2d` under cuDNN without TF32, since `_ExactConvFn`'s
 backward cannot be differentiated again.
+
+int8 serving (`quant.py`): `quantize_weight`, `quantize_act` and
+`quantize_conv_params` are the JAX package's, and `conv2d` takes params
+holding "w_q" through the int8 products of `ops/int8.py`.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from lctvqa_torch.ops import cuda_bn
+from lctvqa_torch.ops import cuda_bn, int8
 
 f32 = torch.float32
 IntOrPair = Union[int, Tuple[int, int]]
@@ -54,6 +58,70 @@ def torch_conv_init(gen: torch.Generator, kh: int, kw: int, c_in: int,
     if bias:
         p["b"] = torch.empty(c_out, dtype=f32).uniform_(-k, k, generator=gen)
     return p
+
+
+_Q_EPS = 1e-12
+
+
+def _scale(absmax: torch.Tensor) -> torch.Tensor:
+    """max(abs-max, 1e-12) / 127, a division on either device: PyTorch's
+    CUDA division by a Python number multiplies by its reciprocal, an ulp
+    away, so the divisor is a tensor on absmax's device."""
+    return torch.clamp_min(absmax, _Q_EPS) / absmax.new_full((), 127.0)
+
+
+def quantize_weight(w: torch.Tensor, out_axis: int):
+    """fp32 weight -> (int8 weight, fp32 scale per output channel):
+    symmetric, each channel's abs-max mapped to +/-127. The JAX package's
+    order of operations (lctvqa/ops/conv.py), so the codes are its: the
+    scale max(abs-max, 1e-12) / 127, then w / scale (a division, not a
+    product with the reciprocal), rounded half to even, clipped."""
+    axes = tuple(i for i in range(w.dim()) if i != out_axis)
+    s = _scale(w.abs().amax(dim=axes))
+    shape = [1] * w.dim()
+    shape[out_axis] = -1
+    q = torch.clamp(torch.round(w / s.reshape(shape)), -127, 127)
+    return q.to(torch.int8), s.to(f32)
+
+
+def quantize_act(x: torch.Tensor, per_sample: bool = False):
+    """fp activation -> (int8 activation, fp32 scale), dynamic abs-max,
+    computed per call; `per_sample` keeps one scale per leading-axis
+    sample (shape [N, 1, ...]) so that one outlier sample does not
+    flatten the others' grid. x is cast to fp32 first."""
+    x = x.to(f32)
+    if per_sample:
+        s = _scale(x.abs().amax(dim=tuple(range(1, x.dim())), keepdim=True))
+    else:
+        s = _scale(x.abs().amax())
+    q = torch.clamp(torch.round(x / s), -127, 127)
+    return q.to(torch.int8), s
+
+
+def quantize_conv_params(p):
+    """{"w"[, "b"]} conv params (OIHW) -> {"w_q", "w_s"[, "b"]}: `conv2d`
+    dispatches on the "w_q" key (serving only: no derivative)."""
+    wq, ws = quantize_weight(p["w"], out_axis=0)
+    out = {"w_q": wq, "w_s": ws}
+    if "b" in p:
+        out["b"] = p["b"]
+    return out
+
+
+def _conv2d_int8(params, x: torch.Tensor, stride, padding, dilation,
+                 groups: int, out_dtype) -> torch.Tensor:
+    """The int8 route of `conv2d`: per-sample int8 activations, int8
+    weights, int32 sums (ops/int8.py), then y * (sx * w_s) + b in fp32,
+    cast to `out_dtype` (default fp32), as the JAX package computes it."""
+    if groups != 1:
+        raise ValueError("an int8 convolution has one group; a depthwise "
+                         "conv stays unquantized")
+    xq, sx = quantize_act(x, per_sample=True)
+    y = int8.int8_conv2d(xq, params["w_q"], stride, padding, dilation)
+    y = y.to(f32) * (sx * params["w_s"])
+    if "b" in params:
+        y = y + params["b"]
+    return y.to(out_dtype or f32)
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -133,7 +201,14 @@ def conv2d(params, x: torch.Tensor, stride: IntOrPair = 1,
     cast to `out_dtype` (default fp32) before the bias: the JAX package's
     rounding. An fp32 conv stays fp32: cuDNN's TF32, on by default, is
     turned off for it, forward and backward (first order only, except
-    under `second_order`)."""
+    under `second_order`).
+
+    Quantized params (`quantize_conv_params`) take the int8 route: the
+    compute dtype is ignored there, as in the JAX package, and there is
+    no derivative."""
+    if "w_q" in params:
+        return _conv2d_int8(params, x, stride, padding, dilation, groups,
+                            out_dtype)
     x, w = _nchw(x), params["w"]
     if dtype is not None:
         x, w = x.to(dtype), w.to(dtype)

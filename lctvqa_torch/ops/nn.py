@@ -16,6 +16,8 @@ from typing import Optional
 
 import torch
 
+from lctvqa_torch.ops import conv as C, int8
+
 f32 = torch.float32
 
 
@@ -63,11 +65,27 @@ def prepare_linear(params, dtype: Optional[torch.dtype]):
             "rounded_to": dtype}
 
 
+def quantize_linear_params(p):
+    """{"w", "b"} -> {"w_q", "w_s", "b"} (w [in, out], out axis 1);
+    `linear` dispatches on the "w_q" key (serving only, no derivative)."""
+    wq, ws = C.quantize_weight(p["w"], out_axis=1)
+    return {"w_q": wq, "w_s": ws, "b": p["b"]}
+
+
 def linear(params, x: torch.Tensor,
            dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x @ w + b with operands rounded to `dtype` and fp32 accumulation
     (JAX: jnp.dot(..., preferred_element_type=float32)). A weight from
-    `prepare_linear` is rounded already."""
+    `prepare_linear` is rounded already. Quantized params
+    (`quantize_linear_params`) take the int8 route: per-sample int8 x,
+    int32 sums (ops/int8.py), y * (sx * w_s) + b in fp32; `dtype` is
+    ignored there, as in the JAX package."""
+    if "w_q" in params:
+        xq, sx = C.quantize_act(x, per_sample=True)
+        w_q = params["w_q"]
+        y = int8.int8_matmul(xq.reshape(-1, xq.shape[-1]), w_q)
+        y = y.reshape(*x.shape[:-1], w_q.shape[1])
+        return y.to(f32) * (sx * params["w_s"]) + params["b"]
     w = params["w"]
     if "rounded_to" in params:
         if params["rounded_to"] != dtype:

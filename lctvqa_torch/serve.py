@@ -47,8 +47,9 @@ A derived-EF artifact does not carry its genotype: `--genotype` names it
         --genotype PC_DARTS_cifar
     python -m lctvqa_torch.serve --artifact unified.lctx
 
-(an artifact of a trained checkpoint: `export.export_state` and
-`export.save_artifact`).
+(an artifact of a trained checkpoint: `python -m lctvqa_torch.export`,
+or `export.export_state` and `export.save_artifact`). An int8 artifact
+(`--int8` there, or the JAX package's) serves with no other flag.
 """
 
 from __future__ import annotations
@@ -384,7 +385,9 @@ def main(argv=None):
     if args.warmup:
         n = svc.warmup()
         print(f"warmup: {n} calls run", flush=True)
-    print(f"serving {svc.meta['family']} artifact ({svc.model.functions}) "
+    print(f"serving {svc.meta['family']}"
+          f"{' int8' if svc.meta.get('int8') else ''} artifact "
+          f"({svc.model.functions}) "
           f"on http://{host}:{port} with {torch.device(args.device)}  "
           f"window={args.window_ms}ms max_batch={args.max_batch}",
           flush=True)

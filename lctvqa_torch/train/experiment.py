@@ -11,8 +11,10 @@ records, on a worker thread), the StepLR decay and a checkpoint of both
 models. Stage 3 is skipped with `skip_stage3` and for the fixed VGG and
 derived EFs, which have no arch. Batches come from the h5 dataset
 (data/pipeline.py) or, with `use_old_dataloader`, from the npy records
-(data/pipeline_npy.py). The statistics files and their plots are not
-ported yet (ROADMAP.md, queue 1 item 6).
+(data/pipeline_npy.py). After each epoch's checkpoint the six
+loss/accuracy lists are written as JSON files and drawn as three PNGs
+under the JAX package's names (train/stats.py); a resumed run reads the
+lists back and continues them.
 
 One process, one device, no mesh. Losses and counters stay on the device
 during an epoch: the host reads one value per `report_freq` steps and
@@ -37,7 +39,7 @@ from lctvqa_torch.config import Config
 from lctvqa_torch.data import pipeline, pipeline_npy
 from lctvqa_torch.models import search, vqa_ef, vqa_w
 from lctvqa_torch.optim.optimizers import set_learning_rate, step_lr, tree_map
-from lctvqa_torch.train import checkpoint
+from lctvqa_torch.train import checkpoint, stats
 from lctvqa_torch.train.metrics import VqaStruct, calc_bleu_scores
 from lctvqa_torch.train.steps import make_lct_steps
 from lctvqa_torch.train.timing import StageTimer
@@ -77,13 +79,24 @@ def check_exp_dir(exp_dir: str, resume: bool) -> None:
                            "resume=True")
 
 
-def opt_state_from(state, device):
-    """A loaded port optimizer state (numpy leaves) on `device`."""
-    if state is None:
-        return None
-    return {"step": int(state["step"]), "lr": float(state["lr"]),
-            "m": convert.as_tensors(state["m"], device),
-            "v": convert.as_tensors(state["v"], device)}
+# the per-epoch lists, each written to <name>.txt, and the plots drawn of
+# them: (loss list, accuracy list, title, file)
+STATS = ("train_ef_loss", "train_ef_acc", "val_ef_loss", "val_ef_acc",
+         "train_w_loss", "train_w_acc")
+PLOTS = (("train_ef_loss", "train_ef_acc", "EF Training",
+          "ef_train_loss_acc.png"),
+         ("val_ef_loss", "val_ef_acc", "EF Validation",
+          "ef_val_loss_acc.png"),
+         ("train_w_loss", "train_w_acc", "W Training",
+          "w_train_loss_acc.png"))
+
+
+def load_checkpoint(path: str, device, arch_lr: float) -> dict:
+    """A checkpoint file of either package as the port's trees on
+    `device` (`convert.checkpoint_trees`: the JAX package's optax states
+    and HWIO convs are converted)."""
+    return convert.checkpoint_trees(checkpoint.load_state(path), device,
+                                    arch_lr)
 
 
 class Experiment:
@@ -181,6 +194,7 @@ class Experiment:
         check_exp_dir(self.exp_dir, self.cfg.resume)
         if os.path.exists(self.exp_dir) and self.cfg.resume:
             self.load_model()
+            self._read_stats()
         os.makedirs(self.exp_dir, exist_ok=True)
         setup_logger(self.exp_dir)
         self.log(f"Exp Name: {self.name}")
@@ -224,6 +238,7 @@ class Experiment:
             self.train_epoch()
             self.val()
             self.save_model()
+            self._record_stats()
         self.val()
 
     def genotype(self):
@@ -417,21 +432,32 @@ class Experiment:
              "epoch": self.current_epoch + 1},
             config=self.cfg)
 
+    def _read_stats(self):
+        for name in STATS:
+            setattr(self, name, stats.read_file_in_dir(self.exp_dir,
+                                                       f"{name}.txt"))
+
+    def _record_stats(self):
+        for name in STATS:
+            stats.write_to_file_in_dir(self.exp_dir, f"{name}.txt",
+                                       getattr(self, name))
+        for loss, acc, title, fname in PLOTS:
+            stats.plot_loss_acc(getattr(self, loss), getattr(self, acc),
+                                title, os.path.join(self.exp_dir, fname))
+
     def load_model(self):
-        state = checkpoint.load_state(
-            os.path.join(self.exp_dir, "ef_model.ckpt"))
-        self.ef_params = convert.as_tensors(state["ef_params"], self.device)
-        self.ef_opt = opt_state_from(state["ef_opt"], self.device)
+        """Both models' checkpoints, written by either package."""
+        lr = self.cfg.train.arch_learning_rate
+        state = load_checkpoint(os.path.join(self.exp_dir, "ef_model.ckpt"),
+                                self.device, lr)
+        self.ef_params, self.ef_opt = state["ef_params"], state["ef_opt"]
         if state["arch"] is not None:
-            self.arch = convert.as_tensors(state["arch"], self.device)
-        self.arch_opt = opt_state_from(state["arch_opt"], self.device)
+            self.arch = state["arch"]
+        self.arch_opt = state["arch_opt"]
         if state.get("bn_running") is not None:
-            self.bn_running = convert.as_tensors(state["bn_running"],
-                                                 self.device)
+            self.bn_running = state["bn_running"]
         self.current_epoch = state["epoch"]
         w_path = os.path.join(self.exp_dir, "w_model.ckpt")
         if checkpoint.exists(w_path):
-            w_state = checkpoint.load_state(w_path)
-            self.w_params = convert.as_tensors(w_state["w_params"],
-                                               self.device)
-            self.w_opt = opt_state_from(w_state["w_opt"], self.device)
+            w_state = load_checkpoint(w_path, self.device, lr)
+            self.w_params, self.w_opt = w_state["w_params"], w_state["w_opt"]

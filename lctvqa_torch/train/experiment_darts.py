@@ -35,7 +35,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lctvqa_torch import convert
 from lctvqa_torch.config import Config
 from lctvqa_torch.data import pipeline, pipeline_npy
 from lctvqa_torch.data.pipeline import normalize_images
@@ -48,7 +47,7 @@ from lctvqa_torch.optim.optimizers import (arch_optimizer, model_optimizer,
                                            tree_leaves, tree_map, with_grad)
 from lctvqa_torch.train import checkpoint
 from lctvqa_torch.train.experiment import (check_exp_dir, dev_batch,
-                                           opt_state_from, setup_logger,
+                                           load_checkpoint, setup_logger,
                                            training_device)
 from lctvqa_torch.train.metrics import (VqaStruct, calc_bleu_scores,
                                         calc_bleu_scores_unified, mask_unk,
@@ -324,22 +323,9 @@ class DartsExperiment:
                 config=self.cfg)
 
     def _load(self, name: str) -> dict:
-        """A checkpoint of either package as the port's trees on the
-        device: the JAX package's (an optax state, convs HWIO) is
-        converted."""
-        st = checkpoint.load_state(os.path.join(self.exp_dir, name))
-        opt = st.get("opt", st.get("arch_opt"))
-        if not (isinstance(opt, dict) and "step" in opt):
-            return convert.checkpoint_from_jax(
-                st, self.device, arch_lr=self.cfg.train.arch_learning_rate)
-        out = dict(st)
-        for k in ("params", "arch"):
-            if k in out:
-                out[k] = convert.as_tensors(out[k], self.device)
-        for k in ("opt", "arch_opt"):
-            if k in out:
-                out[k] = opt_state_from(out[k], self.device)
-        return out
+        return load_checkpoint(os.path.join(self.exp_dir, name),
+                               self.device,
+                               self.cfg.train.arch_learning_rate)
 
     def load_model(self):
         st = self._load("vqa_model.ckpt")

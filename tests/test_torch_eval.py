@@ -269,9 +269,10 @@ def test_eval_reads_a_jax_derived_checkpoint_as_the_jax_eval_does(
         tmp_path, synth, monkeypatch, capsys):
     """python -m lctvqa_torch.eval on a derived EF checkpoint the JAX
     package wrote (its config, its optax state, HWIO convs): the
-    accuracy and BLEU4 the JAX package's eval prints for it. --int8 and
-    --tp 2 raise and name their ROADMAP items; without a card the default
-    device raises."""
+    accuracy and BLEU4 the JAX package's eval prints for it. --int8 runs
+    it quantized (tests/test_torch_quant.py holds the int8 forwards to
+    the JAX package's); --tp 2 raises and names its ROADMAP item; without
+    a card the default device raises."""
     from lctvqa import eval as j_eval, native as j_native
 
     # the JAX gather's native library: tests/test_native.py may be
@@ -296,9 +297,12 @@ def test_eval_reads_a_jax_derived_checkpoint_as_the_jax_eval_does(
     assert out.strip().splitlines()[-1] == want, (out, want)
     assert "model config from checkpoint" in out and "argmax:" in out
     assert got["n"] == 16 and 0.0 <= got["acc"] <= 1.0
-    for flags, match in ((["--int8"], "item 6"), (["--tp", "2"], "item 7")):
-        with pytest.raises(NotImplementedError, match=match):
-            t_eval.main(argv + ["--device", "cpu"] + flags)
+    got = t_eval.main(argv + ["--device", "cpu", "--int8"])
+    assert "serving int8" in capsys.readouterr().out
+    assert got["n"] == 16 and 0.0 <= got["acc"] <= 1.0
+    assert 0.0 <= got["bleu4"] <= 100.0
+    with pytest.raises(NotImplementedError, match="item 7"):
+        t_eval.main(argv + ["--device", "cpu", "--tp", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             t_eval.main(argv)

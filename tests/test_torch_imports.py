@@ -33,14 +33,21 @@ def test_source_imports_neither_jax_nor_lctvqa(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
-def test_serve_loads_with_jax_and_lctvqa_blocked():
-    """`import lctvqa_torch.serve` (and so export, the models, the ops and
-    the kernel wrappers) with `jax` and `lctvqa` made unimportable; a
-    darts EF model then initialises and runs on the CPU."""
-    code = """
+BLOCK = """
 import sys
 for name in ("jax", "jaxlib", "lctvqa"):
     sys.modules[name] = None      # any import of it raises ImportError
+"""
+LOADED = """
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib", "lctvqa") and sys.modules[m] is not None)
+assert not loaded, loaded
+print("ok")
+"""
+RUNS = {
+    # lctvqa_torch.serve (and so export, the models, the ops and the
+    # kernel wrappers); a darts EF model then initialises and runs
+    "serve": """
 import dataclasses
 import torch
 import lctvqa_torch.serve
@@ -52,13 +59,31 @@ img = torch.zeros(2, cfg.img_size, cfg.img_size, 3)
 tok, ans = vqa_ef.ef_generate(params, arch, cfg, img)
 assert tok.shape == (2, cfg.max_qst_len)
 assert ans.shape == (2, cfg.ans_vocab_size)
-loaded = sorted(m for m in sys.modules if m.split(".")[0] in
-                ("jax", "jaxlib", "lctvqa") and sys.modules[m] is not None)
-assert not loaded, loaded
-print("ok")
-"""
+""",
+    # python -m lctvqa_torch.export --help (the CLI, quant.py, ops/int8.py,
+    # the checkpoint reader)
+    "export-help": """
+import runpy
+sys.argv = ["lctvqa_torch.export", "--help"]
+try:
+    runpy.run_module("lctvqa_torch.export", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+import lctvqa_torch.quant, lctvqa_torch.train.stats
+""",
+}
+
+
+@pytest.mark.parametrize("run", list(RUNS))
+def test_serve_loads_with_jax_and_lctvqa_blocked(run):
+    """`import lctvqa_torch.serve`, and `python -m lctvqa_torch.export
+    --help`, with `jax` and `lctvqa` made unimportable: no module of
+    either is loaded."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", BLOCK + RUNS[run] + LOADED],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+    if run == "export-help":
+        assert "--int8" in proc.stdout and "torch.export" in proc.stdout

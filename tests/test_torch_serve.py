@@ -245,7 +245,7 @@ def test_unservable_artifacts_raise(artifacts, monkeypatch):
             ("mismatch", ef, _meta("ef", arch_type="darts"), ValueError,
              "arch_type"),
             ("int8", artifacts["w"][1], _meta("w", int8=True),
-             NotImplementedError, "int8")):
+             ValueError, "meta says int8=True but its params hold no int8")):
         path = _write(d / f"{name}.lctx", params, meta)
         with pytest.raises(exc, match=match):
             load_artifact(path, device="cpu")
