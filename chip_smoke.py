@@ -11,6 +11,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --darts     # only the decode at the unified
                                       # vocabulary and phase 11
     python3 chip_smoke.py --int8      # only phase 12
+    python3 chip_smoke.py --parallel  # only phase 13
     python3 chip_smoke.py --grad-spread
                                       # only how far the derived EF's fp32
                                       # gradients move under one rounding
@@ -261,11 +262,47 @@ non-zero:
    With --int8 alone the checkpoints of phases 8 and 10 are made here,
    untrained.
 
+13. Data parallelism on one card (lctvqa_torch/parallel/), fp32 at full
+   width (ModelConfig's defaults, dropout off, the sequence, decode, cell
+   and BatchNorm kernels on; stage 2's sampled questions taken greedily,
+   so that the ranks' own streams do not enter the comparison). The four
+   two-launch BatchNorm kernels (bn_fwd_sums, bn_fwd_apply, bn_bwd_sums,
+   bn_bwd_apply) at a rank's half of each of the supernet's six shapes
+   against their plain versions (see check_sync_bn_kernels for the
+   limits), their grid the card's, two calls the same bits, timed at
+   [32,64,64,32] beside their bound and PyTorch's SyncBatchNorm building
+   blocks. Then three spawned processes: two ranks on cuda:0 over gloo
+   (NCCL refuses two ranks on one device), each on its 32 rows, and one
+   rank of an NCCL group on the whole batch (the data-parallel path at
+   one rank, its sums over NCCL); meanwhile this process runs the main
+   path with no process group on the card, as the reference, from an
+   Experiment: a stage-3 call (exact-indirect, remat on) on the first
+   STAGE3_CPU_BATCH rows of the global batches, then train_step (stages 1
+   and 2) on the global batch of 64 and one validation step, the launch
+   counts set to 0 just before it and read just after it. The gloo ranks
+   run the sync BatchNorm at the six shapes (held to its plain versions
+   summed over the two halves and to the one-launch kernel on the whole
+   batch, at phase 2's BatchNorm limits); every rank runs the same main
+   path, its counts likewise. Each rank against the reference: the
+   losses within 1e-5 of one process's, the counters equal, the
+   gradient each step's optimizer took (stage 3's arch, stage 1's EF,
+   stage 2's W heads, copied as the optimizer receives it) within phase
+   8's limit, the EF, W heads and arch within
+   tests/test_mesh.py's tolerances (rtol 2e-4, atol 1e-5; the arch atol
+   1e-6) except that an EF element may pass that limit where one
+   process's gradient there is within phase 8's noise limit, by at most
+   2 lr (Adam's first step keeps only the gradient's sign); the LSTM,
+   decode and two-launch BatchNorm kernels launched and neither the node
+   kernels nor the one-launch BatchNorm. The two gloo ranks' bits are
+   equal. The train_step times are printed as informational: the ranks
+   share one card.
+
 It prints the card's name and power limit, one JSON line of the kernels
 (times, bounds and launch counts; `derived_launches`, `darts_launches`
 and `unified_launches` are phases 10 and 11's kernel-flag training runs';
-the decode's row carries its V = 8197 case under `unified_vocab`), and
-last {"ok": true, "device": {...}}.
+the decode's row carries its V = 8197 case under `unified_vocab`; the
+two-launch BatchNorm kernels' rows count phase 13's rank 0), and last
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -782,11 +819,12 @@ def check_generate_plan(device, mcfg, time_fn=time_ms):
     return out
 
 
-def device_times(fn, iters=10):
+def device_times(fn, iters=10, required=True):
     """torch.profiler over `iters` calls of fn, after three unprofiled ones
     -> (device us per call, [(kernel, launches per call, us per call)] in
     launch order). Only device kernels count: the wrapper's host cost,
-    which the event-timed medians include, is not in it."""
+    which the event-timed medians include, is not in it. A profile that
+    saw no kernel is a failure, or (None, []) where not `required`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -801,6 +839,8 @@ def device_times(fn, iters=10):
     kernels = sorted((e for e in prof.events()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
+    if not kernels and not required:
+        return None, []
     expect(bool(kernels), "the profiler saw no device kernel")
     # one row per launch position of a call where every call launches the
     # same sequence, else one row per kernel name
@@ -3761,6 +3801,618 @@ def int8_phase(arrays, device, root: str, card: str, w_path=None) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 13: data parallel on one card
+# ---------------------------------------------------------------------------
+
+# two gloo ranks on cuda:0 (NCCL refuses two ranks on one device), each on
+# half of a global batch of PARALLEL_BATCH rows; stage 3 on the first
+# STAGE3_CPU_BATCH rows of the global batches (two ranks of 4)
+PARALLEL_RANKS = 2
+PARALLEL_BATCH = 64
+PARALLEL_JOIN_SECONDS = 600
+# the two-launch BatchNorm kernels of several ranks (rows 7 and 7b)
+SYNC_BN_KERNELS = {
+    "bn_fwd_sums": "lctvqa/ops/pallas_bn.py:81",
+    "bn_fwd_apply": "lctvqa/ops/pallas_bn.py:81",
+    "bn_bwd_sums": "lctvqa/ops/pallas_bn.py:95",
+    "bn_bwd_apply": "lctvqa/ops/pallas_bn.py:95"}
+# what a data-parallel run must launch, and must not (the node kernels
+# raise under data parallelism; the one-launch BatchNorm gives way to the
+# two-launch one)
+PARALLEL_LAUNCHED = LSTM_KERNELS + tuple(SYNC_BN_KERNELS)
+PARALLEL_NOT_LAUNCHED = ("mixed_node_fwd", "mixed_node_bwd", "bn_fwd",
+                         "bn_bwd")
+# the supernet's six BatchNorm shapes (global rows) and the dtype pairs of
+# the sync check: (x, y) forward, (x, g) backward
+SYNC_BN_SHAPES = BN_SHAPES[:6]
+SYNC_BN_DTYPES = (("float32", "float32"), ("float32", "bfloat16"))
+# the sync kernels' rows in the kernels line: the largest shape a rank's
+# half batch gives them on the phase's fp32 path
+SYNC_BN_ROW = ((32, 64, 64, 32), "float32", "float32")
+# tests/test_mesh.py's tolerances: losses, parameters, the arch
+PARALLEL_LOSS_RTOL = 1e-5
+PARALLEL_PARAM_TOL = (2e-4, 1e-5)
+PARALLEL_ARCH_TOL = (2e-4, 1e-6)
+
+
+def parallel_config(root: str, name: str):
+    """Full width (ModelConfig's defaults) in fp32 with the kernel flags of
+    a data-parallel run on: the sequence and decode kernels (the cell is on
+    by default), the BatchNorm switch set by the caller; dropout off, so
+    that the ranks' own streams do not enter the comparison."""
+    from lctvqa_torch.config import Config, ModelConfig, TrainConfig
+
+    return Config(model=ModelConfig(compute_dtype="float32", dropout_rate=0.0,
+                                    pallas_seq_lstm=True,
+                                    pallas_generate=True),
+                  train=TrainConfig(batch_size=PARALLEL_BATCH, num_epochs=1,
+                                    skip_stage3=False, seed=SEED),
+                  root_stats_dir=root, exp_name=name)
+
+
+@contextlib.contextmanager
+def greedy_sampling():
+    """torch.multinomial as the first maximum while open: stage 2's
+    sampled questions become the greedy ones, whatever stream a rank
+    draws from."""
+    was = torch.multinomial
+    torch.multinomial = lambda probs, n, generator=None: probs.argmax(
+        -1, keepdim=True)
+    try:
+        yield
+    finally:
+        torch.multinomial = was
+
+
+def parallel_batches(arrays):
+    """The global train and validation batches: the first of an epoch of
+    each split, as one process's loader gathers them."""
+    from lctvqa_torch.data import pipeline
+
+    data = pipeline.loader_from_arrays(arrays)
+    rng = np.random.default_rng(SEED)
+    return [next(pipeline.epoch_batches(data[split], PARALLEL_BATCH, rng,
+                                        shuffle=False))
+            for split in ("train", "valid")]
+
+
+def _host_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_host_tree(v) for v in tree]
+    return tree.detach().cpu()
+
+
+def _heads(tree):
+    """W's tree without the VGG trunk, which no step trains."""
+    return {k: v for k, v in tree.items() if k != "vgg"}
+
+
+@contextlib.contextmanager
+def optimizer_grads():
+    """While open, every Optimizer.update's gradients, by call: a list of
+    leaf lists (copies on the device, None where the loss does not reach
+    a leaf). Each is what that step's optimizer took, before its clip
+    and weight decay, so a check of them needs no pass of its own."""
+    from lctvqa_torch.optim import optimizers
+
+    calls = []
+    was = optimizers.Optimizer.update
+
+    def update(self, params, grads, state):
+        grads = list(grads)
+        calls.append([None if g is None else g.detach().clone()
+                      for g in grads])
+        return was(self, params, grads, state)
+
+    optimizers.Optimizer.update = update
+    try:
+        yield calls
+    finally:
+        optimizers.Optimizer.update = was
+
+
+def _host_grads(tree, grads, pick=lambda t: t):
+    """`grads` (in `tree`'s leaf order) on the host for the leaves of
+    pick(tree), zeros where None."""
+    from lctvqa_torch.optim.optimizers import tree_from_leaves
+
+    return [torch.zeros(tuple(p.shape)) if g is None else g.cpu()
+            for p, g in zip(_leaves(pick(tree)),
+                            _leaves(pick(tree_from_leaves(tree, grads))))]
+
+
+def parallel_steps(exp, train, valid):
+    """The main path of a data-parallel run on the Experiment's rows of
+    the global batches (all of them without a process group), from its
+    fresh state, the launch counts set to 0 just before it and read just
+    after it: one stage-3 call (exact-indirect, remat on) on the first
+    STAGE3_CPU_BATCH rows, stages 1 and 2 through train_step, one
+    validation step. -> outputs on the host (with the gradient each
+    step's optimizer took: stage 3's arch, stage 1's EF, stage 2's W
+    heads), launches, ms of the train_step."""
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.parallel import mesh as mesh_lib
+
+    def dev(batch, n):
+        half = mesh_lib.shard_batch({k: v[:n] for k, v in batch.items()},
+                                    exp.mesh)
+        return exp._to_device(half)
+
+    with identity_dropout(), greedy_sampling(), optimizer_grads() as calls:
+        _build.reset_launch_counts()
+        lr = exp._epoch_lr()
+        exp.arch, exp.arch_opt, s3 = exp.steps["stage3"](
+            exp.arch, exp.arch_opt, exp.ef_params, exp.w_params,
+            dev(train, STAGE3_CPU_BATCH), dev(valid, STAGE3_CPU_BATCH),
+            lr, lr, exp.gen)
+        batch = dev(train, PARALLEL_BATCH)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, c1, c2, loss2, wc, _ = exp.train_step(batch)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        ev = exp._eval_step(dev(valid, PARALLEL_BATCH))
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+    expect(len(calls) == 3, f"the main path made {len(calls)} optimizer "
+           "steps, not 3 (stage 3, stage 1, stage 2)")
+    grads = dict(zip(("arch", "ef", "w_heads"), (
+        _host_grads(tree, call, pick) for (tree, pick), call in zip(
+            ((exp.arch, lambda t: t), (exp.ef_params, lambda t: t),
+             (exp.w_params, _heads)), calls))))
+    return ({"ef": _host_tree(exp.ef_params), "arch": _host_tree(exp.arch),
+             "w_heads": _host_tree(_heads(exp.w_params)), "grads": grads,
+             "ef_lr": float(exp.ef_opt["lr"]), "stage3": float(s3),
+             "stage1": float(loss), "stage2": float(loss2),
+             "eval": float(ev[0]),
+             "counts": (int(c1), int(c2), int(wc), int(ev[1]), int(ev[2]))},
+            launches, ms)
+
+
+def sync_bn_inputs(device):
+    """The sync check's tensors: x and g at each SYNC_BN_SHAPES entry, on
+    `device`, the same on every rank (a seeded CPU generator)."""
+    gen = torch.Generator().manual_seed(SEED + 30)
+    return {shape: ((1.5 * torch.randn(shape, generator=gen) + 0.3).to(
+        device), torch.randn(shape, generator=gen).to(device))
+        for shape in SYNC_BN_SHAPES}
+
+
+def sync_bn_ranks(device, rows: slice):
+    """On each rank: the two-launch forward and backward of its rows of
+    every sync input, and the ms of a whole call (sums, all-reduce over
+    gloo, apply) at the largest shape."""
+    from lctvqa_torch.ops import cuda_bn
+
+    out, ms = {}, {}
+    for shape, (xb, gb) in sync_bn_inputs(device).items():
+        for a, b in SYNC_BN_DTYPES:
+            x = xb[rows].to(DTYPES[a])
+            g = gb[rows].to(DTYPES[b])
+            y, stat, _ = cuda_bn.batchnorm_fwd_stat_sync(x, DTYPES[b])
+            dx = cuda_bn.batchnorm_bwd_sync(x, g, stat)
+            out[(shape, a, b)] = (y.cpu(), stat.cpu(), dx.cpu())
+            if shape == SYNC_BN_SHAPES[1] and (a, b) == SYNC_BN_DTYPES[1]:
+                ms["fwd"] = time_ms(lambda: cuda_bn.batchnorm_fwd_stat_sync(
+                    x, DTYPES[b]))
+                ms["bwd"] = time_ms(lambda: cuda_bn.batchnorm_bwd_sync(
+                    x, g, stat))
+    return out, ms
+
+
+def _parallel_rank(rank: int, world: int, port: int, backend: str,
+                   label: str, device: str, tmp: str) -> None:
+    """One rank of phase 13 (a spawned process): `world` ranks of
+    `backend` on `device`, its results in `tmp`/<label><rank>.pt. The two
+    "dp" ranks: the sync BatchNorm on their rows, then the main path on
+    their rows; the "one" rank (NCCL on the card): the main path on the
+    whole batch."""
+    import traceback
+
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.ops import conv
+    from lctvqa_torch.parallel import distributed
+    from lctvqa_torch.parallel import mesh as mesh_lib
+    from lctvqa_torch.train.experiment import Experiment
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = torch.device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        distributed.initialize(f"localhost:{port}", world, rank,
+                               device=device, backend=backend)
+        conv.USE_PALLAS_BN = True
+        arrays = train_arrays()
+        train, valid = parallel_batches(arrays)
+        out = {}
+        if label == "dp":
+            rows = mesh_lib.shard_rows(PARALLEL_BATCH,
+                                       mesh_lib.make_mesh(world))
+            out["bn"], out["bn_ms"] = sync_bn_ranks(device, rows)
+        exp = Experiment(parallel_config(tmp, f"parallel_{label}"),
+                         device=device,
+                         data=pipeline.loader_from_arrays(arrays))
+        out["result"], out["launches"], out["ms"] = parallel_steps(
+            exp, train, valid)
+        out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                           if device.type == "cuda" else 0.0)
+        torch.save(out, Path(tmp) / f"{label}{rank}.pt")
+    except BaseException:
+        (Path(tmp) / f"{label}{rank}.err").write_text(
+            traceback.format_exc())
+        raise
+    finally:
+        distributed.shutdown()
+
+
+def check_sync_bn_kernels(device, time_fn=time_ms):
+    """The four two-launch BatchNorm kernels at a rank's half of each
+    supernet shape against their plain versions on the same inputs, their
+    grid the card's (lctvqa_bn_sync_plan) and two calls the same bits.
+    Limits: the sums 1e-5 of the sum of the terms' magnitudes (the order
+    of an fp32 sum of up to 131,072 terms); y as phase 2's bn_fwd (fp32
+    1e-5 + 1e-5 |plain|, bf16 1e-5 + 2^-7 |plain|); dx as phase 2's bn_bwd
+    (1e-5 of its scale). -> {name: row at SYNC_BN_ROW}."""
+    from lctvqa_torch.ops import cuda_bn
+
+    rows = {}
+    props = torch.cuda.get_device_properties(device)
+    for shape, (xb, gb) in sync_bn_inputs(device).items():
+        half = slice(0, shape[0] // PARALLEL_RANKS)
+        for a, b in SYNC_BN_DTYPES:
+            x, g = xb[half].to(DTYPES[a]), gb[half].to(DTYPES[b])
+            c = x.shape[-1]
+            m = x.numel() // c
+            count = m * PARALLEL_RANKS
+            tag = f"sync bn {list(x.shape)} {a} {b}"
+            for gd in (None, g.dtype):
+                want = cuda_bn.sync_plan(m, c, x.dtype, gd,
+                                         props.multi_processor_count)
+                got = cuda_bn.sync_plan_on_device(m, c, x.dtype, gd, device)
+                expect(got == want, f"{tag}: the card's grid {got}, "
+                       f"sync_plan's {want}")
+            x32, g32 = x.float().reshape(-1, c), g.float().reshape(-1, c)
+            sums = cuda_bn.bn_sums(x)
+            want = cuda_bn.bn_sums_plain(x)
+            scale = torch.stack([x32.abs().sum(0), (x32 * x32).sum(0)])
+            err_s = float(((sums - want).abs() / scale).max())
+            y, stat = cuda_bn.bn_fwd_apply(x, want, count, DTYPES[b])
+            y_p, stat_p = cuda_bn.bn_fwd_apply_plain(x, want, count,
+                                                     DTYPES[b])
+            bsums = cuda_bn.bn_bwd_sums(x, g, stat_p)
+            bwant = cuda_bn.bn_bwd_sums_plain(x, g, stat_p)
+            xhat = (x32 - stat_p[0]) * stat_p[1]
+            bscale = torch.stack([g32.abs().sum(0),
+                                  (g32 * xhat).abs().sum(0)])
+            err_b = float(((bsums - bwant).abs() / bscale).max())
+            dx = cuda_bn.bn_bwd_apply(x, g, stat_p, bwant, count)
+            dx_p = cuda_bn.bn_bwd_apply_plain(x, g, stat_p, bwant, count)
+            again = (cuda_bn.bn_sums(x), cuda_bn.bn_bwd_sums(x, g, stat_p),
+                     cuda_bn.bn_fwd_apply(x, want, count, DTYPES[b])[0],
+                     cuda_bn.bn_bwd_apply(x, g, stat_p, bwant, count))
+            torch.cuda.synchronize()
+            diff = (y.float() - y_p.float()).abs()
+            lim = (1e-5 + 1e-5 * y_p.float().abs() if b == "float32"
+                   else 1e-5 + 2.0 ** -7 * y_p.float().abs())
+            err_dx, dscale = _grad_err(dx, dx_p)
+            expect(err_s <= 1e-5 and err_b <= 1e-5,
+                   f"{tag}: sums off by {err_s} (forward), {err_b} "
+                   "(backward) of their terms' magnitude")
+            expect(bool((diff <= lim).all()) and torch.allclose(
+                stat, stat_p, rtol=1e-5, atol=0.0) and y.dtype == DTYPES[b],
+                f"{tag}: forward apply off by {float(diff.max())}")
+            expect(err_dx <= 1e-5 * dscale and dx.dtype == x.dtype,
+                   f"{tag}: backward apply off by {err_dx} (scale {dscale})")
+            expect(all(torch.equal(p, q) for p, q in zip(
+                again, (sums, bsums, y, dx))), f"{tag}: two calls differ")
+            log(f"{tag}: sums err {err_s:.2e} / {err_b:.2e} of their terms' "
+                f"magnitude, y {float(diff.max()):.2e}, dx {err_dx:.2e} "
+                f"(scale {dscale:.2e})")
+            if (tuple(x.shape), a, b) != SYNC_BN_ROW:
+                continue
+            n = x.numel()
+            ex, eg = x.element_size(), g.element_size()
+            nchw = x.permute(0, 3, 1, 2)
+            gl = g.to(x.dtype).permute(0, 3, 1, 2)
+            mean, invstd = stat_p[0].contiguous(), stat_p[1].contiguous()
+            cnt = torch.full((PARALLEL_RANKS,), m, dtype=torch.int32,
+                             device=device)
+            calls = {
+                "bn_fwd_sums": (
+                    lambda: cuda_bn.bn_sums(x),
+                    lambda: cuda_bn.bn_sums_plain(x),
+                    lambda: torch.batch_norm_stats(nchw, cuda_bn.EPS),
+                    bound(n * ex, 3 * n, "float32"), err_s),
+                "bn_fwd_apply": (
+                    lambda: cuda_bn.bn_fwd_apply(x, want, count, DTYPES[b]),
+                    lambda: cuda_bn.bn_fwd_apply_plain(x, want, count,
+                                                       DTYPES[b]),
+                    lambda: torch.batch_norm_elemt(nchw, None, None, mean,
+                                                   invstd, cuda_bn.EPS),
+                    bound(n * (ex + y.element_size()), 2 * n, "float32"),
+                    float(diff.max())),
+                "bn_bwd_sums": (
+                    lambda: cuda_bn.bn_bwd_sums(x, g, stat_p),
+                    lambda: cuda_bn.bn_bwd_sums_plain(x, g, stat_p),
+                    lambda: torch.batch_norm_backward_reduce(
+                        gl, nchw, mean, invstd, None, True, False, False),
+                    bound(n * (ex + eg), 5 * n, "float32"), err_b),
+                "bn_bwd_apply": (
+                    lambda: cuda_bn.bn_bwd_apply(x, g, stat_p, bwant, count),
+                    lambda: cuda_bn.bn_bwd_apply_plain(x, g, stat_p, bwant,
+                                                       count),
+                    lambda: torch.batch_norm_backward_elemt(
+                        gl, nchw, mean, invstd, None, bwant[0].contiguous(),
+                        bwant[1].contiguous(), cnt),
+                    bound(n * (2 * ex + eg), 6 * n, "float32"), err_dx)}
+            for name, (fn, plain, lib, (b_ms, by), err) in calls.items():
+                r = rows[name] = {"err": err, "bound_ms": b_ms,
+                                  "bound_by": by, "ms": time_fn(fn),
+                                  "plain_ms": time_fn(plain),
+                                  "library_ms": _library_ms(lib)}
+                log(f"kernel {name} {list(x.shape)} {a} {b}: {_times(r)}")
+                if time_fn is time_ms:  # device time, the memset included
+                    r["device_us"] = _sync_device_us(name, fn)
+                    r["library_device_us"] = _sync_device_us(
+                        f"{name}'s library call", lib)
+    return rows
+
+
+def _sync_device_us(tag, fn, tries=3):
+    """The device time of a sync kernel or of its library call
+    (informational): up to `tries` profiles, each miss logged, and None
+    where none saw a kernel (PERF.md, open questions: the profiler on the
+    card's machine now and then sees no kernel in a profile) or where
+    this PyTorch does not take the library call's signature."""
+    for i in range(tries):
+        try:
+            total, rows = device_times(fn, required=False)
+        except (RuntimeError, NotImplementedError, TypeError,
+                AttributeError) as e:
+            log(f"device time {tag}: not profiled: {type(e).__name__}: {e}")
+            return None
+        if total is not None:
+            _device_line(tag, total, rows)
+            return total
+        log(f"device time {tag}: profile {i + 1} of {tries} saw no kernel")
+    log(f"device time {tag}: not measured")
+    return None
+
+
+def _library_ms(fn):
+    """time_library of a yardstick whose signature this PyTorch may not
+    take (the SyncBatchNorm building blocks); None, logged, where not."""
+    try:
+        return time_library(fn)
+    except (TypeError, AttributeError) as e:
+        log(f"library call not timed: {type(e).__name__}: {e}")
+        return None
+
+
+def _same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def _trees_close(got, want, tol, tag, grads=None, lr=0.0):
+    """Every leaf of `got` within (rtol, atol) of `want`'s. With `grads`
+    (one process's gradient of the Adam step that made `want`, by leaf)
+    and that step's `lr`, an element beyond that limit passes only where
+    that gradient lies within phase 8's limit of summation-order noise
+    (TRAIN_GRAD_TOL of its leaf's scale plus TRAIN_GRAD_FLOOR of the
+    largest leaf's), and then by at most 2 lr beyond the limit. Adam's
+    first update is lr g / (|g| + 1e-8): it keeps g's sign and loses its
+    size, so where g is noise the two runs' updates may differ by up to
+    2 lr (2e-3), two orders above atol, and by no more."""
+    rtol, atol = tol
+    top = max(float(g.abs().max()) for g in grads) if grads else 0.0
+    worst, beyond, elems, moved = 0.0, 0, 0, 0.0
+    for i, (a, b) in enumerate(zip(_leaves(got), _leaves(want))):
+        diff = (a - b).abs()
+        limit = atol + rtol * b.abs()
+        off = diff > limit
+        over = float((diff / limit).max())
+        worst = max(worst, over)
+        elems += b.numel()
+        ok = a.shape == b.shape and bool(torch.isfinite(a).all())
+        if grads is not None and bool(off.any()):
+            g = grads[i].abs()
+            noise = TRAIN_GRAD_TOL * float(g.max()) + TRAIN_GRAD_FLOOR * top
+            beyond += int(off.sum())
+            past = float((diff - limit)[off].max())
+            moved = max(moved, past)
+            ok = ok and bool((g[off] <= noise).all()) and past <= 2 * lr
+        else:
+            ok = ok and over <= 1.0
+        expect(ok, f"{tag}: leaf {i} {tuple(a.shape)} off by {over:.3f} of "
+               f"its limit (rtol {rtol}, atol {atol})"
+               + (f" at an element whose gradient is not noise, or by more "
+                  f"than 2 lr ({2 * lr:g}) beyond it"
+                  if grads is not None else ""))
+    log(f"{tag}: {len(_leaves(want))} leaves, worst {worst:.3f} of the limit "
+        f"(rtol {rtol}, atol {atol})"
+        + (f"; {beyond} of {elems} elements beyond it, each where one "
+           "process's gradient is within phase 8's noise limit, the "
+           f"farthest {moved:.3e} beyond it (bound 2 lr = {2 * lr:g}: "
+           "Adam's first step)" if grads is not None else ""))
+
+
+def _parallel_agrees(tag, out, ref):
+    """One run of the main path under a process group against one
+    process's: the losses within PARALLEL_LOSS_RTOL, the counters equal,
+    each step's gradient within phase 8's limit (stage 3's arch, stage
+    1's EF, stage 2's W heads), the params within test_mesh's
+    tolerances, and what launched."""
+    got = out["result"]
+    for k in ("stage3", "stage1", "stage2", "eval"):
+        expect(abs(got[k] - ref[k]) <= PARALLEL_LOSS_RTOL * abs(ref[k]),
+               f"{tag}: {k} loss {got[k]} vs {ref[k]}")
+    expect(got["counts"] == ref["counts"],
+           f"{tag}: counters {got['counts']} vs {ref['counts']}")
+    log(f"{tag}: losses stage 3 {got['stage3']:.6f}, stage 1 "
+        f"{got['stage1']:.6f}, stage 2 {got['stage2']:.6f}, eval "
+        f"{got['eval']:.6f} (one process {ref['stage3']:.6f}, "
+        f"{ref['stage1']:.6f}, {ref['stage2']:.6f}, {ref['eval']:.6f}); "
+        f"launches { {k: v for k, v in out['launches'].items() if v} }; "
+        f"train_step {out['ms']:.1f} ms; peak {out['peak_gib']:.2f} GiB")
+    for name in PARALLEL_LAUNCHED:
+        expect(out["launches"][name] > 0, f"{tag}: {name} never launched")
+    for name in PARALLEL_NOT_LAUNCHED:
+        expect(out["launches"][name] == 0,
+               f"{tag}: {name} launched under data parallelism")
+    for tree, step in (("arch", "stage-3 arch"), ("ef", "stage-1 EF"),
+                       ("w_heads", "stage-2 W-head")):
+        _grads_agree(got["grads"][tree], ref["grads"][tree],
+                     f"{tag} {step} gradient vs one process")
+    _trees_close(got["ef"], ref["ef"], PARALLEL_PARAM_TOL,
+                 f"{tag} EF after stages 3, 1 vs one process",
+                 grads=ref["grads"]["ef"], lr=ref["ef_lr"])
+    _trees_close(got["w_heads"], ref["w_heads"], PARALLEL_PARAM_TOL,
+                 f"{tag} W heads after stage 2")
+    _trees_close(got["arch"], ref["arch"], PARALLEL_ARCH_TOL,
+                 f"{tag} arch after stage 3")
+
+
+def parallel_phase(arrays, device, root: str, card: str) -> dict:
+    """Phase 13: the sync BatchNorm kernels against their plain versions
+    (timed with the card to themselves); then, spawned, two gloo ranks on
+    cuda:0 and one NCCL rank, while this process runs the main path with
+    no process group on the card as the reference; the ranks against it.
+    -> the sync kernels' rows of the kernels line."""
+    import multiprocessing
+
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.ops import conv, cuda_bn
+    from lctvqa_torch.parallel import distributed
+    from lctvqa_torch.parallel import mesh as mesh_lib
+    from lctvqa_torch.train.experiment import Experiment
+
+    t0 = time.perf_counter()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    was = conv.USE_PALLAS_BN
+    tmp = tempfile.mkdtemp(dir=root)
+    ctx = multiprocessing.get_context("spawn")
+    on = f"{device.type}:0" if device.type == "cuda" else "cpu"
+    # (rank, world, backend, label): NCCL where there is a card
+    runs = [(r, PARALLEL_RANKS, "gloo", "dp") for r in range(PARALLEL_RANKS)]
+    runs.append((0, 1, "nccl" if device.type == "cuda" else "gloo", "one"))
+    ports = {"dp": distributed.free_port(), "one": distributed.free_port()}
+    procs = []
+    try:
+        rows = check_sync_bn_kernels(device)
+        # the ranks start up while this process runs the reference
+        procs = [ctx.Process(target=_parallel_rank,
+                             args=(r, w, ports[label], be, label, on, tmp))
+                 for r, w, be, label in runs]
+        for p in procs:
+            p.start()
+        conv.USE_PALLAS_BN = True
+        train, valid = parallel_batches(arrays)
+        exp = Experiment(parallel_config(root, "parallel_ref"),
+                         device=device,
+                         data=pipeline.loader_from_arrays(arrays))
+        ref, ref_launches, ref_ms = parallel_steps(exp, train, valid)
+        del exp
+        one_launch = {}
+        for shape, (xb, gb) in sync_bn_inputs(device).items():
+            for a, b in SYNC_BN_DTYPES:
+                x, g = xb.to(DTYPES[a]), gb.to(DTYPES[b])
+                y, stat, _ = cuda_bn.batchnorm_fwd_stat(x, DTYPES[b])
+                one_launch[(shape, a, b)] = (
+                    y.cpu(), stat.cpu(), cuda_bn.batchnorm_bwd(x, g,
+                                                               stat).cpu())
+        torch.cuda.empty_cache()
+        log(f"parallel reference (one process, B={PARALLEL_BATCH}): "
+            f"launches { {k: v for k, v in ref_launches.items() if v} }, "
+            f"train_step {ref_ms:.1f} ms (informational: the ranks start "
+            "up on the same card meanwhile)")
+        deadline = time.perf_counter() + PARALLEL_JOIN_SECONDS
+        for p in procs:
+            p.join(max(deadline - time.perf_counter(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        conv.USE_PALLAS_BN = was
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    for (r, _, be, label), p in zip(runs, procs):
+        err = Path(tmp) / f"{label}{r}.err"
+        expect(p.exitcode == 0, f"parallel {label} rank {r} ({be}) exited "
+               f"with {p.exitcode}" + (f":\n{err.read_text()}"
+                                       if err.exists() else ""))
+    if any(p.exitcode != 0 for p in procs):
+        return {}
+    gloo = [torch.load(Path(tmp) / f"dp{r}.pt", weights_only=False)
+            for r in range(PARALLEL_RANKS)]
+    nccl = torch.load(Path(tmp) / "one0.pt", weights_only=False)
+
+    # the sync BatchNorm on two ranks: its plain versions summed over the
+    # two halves, and one rank's one-launch kernel on the whole batch
+    worst = {"plain": 0.0, "one_launch": 0.0}
+    for (shape, a, b), (y1, stat1, dx1) in one_launch.items():
+        xb, gb = (t.cpu() for t in sync_bn_inputs("cpu")[shape])
+        x, g = xb.to(DTYPES[a]), gb.to(DTYPES[b])
+        halves = [mesh_lib.shard_rows(shape[0],
+                                      mesh_lib.Mesh(r, PARALLEL_RANKS))
+                  for r in range(PARALLEL_RANKS)]
+        count = x.numel() // x.shape[-1]  # the global batch's rows
+        sums = sum(cuda_bn.bn_sums_plain(x[h]) for h in halves)
+        for r, h in enumerate(halves):
+            y, stat, dx = gloo[r]["bn"][(shape, a, b)]
+            y_p, stat_p = cuda_bn.bn_fwd_apply_plain(x[h], sums, count,
+                                                     DTYPES[b])
+            bsums = sum(cuda_bn.bn_bwd_sums_plain(x[k], g[k], stat_p)
+                        for k in halves)
+            dx_p = cuda_bn.bn_bwd_apply_plain(x[h], g[h], stat_p, bsums,
+                                              count)
+            for kind, (yw, dxw) in (("plain", (y_p, dx_p)),
+                                    ("one_launch", (y1[h], dx1[h]))):
+                lim = (1e-5 + 1e-5 * yw.float().abs() if b == "float32"
+                       else 1e-5 + 2.0 ** -7 * yw.float().abs())
+                over_y = float(((y.float() - yw.float()).abs() / lim).max())
+                err_dx, dscale = _grad_err(dx, dxw)
+                over = max(over_y, err_dx / max(1e-5 * dscale, 1e-30))
+                worst[kind] = max(worst[kind], over)
+                expect(over <= 1.0, f"sync bn on two ranks {shape} {a} {b} "
+                       f"rank {r} against {kind}: {over:.3f} of the limit")
+    log(f"sync bn on two ranks at {len(SYNC_BN_SHAPES)} shapes: worst "
+        f"{worst['plain']:.3f} of the limit against the plain versions, "
+        f"{worst['one_launch']:.3f} against the one-launch kernel on the "
+        f"whole batch; a whole call (sums, gloo all-reduce, apply) at "
+        f"{list(SYNC_BN_SHAPES[1])} {SYNC_BN_DTYPES[1]}: forward "
+        f"{gloo[0]['bn_ms']['fwd']:.3f} ms, backward "
+        f"{gloo[0]['bn_ms']['bwd']:.3f} ms on rank 0 (informational: two "
+        f"ranks share one card)")
+
+    # the main path on two gloo ranks, and on one NCCL rank, against one
+    # process with no process group
+    for r, out in enumerate(gloo):
+        _parallel_agrees(f"parallel gloo rank {r}", out, ref)
+    a, b = (out["result"] for out in gloo)
+    for tree in ("ef", "arch", "w_heads"):
+        expect(_same_bits(a[tree], b[tree]),
+               f"parallel: the two ranks' {tree} differ")
+    _parallel_agrees("parallel nccl (one rank)", nccl, ref)
+    log(f"parallel train_step (stages 1 and 2) at B={PARALLEL_BATCH}: one "
+        f"process {ref_ms:.1f} ms, two gloo ranks on one card "
+        + ", ".join(f"{out['ms']:.1f}" for out in gloo) + " ms, one NCCL "
+        f"rank {nccl['ms']:.1f} ms (informational: the ranks share one "
+        f"card) on {card}")
+    log(f"parallel phase took {time.perf_counter() - t0:.1f} s")
+    for name, row in rows.items():
+        row["launches"] = gloo[0]["launches"][name]
+    return rows
+
+
 def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
                 cell_dev, node_dev, gen_plan, gen_dev, node_bwd_dev):
     """The kernels line: one row per kernel at the largest shape the
@@ -3926,6 +4578,10 @@ def main(argv=None) -> int:
                       help="only build, then phase 12 (int8 serving, the "
                       "export CLI and the training statistics), its "
                       "checkpoints made untrained")
+    mode.add_argument("--parallel", action="store_true",
+                      help="only build, then phase 13 (data parallelism on "
+                      "one card: the two-launch BatchNorm kernels, two gloo "
+                      "ranks and one NCCL rank against one process)")
     mode.add_argument("--kernel-times", action="store_true",
                       help="only build, then time the cell, the node "
                       "forward and backward, the decode, the BatchNorm "
@@ -3992,6 +4648,11 @@ def main(argv=None) -> int:
     if args.int8:
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
             int8_phase(train_arrays(), device, tmp, card)
+        log(card)
+        return 1 if FAILURES else 0
+    if args.parallel:
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+            parallel_phase(train_arrays(), device, tmp, card)
         log(card)
         return 1 if FAILURES else 0
     if args.grad_spread:
@@ -4120,6 +4781,9 @@ def main(argv=None) -> int:
         # phase 8's run
         int8_phase(arrays, device, tmp, card, paths["w"])
 
+        # 13. data parallelism on one card, each run with the counts at 0
+        sync_rows = parallel_phase(arrays, device, tmp, card)
+
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
                        launches, seq_plan, cell_dev, node_dev, gen_plan,
                        gen_dev, node_bwd_dev)
@@ -4133,6 +4797,19 @@ def main(argv=None) -> int:
                 "V": UNIFIED_VOCAB, "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "max_abs_err": r["err"],
                 "fp32_ms": gen_unified[(64, "float32")]["ms"]}
+    for name, r in sync_rows.items():
+        rows.append({"name": name, "route": "cuda",
+                     "source": "lctvqa_torch/csrc/bn.cu",
+                     "replaces": SYNC_BN_KERNELS[name],
+                     "launches": r["launches"], "max_abs_err": r["err"],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"],
+                     "device_us": r["device_us"],
+                     "library_device_us": r["library_device_us"],
+                     "shape": f"{list(SYNC_BN_ROW[0])} {SYNC_BN_ROW[1]}, "
+                              f"{SYNC_BN_ROW[2]} (a rank's half of "
+                              "[64,64,64,32])"})
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed:")
         for f in FAILURES:

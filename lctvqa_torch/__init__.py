@@ -12,9 +12,11 @@ on the h5 files or the npy records), the 2-stage DARTS loop and its
 unified variant (`train/experiment_darts.py`), the genotype decode, the
 derived retrain and the checkpoint eval with BLEU4 (`genotype.py`,
 `eval.py`), int8 serving (`quant.py`) and the export CLI (`export.py`),
-the LCT loop's statistics files (`train/stats.py`), and eight kernels in
-CUDA (`csrc/`): the four LSTM-family kernels, the node-batched mixed op
-and the batch-stat BatchNorm, forward and backward.
+the LCT loop's statistics files (`train/stats.py`), data parallelism over
+torch.distributed and tensor-parallel eval (`parallel/`), and eight
+kernels in CUDA (`csrc/`): the four LSTM-family kernels, the node-batched
+mixed op and the batch-stat BatchNorm, forward and backward, the last
+also in a two-launch mode for the global statistics of several ranks.
 """
 
 __version__ = "0.1.0"

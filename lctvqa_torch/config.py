@@ -2,8 +2,7 @@
 
 One frozen dataclass tree, built once and passed explicitly. Field names
 and defaults are the JAX package's, so that a config of either package
-describes the same model; `MeshConfig` is left out until a ported module
-reads it. The kernel flags keep their JAX names (`use_pallas_lstm`,
+describes the same model. The kernel flags keep their JAX names (`use_pallas_lstm`,
 `pallas_seq_lstm`, `pallas_generate`, `pallas_mixed_op`): here each one
 routes CUDA tensors through the CUDA kernel that replaces that Pallas
 kernel.
@@ -112,10 +111,23 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Data parallelism over torch.distributed (parallel/): one process a
+    GPU, the global batch split over the ranks."""
+
+    data_axis: str = "data"
+    num_devices: int = 0               # 0 -> every rank of the group
+    # ranks on several hosts, each feeding its own rows of the global batch;
+    # the process group is made first (main.py --multihost)
+    multihost: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     exp_name: str = "default_exp"
     resume: bool = False
     root_stats_dir: str = "./experiment_data"

@@ -46,6 +46,26 @@
 // not pay for a barrier of 132 blocks. lctvqa_bn_plan reports the launch
 // shape, ops/cuda_bn.py::bn_plan mirrors it.
 //
+// The two-launch mode, for a batch whose rows lie on several processes
+// (data parallelism, lctvqa_torch/parallel/): the cooperative launch above
+// has no point at which the sums of this rank's rows could be summed over
+// the ranks, so each pass over the tensor is a launch of its own, and
+// ops/cuda_bn.py all-reduces the [2, C] sums between them:
+//   lctvqa_bn_fwd_sums    sum x and x^2 per channel over this rank's rows
+//   lctvqa_bn_fwd_apply   y from the global sums and row count; leaves stat
+//   lctvqa_bn_bwd_sums    sum g and g * xhat (xhat from the forward's stat)
+//   lctvqa_bn_bwd_apply   dx = r * (g - sum g / M - xhat * sum g xhat / M)
+// A sums launch is steps 2, 3 and 5 above: each block sums its rows from
+// device memory and writes one partial, and the last block to finish,
+// found by a counter (a memset zeroes it), adds the partials in block
+// order, so two calls give the same bits. An apply launch reads x (and g)
+// from device memory again, since shared memory does not outlive a
+// launch: one more read of the tensor than the one-launch kernels, which
+// bounds the pair at about 1.5 (forward) and 1.4 (backward) times their
+// least time. A block per 16 KiB of the tensor, at most kSyncBlocksPerSM
+// an SM, 256 threads as rows x lanes as below; ops/cuda_bn.py::sync_plan
+// mirrors the grid.
+//
 // On chip at the supernet's six shapes on a 132-SM H100 (227 KB of shared
 // memory a block): blocks, and the share of the rows staged in shared
 // memory, the rest read twice (bn_plan's numbers):
@@ -782,6 +802,207 @@ __global__ void __launch_bounds__(NT, 1)
 }
 
 // ---------------------------------------------------------------------------
+// the two-launch mode
+// ---------------------------------------------------------------------------
+
+constexpr int kSyncThreads = 256;
+constexpr int kSyncBlocksPerSM = 4;
+// block_partial's scratch (warps x 32 lanes x 2 x 4 floats), which also
+// holds finish_sums' (warps x 2C floats where it takes its fast path, C <=
+// 64)
+constexpr int kSyncRed = kSyncThreads / 32 * 32 * 2 * 4;
+
+struct SyncPlan {
+  int blocks, rows, lanes;
+};
+
+// The grid over [M, C] with x of ex bytes an element and g of eg (0 where
+// the launch reads no g): a block per kBlockBytes of the tensor, at most
+// kSyncBlocksPerSM an SM, each a whole number of rows; false where M does
+// not fit.
+inline bool make_sync_plan(long long M, int C, int ex, int eg, int sms,
+                           SyncPlan* p) {
+  const int vec = C % 4 == 0 ? 4 : 1;
+  const int groups = C / vec;
+  int lanes = 1;
+  while (lanes < groups && lanes < 32) lanes *= 2;
+  const long long row_bytes = (long long)C * (ex + eg);
+  long long blocks = (M * row_bytes + kBlockBytes - 1) / kBlockBytes;
+  blocks = std::min<long long>(std::max<long long>(blocks, 1),
+                               (long long)kSyncBlocksPerSM * sms);
+  const long long rows = (M + blocks - 1) / blocks;
+  if (rows > INT32_MAX) return false;
+  p->rows = (int)rows;
+  p->blocks = (int)((M + rows - 1) / rows);
+  p->lanes = lanes;
+  return true;
+}
+
+// sums [2, C]: forward (BWD false) sum x, sum x^2; backward sum g, sum g *
+// xhat with xhat = (x - stat[0]) * stat[1]. partial: [gridDim.x, 2, C];
+// ctr: zero at launch.
+template <typename T, typename TG, bool BWD, int VEC>
+__global__ void __launch_bounds__(kSyncThreads)
+    bn_sums_kernel(const T* __restrict__ x, const TG* __restrict__ g,
+                   const float* __restrict__ stat, float* __restrict__ sums,
+                   unsigned* __restrict__ ctr, float* __restrict__ partial,
+                   long long M, int C, int rows, int lanes) {
+  __shared__ __align__(16) float red[kSyncRed];
+  __shared__ bool last;
+  const long long r0 = (long long)blockIdx.x * rows;
+  const int nrows = (int)min((long long)rows, M - r0);
+  const T* xb = x + r0 * C;
+  const TG* gb = g + (BWD ? r0 * C : 0);
+  const int lane = threadIdx.x % lanes, r = threadIdx.x / lanes;
+  const int rstep = kSyncThreads / lanes, groups = C / VEC;
+  for (int g0 = 0; g0 < groups; g0 += lanes) {
+    const int grp = g0 + lane, col = grp * VEC;
+    const bool active = grp < groups;
+    float s[VEC], q[VEC], mean[VEC], rstd[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      s[k] = q[k] = 0.f;
+      mean[k] = BWD && active ? stat[col + k] : 0.f;
+      rstd[k] = BWD && active ? stat[C + col + k] : 0.f;
+    }
+    if (active) {
+#pragma unroll 4
+      for (int row = r; row < nrows; row += rstep) {
+        const long long at = (long long)row * C + col;
+        float v[VEC];
+        load_vec<T, VEC>(xb + at, v);
+        if constexpr (BWD) {
+          float gv[VEC];
+          load_vec<TG, VEC>(gb + at, gv);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            s[k] += gv[k];
+            q[k] = fmaf(gv[k], (v[k] - mean[k]) * rstd[k], q[k]);
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) {
+            s[k] += v[k];
+            q[k] = fmaf(v[k], v[k], q[k]);
+          }
+        }
+      }
+    }
+    block_partial<VEC, kSyncThreads>(
+        s, q, red, partial + (long long)blockIdx.x * 2 * C, C, col, active,
+        lane, lanes);
+  }
+  // the last block to finish adds every block's partial in block order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ctr, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  finish_sums<kSyncThreads>(partial, red, sums, 2 * C, gridDim.x);
+}
+
+// y = (x - mean) * rstd with mean = sums[0] / count and rstd = 1/sqrt(
+// sums[1] / count - mean^2 + eps); block 0 writes (mean, rstd) to stat.
+// Dynamic shared memory: 2C floats.
+template <typename T, typename TO, int VEC>
+__global__ void __launch_bounds__(kSyncThreads)
+    bn_fwd_apply_kernel(const T* __restrict__ x, TO* __restrict__ y,
+                        const float* __restrict__ sums,
+                        float* __restrict__ stat, long long M, int C,
+                        int rows, int lanes, float inv_count, float eps) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* st = reinterpret_cast<float*>(smem);
+  for (int c = threadIdx.x; c < C; c += kSyncThreads) {
+    const float mean = sums[c] * inv_count;
+    const float var = sums[C + c] * inv_count - mean * mean;
+    const float rstd = 1.f / sqrtf(var + eps);
+    st[c] = mean;
+    st[C + c] = rstd;
+    if (blockIdx.x == 0) {
+      stat[c] = mean;
+      stat[C + c] = rstd;
+    }
+  }
+  __syncthreads();
+  const long long r0 = (long long)blockIdx.x * rows;
+  const int nrows = (int)min((long long)rows, M - r0);
+  const T* xb = x + r0 * C;
+  TO* yb = y + r0 * C;
+  const int lane = threadIdx.x % lanes, r = threadIdx.x / lanes;
+  const int rstep = kSyncThreads / lanes, groups = C / VEC;
+  for (int g0 = 0; g0 < groups; g0 += lanes) {
+    const int grp = g0 + lane, col = grp * VEC;
+    if (grp >= groups) continue;
+    float mean[VEC], rstd[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      mean[k] = st[col + k];
+      rstd[k] = st[C + col + k];
+    }
+#pragma unroll 4
+    for (int row = r; row < nrows; row += rstep) {
+      const long long at = (long long)row * C + col;
+      float v[VEC];
+      load_vec<T, VEC>(xb + at, v);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) v[k] = (v[k] - mean[k]) * rstd[k];
+      store_vec<TO, VEC>(yb + at, v);
+    }
+  }
+}
+
+// dx = rstd * (g - sums[0] / count - xhat * sums[1] / count), xhat = (x -
+// mean) * rstd from the forward's stat. Dynamic shared memory: 4C floats.
+template <typename T, typename TG, int VEC>
+__global__ void __launch_bounds__(kSyncThreads)
+    bn_bwd_apply_kernel(const T* __restrict__ x, const TG* __restrict__ g,
+                        const float* __restrict__ stat,
+                        const float* __restrict__ sums, T* __restrict__ dx,
+                        long long M, int C, int rows, int lanes,
+                        float inv_count) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* st = reinterpret_cast<float*>(smem);  // mean, rstd, mean g, g xhat
+  for (int c = threadIdx.x; c < 2 * C; c += kSyncThreads) {
+    st[c] = stat[c];
+    st[2 * C + c] = sums[c] * inv_count;
+  }
+  __syncthreads();
+  const long long r0 = (long long)blockIdx.x * rows;
+  const int nrows = (int)min((long long)rows, M - r0);
+  const T* xb = x + r0 * C;
+  const TG* gb = g + r0 * C;
+  T* db = dx + r0 * C;
+  const int lane = threadIdx.x % lanes, r = threadIdx.x / lanes;
+  const int rstep = kSyncThreads / lanes, groups = C / VEC;
+  for (int g0 = 0; g0 < groups; g0 += lanes) {
+    const int grp = g0 + lane, col = grp * VEC;
+    if (grp >= groups) continue;
+    float mean[VEC], rstd[VEC], gm[VEC], gxm[VEC];
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      mean[k] = st[col + k];
+      rstd[k] = st[C + col + k];
+      gm[k] = st[2 * C + col + k];
+      gxm[k] = st[3 * C + col + k];
+    }
+#pragma unroll 4
+    for (int row = r; row < nrows; row += rstep) {
+      const long long at = (long long)row * C + col;
+      float v[VEC], gv[VEC];
+      load_vec<T, VEC>(xb + at, v);
+      load_vec<TG, VEC>(gb + at, gv);
+#pragma unroll
+      for (int k = 0; k < VEC; ++k) {
+        const float xhat = (v[k] - mean[k]) * rstd[k];
+        v[k] = rstd[k] * (gv[k] - gm[k] - xhat * gxm[k]);
+      }
+      store_vec<T, VEC>(db + at, v);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -913,6 +1134,93 @@ cudaError_t launch_bwd_vec(const void* x, const void* g, const void* stat,
                                                   dev, smem_max, s);
 }
 
+// The two-launch mode's plan on the current device, refused unless its
+// grid is `blocks` (ops/cuda_bn.py::sync_plan's).
+inline cudaError_t sync_plan_for(long long M, int C, int x_dtype,
+                                 int g_dtype, int blocks, SyncPlan* plan) {
+  if (M < 1 || C < 1 || (x_dtype != kFloat32 && x_dtype != kBFloat16) ||
+      (g_dtype >= 0 && g_dtype != kFloat32 && g_dtype != kBFloat16))
+    return cudaErrorInvalidValue;
+  int dev = 0;
+  Card card;
+  cudaError_t err = current_card(&dev, &card);
+  if (err != cudaSuccess) return err;
+  const int eg = g_dtype < 0 ? 0 : elem_bytes(g_dtype);
+  if (!make_sync_plan(M, C, elem_bytes(x_dtype), eg, card.sms, plan) ||
+      plan->blocks != blocks)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+template <typename T, typename TG, bool BWD>
+cudaError_t launch_sums(const void* x, const void* g, const void* stat,
+                        void* sums, void* scratch, const SyncPlan& p,
+                        long long M, int C, cudaStream_t s) {
+  cudaError_t err = cudaMemsetAsync(scratch, 0, kSyncBytes, s);
+  if (err != cudaSuccess) return err;
+  unsigned* ctr = (unsigned*)scratch;
+  float* partial = (float*)((unsigned char*)scratch + kSyncBytes);
+  if (C % 4 == 0)
+    bn_sums_kernel<T, TG, BWD, 4><<<p.blocks, kSyncThreads, 0, s>>>(
+        (const T*)x, (const TG*)g, (const float*)stat, (float*)sums, ctr,
+        partial, M, C, p.rows, p.lanes);
+  else
+    bn_sums_kernel<T, TG, BWD, 1><<<p.blocks, kSyncThreads, 0, s>>>(
+        (const T*)x, (const TG*)g, (const float*)stat, (float*)sums, ctr,
+        partial, M, C, p.rows, p.lanes);
+  return cudaGetLastError();
+}
+
+// Opt a kernel into `bytes` of dynamic shared memory where that passes the
+// default 48 KB (C above 3,072 channels).
+inline cudaError_t sync_smem(const void* fn, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <typename T, typename TO>
+cudaError_t launch_fwd_apply(const void* x, void* y, const void* sums,
+                             void* stat, const SyncPlan& p, long long M,
+                             int C, float inv_count, float eps,
+                             cudaStream_t s) {
+  const int smem = 2 * C * (int)sizeof(float);
+  const void* fn = C % 4 == 0 ? (const void*)bn_fwd_apply_kernel<T, TO, 4>
+                              : (const void*)bn_fwd_apply_kernel<T, TO, 1>;
+  cudaError_t err = sync_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  if (C % 4 == 0)
+    bn_fwd_apply_kernel<T, TO, 4><<<p.blocks, kSyncThreads, smem, s>>>(
+        (const T*)x, (TO*)y, (const float*)sums, (float*)stat, M, C, p.rows,
+        p.lanes, inv_count, eps);
+  else
+    bn_fwd_apply_kernel<T, TO, 1><<<p.blocks, kSyncThreads, smem, s>>>(
+        (const T*)x, (TO*)y, (const float*)sums, (float*)stat, M, C, p.rows,
+        p.lanes, inv_count, eps);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TG>
+cudaError_t launch_bwd_apply(const void* x, const void* g, const void* stat,
+                             const void* sums, void* dx, const SyncPlan& p,
+                             long long M, int C, float inv_count,
+                             cudaStream_t s) {
+  const int smem = 4 * C * (int)sizeof(float);
+  const void* fn = C % 4 == 0 ? (const void*)bn_bwd_apply_kernel<T, TG, 4>
+                              : (const void*)bn_bwd_apply_kernel<T, TG, 1>;
+  cudaError_t err = sync_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  if (C % 4 == 0)
+    bn_bwd_apply_kernel<T, TG, 4><<<p.blocks, kSyncThreads, smem, s>>>(
+        (const T*)x, (const TG*)g, (const float*)stat, (const float*)sums,
+        (T*)dx, M, C, p.rows, p.lanes, inv_count);
+  else
+    bn_bwd_apply_kernel<T, TG, 1><<<p.blocks, kSyncThreads, smem, s>>>(
+        (const T*)x, (const TG*)g, (const float*)stat, (const float*)sums,
+        (T*)dx, M, C, p.rows, p.lanes, inv_count);
+  return cudaGetLastError();
+}
+
 }  // namespace bn
 }  // namespace
 }  // namespace lctvqa
@@ -1001,6 +1309,123 @@ int lctvqa_bn_bwd(const void* x, const void* g, const void* stat, void* dx,
   else if (x_dtype == kBFloat16 && g_dtype == kBFloat16)
     rc = bn::launch_bwd_vec<__nv_bfloat16, __nv_bfloat16>(
         x, g, stat, dx, scratch, p, dev, card.smem, s);
+  return (int)rc;
+}
+
+// The two-launch mode (several ranks). x: [M, C] contiguous in `x_dtype`;
+// g: [M, C] contiguous in `g_dtype`; both 8-byte aligned (16 for fp32)
+// where C % 4 == 0. sums: fp32 [2, C]. stat: fp32 [2, C] (mean,
+// 1/sqrt(var + eps)): written by lctvqa_bn_fwd_apply, read by the
+// backward's. scratch: the counter (16 bytes, zeroed here), then fp32
+// [blocks, 2, C]. `blocks` is ops/cuda_bn.py::sync_plan's grid (a grid of
+// another size is refused); `count` the global number of rows, the sum of
+// every rank's M.
+int lctvqa_bn_sync_plan(long long M, int C, int x_dtype, int g_dtype,
+                        int* out) {
+  using namespace lctvqa;
+  int dev = 0;
+  bn::Card card;
+  cudaError_t err = bn::current_card(&dev, &card);
+  if (err != cudaSuccess) return (int)err;
+  bn::SyncPlan p;
+  const int eg = g_dtype < 0 ? 0 : bn::elem_bytes(g_dtype);
+  if (M < 1 || C < 1 ||
+      !bn::make_sync_plan(M, C, bn::elem_bytes(x_dtype), eg, card.sms, &p))
+    return (int)cudaErrorInvalidValue;
+  out[0] = p.blocks;
+  out[1] = p.rows;
+  out[2] = p.lanes;
+  return 0;
+}
+
+int lctvqa_bn_fwd_sums(const void* x, void* sums, void* scratch, int blocks,
+                       long long M, int C, int x_dtype, void* stream) {
+  using namespace lctvqa;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bn::SyncPlan p;
+  cudaError_t rc = bn::sync_plan_for(M, C, x_dtype, -1, blocks, &p);
+  if (rc != cudaSuccess) return (int)rc;
+  if (x_dtype == kFloat32)
+    rc = bn::launch_sums<float, float, false>(x, nullptr, nullptr, sums,
+                                              scratch, p, M, C, s);
+  else
+    rc = bn::launch_sums<__nv_bfloat16, float, false>(
+        x, nullptr, nullptr, sums, scratch, p, M, C, s);
+  return (int)rc;
+}
+
+int lctvqa_bn_fwd_apply(const void* x, void* y, const void* sums, void* stat,
+                        int blocks, long long M, int C, long long count,
+                        float eps, int x_dtype, int out_dtype, void* stream) {
+  using namespace lctvqa;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bn::SyncPlan p;
+  cudaError_t rc = bn::sync_plan_for(M, C, x_dtype, -1, blocks, &p);
+  if (rc != cudaSuccess) return (int)rc;
+  if (count < M || (out_dtype != kFloat32 && out_dtype != kBFloat16))
+    return (int)cudaErrorInvalidValue;
+  const float inv = 1.f / (float)count;
+  if (x_dtype == kFloat32 && out_dtype == kFloat32)
+    rc = bn::launch_fwd_apply<float, float>(x, y, sums, stat, p, M, C, inv,
+                                            eps, s);
+  else if (x_dtype == kFloat32)
+    rc = bn::launch_fwd_apply<float, __nv_bfloat16>(x, y, sums, stat, p, M,
+                                                    C, inv, eps, s);
+  else if (out_dtype == kFloat32)
+    rc = bn::launch_fwd_apply<__nv_bfloat16, float>(x, y, sums, stat, p, M,
+                                                    C, inv, eps, s);
+  else
+    rc = bn::launch_fwd_apply<__nv_bfloat16, __nv_bfloat16>(
+        x, y, sums, stat, p, M, C, inv, eps, s);
+  return (int)rc;
+}
+
+int lctvqa_bn_bwd_sums(const void* x, const void* g, const void* stat,
+                       void* sums, void* scratch, int blocks, long long M,
+                       int C, int x_dtype, int g_dtype, void* stream) {
+  using namespace lctvqa;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bn::SyncPlan p;
+  cudaError_t rc = bn::sync_plan_for(M, C, x_dtype, g_dtype, blocks, &p);
+  if (rc != cudaSuccess) return (int)rc;
+  if (x_dtype == kFloat32 && g_dtype == kFloat32)
+    rc = bn::launch_sums<float, float, true>(x, g, stat, sums, scratch, p, M,
+                                             C, s);
+  else if (x_dtype == kFloat32)
+    rc = bn::launch_sums<float, __nv_bfloat16, true>(x, g, stat, sums,
+                                                     scratch, p, M, C, s);
+  else if (g_dtype == kFloat32)
+    rc = bn::launch_sums<__nv_bfloat16, float, true>(x, g, stat, sums,
+                                                     scratch, p, M, C, s);
+  else
+    rc = bn::launch_sums<__nv_bfloat16, __nv_bfloat16, true>(
+        x, g, stat, sums, scratch, p, M, C, s);
+  return (int)rc;
+}
+
+int lctvqa_bn_bwd_apply(const void* x, const void* g, const void* stat,
+                        const void* sums, void* dx, int blocks, long long M,
+                        int C, long long count, int x_dtype, int g_dtype,
+                        void* stream) {
+  using namespace lctvqa;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bn::SyncPlan p;
+  cudaError_t rc = bn::sync_plan_for(M, C, x_dtype, g_dtype, blocks, &p);
+  if (rc != cudaSuccess) return (int)rc;
+  if (count < M) return (int)cudaErrorInvalidValue;
+  const float inv = 1.f / (float)count;
+  if (x_dtype == kFloat32 && g_dtype == kFloat32)
+    rc = bn::launch_bwd_apply<float, float>(x, g, stat, sums, dx, p, M, C,
+                                            inv, s);
+  else if (x_dtype == kFloat32)
+    rc = bn::launch_bwd_apply<float, __nv_bfloat16>(x, g, stat, sums, dx, p,
+                                                    M, C, inv, s);
+  else if (g_dtype == kFloat32)
+    rc = bn::launch_bwd_apply<__nv_bfloat16, float>(x, g, stat, sums, dx, p,
+                                                    M, C, inv, s);
+  else
+    rc = bn::launch_bwd_apply<__nv_bfloat16, __nv_bfloat16>(
+        x, g, stat, sums, dx, p, M, C, inv, s);
   return (int)rc;
 }
 

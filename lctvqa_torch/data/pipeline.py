@@ -145,18 +145,36 @@ class VqaH5Dataset:
         }
 
 
+def process_slice(window: np.ndarray, batch_size: int, process_index: int,
+                  process_count: int) -> np.ndarray:
+    """Rows [r B/W, (r + 1) B/W) of a global batch window, as the JAX
+    package's multi-host loader takes them; W must divide B."""
+    assert batch_size % process_count == 0, \
+        "global batch must divide evenly across hosts"
+    per = batch_size // process_count
+    return window[process_index * per:(process_index + 1) * per]
+
+
 def epoch_batches(dataset: VqaH5Dataset, batch_size: int,
                   rng: np.random.Generator, shuffle: bool = True,
                   drop_remainder: bool = True,
-                  max_num_ans: int = 10) -> Iterator[dict]:
-    """Host batches of `batch_size` questions, one epoch (single process)."""
+                  max_num_ans: int = 10, process_index: int = 0,
+                  process_count: int = 1) -> Iterator[dict]:
+    """Host batches of `batch_size` questions, one epoch. With several
+    ranks every rank draws the same shuffled order from the same seed
+    and gathers its `batch_size / process_count` rows of each global
+    batch (`process_slice`); one process takes the whole batch."""
+    assert batch_size % process_count == 0, \
+        "global batch must divide evenly across hosts"
     idx = np.arange(len(dataset))
     if shuffle:
         rng.shuffle(idx)
     end = (len(idx) // batch_size * batch_size if drop_remainder
            else len(idx))
     for s in range(0, end, batch_size):
-        yield dataset.gather(idx[s:s + batch_size], rng, max_num_ans)
+        yield dataset.gather(process_slice(idx[s:s + batch_size], batch_size,
+                                           process_index, process_count),
+                             rng, max_num_ans)
 
 
 class _WorkerError:

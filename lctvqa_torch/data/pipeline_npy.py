@@ -30,6 +30,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from lctvqa_torch.data.pipeline import process_slice
 from lctvqa_torch.text import VocabDict
 
 _ID_RE = re.compile(r"_(\d{12})$")
@@ -193,8 +194,14 @@ class VqaNpyDataset:
         return batch
 
     def batches(self, batch_size: int, rng: np.random.Generator,
-                shuffle: bool = True,
-                drop_remainder: bool = True) -> Iterator[dict]:
+                shuffle: bool = True, drop_remainder: bool = True,
+                process_index: int = 0,
+                process_count: int = 1) -> Iterator[dict]:
+        """One epoch of batches of `batch_size` records; with several
+        ranks each takes its rows of every global batch, as
+        `pipeline.epoch_batches` does."""
+        assert batch_size % process_count == 0, \
+            "global batch must divide evenly across hosts"
         idx = np.arange(len(self))
         if shuffle:
             rng.shuffle(idx)
@@ -202,7 +209,8 @@ class VqaNpyDataset:
         end = n_full * batch_size if drop_remainder else len(idx)
         vec = self._vectorizable()
         for s in range(0, end, batch_size):
-            sel = idx[s:s + batch_size]
+            sel = process_slice(idx[s:s + batch_size], batch_size,
+                                process_index, process_count)
             if vec:
                 yield self.batch_from_indices(sel, rng)
                 continue

@@ -14,6 +14,16 @@ the h5 files. `--package darts` runs the 2-stage DARTS loop
 `--package unified` its QA-stream model, both on the npy records. The
 flags are the JAX CLI's where they mean something here. Flags of paths
 that are not ported raise and name the ROADMAP.md entry that says why.
+
+Data parallelism, one process a GPU (parallel/): `--num_devices N`
+starts N ranks on this host (0, the default: one a card, one on the
+CPU), NCCL between the cards, gloo with `--device cpu`. Under torchrun
+(its environment names the rank and world) each process is one rank;
+`--multihost` joins ranks on several hosts through
+`--coordinator_address host:port` of rank 0, `--num_processes` (ranks
+in all) and `--process_id` (this one's), or through torchrun's
+environment where the address is empty. The global batch is
+`--batch_size`, split evenly over the ranks.
 """
 
 from __future__ import annotations
@@ -21,9 +31,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import sys
 
-from lctvqa_torch.config import (Config, DataConfig, ModelConfig,
-                                 TrainConfig)
+from lctvqa_torch.config import (Config, DataConfig, MeshConfig,
+                                 ModelConfig, TrainConfig)
 
 # flag -> where ROADMAP.md queues it
 NOT_PORTED = {
@@ -32,7 +43,6 @@ NOT_PORTED = {
     "remat_cells": "'Not ported' (rematerialization of the JAX program)",
     "pack_conv_branches": "'Not ported' (a JAX-only packing of the conv "
                           "branches)",
-    "multihost": "queue 1 item 7 (several devices and hosts)",
 }
 
 
@@ -82,6 +92,18 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_m.pallas_seq_lstm,
                    help="the whole-sequence LSTM kernels")
     p.add_argument("--compute_dtype", type=str, default="bfloat16")
+    p.add_argument("--num_devices", type=int, default=0,
+                   help="ranks to start on this host, one process a GPU "
+                        "(0 = one a card, or one with --device cpu)")
+    p.add_argument("--multihost", action="store_true",
+                   help="this process is one rank of a group spanning "
+                        "hosts (the coordinator flags, or torchrun's "
+                        "environment); start one a GPU on every host")
+    p.add_argument("--coordinator_address", type=str, default="",
+                   help="host:port of rank 0 (multihost; empty = torchrun's "
+                        "environment)")
+    p.add_argument("--num_processes", type=int, default=0)
+    p.add_argument("--process_id", type=int, default=-1)
     p.add_argument("--vgg_weights", type=str, default="",
                    help="path to a torchvision vgg19 state_dict")
     p.add_argument("--tiny", action="store_true",
@@ -154,17 +176,44 @@ def config_from_args(args) -> Config:
                       num_workers=args.num_workers,
                       use_old_dataloader=args.use_old_dataloader,
                       preload_images=args.preload_images)
-    return Config(model=model, train=train, data=data, exp_name=args.exp,
-                  resume=args.resume)
+    mesh = MeshConfig(num_devices=args.num_devices, multihost=args.multihost)
+    return Config(model=model, train=train, data=data, mesh=mesh,
+                  exp_name=args.exp, resume=args.resume)
 
 
 def main(argv=None):
+    """Train as the flags say. -> the experiment, or None where this
+    command started the ranks as processes of their own."""
     args = build_parser().parse_args(argv)
     check_ported(args)
     cfg = config_from_args(args)
     from lctvqa_torch.models.vqa_ef import check_arch_type
     check_arch_type(cfg.model.arch_type, cfg.model.genotype)
+    from lctvqa_torch.parallel import distributed
+    outside = distributed.launched() or args.multihost
+    n = 1 if outside else distributed.ranks_on_host(args.num_devices,
+                                                    args.device)
+    if args.pallas_mixed_op and (n > 1 or outside):
+        from lctvqa_torch.parallel.mesh import MIXED_OP_UNDER_DP
+        raise NotImplementedError("--pallas_mixed_op under data parallelism "
+                                  "is not ported: " + MIXED_OP_UNDER_DP)
+    join = None
+    if args.multihost:
+        join = (args.coordinator_address or None, args.num_processes or None,
+                args.process_id if args.process_id >= 0 else None)
+    return distributed.run_as_ranks(
+        _train, list(sys.argv[1:] if argv is None else argv), args.device,
+        n, join)
 
+
+def _train(argv):
+    """One rank's run (or the only process's) of the command `argv`."""
+    args = build_parser().parse_args(argv)
+    return _run(args, config_from_args(args))
+
+
+def _run(args, cfg: Config):
+    """This process's run: one rank of the group, or the only process."""
     # vocab sizes come from the dataset on disk
     from lctvqa_torch.text import VocabDict
     qst_vocab = VocabDict(os.path.join(args.input_dir,

@@ -30,7 +30,7 @@ import torch
 from lctvqa_torch.config import ModelConfig
 from lctvqa_torch.models.genotypes import NONE_IDX, PRIMITIVES, Genotype
 from lctvqa_torch.ops import conv as C
-from lctvqa_torch.ops import cuda_mixedop
+from lctvqa_torch.ops import cuda_bn, cuda_mixedop
 
 OUTPUT_SIZE = 7  # AdaptiveAvgPool2d(7)
 f32 = torch.float32
@@ -239,7 +239,8 @@ def _mixed_fold(p, x, weights, stride: int, dtype, eps: float = 1e-5):
 
     The same math reordered; the 8 normalized intermediates are never
     materialized. 'none' contributes an exact 0 (skipped); stride-1
-    skip_connect is the raw identity (no BN)."""
+    skip_connect is the raw identity (no BN). The statistics are the
+    global batch's under data parallelism (`cuda_bn.batch_moments`)."""
     out = None
     bias = None
     for i, prim in enumerate(PRIMITIVES):
@@ -250,8 +251,8 @@ def _mixed_fold(p, x, weights, stride: int, dtype, eps: float = 1e-5):
             term = a * x.to(f32)
         else:
             y32 = _op_prebn(p[prim], prim, x, stride, dtype).to(f32)
-            mean = y32.mean((0, 1, 2))
-            var = (y32 * y32).mean((0, 1, 2)) - mean * mean
+            mean, sq = cuda_bn.batch_moments(y32, (0, 1, 2))
+            var = sq - mean * mean
             coef = a * torch.rsqrt(var + eps)           # [Cs]
             term = y32 * coef
             b = coef * mean

@@ -9,8 +9,10 @@ package's HWIO, a depthwise [k, k, 1, C] to [C, 1, k, k]). Convolutions
 and pools are left to cuDNN, as the JAX package leaves them to XLA.
 
 BatchNorm is batch-statistics everywhere, as in the JAX package by
-default; the `bn_capture`/`bn_eval` contexts reproduce a reference run's
-eval-mode running statistics when asked. Affine-free BatchNorm of a CUDA
+default, over the global batch under data parallelism (the sums of every
+rank's rows, `cuda_bn.batch_moments`); the `bn_capture`/`bn_eval`
+contexts reproduce a reference run's eval-mode running statistics when
+asked. Affine-free BatchNorm of a CUDA
 tensor goes through the BatchNorm kernels (`ops/cuda_bn.py`, forward and
 backward) when `USE_PALLAS_BN` is on, except under either context.
 
@@ -37,6 +39,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from lctvqa_torch.ops import cuda_bn, int8
+from lctvqa_torch.parallel import distributed
 
 f32 = torch.float32
 IntOrPair = Union[int, Tuple[int, int]]
@@ -336,10 +339,11 @@ def _batchnorm_ctx(ctx: _BNCtx, params, x, eps, out_dtype):
         ctx.cursor += 1
         y = (x32 - s["mean"]) * torch.rsqrt(s["var"] + eps)
     else:
-        axes = tuple(range(x.dim() - 1))
-        mean = x32.mean(axes)
-        var = (x32 * x32).mean(axes) - mean * mean
-        n = float(x.numel() // x.shape[-1])
+        # the global batch's statistics (cuda_bn.batch_moments)
+        mean, sq = cuda_bn.batch_moments(x32, tuple(range(x.dim() - 1)))
+        var = sq - mean * mean
+        n = float(x.numel() // x.shape[-1]
+                  * (distributed.data_world() if distributed.active() else 1))
         ctx.stats.append({"mean": mean.detach(),
                           "var": (var * (n / max(n - 1.0, 1.0))).detach()})
         y = (x32 - mean) * torch.rsqrt(var + eps)

@@ -19,6 +19,19 @@ memory across one grid barrier (bn.cu). Its launch shape comes from
 `bn_plan`, the Python mirror of the C side's choice, cached per shape and
 card; the counter, the per-block partials and the forward's stat are one
 allocation (`bn_scratch`).
+
+Under data parallelism (`parallel/distributed.py`: a process group
+exists, of one rank or more) the statistics are the global batch's, as on the JAX
+package's mesh, where a BatchNorm's mean is a global-batch mean: each
+direction is two launches, a sums launch over this rank's rows and an
+apply launch from the sums all-reduced over the ranks between them
+(`batchnorm_fwd_stat_sync`, `batchnorm_bwd_sync`; the kernels' grid is
+`sync_plan`). Each launch has a plain version (`bn_sums_plain`,
+`bn_fwd_apply_plain`, `bn_bwd_sums_plain`, `bn_bwd_apply_plain`), which a
+CPU tensor takes. The plain BatchNorm (`batchnorm_stats_plain`,
+`batch_moments`) sums its statistics over the ranks the same way, through
+a differentiable all-reduce. Without a process group nothing of this
+runs.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from lctvqa_torch.ops import _build as K
+from lctvqa_torch.parallel import distributed
 
 Tensor = torch.Tensor
 f32 = torch.float32
@@ -43,6 +57,20 @@ BN_FWD = K.register(K.Kernel(
 BN_BWD = K.register(K.Kernel(
     "bn_bwd", "lctvqa_bn_bwd",
     [K.PTR] * 5 + [K.INT, ctypes.c_longlong, K.INT, K.INT, K.INT]))
+# the two-launch mode of several ranks
+BN_FWD_SUMS = K.register(K.Kernel(
+    "bn_fwd_sums", "lctvqa_bn_fwd_sums",
+    [K.PTR] * 3 + [K.INT, K.LONG, K.INT, K.INT]))
+BN_FWD_APPLY = K.register(K.Kernel(
+    "bn_fwd_apply", "lctvqa_bn_fwd_apply",
+    [K.PTR] * 4 + [K.INT, K.LONG, K.INT, K.LONG, ctypes.c_float, K.INT,
+                   K.INT]))
+BN_BWD_SUMS = K.register(K.Kernel(
+    "bn_bwd_sums", "lctvqa_bn_bwd_sums",
+    [K.PTR] * 5 + [K.INT, K.LONG, K.INT, K.INT, K.INT]))
+BN_BWD_APPLY = K.register(K.Kernel(
+    "bn_bwd_apply", "lctvqa_bn_bwd_apply",
+    [K.PTR] * 5 + [K.INT, K.LONG, K.INT, K.LONG, K.INT, K.INT]))
 
 # bn.cu's constants: threads a block where the whole share is staged and
 # where it is not, bulk copies of the staging (an 8-byte mbarrier each),
@@ -52,6 +80,9 @@ FEW_THREADS, MANY_THREADS = 256, 512
 STAGES = 4
 BLOCK_BYTES = 16384
 SYNC_BYTES = 16
+# the two-launch mode's threads a block and blocks an SM at most
+SYNC_THREADS = 256
+SYNC_BLOCKS_PER_SM = 4
 # an H100 SXM's SMs and the shared memory a block may opt into
 H100_SMS = 132
 SMEM_PER_BLOCK = 232448
@@ -62,12 +93,25 @@ _ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 # plain versions
 # ---------------------------------------------------------------------------
 
+def batch_moments(x32: Tensor, axes) -> Tuple[Tensor, Tensor]:
+    """Per channel (the last axis), the mean of x32 and of its square over
+    `axes` of the global batch: over this tensor without a process group;
+    with one, their sums all-reduced over the data group (differentiably,
+    so that a gradient reaches every rank's rows) over the global count
+    (equal shares)."""
+    if not distributed.active():
+        return x32.mean(axes), (x32 * x32).mean(axes)
+    count = x32.numel() // x32.shape[-1] * distributed.data_world()
+    s = distributed.all_reduce_sum(
+        torch.stack([x32.sum(axes), (x32 * x32).sum(axes)]))
+    return s[0] / count, s[1] / count
+
+
 def batchnorm_stats_plain(x: Tensor, eps: float = EPS) -> Tensor:
-    """x [..., C] -> stat [2, C] fp32: mean and 1/sqrt(var + eps)."""
-    x32 = x.to(f32)
-    axes = tuple(range(x.dim() - 1))
-    mean = x32.mean(axes)
-    var = (x32 * x32).mean(axes) - mean * mean
+    """x [..., C] -> stat [2, C] fp32: mean and 1/sqrt(var + eps), over
+    the global batch (`batch_moments`)."""
+    mean, sq = batch_moments(x.to(f32), tuple(range(x.dim() - 1)))
+    var = sq - mean * mean
     return torch.stack([mean, torch.rsqrt(var + eps)])
 
 
@@ -81,12 +125,55 @@ def batchnorm_plain(x: Tensor, eps: float = EPS,
 
 def batchnorm_bwd_plain(x: Tensor, g: Tensor, stat: Tensor) -> Tensor:
     """The gradient of `batchnorm_plain` w.r.t. x given the output's
-    gradient g and the forward's `stat`; in x's dtype."""
+    gradient g and the forward's `stat`; in x's dtype. One rank's batch
+    only: several ranks take `batchnorm_bwd_sync`."""
     axes = tuple(range(x.dim() - 1))
     mean, rstd = stat
     g32 = g.to(f32)
     xhat = (x.to(f32) - mean) * rstd
     dx = rstd * (g32 - g32.mean(axes) - xhat * (g32 * xhat).mean(axes))
+    return dx.to(x.dtype)
+
+
+# the plain versions of the two-launch mode's kernels, on [..., C] tensors
+
+def bn_sums_plain(x: Tensor) -> Tensor:
+    """-> fp32 [2, C]: the sums of x and of x^2 over this rank's rows."""
+    x32 = x.to(f32).reshape(-1, x.shape[-1])
+    return torch.stack([x32.sum(0), (x32 * x32).sum(0)])
+
+
+def bn_fwd_apply_plain(x: Tensor, sums: Tensor, count: int,
+                       out_dtype: Optional[torch.dtype] = None,
+                       eps: float = EPS) -> Tuple[Tensor, Tensor]:
+    """-> (y in `out_dtype`, default fp32; stat [2, C]) from the sums of
+    `count` rows (every rank's), the kernel's arithmetic: mean = sum *
+    (1 / count) in fp32."""
+    inv = torch.tensor(1.0 / count, dtype=f32, device=x.device)
+    mean = sums[0] * inv
+    rstd = 1.0 / torch.sqrt(sums[1] * inv - mean * mean + eps)
+    y = (x.to(f32) - mean) * rstd
+    return (y if out_dtype is None else y.to(out_dtype),
+            torch.stack([mean, rstd]))
+
+
+def bn_bwd_sums_plain(x: Tensor, g: Tensor, stat: Tensor) -> Tensor:
+    """-> fp32 [2, C]: the sums of g and of g * xhat over this rank's
+    rows, xhat from the forward's stat."""
+    c = x.shape[-1]
+    g32 = g.to(f32).reshape(-1, c)
+    xhat = (x.to(f32).reshape(-1, c) - stat[0]) * stat[1]
+    return torch.stack([g32.sum(0), (g32 * xhat).sum(0)])
+
+
+def bn_bwd_apply_plain(x: Tensor, g: Tensor, stat: Tensor, sums: Tensor,
+                       count: int) -> Tensor:
+    """dx = rstd * (g - sum g / count - xhat * sum g xhat / count), in x's
+    dtype."""
+    inv = torch.tensor(1.0 / count, dtype=f32, device=x.device)
+    mean, rstd = stat
+    xhat = (x.to(f32) - mean) * rstd
+    dx = rstd * (g.to(f32) - sums[0] * inv - xhat * (sums[1] * inv))
     return dx.to(x.dtype)
 
 
@@ -196,6 +283,46 @@ def bn_plan_on_device(m: int, c: int, x_dtype: torch.dtype,
                     plan))
 
 
+@functools.lru_cache(maxsize=1024)
+def sync_plan(m: int, c: int, x_dtype: torch.dtype,
+              g_dtype: Optional[torch.dtype] = None,
+              sm_count: int = H100_SMS) -> dict:
+    """The grid of the two-launch mode's kernels over an [m, c] tensor
+    (and g of `g_dtype` in the backward), as bn.cu's make_sync_plan
+    chooses it: a block per 16 KiB of the tensor, at most
+    SYNC_BLOCKS_PER_SM an SM, each a whole number of rows. -> {"blocks",
+    "rows" (a block's), "lanes"}."""
+    vec = 4 if c % 4 == 0 else 1
+    lanes = 1
+    while lanes < c // vec and lanes < 32:
+        lanes *= 2
+    row_bytes = c * (_ELEM_BYTES[x_dtype]
+                     + (_ELEM_BYTES[g_dtype] if g_dtype is not None else 0))
+    blocks = min(max(-(-m * row_bytes // BLOCK_BYTES), 1),
+                 SYNC_BLOCKS_PER_SM * sm_count)
+    rows = -(-m // blocks)
+    return {"blocks": -(-m // rows), "rows": rows, "lanes": lanes}
+
+
+def sync_plan_on_device(m: int, c: int, x_dtype: torch.dtype,
+                        g_dtype: Optional[torch.dtype],
+                        device: torch.device) -> dict:
+    """The grid the C side takes on `device` (it asks the card)."""
+    fn = K.library().lctvqa_bn_sync_plan
+    fn.argtypes = [ctypes.c_longlong, K.INT, K.INT, K.INT,
+                   ctypes.POINTER(K.INT * 3)]
+    fn.restype = K.INT
+    plan = (K.INT * 3)()
+    g_code = K.dtype_code("bn", g_dtype) if g_dtype is not None else -1
+    with torch.cuda.device(device):
+        rc = fn(m, c, K.dtype_code("bn", x_dtype), g_code, ctypes.byref(plan))
+    if rc != 0:
+        msg = K.library().lctvqa_cuda_error_string(rc).decode()
+        raise RuntimeError(f"bn: no two-launch grid for M={m}, C={c} on "
+                           f"{device}: {msg} (cudaError {rc})")
+    return dict(zip(("blocks", "rows", "lanes"), plan))
+
+
 def _aligned(x: Tensor, c: int) -> Tensor:
     x = x.contiguous()
     if c % 4 == 0 and x.data_ptr() % 16:  # the kernels copy 16 bytes
@@ -213,10 +340,152 @@ def _launch_buffer(x: Tensor, c: int, other: torch.dtype, backward: bool):
     return plan["blocks"], buf, buf.data_ptr() + lay["counter"]
 
 
+def _check_rows(name: str, x: Tensor, g: Optional[Tensor] = None) -> None:
+    if x.dim() < 2 or x.numel() == 0 or (g is not None
+                                         and g.shape != x.shape):
+        raise ValueError(
+            f"{name}: needs a non-empty [..., C] tensor"
+            + ("" if g is None else " and a g of its shape") + ", got "
+            + f"{tuple(x.shape)}" + ("" if g is None
+                                     else f" and {tuple(g.shape)}"))
+
+
+def _sync_scratch(plan: dict, c: int, device) -> Tensor:
+    """The counter (SYNC_BYTES) and the per-block partials [blocks, 2, C]
+    of a sums launch, fp32, 16-byte aligned."""
+    n = SYNC_BYTES // 4 + plan["blocks"] * 2 * c
+    return torch.empty(n, dtype=f32, device=device)
+
+
+def bn_sums(x: Tensor) -> Tensor:
+    """Kernel: the sums of x and x^2 per channel over this rank's rows ->
+    fp32 [2, C] (`bn_sums_plain` on the CPU)."""
+    if x.device.type == "cpu":
+        return bn_sums_plain(x)
+    name = BN_FWD_SUMS.name
+    if x.device.type != "cuda":
+        K.check_cuda_tensors(name, x=x)
+    _check_rows(name, x)
+    c = x.shape[-1]
+    x = _aligned(x, c)
+    m = x.numel() // c
+    plan = sync_plan(m, c, x.dtype, None, _card(x.device.index)[0])
+    sums = torch.empty((2, c), dtype=f32, device=x.device)
+    BN_FWD_SUMS.launch(x.device, x, sums, _sync_scratch(plan, c, x.device),
+                       plan["blocks"], m, c, K.dtype_code(name, x.dtype))
+    return sums
+
+
+def bn_fwd_apply(x: Tensor, sums: Tensor, count: int,
+                 out_dtype: Optional[torch.dtype] = None, eps: float = EPS
+                 ) -> Tuple[Tensor, Tensor]:
+    """Kernel: y and stat from the sums of `count` rows ->
+    (y in `out_dtype`, default fp32; stat fp32 [2, C])."""
+    if x.device.type == "cpu":
+        return bn_fwd_apply_plain(x, sums, count, out_dtype, eps)
+    name = BN_FWD_APPLY.name
+    if not (x.device.type == "cuda" and sums.device == x.device):
+        K.check_cuda_tensors(name, x=x, sums=sums)
+    _check_rows(name, x)
+    c = x.shape[-1]
+    if sums.shape != (2, c) or sums.dtype != f32 or not sums.is_contiguous():
+        raise ValueError(f"{name}: sums must be contiguous fp32 [2, {c}]")
+    out_dtype = out_dtype or f32
+    x = _aligned(x, c)
+    m = x.numel() // c
+    plan = sync_plan(m, c, x.dtype, None, _card(x.device.index)[0])
+    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    stat = torch.empty((2, c), dtype=f32, device=x.device)
+    BN_FWD_APPLY.launch(x.device, x, y, sums, stat, plan["blocks"], m, c,
+                        count, eps, K.dtype_code(name, x.dtype),
+                        K.dtype_code(name, out_dtype))
+    return y, stat
+
+
+def bn_bwd_sums(x: Tensor, g: Tensor, stat: Tensor) -> Tensor:
+    """Kernel: the sums of g and g * xhat per channel over this rank's
+    rows -> fp32 [2, C]."""
+    if x.device.type == "cpu":
+        return bn_bwd_sums_plain(x, g, stat)
+    name = BN_BWD_SUMS.name
+    if not (x.device.type == "cuda" and g.device == x.device
+            and stat.device == x.device):
+        K.check_cuda_tensors(name, x=x, g=g, stat=stat)
+    _check_rows(name, x, g)
+    c = x.shape[-1]
+    if stat.shape != (2, c) or stat.dtype != f32 or not stat.is_contiguous():
+        raise ValueError(f"{name}: stat must be contiguous fp32 [2, {c}]")
+    x, g = _aligned(x, c), _aligned(g, c)
+    m = x.numel() // c
+    plan = sync_plan(m, c, x.dtype, g.dtype, _card(x.device.index)[0])
+    sums = torch.empty((2, c), dtype=f32, device=x.device)
+    BN_BWD_SUMS.launch(x.device, x, g, stat, sums,
+                       _sync_scratch(plan, c, x.device), plan["blocks"], m,
+                       c, K.dtype_code(name, x.dtype),
+                       K.dtype_code(name, g.dtype))
+    return sums
+
+
+def bn_bwd_apply(x: Tensor, g: Tensor, stat: Tensor, sums: Tensor,
+                 count: int) -> Tensor:
+    """Kernel: dx from the backward's sums of `count` rows, in x's
+    dtype."""
+    if x.device.type == "cpu":
+        return bn_bwd_apply_plain(x, g, stat, sums, count)
+    name = BN_BWD_APPLY.name
+    if not (x.device.type == "cuda" and g.device == x.device
+            and stat.device == x.device and sums.device == x.device):
+        K.check_cuda_tensors(name, x=x, g=g, stat=stat, sums=sums)
+    _check_rows(name, x, g)
+    c = x.shape[-1]
+    for what, t in (("stat", stat), ("sums", sums)):
+        if t.shape != (2, c) or t.dtype != f32 or not t.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous fp32 "
+                             f"[2, {c}]")
+    x, g = _aligned(x, c), _aligned(g, c)
+    m = x.numel() // c
+    plan = sync_plan(m, c, x.dtype, g.dtype, _card(x.device.index)[0])
+    dx = torch.empty_like(x)
+    BN_BWD_APPLY.launch(x.device, x, g, stat, sums, dx, plan["blocks"], m, c,
+                        count, K.dtype_code(name, x.dtype),
+                        K.dtype_code(name, g.dtype))
+    return dx
+
+
+def _global_sums(sums: Tensor) -> Tensor:
+    """This rank's [2, C] sums summed over the data group, in place."""
+    torch.distributed.all_reduce(sums, group=distributed.data_group())
+    return sums
+
+
+def batchnorm_fwd_stat_sync(x: Tensor,
+                            out_dtype: Optional[torch.dtype] = None,
+                            eps: float = EPS
+                            ) -> Tuple[Tensor, Tensor, Tensor]:
+    """`batchnorm_fwd_stat` over the global batch of the data group's
+    ranks, each holding an equal share: a sums launch, the all-reduce of
+    the sums, an apply launch. -> (y, stat, the x the kernels read)."""
+    x = _aligned(x, x.shape[-1]) if x.device.type == "cuda" else x
+    count = x.numel() // x.shape[-1] * distributed.data_world()
+    y, stat = bn_fwd_apply(x, _global_sums(bn_sums(x)), count, out_dtype,
+                           eps)
+    return y, stat, x
+
+
+def batchnorm_bwd_sync(x: Tensor, g: Tensor, stat: Tensor) -> Tensor:
+    """`batchnorm_bwd` over the global batch: a sums launch, the
+    all-reduce, an apply launch."""
+    count = x.numel() // x.shape[-1] * distributed.data_world()
+    return bn_bwd_apply(x, g, stat, _global_sums(bn_bwd_sums(x, g, stat)),
+                        count)
+
+
 def batchnorm_fwd_stat(x: Tensor, out_dtype: Optional[torch.dtype] = None,
                        eps: float = EPS) -> Tuple[Tensor, Tensor, Tensor]:
     """-> (y, stat [2, C], the contiguous x the kernel read). CPU tensors
-    take the plain version."""
+    take the plain version; data parallelism the two-launch mode."""
+    if distributed.active():
+        return batchnorm_fwd_stat_sync(x, out_dtype, eps)
     if x.device.type == "cpu":
         stat = batchnorm_stats_plain(x, eps)
         y = (x.to(f32) - stat[0]) * stat[1]
@@ -243,7 +512,10 @@ def batchnorm_fwd_stat(x: Tensor, out_dtype: Optional[torch.dtype] = None,
 def batchnorm_bwd(x: Tensor, g: Tensor, stat: Tensor) -> Tensor:
     """dx of the affine-free batch-stat BN (replaces the backward of
     batchnorm_pallas). x [..., C] fp32 or bf16, g of x's shape fp32 or
-    bf16, stat [2, C] fp32 from the forward -> dx in x's dtype."""
+    bf16, stat [2, C] fp32 from the forward -> dx in x's dtype. Data
+    parallelism takes the two-launch mode."""
+    if distributed.active():
+        return batchnorm_bwd_sync(x, g, stat)
     if x.device.type == "cpu":
         return batchnorm_bwd_plain(x, g, stat)
     name = BN_BWD.name

@@ -29,7 +29,11 @@ N*H*W values of the compute dtype per call. The plain version of the
 backward is autograd through `mixed_node_plain`. First order only.
 
 The wrapper takes the plain version only for CPU tensors; for CUDA
-tensors it launches the kernels or raises. It takes any N >= 1 and any
+tensors it launches the kernels or raises. Under data parallelism (a
+process group, `parallel/distributed.py`) it raises on either device:
+the folded BatchNorms' statistics would be one rank's, and the kernels
+have no point between their stages at which to sum them over the ranks
+(ROADMAP.md section 2). It takes any N >= 1 and any
 H, W: the only condition on an edge is stride 1. A call that no backward
 will read (no input needs a gradient, or grad mode is off) launches the
 forward directly, without the autograd Function. The launch shape
@@ -51,6 +55,7 @@ from torch.autograd.function import once_differentiable
 
 from lctvqa_torch.ops import _build as K
 from lctvqa_torch.ops import conv as C
+from lctvqa_torch.parallel import distributed
 
 Tensor = torch.Tensor
 f32 = torch.float32
@@ -499,6 +504,11 @@ def mixed_node(xs: Sequence[Tensor], p_list: Sequence[dict], weights: Tensor,
     states [N, H, W, C] of one compute dtype (fp32 or bf16), of which
     channels [0, cs) are read in place; p_list: the E edges' mixed-op
     params; weights [E, 8] fp32. -> [N, H, W, cs] fp32."""
+    if distributed.active():
+        from lctvqa_torch.parallel.mesh import MIXED_OP_UNDER_DP
+        raise NotImplementedError("the mixed-op node kernels under data "
+                                  "parallelism are not ported: "
+                                  + MIXED_OP_UNDER_DP)
     xs = list(xs)
     nodes = [node_weights(p) for p in p_list]
     if xs[0].device.type == "cpu":

@@ -17,6 +17,11 @@ convolutions on twice-differentiable routes); `loss_fn` takes the plain
 versions of the kernels itself, as `architect_lct.plain_model_config`
 gives them.
 
+Under data parallelism every gradient of the unroll is the global
+batch's (`grads`), and `torch.utils.checkpoint` recomputes forwards that
+sum BatchNorm statistics over the ranks: every rank runs the same graph,
+so every rank reaches each collective in the same order.
+
 Randomness: where the JAX package splits one key, the port draws one seed
 per use from the caller's generator (`draw_seeds`) and gives each use a
 fresh `torch.Generator` seeded with it (`seeded`), so a probe, or a
@@ -32,6 +37,7 @@ import torch
 from lctvqa_torch.ops import conv as C
 from lctvqa_torch.optim.optimizers import (sgd_step, tree_from_leaves,
                                            tree_leaves, with_grad)
+from lctvqa_torch.parallel import distributed
 
 
 def draw_seeds(gen: torch.Generator, n: int) -> List[int]:
@@ -48,10 +54,17 @@ def seeded(seed: int, device) -> torch.Generator:
 def grads(loss: torch.Tensor, tree, create_graph: bool = False
           ) -> List[Optional[torch.Tensor]]:
     """d loss / d leaf for every leaf of `tree` in `tree_leaves` order;
-    None where the loss does not reach the leaf."""
-    return list(torch.autograd.grad(loss, tree_leaves(tree),
-                                    create_graph=create_graph,
-                                    allow_unused=True))
+    None where the loss does not reach the leaf. Under data parallelism
+    the loss is the global batch's and the gradient summed over the ranks
+    (`distributed.grad`), differentiably where `create_graph` asks for a
+    gradient of it, so every inner step of an unroll is the global one."""
+    return distributed.grad(loss, tree_leaves(tree),
+                            create_graph=create_graph)
+
+
+def global_loss(loss: torch.Tensor) -> torch.Tensor:
+    """The detached loss of the global batch: the mean of the ranks'."""
+    return distributed.reduce_stats((loss.detach(),))[0]
 
 
 def zero_filled(tree, gs) -> list:
@@ -92,7 +105,7 @@ def make_darts_arch_grad(loss_fn: Callable, mode: str = "exact",
             unrolled = sgd_step(p, g_w, eta)
             val_loss = loss_fn(unrolled, a, val_batch, seeded(s_val, dev))
             g_a = zero_filled(a, grads(val_loss, a))
-        return tree_from_leaves(arch, g_a), val_loss.detach()
+        return tree_from_leaves(arch, g_a), global_loss(val_loss)
 
     def fd(params, arch, train_batch, val_batch, eta, gen):
         s_train, s_val, s_probe = draw_seeds(gen, 3)
@@ -116,6 +129,6 @@ def make_darts_arch_grad(loss_fn: Callable, mode: str = "exact",
                 seeded(s_probe, dev)), a)) for sign in (1.0, -1.0)]
         implicit = central_difference(*probes, big_r)
         g_a = [d - eta * i for d, i in zip(dalpha, implicit)]
-        return tree_from_leaves(arch, g_a), val_loss.detach()
+        return tree_from_leaves(arch, g_a), global_loss(val_loss)
 
     return exact if mode == "exact" else fd

@@ -32,6 +32,11 @@ only. `ops.conv.second_order` routes BatchNorm and fp32 convolutions the
 same way for every forward and backward of the call, including those a
 checkpoint (`stage3_remat`) recomputes.
 
+Under data parallelism every gradient of the unroll, the inner SGD
+steps, the outer gradient and fd's perturbed ones, is the global batch's
+(`architect.grads`: summed over the ranks, differentiably in exact
+mode), and the validation loss returned is the global one.
+
 Randomness: four seeds per call from the caller's dropout generator, for
 EF's train loss, the pseudo-QA generation, W's soft loss and the
 validation loss (r1-r4 of the JAX package); each use builds a fresh
@@ -51,8 +56,8 @@ from lctvqa_torch.config import ModelConfig, TrainConfig
 from lctvqa_torch.models import vqa_ef, vqa_w
 from lctvqa_torch.ops import conv as C
 from lctvqa_torch.optim.architect import (central_difference, draw_seeds,
-                                          global_norm, grads, perturb, seeded,
-                                          zero_filled)
+                                          global_loss, global_norm, grads,
+                                          perturb, seeded, zero_filled)
 from lctvqa_torch.optim.optimizers import (sgd_step, tree_from_leaves,
                                            tree_map, with_grad)
 
@@ -141,7 +146,7 @@ def make_lct_arch_grad(mcfg: ModelConfig, tcfg: TrainConfig,
             w2 = sgd_step(w, g_w, w_lr)
             val_loss = w_val_loss(w2, val_batch, r4)
             g_a = zero_filled(a, grads(val_loss, a))
-        return tree_from_leaves(arch, g_a), val_loss.detach()
+        return tree_from_leaves(arch, g_a), global_loss(val_loss)
 
     def fd(arch, ef_params, w_params, train_batch, val_batch, ef_lr, w_lr,
            gen):
@@ -188,6 +193,6 @@ def make_lct_arch_grad(mcfg: ModelConfig, tcfg: TrainConfig,
                   for sign in (1.0, -1.0)), r_2)
         # (7) the scaling of the alpha gradient
         g_a = [g * ef_lr * w_lr for g in gamma]
-        return tree_from_leaves(arch, g_a), val_loss.detach()
+        return tree_from_leaves(arch, g_a), global_loss(val_loss)
 
     return fd if mode == "fd" else exact

@@ -131,11 +131,10 @@ def load_state(path: str) -> Any:
     return _decode(tree["skeleton"], leaves)
 
 
-# config fields of the JAX package that the port has no use for
-_JAX_ONLY_FIELDS = {"Config": ("mesh",)}
 _SECTIONS = {"model": port_config.ModelConfig,
              "train": port_config.TrainConfig,
-             "data": port_config.DataConfig}
+             "data": port_config.DataConfig,
+             "mesh": port_config.MeshConfig}
 
 
 def _dataclass_from(cls, fields: dict):
@@ -143,8 +142,7 @@ def _dataclass_from(cls, fields: dict):
     (nested sections, a genotype as the NamedTupleNode of either
     package's Genotype)."""
     known = {f.name for f in dataclasses.fields(cls)}
-    unknown = set(fields) - known - set(_JAX_ONLY_FIELDS.get(
-        cls.__name__, ()))
+    unknown = set(fields) - known
     if unknown:
         raise ValueError(f"checkpoint config has {cls.__name__} fields the "
                          f"port does not know: {sorted(unknown)}")
@@ -161,8 +159,7 @@ def _dataclass_from(cls, fields: dict):
 def config_from_state(state) -> Optional[port_config.Config]:
     """The port's Config of a loaded checkpoint of either package (its
     "config" entry, a dict of fields as `load_state` returns it), or None
-    where the file has none. Fields the port does not have raise, but
-    for the JAX package's `mesh`, which is dropped."""
+    where the file has none. Fields the port does not have raise."""
     cfg = state.get("config") if isinstance(state, dict) else None
     if cfg is None:
         return None

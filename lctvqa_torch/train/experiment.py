@@ -16,9 +16,18 @@ loss/accuracy lists are written as JSON files and drawn as three PNGs
 under the JAX package's names (train/stats.py); a resumed run reads the
 lists back and continues them.
 
-One process, one device, no mesh. Losses and counters stay on the device
-during an epoch: the host reads one value per `report_freq` steps and
-the sums once at the epoch's end.
+Data parallel over torch.distributed where the process group has more
+than one rank (`parallel/`; `cfg.mesh`): each rank runs on its own card
+(`distributed.local_device`) and takes its rows of every global batch
+(the loaders' `process_index`), the steps sum gradients, counters and
+BatchNorm statistics over the ranks, and every rank ends each step with
+the parameters one process would have on the global batch. Every rank
+draws the same shuffles from the seed and its own dropout and sampling
+streams (`distributed.rank_seed`); only rank 0 writes the checkpoints,
+the log and the statistics files, and every rank reads a checkpoint on
+resume. Losses and counters stay on the device during an epoch: the host
+reads one value per `report_freq` steps and the sums once at the epoch's
+end.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ from lctvqa_torch.config import Config
 from lctvqa_torch.data import pipeline, pipeline_npy
 from lctvqa_torch.models import search, vqa_ef, vqa_w
 from lctvqa_torch.optim.optimizers import set_learning_rate, step_lr, tree_map
+from lctvqa_torch.parallel import distributed, mesh as mesh_lib
 from lctvqa_torch.train import checkpoint, stats
 from lctvqa_torch.train.metrics import VqaStruct, calc_bleu_scores
 from lctvqa_torch.train.steps import make_lct_steps
@@ -50,14 +60,12 @@ def dev_batch(batch: dict, keys=pipeline.DEVICE_KEYS) -> dict:
     return {k: v for k, v in batch.items() if k in keys}
 
 
-def training_device(device) -> torch.device:
-    """`device` as a torch.device; a CUDA device without a card raises."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "training runs on a CUDA device and none is available; pass "
-            "device='cpu' (--device cpu) to run on the CPU")
-    return device
+def data_mesh(cfg: Config) -> mesh_lib.Mesh:
+    """The data axis of `cfg.mesh` over the process group; a kernel flag
+    the mesh cannot take raises."""
+    mesh = mesh_lib.from_config(cfg.mesh)
+    mesh_lib.check_model_config(cfg.model)
+    return mesh
 
 
 def setup_logger(exp_dir: str) -> None:
@@ -110,8 +118,12 @@ class Experiment:
         validation's BLEU4 are `cfg.data.input_dir`'s `valid.npy`, which
         must exist unless `data` is given (validation then reports no
         BLEU4 where there is none). `device`: the CUDA device, or "cpu"
-        where the caller asks for it; a missing card raises."""
-        self.device = training_device(device)
+        where the caller asks for it; a missing card raises. With a
+        process group of several ranks (`parallel.distributed.initialize`
+        first) the loop is data parallel over them."""
+        self.mesh = data_mesh(cfg)
+        self.is_main = distributed.rank() == 0
+        self.device = distributed.local_device(device)
         forced_remat = (cfg.train.architect_mode == "exact-indirect"
                         and not cfg.train.stage3_remat
                         and not cfg.train.skip_stage3)
@@ -127,10 +139,12 @@ class Experiment:
         seed = cfg.train.seed
         self.np_rng = np.random.default_rng(seed)
         # explicit generators: dropout and question sampling on the device,
-        # initialization on the host
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        # a stream a rank; initialization on the host, the same on every
+        # rank
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            distributed.rank_seed(seed))
         self.sample_gen = torch.Generator(device=self.device).manual_seed(
-            seed + 1)
+            distributed.rank_seed(seed + 1))
         init_gen = torch.Generator().manual_seed(seed)
 
         if data is not None:
@@ -178,6 +192,9 @@ class Experiment:
         self._load_experiment()
         self.log(f"seed: {seed}")
         self.log(f"device: {self.device}")
+        if self.mesh.size > 1:
+            self.log(f"data parallel over {self.mesh.size} ranks: "
+                     f"{cfg.train.batch_size // self.mesh.size} rows a rank")
         if forced_remat:
             self.log("stage3_remat is forced on for architect_mode "
                      "exact-indirect, as in the JAX package")
@@ -191,12 +208,14 @@ class Experiment:
         logging.info(msg)
 
     def _load_experiment(self):
-        check_exp_dir(self.exp_dir, self.cfg.resume)
+        if self.is_main:
+            check_exp_dir(self.exp_dir, self.cfg.resume)
         if os.path.exists(self.exp_dir) and self.cfg.resume:
             self.load_model()
             self._read_stats()
-        os.makedirs(self.exp_dir, exist_ok=True)
-        setup_logger(self.exp_dir)
+        if self.is_main:  # the other ranks log nothing
+            os.makedirs(self.exp_dir, exist_ok=True)
+            setup_logger(self.exp_dir)
         self.log(f"Exp Name: {self.name}")
 
     # ------------------------------------------------------------------
@@ -215,13 +234,17 @@ class Experiment:
     def _epoch_iter(self, split: str, shuffle=True):
         """One epoch of host batches: the npy loader's own, or the h5
         dataset's gathers."""
+        rows = {"process_index": self.mesh.rank,
+                "process_count": self.mesh.size}
         if self.cfg.data.use_old_dataloader:
             return self.data[split].batches(self.cfg.train.batch_size,
-                                            self.np_rng, shuffle=shuffle)
+                                            self.np_rng, shuffle=shuffle,
+                                            **rows)
         return pipeline.epoch_batches(self.data[split],
                                       self.cfg.train.batch_size, self.np_rng,
                                       shuffle=shuffle,
-                                      max_num_ans=self.cfg.data.max_num_ans)
+                                      max_num_ans=self.cfg.data.max_num_ans,
+                                      **rows)
 
     def _batches(self, split: str, shuffle=True):
         return pipeline.Prefetcher(self._epoch_iter(split, shuffle),
@@ -406,7 +429,10 @@ class Experiment:
         corr2 = int(torch.stack(c2s).sum()) if c2s else 0
         bleu = ""
         if bleu_pool is not None:
-            total_b4 = sum(f.result() for f in bleu_futures)
+            # each rank's mean over its rows; the global batch's is their mean
+            total_b4 = distributed.all_reduce_host(
+                [sum(f.result() for f in bleu_futures)],
+                self.device)[0] / self.mesh.size
             bleu_pool.shutdown()
             bleu = f" BLEU4: {total_b4 / batch_step_size:.4f}"
         self.val_ef_loss.append(running_loss / batch_step_size)
@@ -419,6 +445,8 @@ class Experiment:
 
     # ------------------------------------------------------------------
     def save_model(self):
+        if not self.is_main:
+            return
         checkpoint.save_state(
             os.path.join(self.exp_dir, "ef_model.ckpt"),
             {"ef_params": self.ef_params, "ef_opt": self.ef_opt,
@@ -438,6 +466,8 @@ class Experiment:
                                                        f"{name}.txt"))
 
     def _record_stats(self):
+        if not self.is_main:
+            return
         for name in STATS:
             stats.write_to_file_in_dir(self.exp_dir, f"{name}.txt",
                                        getattr(self, name))

@@ -20,7 +20,11 @@ the plain versions of the kernels (`architect_lct.plain_model_config`,
 `ops.conv.second_order`), as the JAX package does, and launches none.
 Data: the npy records of `cfg.data.input_dir` (data/pipeline_npy.py),
 whose `valid.npy` gives BLEU4's references. A resumed experiment reads
-the checkpoints of either package.
+the checkpoints of either package. Data parallel over the process group
+where it has more than one rank, as the LCT loop is
+(train/experiment.py): each rank takes its rows of every global batch,
+gradients and statistics are summed over the ranks, and only rank 0
+writes the checkpoints and the log.
 """
 
 from __future__ import annotations
@@ -45,10 +49,11 @@ from lctvqa_torch.optim.architect_lct import plain_model_config
 from lctvqa_torch.optim.optimizers import (arch_optimizer, model_optimizer,
                                            set_learning_rate, step_lr,
                                            tree_leaves, tree_map, with_grad)
+from lctvqa_torch.parallel import distributed
 from lctvqa_torch.train import checkpoint
-from lctvqa_torch.train.experiment import (check_exp_dir, dev_batch,
-                                           load_checkpoint, setup_logger,
-                                           training_device)
+from lctvqa_torch.train.experiment import (check_exp_dir, data_mesh,
+                                           dev_batch, load_checkpoint,
+                                           setup_logger)
 from lctvqa_torch.train.metrics import (VqaStruct, calc_bleu_scores,
                                         calc_bleu_scores_unified, mask_unk,
                                         num_correct, unified_ans_acc)
@@ -78,8 +83,9 @@ def _make_arch_step(cfg: Config, loss_fn):
 
 
 def _apply(tx, params, opt_state, loss):
-    grads = torch.autograd.grad(loss, tree_leaves(params), allow_unused=True)
-    return tx.update(params, grads, opt_state)
+    """One optimizer step on the global batch's gradient."""
+    return tx.update(params, distributed.grad(loss, tree_leaves(params)),
+                     opt_state)
 
 
 def make_darts_steps(cfg: Config, unk_idx: int, qst_only: bool = False):
@@ -105,7 +111,8 @@ def make_darts_steps(cfg: Config, unk_idx: int, qst_only: bool = False):
                               batch["question"], batch["answer_label"],
                               gen=gen, deterministic=False, qst_only=qst_only)
         params, opt_state = _apply(tx, p, opt_state, loss)
-        return params, opt_state, loss.detach()
+        return params, opt_state, distributed.reduce_stats(
+            (loss.detach(),))[0]
 
     @torch.no_grad()
     def eval_step(params, arch, batch):
@@ -118,6 +125,7 @@ def make_darts_steps(cfg: Config, unk_idx: int, qst_only: bool = False):
                 + sequence_teacher_forcing_ce(qst_logits, batch["question"]))
         corr = num_correct(mask_unk(ans_logits.argmax(1), unk_idx),
                            batch["answer_multi_choice"])
+        loss, corr = distributed.reduce_stats((loss,), (corr,))
         gen_qst, _ = vqa_ef.ef_generate(params, arch, mcfg, img,
                                         deterministic=True)
         return loss, corr, gen_qst
@@ -149,14 +157,16 @@ def make_unified_steps(cfg: Config):
             batch["qa_str"], gen=gen, deterministic=False)
         loss = sequence_teacher_forcing_ce(logits, batch["qa_str"])
         params, opt_state = _apply(tx, p, opt_state, loss)
-        return params, opt_state, loss.detach(), logits.detach().argmax(2)
+        return (params, opt_state, distributed.reduce_stats(
+            (loss.detach(),))[0], logits.detach().argmax(2))
 
     @torch.no_grad()
     def eval_step(params, arch, batch):
         img = normalize_images(batch["image_u8"], mean, std)
         logits = unified_model.unified_forward(params, arch, mcfg, img,
                                                batch["qa_str"])
-        loss = sequence_teacher_forcing_ce(logits, batch["qa_str"])
+        loss = distributed.reduce_stats(
+            (sequence_teacher_forcing_ce(logits, batch["qa_str"]),))[0]
         qa_gen = unified_model.unified_generate(params, arch, mcfg, img)
         return loss, logits.argmax(2), qa_gen
 
@@ -178,19 +188,24 @@ class DartsExperiment:
         """`device`: the CUDA device, or "cpu" where the caller asks for
         it; a missing card raises. `data`: a loader dict ({"train",
         "valid"}), by default `pipeline_npy.get_npy_loader` over
-        `cfg.data.input_dir` (which holds BLEU4's valid.npy either way)."""
-        self.device = training_device(device)
+        `cfg.data.input_dir` (which holds BLEU4's valid.npy either way).
+        Data parallel over a process group of several ranks."""
+        self.mesh = data_mesh(cfg)
+        self.is_main = distributed.rank() == 0
+        self.device = distributed.local_device(device)
         self.cfg = cfg
         self.qst_only = qst_only
         self.exp_dir = os.path.join(cfg.root_stats_dir, cfg.exp_name)
-        check_exp_dir(self.exp_dir, cfg.resume)
-        os.makedirs(self.exp_dir, exist_ok=True)
-        setup_logger(self.exp_dir)
+        if self.is_main:  # the other ranks write nothing
+            check_exp_dir(self.exp_dir, cfg.resume)
+            os.makedirs(self.exp_dir, exist_ok=True)
+            setup_logger(self.exp_dir)
         seed = cfg.train.seed
         self.np_rng = np.random.default_rng(seed)
-        # dropout and the arch step's seeds on the device, initialization
-        # on the host
-        self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        # dropout and the arch step's seeds on the device, a stream a rank;
+        # initialization on the host, the same on every rank
+        self.gen = torch.Generator(device=self.device).manual_seed(
+            distributed.rank_seed(seed))
         self.data = data if data is not None else pipeline_npy.get_npy_loader(
             cfg.data.input_dir, max_qst_length=cfg.model.max_qst_len,
             img_size=cfg.model.img_size, unified=self.unified)
@@ -232,12 +247,22 @@ class DartsExperiment:
         return step_lr(t.learning_rate, self.current_epoch, t.step_size,
                        t.lr_decay)
 
+    def _epoch_iter(self, split: str, shuffle: bool = True):
+        """One epoch of this rank's host batches."""
+        return self.data[split].batches(
+            self.cfg.train.batch_size, self.np_rng, shuffle=shuffle,
+            process_index=self.mesh.rank, process_count=self.mesh.size)
+
     def _batches(self, split: str, shuffle: bool = True):
         return pipeline.Prefetcher(
-            self.data[split].batches(self.cfg.train.batch_size, self.np_rng,
-                                     shuffle=shuffle),
-            self.device, depth=self.cfg.data.prefetch,
-            device_keys=DEVICE_KEYS)
+            self._epoch_iter(split, shuffle), self.device,
+            depth=self.cfg.data.prefetch, device_keys=DEVICE_KEYS)
+
+    def _global_mean(self, total: float) -> float:
+        """The mean over the ranks of a sum of per-batch means, each over a
+        rank's equal share of the rows."""
+        return distributed.all_reduce_host([total],
+                                           self.device)[0] / self.mesh.size
 
     def _to_device(self, batch: dict) -> dict:
         return {k: torch.as_tensor(v, device=self.device)
@@ -258,8 +283,7 @@ class DartsExperiment:
     def _train_batches(self, lr: float):
         """The epoch's device batches, each after the arch step that falls
         on it, logged."""
-        valid_iter = itertools.cycle(self.data["valid"].batches(
-            self.cfg.train.batch_size, self.np_rng))
+        valid_iter = itertools.cycle(self._epoch_iter("valid"))
         for batch_idx, batch in enumerate(self._batches("train")):
             batch = dev_batch(batch, DEVICE_KEYS)
             if self.arch is not None and \
@@ -301,8 +325,8 @@ class DartsExperiment:
                     lambda nm, gq: calc_bleu_scores(
                         nm, gq.cpu().numpy(), self.qst_vocab,
                         self.vqa_struct), batch["image_name"], gen_qst))
-                n += len(batch["image_u8"])
-            total_b4 = sum(f.result() for f in futures)
+                n += len(batch["image_u8"]) * self.mesh.size
+            total_b4 = self._global_mean(sum(f.result() for f in futures))
         self.val_loss.append(_mean(losses))
         self.val_acc.append(int(torch.stack(corrs).sum()) / max(n, 1)
                             if corrs else 0.0)
@@ -312,6 +336,8 @@ class DartsExperiment:
 
     # ------------------------------------------------------------------
     def save_model(self):
+        if not self.is_main:
+            return
         checkpoint.save_state(
             os.path.join(self.exp_dir, "vqa_model.ckpt"),
             {"params": self.params, "opt": self.opt,
@@ -336,6 +362,8 @@ class DartsExperiment:
             self.arch, self.arch_opt = st["arch"], st["arch_opt"]
 
     def save_stats(self):
+        if not self.is_main:
+            return
         checkpoint.save_state(
             os.path.join(self.exp_dir, "stats.ckpt"),
             {"train_loss": self.train_loss, "train_acc": self.train_acc,
@@ -386,7 +414,7 @@ class DartsExperimentUnified(DartsExperiment):
                 accs.append(pool.submit(self._ans_acc, batch["qa_str"],
                                         qa_pred))
                 self._report(batch_idx, loss)
-            total_acc = sum(f.result() for f in accs)
+            total_acc = self._global_mean(sum(f.result() for f in accs))
         self.train_loss.append(_mean(losses))
         self.train_acc.append(total_acc / max(len(accs), 1))
 
@@ -405,8 +433,8 @@ class DartsExperimentUnified(DartsExperiment):
                         nm, qa.cpu().numpy(), self.unified_vocab,
                         self.vqa_struct), batch["image_name"], qa_gen))
             nb = max(len(accs), 1)
-            total_acc = sum(f.result() for f in accs)
-            total_b4 = sum(f.result() for f in bleus)
+            total_acc = self._global_mean(sum(f.result() for f in accs))
+            total_b4 = self._global_mean(sum(f.result() for f in bleus))
         self.val_loss.append(_mean(losses))
         self.val_acc.append(total_acc / nb)
         self.val_b4.append(total_b4 / nb)

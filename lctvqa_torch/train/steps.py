@@ -10,6 +10,13 @@ device: one for dropout, one for sampling the generated questions.
 Stage 3, the architecture step, differentiates through two unrolled SGD
 steps (optim/architect_lct.py) and runs the plain versions of the
 kernels.
+
+Under data parallelism (`parallel/distributed.py`) each rank runs a step
+on its rows of the global batch: it differentiates its loss divided by
+the number of ranks and sums the gradients over the ranks before the
+optimizer (`distributed.grad`), so the clip sees the global gradient and
+every rank takes the same update; the losses and counters a step
+returns are the global batch's. With one rank these are no-ops.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from lctvqa_torch.ops.losses import (cross_entropy,
 from lctvqa_torch.optim.architect_lct import make_lct_arch_grad
 from lctvqa_torch.optim.optimizers import (arch_optimizer, model_optimizer,
                                            tree_leaves, with_grad)
+from lctvqa_torch.parallel import distributed
 from lctvqa_torch.train.metrics import mask_unk, num_correct
 
 
@@ -59,13 +67,13 @@ def make_lct_steps(cfg: Config, unk_idx: int, device):
                 p, arch, mcfg, img, qst, gen=gen, deterministic=False)
         loss = (cross_entropy(ans_logits, batch["answer_label"])
                 + sequence_teacher_forcing_ce(qst_logits, qst))
-        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
+        grads = distributed.grad(loss, tree_leaves(p))
         ef_params, ef_opt_state = ef_tx.update(ef_params, grads, ef_opt_state)
-        corr1, corr2 = _counts(ans_logits.detach(), batch)
+        loss, corr1, corr2 = distributed.reduce_stats(
+            (loss.detach(),), _counts(ans_logits.detach(), batch))
         if mcfg.bn_eval_stats:
-            return (ef_params, ef_opt_state, loss.detach(), corr1, corr2,
-                    cap.stats)
-        return ef_params, ef_opt_state, loss.detach(), corr1, corr2
+            return ef_params, ef_opt_state, loss, corr1, corr2, cap.stats
+        return ef_params, ef_opt_state, loss, corr1, corr2
 
     def bn_update(running, captured):
         if running is None:
@@ -90,12 +98,13 @@ def make_lct_steps(cfg: Config, unk_idx: int, device):
                                deterministic=False)
         loss = (cross_entropy(out1, labels)
                 + tcfg.w_lambda * soft_xent(out2, pseudo_ans))
-        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
+        grads = distributed.grad(loss, tree_leaves(p))
         w_params, w_opt_state = w_tx.update(w_params, grads, w_opt_state)
         # W is scored on BOTH the real and the pseudo pairs
         corr = ((out1.argmax(1) == labels).sum()
                 + (out2.argmax(1) == pseudo_ans.argmax(1)).sum())
-        return w_params, w_opt_state, loss.detach(), corr
+        loss, corr = distributed.reduce_stats((loss.detach(),), (corr,))
+        return w_params, w_opt_state, loss, corr
 
     # ---------------- STAGE 3: architecture step
     def stage3(arch, arch_opt_state, ef_params, w_params, train_batch,
@@ -122,11 +131,13 @@ def make_lct_steps(cfg: Config, unk_idx: int, device):
         with ctx():
             ans_logits, _ = vqa_ef.ef_forward(ef_params, arch, mcfg, img, qst,
                                               deterministic=True)
-        loss = cross_entropy(ans_logits, batch["answer_label"])
-        corr1, corr2 = _counts(ans_logits, batch)
+        loss, corr1, corr2 = distributed.reduce_stats(
+            (cross_entropy(ans_logits, batch["answer_label"]),),
+            _counts(ans_logits, batch))
         with ctx():
             gen_qst, gen_ans = vqa_ef.ef_generate(ef_params, arch, mcfg, img,
                                                   deterministic=True)
+        # the generated questions and answers are this rank's rows
         return loss, corr1, corr2, gen_qst, gen_ans
 
     return {"stage1": stage1, "stage2": stage2, "stage3": stage3,

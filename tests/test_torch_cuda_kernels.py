@@ -433,6 +433,100 @@ def test_bn_bwd_kernel_matches_plain(cuda, shape, x_dtype, g_dtype):
     assert torch.equal(xr2.grad, xr.grad)
 
 
+SYNC_KERNELS = ("bn_fwd_sums", "bn_fwd_apply", "bn_bwd_sums", "bn_bwd_apply")
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.bfloat16)],
+                         ids=["float32", "float32_bfloat16", "bfloat16"])
+@pytest.mark.parametrize("shape", [(3, 5, 7, 3), (2, 9, 4, 6), (5, 3, 3, 20),
+                                   (32, 16, 16, 64), (1, 1, 2, 8),
+                                   (2, 3, 5, 1028)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_sync_bn_kernels_match_plain(cuda, shape, dtypes):
+    """The two-launch mode's four kernels (several ranks' BatchNorm)
+    against their plain versions: the sums 1e-5 of the sum of the terms'
+    magnitudes; y and dx as the one-launch kernels' (dx, with this rank's
+    own sums, is the ordinary backward). One launch each, the same bits
+    twice."""
+    x_dtype, o_dtype = dtypes
+    gen = torch.Generator().manual_seed(24)
+    x = (1.5 * torch.randn(shape, generator=gen) + 0.3).to(cuda, x_dtype)
+    g = torch.randn(shape, generator=gen).to(cuda, o_dtype)
+    c = shape[-1]
+    m = x.numel() // c
+    x32, g32 = x.float().reshape(-1, c), g.float().reshape(-1, c)
+    before = _build.launch_counts()
+    sums = cuda_bn.bn_sums(x)
+    want = cuda_bn.bn_sums_plain(x)
+    y, stat = cuda_bn.bn_fwd_apply(x, want, m, o_dtype)
+    y_p, stat_p = cuda_bn.bn_fwd_apply_plain(x, want, m, o_dtype)
+    bsums = cuda_bn.bn_bwd_sums(x, g, stat_p)
+    bwant = cuda_bn.bn_bwd_sums_plain(x, g, stat_p)
+    dx = cuda_bn.bn_bwd_apply(x, g, stat_p, bwant, m)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in SYNC_KERNELS)
+    assert after["bn_fwd"] == before["bn_fwd"]
+    xhat = (x32 - stat_p[0]) * stat_p[1]
+    for got, ref, mag in ((sums, want, torch.stack([x32.abs().sum(0),
+                                                    (x32 * x32).sum(0)])),
+                          (bsums, bwant, torch.stack([
+                              g32.abs().sum(0), (g32 * xhat).abs().sum(0)]))):
+        assert bool(((got - ref).abs() <= 1e-5 * mag + 1e-30).all())
+    assert y.dtype == o_dtype and y.shape == x.shape
+    torch.testing.assert_close(stat, stat_p, rtol=1e-5, atol=0.0)
+    rtol = 1e-5 if o_dtype == torch.float32 else 2.0 ** -7
+    torch.testing.assert_close(y.float(), y_p.float(), rtol=rtol, atol=1e-5)
+    _scaled_close(dx, cuda_bn.bn_bwd_apply_plain(x, g, stat_p, bwant, m),
+                  1e-5 if x_dtype == torch.float32 else 2.0 ** -7, "dx",
+                  floor=float(g.float().abs().max()))
+    _scaled_close(dx, cuda_bn.batchnorm_bwd_plain(x, g, stat_p),
+                  1e-5 if x_dtype == torch.float32 else 2.0 ** -7, "dx",
+                  floor=float(g.float().abs().max()))
+    again = (cuda_bn.bn_sums(x), cuda_bn.bn_fwd_apply(x, want, m, o_dtype)[0],
+             cuda_bn.bn_bwd_sums(x, g, stat_p),
+             cuda_bn.bn_bwd_apply(x, g, stat_p, bwant, m))
+    assert all(torch.equal(a, b) for a, b in zip(again, (sums, y, bsums, dx)))
+
+
+def test_bn_function_takes_the_two_launch_kernels_in_a_process_group(
+        cuda):
+    """With a process group (one gloo rank here) the BatchNorm Function
+    launches the two-launch kernels and not the one-launch ones, and gives
+    their results within 1e-5."""
+    import socket
+
+    from lctvqa_torch.parallel import distributed
+
+    gen = torch.Generator().manual_seed(25)
+    x = (1.5 * torch.randn(8, 16, 16, 32, generator=gen) + 0.3).to(cuda)
+    g = torch.randn(x.shape, generator=gen).to(cuda)
+    xr = x.clone().requires_grad_()
+    cuda_bn.batchnorm_fwd(xr).backward(g)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize(f"localhost:{port}", 1, 0, device=cuda,
+                           backend="gloo")
+    try:
+        before = _build.launch_counts()
+        xs = x.clone().requires_grad_()
+        y = cuda_bn.batchnorm_fwd(xs)
+        y.backward(g)
+        torch.cuda.synchronize()
+        after = _build.launch_counts()
+    finally:
+        distributed.shutdown()
+    assert all(after[k] == before[k] + 1 for k in SYNC_KERNELS)
+    assert after["bn_fwd"] == before["bn_fwd"]
+    assert after["bn_bwd"] == before["bn_bwd"]
+    torch.testing.assert_close(y, cuda_bn.batchnorm_fwd(x), rtol=1e-5,
+                               atol=1e-5)
+    _scaled_close(xs.grad, xr.grad, 1e-5, "dx")
+
+
 def test_bn_function_is_first_order_only(cuda):
     x = torch.randn(2, 3, 3, 4, device=cuda, requires_grad=True)
     (dx,) = torch.autograd.grad(cuda_bn.batchnorm_fwd(x).square().sum(), x,

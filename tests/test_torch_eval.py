@@ -31,7 +31,7 @@ from lctvqa.optim import optimizers as j_optim
 from lctvqa.text import VocabDict as JVocab
 from lctvqa.train import checkpoint as j_ckpt, metrics as j_metrics
 from lctvqa_torch import convert, eval as t_eval, genotype
-from lctvqa_torch.config import Config, small_test_config
+from lctvqa_torch.config import Config, MeshConfig, small_test_config
 from lctvqa_torch.data import pipeline, synthetic
 from lctvqa_torch.models import genotypes, search, vqa_ef
 from lctvqa_torch.text import VocabDict
@@ -145,8 +145,8 @@ def test_derived_checkpoint_config_moves_both_ways(tmp_path):
     JAX Config (fields equal, mesh at its default) whose genotype is the
     JAX package's Genotype, and its params, converted, give the JAX
     package's ef_forward the port's logits. The JAX package's derived
-    checkpoint: config_from_state gives the port's Config, genotype
-    included, dropping the JAX-only mesh; an unknown field raises."""
+    checkpoint: config_from_state gives the port's Config, genotype and
+    mesh included; an unknown field raises."""
     j_cfg, t_cfg = _derived_cfgs("AmoebaNet", darts_init_ch=4,
                                  darts_layers=2)
     params, _ = vqa_ef.init_ef_model(torch.Generator().manual_seed(0),
@@ -186,7 +186,7 @@ def test_derived_checkpoint_config_moves_both_ways(tmp_path):
     port_cfg = checkpoint.config_from_state(state)
     assert isinstance(port_cfg, Config)
     assert isinstance(port_cfg.model.genotype, genotypes.Genotype)
-    assert port_cfg == t_cfg
+    assert port_cfg == t_cfg and isinstance(port_cfg.mesh, MeshConfig)
     assert checkpoint.config_from_state({"epoch": 1}) is None
     state["config"]["model"]["no_such_field"] = 1
     with pytest.raises(ValueError, match="no_such_field"):
@@ -271,8 +271,9 @@ def test_eval_reads_a_jax_derived_checkpoint_as_the_jax_eval_does(
     package wrote (its config, its optax state, HWIO convs): the
     accuracy and BLEU4 the JAX package's eval prints for it. --int8 runs
     it quantized (tests/test_torch_quant.py holds the int8 forwards to
-    the JAX package's); --tp 2 raises and names its ROADMAP item; without
-    a card the default device raises."""
+    the JAX package's); --tp 2 on one rank raises (tests/test_torch_
+    parallel.py runs it on two); without a card the default device
+    raises."""
     from lctvqa import eval as j_eval, native as j_native
 
     # the JAX gather's native library: tests/test_native.py may be
@@ -301,8 +302,9 @@ def test_eval_reads_a_jax_derived_checkpoint_as_the_jax_eval_does(
     assert "serving int8" in capsys.readouterr().out
     assert got["n"] == 16 and 0.0 <= got["acc"] <= 1.0
     assert 0.0 <= got["bleu4"] <= 100.0
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_eval.main(argv + ["--device", "cpu", "--tp", "2"])
+    with pytest.raises(SystemExit, match="--tp 2 needs 2 ranks"):
+        t_eval.main(argv + ["--device", "cpu", "--tp", "2",
+                            "--num_devices", "1"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="--device cpu"):
             t_eval.main(argv)

@@ -193,7 +193,9 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     assert _build.launch_counts() == before
     assert set(before) == {"lstm_cell", "lstm_seq_final", "lstm_seq_all",
                            "greedy_generate", "bn_fwd", "bn_bwd",
-                           "mixed_node_fwd", "mixed_node_bwd"}
+                           "mixed_node_fwd", "mixed_node_bwd",
+                           "bn_fwd_sums", "bn_fwd_apply", "bn_bwd_sums",
+                           "bn_bwd_apply"}
 
 
 def test_non_cpu_non_cuda_tensors_raise():
