@@ -12,6 +12,7 @@ NVIDIA GPU.
                                       # vocabulary and phase 11
     python3 chip_smoke.py --int8      # only phase 12
     python3 chip_smoke.py --parallel  # only phase 13
+    python3 chip_smoke.py --data      # only phase 14
     python3 chip_smoke.py --grad-spread
                                       # only how far the derived EF's fp32
                                       # gradients move under one rounding
@@ -296,6 +297,33 @@ non-zero:
    kernels nor the one-launch BatchNorm. The two gloo ranks' bits are
    equal. The train_step times are printed as informational: the ranks
    share one card.
+
+14. The data path, from the raw files to a batch on the card. (a) The
+   offline builders: data.synthetic.write_raw_vqa_json's jsons at phase
+   8's sizes, `python -m lctvqa_torch.data.build vocab` and `npy` as
+   subprocesses, their three vocabularies and train.npy / valid.npy equal
+   to make_npy_records' (and data/vocab.py's) for the same seed and
+   sizes; `download --list_only` lists the eight URLs (no network).
+   images_h5, qa_h5 and resize run where h5py and PIL import; otherwise
+   one line says they did not and why, and qa_h5 is seen to raise
+   ImportError naming h5py. (b) The C++ core (lctvqa_torch/native) built
+   from the port's source on the card's host: gather_rows bit for bit
+   against numpy fancy indexing at [64, 64, 64, 3] uint8 (one thread,
+   under the 1 MiB threshold) and [64, 224, 224, 3] (8 threads);
+   sample_answers' labels and multi-choice rows equal to the plain
+   splitmix64's for 3 seeds on enc_ans [64, 1000] with items that have
+   no valid answer; ms a batch of the C++ gather at 1 and 8 threads and
+   of numpy's, beside the card and the host CPU's model
+   (informational). (c) The LCT main path at phase 8's full width (darts
+   supernet, stage 3 off, B = 64, bf16, the kernel flags) through
+   Experiment, its batches from epoch_batches on the native route with
+   cfg.data.num_workers = 8 threads through the Prefetcher, the counts
+   set to 0 just before: DATA_STEPS stage-1 + stage-2 steps. Checks:
+   every consumed batch equal, key by key and dtype by dtype, to the one
+   the plain route (numpy rows, plain splitmix64) assembles from the same
+   seed; finite losses; each stage-1 step launches STAGE1_LAUNCHES and an
+   LSTM kernel, each stage-2 step an LSTM kernel. The Prefetcher's wait a
+   step and the phase's wall time are printed.
 
 It prints the card's name and power limit, one JSON line of the kernels
 (times, bounds and launch counts; `derived_launches`, `darts_launches`
@@ -4413,6 +4441,288 @@ def parallel_phase(arrays, device, root: str, card: str) -> dict:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the data path, from the raw files to a batch on the card
+# ---------------------------------------------------------------------------
+
+# the answer vocabulary at full width (ModelConfig.ans_vocab_size)
+DATA_ANSWERS = 1000
+# the C++ gather at the main path's batch (786 KB: one thread, under the
+# core's 1 MiB threshold) and at 224 px (9.6 MB: the threaded copy)
+GATHER_SHAPES = ((64, 64, 64, 3), (64, 224, 224, 3))
+GATHER_TABLE_ROWS = 256
+DATA_WORKERS = 8
+SAMPLE_SEEDS = (SEED, 1, 2 ** 62 - 1)
+DATA_STEPS = 3
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (its model name where that
+    is given, else its vendor, family, model and stepping numbers), its
+    architecture and its core count."""
+    import platform
+
+    model = "model not reported"
+    with contextlib.suppress(OSError):
+        with open("/proc/cpuinfo") as f:
+            fields = {}
+            for line in f:
+                key, _, value = line.partition(":")
+                fields.setdefault(key.strip(), value.strip())
+        if fields.get("model name", "unknown") != "unknown":
+            model = fields["model name"]
+        elif "vendor_id" in fields:
+            model = ", ".join(f"{k} {fields.get(k)}" for k in (
+                "vendor_id", "cpu family", "model", "stepping"))
+    return f"{model} ({platform.machine()}), {os.cpu_count()} cores"
+
+
+def _build_cli(*argv, ok=True):
+    """python -m lctvqa_torch.data.build ... from the repo root; ->
+    (returncode, stdout, stderr). Fails the phase where the exit code is
+    not what `ok` says."""
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    expect((proc.returncode == 0) == ok,
+           f"{' '.join(argv[:2])}: exit code {proc.returncode}, stderr "
+           f"{proc.stderr[-2000:]}")
+    return proc
+
+
+def data_builders(root: Path) -> None:
+    """(a) The offline builders from the raw jsons, as subprocesses: the
+    vocabularies and the npy records against make_npy_records' (and
+    data/vocab.py's) for the same seed and sizes; the h5 and resize
+    builders where h5py and PIL import, else their ImportError."""
+    import importlib.util
+
+    from lctvqa_torch.data import synthetic, vocab
+
+    raw, ref, out = root / "raw", root / "ref", root / "built"
+    synthetic.write_raw_vqa_json(str(raw), **TRAIN_DATA, seed=SEED)
+    synthetic.make_npy_records(str(ref), **TRAIN_DATA,
+                               n_answers=DATA_ANSWERS, seed=SEED)
+    vocab.make_vocab_questions(str(ref / "Questions"),
+                               str(ref / "vocab_questions.txt"))
+    vocab.make_vocab_answers(str(ref / "Annotations"),
+                             str(ref / "vocab_answers.txt"),
+                             n_answers=DATA_ANSWERS)
+    build = "lctvqa_torch.data.build"
+    _build_cli(build, "vocab", "--input_dir", str(raw), "--output_dir",
+               str(out), "--n_answers", str(DATA_ANSWERS))
+    _build_cli(build, "npy", "--input_dir", str(raw), "--image_dir",
+               str(ref), "--output_dir", str(out))
+    for name in ("vocab_questions.txt", "vocab_answers.txt",
+                 "vocab_unified.txt"):
+        expect((out / name).read_bytes() == (ref / name).read_bytes(),
+               f"data: build vocab's {name} differs from data/vocab.py's")
+    for name in ("train.npy", "valid.npy"):
+        got = np.load(out / name, allow_pickle=True).tolist()
+        want = np.load(ref / name, allow_pickle=True).tolist()
+        expect(got == want and len(got) == TRAIN_DATA["num_questions"],
+               f"data: build npy's {name} differs from make_npy_records'")
+    urls = _build_cli("lctvqa_torch.data.download", "--list_only")
+    expect(len(urls.stdout.split()) == 8, "data: download --list_only "
+           f"printed {urls.stdout!r}")
+    missing = [m for m in ("h5py", "PIL")
+               if importlib.util.find_spec(m) is None]
+    if missing:
+        # the documented skip: these builders need h5py and PIL, which
+        # this machine lacks; tests/test_torch_data_build.py runs them
+        names = " and ".join(missing)
+        log(f"data: images_h5, qa_h5 and resize not run: {names} not "
+            "installed on this machine (the CPU tests hold them to the JAX "
+            "package's builders)")
+        if "h5py" in missing:
+            proc = _build_cli(build, "qa_h5", "--input_dir", str(raw),
+                              "--output_dir", str(out), ok=False)
+            expect("No module named 'h5py'" in proc.stderr,
+                   f"data: qa_h5 without h5py: {proc.stderr[-500:]}")
+    else:
+        import h5py
+        from PIL import Image
+
+        rng = np.random.default_rng(SEED)
+        for si, split in enumerate(("train2014", "val2014")):
+            (raw / split).mkdir()
+            for i in range(8):
+                Image.fromarray(rng.integers(0, 256, (40, 52, 3),
+                                             dtype=np.uint8)).save(
+                    raw / split / f"COCO_{split}_{1000 * (si + 1) + i:012d}"
+                    ".jpg")
+        _build_cli(build, "images_h5", "--train_dir", str(raw / "train2014"),
+                   "--val_dir", str(raw / "val2014"), "--output_dir",
+                   str(out), "--size", "64")
+        _build_cli(build, "qa_h5", "--input_dir", str(raw), "--output_dir",
+                   str(out))
+        resized = _build_cli(build, "resize", "--input_dir", str(raw),
+                             "--output_dir", str(root / "resized"),
+                             "--size", "32")
+        n_ans = len((out / "vocab_answers.txt").read_text().splitlines())
+        with h5py.File(out / "images.h5") as im, \
+                h5py.File(out / "qst-ans.h5") as qa:
+            shapes = (im["train/images"].shape, qa["train/enc_qst"].shape,
+                      qa["train/enc_ans"].shape)
+        expect(shapes == ((8, 64, 64, 3), (TRAIN_DATA["num_questions"], 25),
+                          (TRAIN_DATA["num_questions"], n_ans)),
+               f"data: the h5 files' shapes {shapes}")
+        expect("resized 16 images" in resized.stdout,
+               f"data: resize printed {resized.stdout!r}")
+        log("data: images_h5, qa_h5 and resize ran")
+    log("data: the offline builders' files equal make_npy_records' and "
+        "data/vocab.py's")
+
+
+def _host_ms(fn, reps: int = 20) -> float:
+    """Median host-clock ms of `fn` (host work only: no device)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def check_native_core(arrays, card: str) -> None:
+    """(b) The C++ core built from the port's source on this host: the
+    row gather bit for bit against numpy at the main path's batch and at
+    224 px (8 threads), the answer draw against the plain splitmix64 on
+    full-width enc_ans; ms per batch printed (informational)."""
+    from lctvqa_torch import native
+    from lctvqa_torch.native import build as nbuild
+
+    t0 = time.perf_counter()
+    fresh = not nbuild.library_path().exists()
+    expect(native.available(), "data: the C++ core did not load")
+    log(f"data: C++ core {Path(native._lib._name).name} "
+        f"{'built' if fresh else 'found built'} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(SEED)
+    cpu = host_cpu()
+    for shape in GATHER_SHAPES:
+        table = (arrays["train"]["images"] if shape[1:] == arrays["train"][
+            "images"].shape[1:] else rng.integers(
+                0, 256, (GATHER_TABLE_ROWS,) + shape[1:], dtype=np.uint8))
+        rows = rng.integers(0, len(table), shape[0]).astype(np.int32)
+        want = native.gather_rows_plain(table, rows)
+        for threads in (1, DATA_WORKERS):
+            got = native.gather_rows(table, rows, num_threads=threads)
+            expect(got.shape == shape and np.array_equal(got, want),
+                   f"data: gather_rows {shape} at {threads} threads differs "
+                   "from numpy")
+        ms = {t: _host_ms(lambda t=t: native.gather_rows(table, rows, t))
+              for t in (1, 2, 4, DATA_WORKERS)}
+        np_ms = _host_ms(lambda: table[rows])
+        log(f"data: gather {list(shape)} uint8 ({want.nbytes / 1e6:.2f} MB): "
+            "C++ " + ", ".join(f"{t} thread(s) {v:.4f}"
+                               for t, v in ms.items())
+            + f" ms, numpy {np_ms:.4f} ms a batch (host clock, median of 20; "
+            f"informational) on {cpu}; card {card}")
+    enc = np.ascontiguousarray(arrays["train"]["enc_ans"][:64])
+    enc[::8] = 0                             # items with no valid answer
+    expect(enc.shape == (64, DATA_ANSWERS), f"data: enc_ans {enc.shape}")
+    for seed in SAMPLE_SEEDS:
+        got = native.sample_answers(enc, 0, seed)
+        want = native.sample_answers_plain(enc, 0, seed)
+        expect(all(np.array_equal(g, w) for g, w in zip(got, want))
+               and (got[0][::8] == 0).all() and (got[1][::8] == -1).all(),
+               f"data: sample_answers seed {seed} differs from the plain "
+               "splitmix64")
+    log(f"data: sample_answers on [64, {DATA_ANSWERS}] equal to the plain "
+        f"version for seeds {SAMPLE_SEEDS}; "
+        f"{_host_ms(lambda: native.sample_answers(enc, 0, SEED)):.4f} ms a "
+        "batch (informational)")
+
+
+def _host(v):
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def data_main_path(arrays, device, root: str, card: str,
+                   steps: int = DATA_STEPS) -> dict:
+    """(c) The LCT main path at full width (phase 8's: the darts
+    supernet, stage 3 off, B = 64, bf16) with the kernel flags, fed by
+    the loader's native route (cfg.data.num_workers = 8 threads) through
+    the Prefetcher: `steps` stage-1 + stage-2 steps, the counts set to 0
+    just before and read just after. Every consumed batch equal to the
+    plain route's, finite losses, each stage-1 step's launches
+    STAGE1_LAUNCHES and an LSTM kernel, stage 2 an LSTM kernel. ->
+    launches of the run."""
+    from lctvqa_torch.data import pipeline
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.train.experiment import Experiment
+
+    tag = "data main path"
+    cfg = train_config("bfloat16", "kernels", root).replace(
+        exp_name="data_path")
+    expect(cfg.data.num_workers == DATA_WORKERS,
+           f"{tag}: num_workers {cfg.data.num_workers}")
+    with kernel_flags("kernels"):
+        exp = Experiment(cfg, device=device,
+                         data=pipeline.loader_from_arrays(arrays))
+        want = pipeline.epoch_batches_plain(
+            exp.data["train"], cfg.train.batch_size,
+            np.random.default_rng(cfg.train.seed))
+        _build.reset_launch_counts()
+        batches = iter(exp._batches("train"))
+        waits, losses, same = [], [], 0
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            batch = next(batches)
+            waits.append(1e3 * (time.perf_counter() - t0))
+            before = _build.launch_counts()
+            (exp.ef_params, exp.ef_opt, loss, _, _) = exp.steps["stage1"](
+                exp.ef_params, exp.arch, exp.ef_opt,
+                {k: batch[k] for k in pipeline.DEVICE_KEYS}, exp.gen)
+            torch.cuda.synchronize()
+            mid = _build.launch_counts()
+            (exp.w_params, exp.w_opt, loss2, _) = exp.steps["stage2"](
+                exp.w_params, exp.w_opt, exp.ef_params, exp.arch,
+                {k: batch[k] for k in pipeline.DEVICE_KEYS}, exp.gen,
+                exp.sample_gen)
+            torch.cuda.synchronize()
+            s1, s2 = _delta(before, mid), _delta(mid, _build.launch_counts())
+            expect(all(s1.get(k) == v for k, v in STAGE1_LAUNCHES.items())
+                   and s1.get("lstm_cell", 0) + s1.get("lstm_seq_all", 0) > 0,
+                   f"{tag}: stage-1 launches {s1}, expected "
+                   f"{STAGE1_LAUNCHES} and an LSTM kernel")
+            expect(sum(s2.get(k, 0) for k in LSTM_KERNELS) > 0,
+                   f"{tag}: stage 2 launched no LSTM kernel: {s2}")
+            losses += [float(loss), float(loss2)]
+            ref = next(want)
+            ok = set(batch) == set(ref) and all(
+                np.array_equal(_host(batch[k]), ref[k])
+                and _host(batch[k]).dtype == ref[k].dtype for k in ref)
+            expect(ok, f"{tag}: a consumed batch differs from the plain "
+                   "route's")
+            same += ok
+        launches = _build.launch_counts()
+    expect(all(np.isfinite(losses)), f"{tag}: a loss is not finite: "
+           f"{losses}")
+    log(f"{tag}: {same}/{steps} consumed batches equal to the plain route's; "
+        f"losses {[round(x, 4) for x in losses]}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; Prefetcher wait "
+        f"{', '.join(f'{w:.3f}' for w in waits)} ms a step (host clock; the "
+        f"first includes the first gather; informational) on {card}; host "
+        f"{host_cpu()}")
+    del exp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def data_phase(arrays, device, root: str, card: str) -> dict:
+    """Phase 14: (a), (b) and (c); its wall time printed."""
+    t0 = time.perf_counter()
+    data_builders(Path(root) / "data14")
+    check_native_core(arrays, card)
+    launches = data_main_path(arrays, device, root, card)
+    log(f"data phase took {time.perf_counter() - t0:.1f} s on {card}")
+    return launches
+
+
 def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
                 cell_dev, node_dev, gen_plan, gen_dev, node_bwd_dev):
     """The kernels line: one row per kernel at the largest shape the
@@ -4582,6 +4892,10 @@ def main(argv=None) -> int:
                       help="only build, then phase 13 (data parallelism on "
                       "one card: the two-launch BatchNorm kernels, two gloo "
                       "ranks and one NCCL rank against one process)")
+    mode.add_argument("--data", action="store_true",
+                      help="only build, then phase 14 (the offline data "
+                      "builders, the C++ gather core, and the LCT main path "
+                      "fed by it)")
     mode.add_argument("--kernel-times", action="store_true",
                       help="only build, then time the cell, the node "
                       "forward and backward, the decode, the BatchNorm "
@@ -4600,6 +4914,7 @@ def main(argv=None) -> int:
         sys.path.insert(0, str(Path(args.root).resolve()))
     from lctvqa_torch.ops import _build
 
+    t_start = time.perf_counter()
     device = torch.device("cuda")
     card = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4653,6 +4968,11 @@ def main(argv=None) -> int:
     if args.parallel:
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
             parallel_phase(train_arrays(), device, tmp, card)
+        log(card)
+        return 1 if FAILURES else 0
+    if args.data:
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+            data_phase(train_arrays(), device, tmp, card)
         log(card)
         return 1 if FAILURES else 0
     if args.grad_spread:
@@ -4784,6 +5104,10 @@ def main(argv=None) -> int:
         # 13. data parallelism on one card, each run with the counts at 0
         sync_rows = parallel_phase(arrays, device, tmp, card)
 
+        # 14. the data path: the offline builders, the C++ core, and the
+        # LCT main path fed by it, the counts at 0
+        data_phase(arrays, device, tmp, card)
+
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
                        launches, seq_plan, cell_dev, node_dev, gen_plan,
                        gen_dev, node_bwd_dev)
@@ -4810,6 +5134,8 @@ def main(argv=None) -> int:
                      "shape": f"{list(SYNC_BN_ROW[0])} {SYNC_BN_ROW[1]}, "
                               f"{SYNC_BN_ROW[2]} (a rank's half of "
                               "[64,64,64,32])"})
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s in all, "
+        f"the build included, on {card}")
     if FAILURES:
         log(f"{len(FAILURES)} check(s) failed:")
         for f in FAILURES:

@@ -2,8 +2,12 @@
 lctvqa/data/pipeline.py).
 
 A split's uint8 images live in host RAM (or are read in chunks from the
-h5 file), a batch is assembled by numpy gathers, images cross to the
-device as uint8, a quarter of the bytes of fp32, and are normalized
+h5 file). A batch is assembled by the C++ core (lctvqa_torch/native):
+the image rows gathered by `num_workers` threads, one answer label drawn
+per item from one seed a batch, as the JAX loader does with its core
+built; `use_native=False` takes numpy gathers and the generator's own
+draws instead, the JAX loader's route without its core. Images cross to
+the device as uint8, a quarter of the bytes of fp32, and are normalized
 there. A background thread keeps `depth` batches in flight: it pins each
 host batch, copies it on a side stream without blocking, and the consumer
 waits on the copy's event.
@@ -19,6 +23,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from lctvqa_torch import native
 from lctvqa_torch.text import VocabDict
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -88,9 +93,11 @@ class VqaH5Dataset:
         self.split = split
         self.enc_qst = np.asarray(fields["enc_qst"]).astype(np.int32)
         self.qst_len = np.asarray(fields["qst_len"]).astype(np.int32)
-        self.enc_ans = np.asarray(fields["enc_ans"])
+        self.enc_ans = np.ascontiguousarray(fields["enc_ans"])
         self.img_id = np.asarray(fields["img_id"])
-        self.images = fields["images"]
+        images = fields["images"]
+        self.images = (np.ascontiguousarray(images)
+                       if isinstance(images, np.ndarray) else images)
         id_to_row = {int(cid): i for i, cid in enumerate(fields["coco_ids"])}
         self.img_row = np.array([id_to_row[int(i)] for i in self.img_id],
                                 np.int32)
@@ -104,16 +111,45 @@ class VqaH5Dataset:
         return [f"COCO_{self.split}2014_{int(i):012d}"
                 for i in self.img_id[idx]]
 
-    def _gather_images(self, rows: np.ndarray) -> np.ndarray:
+    def _gather_images(self, rows: np.ndarray,
+                       num_workers: int = 1) -> np.ndarray:
+        """Rows of RAM-resident images by the C++ core (`num_workers`
+        threads), or of the h5 file in chunks (lazy)."""
         if isinstance(self.images, np.ndarray):
+            if native.available():
+                return native.gather_rows(self.images, rows,
+                                          num_threads=num_workers)
             return self.images[rows]
         # h5 fancy selection needs sorted unique indices
         uniq, inv = np.unique(rows, return_inverse=True)
         return self.images[uniq][inv]
 
     def gather(self, idx: np.ndarray, rng: np.random.Generator,
-               max_num_ans: int = 10) -> Dict[str, np.ndarray]:
-        """Vectorized batch assembly for question indices `idx`."""
+               max_num_ans: int = 10, use_native: bool = True,
+               num_workers: int = 1) -> Dict[str, np.ndarray]:
+        """Vectorized batch assembly for question indices `idx`.
+
+        With `use_native` the C++ core gathers the rows (the images on
+        `num_workers` threads) and draws the answer labels by splitmix64
+        from one seed, `rng.integers(0, 2**62)`, a batch; without, numpy
+        gathers and one `rng.random` draw per item. Either way the
+        generator's stream and the labels are the JAX loader's on the same
+        route."""
+        if use_native and native.available():
+            idx = np.ascontiguousarray(idx, np.int32)
+            enc_ans = native.gather_rows(self.enc_ans, idx)
+            seed = int(rng.integers(0, 2 ** 62))
+            labels, mc = native.sample_answers(
+                enc_ans, self.ans_vocab.unk2idx, seed, max_num_ans)
+            return {
+                "image_u8": self._gather_images(self.img_row[idx],
+                                                num_workers),
+                "question": self.enc_qst[idx],
+                "qst_len": self.qst_len[idx],
+                "answer_label": labels,
+                "answer_multi_choice": mc,
+                "index": idx,
+            }
         enc_ans = self.enc_ans[idx]                      # [B, A]
         b = enc_ans.shape[0]
         valid = enc_ans > 0
@@ -158,10 +194,12 @@ def process_slice(window: np.ndarray, batch_size: int, process_index: int,
 def epoch_batches(dataset: VqaH5Dataset, batch_size: int,
                   rng: np.random.Generator, shuffle: bool = True,
                   drop_remainder: bool = True,
-                  max_num_ans: int = 10, process_index: int = 0,
+                  max_num_ans: int = 10, num_workers: int = 1,
+                  process_index: int = 0,
                   process_count: int = 1) -> Iterator[dict]:
-    """Host batches of `batch_size` questions, one epoch. With several
-    ranks every rank draws the same shuffled order from the same seed
+    """Host batches of `batch_size` questions, one epoch, each gathered
+    with `num_workers` threads. With several ranks every rank draws the
+    same shuffled order, and each batch's seed, from the same generator
     and gathers its `batch_size / process_count` rows of each global
     batch (`process_slice`); one process takes the whole batch."""
     assert batch_size % process_count == 0, \
@@ -174,7 +212,29 @@ def epoch_batches(dataset: VqaH5Dataset, batch_size: int,
     for s in range(0, end, batch_size):
         yield dataset.gather(process_slice(idx[s:s + batch_size], batch_size,
                                            process_index, process_count),
-                             rng, max_num_ans)
+                             rng, max_num_ans, num_workers=num_workers)
+
+
+def epoch_batches_plain(dataset: VqaH5Dataset, batch_size: int,
+                        rng: np.random.Generator,
+                        max_num_ans: int = 10) -> Iterator[dict]:
+    """The plain version of epoch_batches' native route (shuffled, the
+    remainder dropped, one process): the same shuffle and one seed a
+    batch from `rng`, the rows gathered by numpy and the labels drawn by
+    `native.sample_answers_plain`. For tests and chip_smoke.py, which
+    hold the C++ core's batches to it."""
+    idx = np.arange(len(dataset))
+    rng.shuffle(idx)
+    for s in range(0, len(idx) // batch_size * batch_size, batch_size):
+        rows = idx[s:s + batch_size].astype(np.int32)
+        labels, mc = native.sample_answers_plain(
+            dataset.enc_ans[rows], dataset.ans_vocab.unk2idx,
+            int(rng.integers(0, 2 ** 62)), max_num_ans)
+        yield {"image_u8": native.gather_rows_plain(dataset.images,
+                                                    dataset.img_row[rows]),
+               "question": dataset.enc_qst[rows],
+               "qst_len": dataset.qst_len[rows], "answer_label": labels,
+               "answer_multi_choice": mc, "index": rows}
 
 
 class _WorkerError:

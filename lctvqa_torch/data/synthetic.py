@@ -9,11 +9,12 @@ on-disk formats of the offline build scripts (`vocab_questions.txt`,
 loader opens, and beside them `make_npy_records`'s files. Unlike the JAX
 package's generator it does not build the h5 files from the raw jsons.
 
-`make_npy_records` writes the JAX package's raw VQA v2 jsons
-(`Questions/`, `Annotations/`), the unified vocabulary built from them
-(`vocab_unified.txt`, data/vocab.py) and the `train.npy` / `valid.npy`
-records, the same files as the JAX package's for the same seed and
-sizes; the reference questions of the BLEU4 in validation and eval
+`write_raw_vqa_json` writes the JAX package's raw VQA v2 jsons
+(`Questions/`, `Annotations/`), which data/build.py's offline builders
+read. `make_npy_records` writes them too, with the unified vocabulary
+built from them (`vocab_unified.txt`, data/vocab.py) and the `train.npy`
+/ `valid.npy` records, the same files as the JAX package's for the same
+seed and sizes; the reference questions of the BLEU4 in validation and eval
 (`train/metrics.py::VqaStruct`) come from `valid.npy`. Their image names
 are those of the h5 splits' image ids, so the two halves describe the
 same images. It needs neither h5py nor an answer vocabulary file, and
@@ -164,6 +165,28 @@ def raw_vqa_json(num_images: int = 8, num_questions: int = 24,
     return out
 
 
+def write_raw_vqa_json(out_dir: str, num_images: int = 8,
+                       num_questions: int = 24,
+                       seed: int = 0) -> Dict[str, tuple]:
+    """Write `raw_vqa_json`'s splits as the VQA v2 files,
+    `Questions/v2_OpenEnded_mscoco_<split>_questions.json` and
+    `Annotations/v2_mscoco_<split>_annotations.json` (the JAX package's
+    bytes for the same seed and sizes); -> the splits."""
+    raw = raw_vqa_json(num_images, num_questions, seed)
+    for split in RAW_SPLITS:
+        questions, annotations = raw[split]
+        meta = {"data_type": "mscoco", "data_subtype": split}
+        for sub, name, key, items in (
+                ("Questions", f"v2_OpenEnded_mscoco_{split}_questions.json",
+                 "questions", questions),
+                ("Annotations", f"v2_mscoco_{split}_annotations.json",
+                 "annotations", annotations)):
+            os.makedirs(os.path.join(out_dir, sub), exist_ok=True)
+            with open(os.path.join(out_dir, sub, name), "w") as f:
+                json.dump({**meta, key: items}, f)
+    return raw
+
+
 def make_npy_records(out_dir: str, num_images: int = 8,
                      num_questions: int = 24, n_answers: int = 16,
                      seed: int = 0) -> Dict[str, str]:
@@ -171,20 +194,9 @@ def make_npy_records(out_dir: str, num_images: int = 8,
     `train.npy` / `valid.npy` (object arrays of one dict per question:
     image name and path, question id, string and tokens, all answers, the
     answers in the vocabulary or ["<unk>"])."""
-    raw = raw_vqa_json(num_images, num_questions, seed)
+    raw = write_raw_vqa_json(out_dir, num_images, num_questions, seed)
     questions_dir = os.path.join(out_dir, "Questions")
     annotations_dir = os.path.join(out_dir, "Annotations")
-    for split in RAW_SPLITS:
-        questions, annotations = raw[split]
-        meta = {"data_type": "mscoco", "data_subtype": split}
-        for sub, name, key, items in (
-                (questions_dir, f"v2_OpenEnded_mscoco_{split}_questions.json",
-                 "questions", questions),
-                (annotations_dir, f"v2_mscoco_{split}_annotations.json",
-                 "annotations", annotations)):
-            os.makedirs(sub, exist_ok=True)
-            with open(os.path.join(sub, name), "w") as f:
-                json.dump({**meta, key: items}, f)
     vocab.make_vocab_unified(questions_dir, annotations_dir,
                              os.path.join(out_dir, "vocab_unified.txt"),
                              n_answers=n_answers)

@@ -56,8 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true")
     p.add_argument("--input_dir", type=str, default="data/vqa/hdf5_64")
     p.add_argument("--num_workers", type=int, default=8,
-                   help="kept for the JAX CLI's sake: batches are gathered "
-                        "by one background thread")
+                   help="threads of the C++ core that gather a batch's "
+                        "image rows (a batch under 1 MiB takes one)")
     p.add_argument("--arch_type", type=str, default="darts",
                    choices=["fixed", "darts", "derived"])
     p.add_argument("--arch_update_freq", type=int, default=2000)

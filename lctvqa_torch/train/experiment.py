@@ -233,7 +233,8 @@ class Experiment:
 
     def _epoch_iter(self, split: str, shuffle=True):
         """One epoch of host batches: the npy loader's own, or the h5
-        dataset's gathers."""
+        dataset's gathers by the C++ core on cfg.data.num_workers
+        threads."""
         rows = {"process_index": self.mesh.rank,
                 "process_count": self.mesh.size}
         if self.cfg.data.use_old_dataloader:
@@ -244,6 +245,7 @@ class Experiment:
                                       self.cfg.train.batch_size, self.np_rng,
                                       shuffle=shuffle,
                                       max_num_ans=self.cfg.data.max_num_ans,
+                                      num_workers=self.cfg.data.num_workers,
                                       **rows)
 
     def _batches(self, split: str, shuffle=True):

@@ -275,10 +275,13 @@ def test_eval_reads_a_jax_derived_checkpoint_as_the_jax_eval_does(
     parallel.py runs it on two); without a card the default device
     raises."""
     from lctvqa import eval as j_eval, native as j_native
+    from lctvqa_torch import native
 
     # the JAX gather's native library: tests/test_native.py may be
-    # rewriting it in another worker
+    # rewriting it in another worker; the port's C++ core is held off the
+    # same way, so both loaders take the numpy route
     monkeypatch.setattr(j_native, "available", lambda: False)
+    monkeypatch.setattr(native, "available", lambda: False)
     j_cfg, _ = _derived_cfgs(**{k: v for k, v in TINY.items()
                                 if k not in ("vgg_width_mult",
                                              "vgg_fc_dim")})

@@ -71,14 +71,42 @@ except SystemExit as e:
     assert e.code == 0, e.code
 import lctvqa_torch.quant, lctvqa_torch.train.stats
 """,
+    # the C++ data-loader core built (or found built), loaded and run, and
+    # the offline builders and download list imported, with no file of the
+    # JAX package opened: an audit hook sees every open, dlopen and
+    # subprocess
+    "native": """
+import os, pathlib
+import numpy as np
+jax_dir = str(pathlib.Path("lctvqa").resolve()) + os.sep
+seen = []
+def hook(event, args):
+    if event in ("open", "ctypes.dlopen", "subprocess.Popen"):
+        seen.append(repr(args))
+sys.addaudithook(hook)
+import lctvqa_torch.data.build, lctvqa_torch.data.download
+import lctvqa_torch.data.preprocess, lctvqa_torch.data.pipeline
+from lctvqa_torch import native
+from lctvqa_torch.native import build as nbuild
+assert native.available()
+src = np.arange(6, dtype=np.uint8).reshape(3, 2)
+assert native.gather_rows(src, [2, 0]).tolist() == [[4, 5], [0, 1]]
+lib = pathlib.Path(native._lib._name)
+assert lib.parent == pathlib.Path("build/native").resolve(), lib
+assert nbuild.SRC == pathlib.Path("lctvqa_torch/native/src/native.cpp"
+                                  ).resolve()
+assert any("liblctvqa_native_" in s for s in seen), seen
+bad = [s for s in seen if jax_dir in s]
+assert not bad, bad
+""",
 }
 
 
 @pytest.mark.parametrize("run", list(RUNS))
 def test_serve_loads_with_jax_and_lctvqa_blocked(run):
-    """`import lctvqa_torch.serve`, and `python -m lctvqa_torch.export
-    --help`, with `jax` and `lctvqa` made unimportable: no module of
-    either is loaded."""
+    """`import lctvqa_torch.serve`, `python -m lctvqa_torch.export
+    --help`, and the C++ core with the data modules, with `jax` and
+    `lctvqa` made unimportable: no module of either is loaded."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run([sys.executable, "-c", BLOCK + RUNS[run] + LOADED],
                           cwd=REPO, env=env, capture_output=True, text=True,

@@ -570,11 +570,14 @@ def test_loader_rows_are_the_jax_process_slices(count, synth_dir,
     package's process_index slices of every global batch (the same
     shuffle on every rank, the answers drawn from the rows it gathers),
     on the same directory. The JAX loader's native library is held off,
-    as tests/test_torch_train_steps.py holds it."""
+    as tests/test_torch_train_steps.py holds it, and the port's C++ core
+    with it."""
     from lctvqa import native as j_native
     from lctvqa.data import pipeline as j_pipeline
+    from lctvqa_torch import native
 
     monkeypatch.setattr(j_native, "available", lambda: False)
+    monkeypatch.setattr(native, "available", lambda: False)
     ds = pipeline.get_loader(synth_dir, 8)["train"]
     j_ds = j_pipeline.VqaH5Dataset(synth_dir, "train")
     for r in range(count):

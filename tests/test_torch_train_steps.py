@@ -249,11 +249,15 @@ def test_dataset_gathers_as_the_jax_loader_does(synth, monkeypatch):
     built from arrays in RAM give the same batches from the same rng. The
     JAX loader's native library is held off: its image gather would load
     it even on the numpy path, and tests/test_native.py may be rewriting
-    it in another worker at that moment."""
+    it in another worker at that moment. The port's C++ core is held off
+    the same way, so both take the numpy route (tests/test_torch_native.py
+    holds the two cores' route to each other)."""
     from lctvqa import native as j_native
     from lctvqa.data import pipeline as j_pipeline
+    from lctvqa_torch import native
 
     monkeypatch.setattr(j_native, "available", lambda: False)
+    monkeypatch.setattr(native, "available", lambda: False)
 
     d, arrays = synth
     ours = pipeline.get_loader(d, 8)
