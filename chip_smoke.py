@@ -272,7 +272,14 @@ non-zero:
    against their plain versions (see check_sync_bn_kernels for the
    limits), their grid the card's, two calls the same bits, timed at
    [32,64,64,32] beside their bound and PyTorch's SyncBatchNorm building
-   blocks. Then three spawned processes: two ranks on cuda:0 over gloo
+   blocks. The mixed-op node kernels' data-parallel mode (rows 5s and
+   6s: six launches, A, B, Z and R, S, X) at a rank's half of cell 0
+   (N=32 of 64, 64x64, Cs 4, E=5) in this process: a SyncForward and a
+   SyncBackward on each half, their sums added between the launches as
+   two ranks' all-reduce adds them, the halves' outputs against the
+   one-process kernel on the whole batch at phase 2's forward limit;
+   each launch and each direction event-timed and profiled beside the
+   plain version and the bound. Then three spawned processes: two ranks on cuda:0 over gloo
    (NCCL refuses two ranks on one device), each on its 32 rows, and one
    rank of an NCCL group on the whole batch (the data-parallel path at
    one rank, its sums over NCCL); meanwhile this process runs the main
@@ -283,8 +290,21 @@ non-zero:
    counts set to 0 just before it and read just after it. The gloo ranks
    run the sync BatchNorm at the six shapes (held to its plain versions
    summed over the two halves and to the one-launch kernel on the whole
-   batch, at phase 2's BatchNorm limits); every rank runs the same main
-   path, its counts likewise. Each rank against the reference: the
+   batch, at phase 2's BatchNorm limits) and the node's data-parallel
+   forward and backward on their rows of cell 0, both dtypes, each
+   against the plain version under the same process group (moments
+   all-reduced; the backward's taking the kernel's inner ReLU decisions)
+   at phase 2's node limits and its second call's bits, then the two
+   ranks together against the one-process kernel on the global batch
+   (outputs and dx concatenated, weight-gradient shares summed; where an
+   inner ReLU input within an ulp of 0 falls on the other side, against
+   the plain backward on the global batch with the ranks' decisions),
+   and a whole call with its gloo all-reduces timed; every rank runs the
+   same main path, its counts likewise, and the gloo ranks then stage 1
+   with pallas_mixed_op from the same start, as this process does on the
+   whole batch: loss, counters, gradient and EF held as below, the six
+   data-parallel node launches counted on each rank (and the one-process
+   node kernels not), the two ranks' EF the same bits. Each rank against the reference: the
    losses within 1e-5 of one process's, the counters equal, the
    gradient each step's optimizer took (stage 3's arch, stage 1's EF,
    stage 2's W heads, copied as the optimizer receives it) within phase
@@ -329,7 +349,10 @@ It prints the card's name and power limit, one JSON line of the kernels
 (times, bounds and launch counts; `derived_launches`, `darts_launches`
 and `unified_launches` are phases 10 and 11's kernel-flag training runs';
 the decode's row carries its V = 8197 case under `unified_vocab`; the
-two-launch BatchNorm kernels' rows count phase 13's rank 0), and last
+two-launch BatchNorm kernels' rows count phase 13's rank 0, and so do
+the data-parallel node rows, mixed_node_fwd_sync and mixed_node_bwd_sync,
+their `launches` a call's count on phase 13's node stage 1 with each
+launch's under `launch_counts`), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -1200,19 +1223,14 @@ def check_node_kernel(device, batches=BATCHES, time_fn=time_ms):
                     got = cuda_mixedop.mixed_node(xs, ops[:edges], wts, cs)
                     want = cuda_mixedop.mixed_node_plain(xs, nodes, wts, cs)
                     torch.cuda.synchronize()
-                    diff = (got - want).abs()
-                    limit = (1e-5 + 1e-5 * want.abs() if dname == "float32"
-                             else 4 * 2.0 ** -7 * float(wts.max())
-                             + 0 * want)
-                    err = float(diff.max())
+                    over = _node_fwd_over(got, want, wts, dname)
+                    err = float((got - want).abs().max())
                     tag = (f"mixed_node_fwd {cell} {h}x{w} Cs={cs} E={edges} "
                            f"N={n} {dname}")
                     expect(got.shape == (n, h, w, cs)
-                           and got.dtype == torch.float32
-                           and bool(torch.isfinite(got).all())
-                           and bool((diff <= limit).all()),
-                           f"{tag}: max |kernel - plain| = {err} exceeds "
-                           f"{float(limit.max())}")
+                           and got.dtype == torch.float32 and over <= 1.0,
+                           f"{tag}: max |kernel - plain| = {err}, {over:.3f} "
+                           "of the limit")
                     ms, by = node_bound(n, h, w, cs, edges, dname)
                     r = results[(cell, edges, n, dname)] = {
                         "err": err, "bound_ms": ms, "bound_by": by,
@@ -1434,9 +1452,7 @@ def _node_bwd_draw(device, batches, time_fn):
                                        kept=(obuf, stat))
                 if hasattr(M, "sep_inner_inputs_kept") else auto)
         torch.cuda.synchronize()
-        fp32 = dname == "float32"
-        tols = [1e-4 if fp32 else 2.0 ** -7] * edges + [
-            1e-4 if fp32 else 2e-3] * 3
+        tols = _node_bwd_tols(edges, dname)
         ok, rel, _ = _node_grads_within(got, want, tols)
         _, rel_auto, worst = _node_grads_within(got, auto, tols)
         tag = (f"mixed_node_bwd {cell} {h}x{w} Cs={cs} E={edges} "
@@ -1464,6 +1480,26 @@ def _node_bwd_draw(device, batches, time_fn):
         log(f"kernel {tag}: {_times(r)}")
         del obuf, stat, got, want, auto
     return results
+
+
+def _node_fwd_over(got, want, wts, dname) -> float:
+    """The node forward's largest error as a share of phase 2's limit
+    (check_node_kernel): fp32 1e-5 + 1e-5 |plain|, bf16 4 ulp of bf16 at
+    the largest weight."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        return float("inf")
+    diff = (got.float() - want.float()).abs()
+    limit = (1e-5 + 1e-5 * want.float().abs() if dname == "float32"
+             else torch.full_like(diff, 4 * 2.0 ** -7 * float(wts.max())))
+    return float((diff / limit).max())
+
+
+def _node_bwd_tols(edges: int, dname: str) -> list:
+    """Phase 2's node backward limits (check_node_bwd_kernel): each dx,
+    then d dw, d pw and d weights, relative to their own scale."""
+    fp32 = dname == "float32"
+    return [1e-4 if fp32 else 2.0 ** -7] * edges + [
+        1e-4 if fp32 else 2e-3] * 3
 
 
 def _node_grads_within(got, want, tols):
@@ -3845,12 +3881,26 @@ SYNC_BN_KERNELS = {
     "bn_fwd_apply": "lctvqa/ops/pallas_bn.py:81",
     "bn_bwd_sums": "lctvqa/ops/pallas_bn.py:95",
     "bn_bwd_apply": "lctvqa/ops/pallas_bn.py:95"}
-# what a data-parallel run must launch, and must not (the node kernels
-# raise under data parallelism; the one-launch BatchNorm gives way to the
-# two-launch one)
+# the node kernels' data-parallel mode (rows 5s and 6s): row -> (its
+# launches, the TPU kernel it replaces)
+SYNC_NODE_KERNELS = {
+    "mixed_node_fwd_sync": (("mixed_node_fwd_sync_a", "mixed_node_fwd_sync_b",
+                             "mixed_node_fwd_sync_z"),
+                            "lctvqa/ops/pallas_mixedop.py:425"),
+    "mixed_node_bwd_sync": (("mixed_node_bwd_sync_r", "mixed_node_bwd_sync_s",
+                             "mixed_node_bwd_sync_x"),
+                            "lctvqa/ops/pallas_mixedop.py:721")}
+SYNC_NODE_LAUNCHES = tuple(k for ks, _ in SYNC_NODE_KERNELS.values()
+                           for k in ks)
+# the node of their checks: supernet cell 0 (64x64, Cs 4) with E edges, on
+# the global batch of PARALLEL_BATCH rows
+SYNC_NODE_CASE = ("cell0", 5)
+# what a data-parallel run of the main path must launch, and must not (the
+# one-launch BatchNorm gives way to the two-launch one; the node kernels
+# run only with pallas_mixed_op, in the stage 1 of node_stage1)
 PARALLEL_LAUNCHED = LSTM_KERNELS + tuple(SYNC_BN_KERNELS)
 PARALLEL_NOT_LAUNCHED = ("mixed_node_fwd", "mixed_node_bwd", "bn_fwd",
-                         "bn_bwd")
+                         "bn_bwd") + SYNC_NODE_LAUNCHES
 # the supernet's six BatchNorm shapes (global rows) and the dtype pairs of
 # the sync check: (x, y) forward, (x, g) backward
 SYNC_BN_SHAPES = BN_SHAPES[:6]
@@ -4030,14 +4080,328 @@ def sync_bn_ranks(device, rows: slice):
                     x, g, stat))
     return out, ms
 
+def sync_node_inputs(device):
+    """The node checks' tensors at SYNC_NODE_CASE, the same on every rank
+    (a seeded CPU generator): the global batch's E edge states [64, 64,
+    64, 16] fp32, their packed weights, the weights [E, 8], g [64, 64, 64,
+    4]."""
+    from lctvqa_torch.models import search
+    from lctvqa_torch.ops import cuda_mixedop as M
+
+    cell, edges = SYNC_NODE_CASE
+    h, w, c, _ = NODE_SHAPES[cell]
+    gen = torch.Generator().manual_seed(SEED + 31)
+    nodes = [M.node_weights(_to(search.mixed_op_init(gen, c, 1, 4), device))
+             for _ in range(edges)]
+    xs = [torch.randn(PARALLEL_BATCH, h, w, c, generator=gen).to(device)
+          for _ in range(edges)]
+    g = torch.randn(PARALLEL_BATCH, h, w, c // 4, generator=gen).to(device)
+    wts = (torch.softmax(torch.randn(edges, 8, generator=gen), 1)
+           * torch.softmax(torch.randn(edges, generator=gen), 0)[:, None]
+           ).to(device)
+    return xs, nodes, wts, g
+
+
+def sync_node_ranks(device, rows: slice) -> dict:
+    """On each rank, in both dtypes: the node's data-parallel forward and
+    backward (node_fwd_sync, node_bwd_sync) on its rows of the node inputs
+    against their plain versions under the same process group (moments
+    all-reduced through cuda_bn.batch_moments; the backward's taking the
+    kernel's inner ReLU decisions, kept=), and a second call's bits.
+    -> per dtype the checks' numbers and, on the host, the output, dx,
+    this rank's shares of the weight gradients and the inner BatchNorms'
+    planes and statistics; and the ms of a whole call with its gloo
+    all-reduces, the kernels' and the plain version's, in bf16. The
+    checks are made by the main process (check_sync_node_ranks)."""
+    from lctvqa_torch.ops import cuda_mixedop as M
+
+    xs_all, nodes, wts, g_all = sync_node_inputs(device)
+    cs = g_all.shape[-1]
+    out = {}
+    for dname, dtype in DTYPES.items():
+        xs = [x[rows].to(dtype)[..., :cs] for x in xs_all]
+        g = g_all[rows].contiguous()
+        y, obuf, stat = M.node_fwd_sync(xs, nodes, wts, cs, device)
+        grads = M.node_bwd_sync(xs, nodes, wts, g, obuf, stat, cs, device)
+        y2, obuf2, stat2 = M.node_fwd_sync(xs, nodes, wts, cs, device)
+        grads2 = M.node_bwd_sync(xs, nodes, wts, g, obuf2, stat2, cs, device)
+        y_p = M.mixed_node_plain(xs, nodes, wts, cs)
+        grads_p = M.mixed_node_bwd_plain(xs, nodes, wts, g, cs,
+                                         kept=(obuf, stat))
+        torch.cuda.synchronize()
+        ok, rel, _ = _node_grads_within(grads, grads_p,
+                                        _node_bwd_tols(len(xs), dname))
+        flat = [y, obuf, stat, *grads[0], *grads[1:]]
+        flat2 = [y2, obuf2, stat2, *grads2[0], *grads2[1:]]
+        out[dname] = {
+            "fwd_over": _node_fwd_over(y, y_p, wts, dname),
+            "fwd_err": float((y - y_p).abs().max()), "bwd_ok": ok,
+            "bwd_err": rel, "dtype_ok": grads[0][0].dtype == dtype,
+            "same_bits": all(torch.equal(a, b) for a, b in zip(flat, flat2)),
+            "y": y.cpu(), "dx": [d.cpu() for d in grads[0]],
+            "shares": [t.cpu() for t in grads[1:]],
+            "obuf2": obuf[:2].cpu(), "stat": stat.cpu()}
+        if dname == "bfloat16":
+            out["call_ms"] = {
+                "fwd": time_ms(lambda: M.node_fwd_sync(xs, nodes, wts, cs,
+                                                       device)),
+                "bwd": time_ms(lambda: M.node_bwd_sync(
+                    xs, nodes, wts, g, obuf, stat, cs, device)),
+                "plain_fwd": time_ms(lambda: M.mixed_node_plain(
+                    xs, nodes, wts, cs), reps=5, warmup=1),
+                "plain_bwd": time_ms(lambda: M.mixed_node_bwd_plain(
+                    xs, nodes, wts, g, cs), reps=3, warmup=1)}
+    return out
+
+
+def sync_node_launch_times(device) -> dict:
+    """The node's data-parallel launches with the card to themselves (no
+    process group), at a rank's half of SYNC_NODE_CASE: a SyncForward and
+    a SyncBackward on each half of the global batch, their sums added
+    between the launches as two ranks' all-reduce adds them, the halves'
+    outputs together against the one-process kernel on the global batch
+    at phase 2's forward limit. Then each launch (a memset, the finish of
+    the statistics where it has one, its stage) and each direction's three
+    together are event-timed and profiled (device us, retried), beside the
+    plain version at the same half without a process group and the bound.
+    -> {row name: row} in bf16; fp32 logged."""
+    from lctvqa_torch.ops import cuda_mixedop as M
+
+    xs_all, nodes, wts, g_all = sync_node_inputs(device)
+    cell, edges = SYNC_NODE_CASE
+    h, w, c, _ = NODE_SHAPES[cell]
+    cs, half = c // 4, PARALLEL_BATCH // PARALLEL_RANKS
+    halves = [slice(r * half, (r + 1) * half) for r in range(PARALLEL_RANKS)]
+
+    def add(bufs):  # the all-reduce of the ranks, in this process
+        total = sum(b.clone() for b in bufs)
+        for b in bufs:
+            b.copy_(total)
+
+    rows = {}
+    for dname, dtype in DTYPES.items():
+        xs = [[x[k].to(dtype)[..., :cs] for x in xs_all] for k in halves]
+        gs = [g_all[k].contiguous() for k in halves]
+        fwd = [M.SyncForward(x, nodes, wts, cs, device, ranks=PARALLEL_RANKS)
+               for x in xs]
+        for step, part in (("a", slice(0, 2)), ("b", slice(2, None)),
+                           ("z", None)):
+            for f in fwd:
+                getattr(f, step)()
+            if part is not None:
+                add([f.sums[part] for f in fwd])
+        bwd = [M.SyncBackward(x, nodes, wts, g, f.obuf, f.stat, cs, device,
+                              ranks=PARALLEL_RANKS)
+               for x, g, f in zip(xs, gs, fwd)]
+        for step, sums in (("r", "sums_r"), ("s", "sums_s"), ("x", None)):
+            for b in bwd:
+                getattr(b, step)()
+            if sums is not None:
+                add([getattr(b, sums) for b in bwd])
+        whole_x = [x.to(dtype)[..., :cs] for x in xs_all]
+        one, obuf, stat = M.node_fwd_launch(whole_x, nodes, wts, cs, device)
+        one_bwd = M.node_bwd_launch(whole_x, nodes, wts, g_all.contiguous(),
+                                    obuf, stat, cs, device)
+        out = torch.cat([f.out for f in fwd])
+        over = _node_fwd_over(out, one, wts, dname)
+        expect(over <= 1.0, f"node sync {dname}: two halves in one process "
+               f"against the one-process kernel: {over:.3f} of the limit")
+        parts = [b.outputs() for b in bwd]
+        _, bwd_rel, _ = _node_grads_within(
+            ([torch.cat([p[0][e] for p in parts]) for e in range(edges)],
+             *(sum(p[i] for p in parts) for i in (1, 2, 3))), one_bwd,
+            _node_bwd_tols(edges, dname))
+        errs = {"mixed_node_fwd_sync": float((out - one).abs().max()),
+                "mixed_node_bwd_sync": bwd_rel}
+        del one, obuf, stat, one_bwd, parts
+        f0, b0 = fwd[0], bwd[0]
+        # the backward first: a timed call's sums are not added to the
+        # other half's, so what it leaves is not read again
+        for name, launches, plain, (b_ms, by) in (
+                ("mixed_node_bwd_sync", (b0.r, b0.s, b0.x),
+                 lambda: M.mixed_node_bwd_plain(xs[0], nodes, wts, gs[0],
+                                                cs),
+                 node_bwd_bound(half, h, w, cs, edges, dname)),
+                ("mixed_node_fwd_sync", (f0.a, f0.b, f0.z),
+                 lambda: M.mixed_node_plain(xs[0], nodes, wts, cs),
+                 node_bound(half, h, w, cs, edges, dname))):
+            fns = dict(zip(SYNC_NODE_KERNELS[name][0], launches))
+
+            def whole(launches=launches):
+                for f in launches:
+                    f()
+
+            r = {"err": errs[name], "bound_ms": b_ms, "bound_by": by,
+                 "library_ms": None, "ms": time_ms(whole),
+                 "plain_ms": time_ms(plain, reps=3, warmup=1),
+                 "launch_ms": {k: time_ms(f) for k, f in fns.items()}}
+            tag = (f"{name} {cell} {h}x{w} Cs={cs} E={edges} N={half} (a "
+                   f"rank's half of {PARALLEL_BATCH}) {dname}")
+            log(f"kernel {tag}: {_times(r)}; launches "
+                + ", ".join(f"{k} {v:.3f} ms"
+                            for k, v in r["launch_ms"].items())
+                + "; max_abs_err (backward: of each gradient's scale) of "
+                "the two halves against the one-process kernel on the "
+                "whole batch")
+            if dname == "bfloat16":
+                r["device_us"] = _sync_device_us(tag, whole)
+                r["launch_device_us"] = {k: _sync_device_us(k, f)
+                                         for k, f in fns.items()}
+                rows[name] = r
+    return rows
+
+
+def check_sync_node_ranks(gloo, device) -> dict:
+    """The ranks' data-parallel node calls (sync_node_ranks): each within
+    phase 2's limits of its plain version under the process group, its
+    second call the same bits, the two ranks' statistics the same bits;
+    then the two ranks together against the one-process kernel on the
+    global batch (the outputs and dx concatenated, the gradient shares
+    summed) at the same limits. An inner ReLU input within an ulp of 0 can
+    fall on either side in two orders of the statistics' sums (ROADMAP.md
+    section 3, the node backward's fp32 dx): where the backward is beyond
+    the limit, it passes only if some inner ReLU decision of the ranks
+    differs from the one-process kernel's and the ranks' gradients are
+    within the limit of the plain backward on the global batch that takes
+    the ranks' decisions. -> {dtype: (forward error, backward error relative to
+    scale)}, the worst rank's against its plain version."""
+    from lctvqa_torch.ops import cuda_mixedop as M
+
+    xs_all, nodes, wts, g = sync_node_inputs(device)
+    cs = g.shape[-1]
+    worst = {}
+    for dname, dtype in DTYPES.items():
+        per = [out["node"][dname] for out in gloo]
+        for r, res in enumerate(per):
+            tag = f"parallel gloo rank {r} node sync {dname}"
+            expect(res["fwd_over"] <= 1.0, f"{tag}: forward off the plain "
+                   f"version by {res['fwd_over']:.3f} of the limit")
+            expect(res["bwd_ok"] and res["dtype_ok"], f"{tag}: a gradient "
+                   f"off the plain version's by {res['bwd_err']} of its "
+                   "scale")
+            expect(res["same_bits"], f"{tag}: two calls differ")
+        expect(torch.equal(per[0]["stat"], per[1]["stat"]),
+               f"node sync {dname}: the ranks' statistics differ")
+        worst[dname] = (max(res["fwd_err"] for res in per),
+                        max(res["bwd_err"] for res in per))
+        xs = [x.to(dtype)[..., :cs] for x in xs_all]
+        y1, obuf1, stat1 = M.node_fwd_launch(xs, nodes, wts, cs, device)
+        want = M.node_bwd_launch(xs, nodes, wts, g.contiguous(), obuf1,
+                                 stat1, cs, device)
+        got = ([torch.cat([res["dx"][e] for res in per]).to(device)
+                for e in range(len(xs))],
+               *(sum(res["shares"][i] for res in per).to(device)
+                 for i in range(3)))
+        y = torch.cat([res["y"] for res in per]).to(device)
+        fwd_over = _node_fwd_over(y, y1, wts, dname)
+        tols = _node_bwd_tols(len(xs), dname)
+        ok, rel, _ = _node_grads_within(got, want, tols)
+        note = ""
+        if not ok:
+            kept = (torch.cat([res["obuf2"] for res in per], -1).to(device),
+                    per[0]["stat"].to(device))
+            flips = sum(int(((a > 0) != (b > 0)).sum())
+                        for za, zb in zip(
+                            M.sep_inner_inputs_kept(obuf1, stat1,
+                                                    y1.shape[:3]),
+                            M.sep_inner_inputs_kept(*kept, y1.shape[:3]))
+                        for a, b in zip(za, zb))
+            plain = M.mixed_node_bwd_plain(xs, nodes, wts, g, cs, kept=kept)
+            ok2, rel2, _ = _node_grads_within(got, plain, tols)
+            ok = flips > 0 and ok2
+            note = (f"; beyond the limit with {flips} inner ReLU "
+                    "decision(s) differing from the one-process kernel's, "
+                    f"{rel2:.3e} of scale against the plain backward on "
+                    "the global batch with the ranks' decisions")
+        expect(fwd_over <= 1.0 and ok,
+               f"node sync {dname} on two ranks against the one-process "
+               f"kernel on the global batch: forward {fwd_over:.3f} of the "
+               f"limit, gradients {rel:.3e} of scale{note}")
+        log(f"node sync {dname} on two ranks: against the plain version "
+            f"under the group forward {worst[dname][0]:.3e}, gradients "
+            f"{worst[dname][1]:.3e} of scale; against the one-process "
+            f"kernel on the global batch of {PARALLEL_BATCH} forward "
+            f"{fwd_over:.3f} of the limit, gradients {rel:.3e} of "
+            f"scale{note}")
+        del obuf1, stat1, want, got
+    return worst
+
+
+def _snapshot(tree):
+    """A copy of a parameter tree on its device."""
+    from lctvqa_torch.optim.optimizers import tree_map
+
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def node_stage1(exp, train, ef0, arch0):
+    """Stage 1 with the node kernels (pallas_mixed_op) on the Experiment's
+    rows of the global train batch, from the EF and arch it started with
+    (ef0, arch0), the launch counts set to 0 just before it and read just
+    after. -> ({loss, counters, the EF after the step and the gradient its
+    optimizer took, on the host, its lr}, launches)."""
+    import dataclasses
+
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.parallel import mesh as mesh_lib
+    from lctvqa_torch.train.steps import make_lct_steps
+
+    cfg = dataclasses.replace(exp.cfg, model=dataclasses.replace(
+        exp.cfg.model, pallas_mixed_op=True))
+    steps = make_lct_steps(cfg, exp.ans_vocab.unk2idx, exp.device)
+    batch = exp._to_device(mesh_lib.shard_batch(train, exp.mesh))
+    opt = steps["ef_tx"].init(ef0)
+    with identity_dropout(), optimizer_grads() as calls:
+        _build.reset_launch_counts()
+        p, _, loss, c1, c2 = steps["stage1"](ef0, arch0, opt, batch, exp.gen)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+    expect(len(calls) == 1, f"node stage 1 made {len(calls)} optimizer "
+           "steps, not 1")
+    return ({"ef": _host_tree(p), "grads": _host_grads(ef0, calls[0]),
+             "loss": float(loss), "counts": (int(c1), int(c2)),
+             "lr": float(opt["lr"])}, launches)
+
+
+def _node_stage1_agrees(tag, out, ref, ref_launches):
+    """Stage 1 with the node kernels under a process group against one
+    process's: the loss within PARALLEL_LOSS_RTOL, the counters equal, the
+    gradient within phase 8's limit, the EF within test_mesh's tolerances
+    with the 2-lr rule of _trees_close; the rank launched every
+    data-parallel node kernel and not the one-process ones, one process
+    the reverse."""
+    got, launches = out["node_stage1"], out["node_launches"]
+    expect(abs(got["loss"] - ref["loss"]) <= PARALLEL_LOSS_RTOL
+           * abs(ref["loss"]), f"{tag}: loss {got['loss']} vs {ref['loss']}")
+    expect(got["counts"] == ref["counts"],
+           f"{tag}: counters {got['counts']} vs {ref['counts']}")
+    _grads_agree(got["grads"], ref["grads"],
+                 f"{tag} EF gradient vs one process")
+    _trees_close(got["ef"], ref["ef"], PARALLEL_PARAM_TOL,
+                 f"{tag} EF vs one process", grads=ref["grads"],
+                 lr=ref["lr"])
+    for name in SYNC_NODE_LAUNCHES:
+        expect(launches[name] > 0, f"{tag}: {name} never launched")
+        expect(ref_launches[name] == 0,
+               f"one process's node stage 1 launched {name}")
+    for name in ("mixed_node_fwd", "mixed_node_bwd"):
+        expect(launches[name] == 0, f"{tag}: {name} launched under data "
+               "parallelism")
+        expect(ref_launches[name] > 0,
+               f"one process's node stage 1 never launched {name}")
+    log(f"{tag}: loss {got['loss']:.6f} (one process {ref['loss']:.6f}); "
+        "launches " + ", ".join(f"{k} {launches[k]}"
+                                for k in SYNC_NODE_LAUNCHES))
+
 
 def _parallel_rank(rank: int, world: int, port: int, backend: str,
                    label: str, device: str, tmp: str) -> None:
     """One rank of phase 13 (a spawned process): `world` ranks of
     `backend` on `device`, its results in `tmp`/<label><rank>.pt. The two
-    "dp" ranks: the sync BatchNorm on their rows, then the main path on
-    their rows; the "one" rank (NCCL on the card): the main path on the
-    whole batch."""
+    "dp" ranks: the sync BatchNorm and the data-parallel node calls on
+    their rows, then the main path on their rows, then stage 1 with the
+    node kernels from the same start; the "one" rank (NCCL on the card):
+    the main path on the whole batch."""
     import traceback
 
     from lctvqa_torch.data import pipeline
@@ -4062,11 +4426,16 @@ def _parallel_rank(rank: int, world: int, port: int, backend: str,
             rows = mesh_lib.shard_rows(PARALLEL_BATCH,
                                        mesh_lib.make_mesh(world))
             out["bn"], out["bn_ms"] = sync_bn_ranks(device, rows)
+            out["node"] = sync_node_ranks(device, rows)
         exp = Experiment(parallel_config(tmp, f"parallel_{label}"),
                          device=device,
                          data=pipeline.loader_from_arrays(arrays))
+        start = _snapshot(exp.ef_params), _snapshot(exp.arch)
         out["result"], out["launches"], out["ms"] = parallel_steps(
             exp, train, valid)
+        if label == "dp":
+            out["node_stage1"], out["node_launches"] = node_stage1(
+                exp, train, *start)
         out["peak_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
                            if device.type == "cuda" else 0.0)
         torch.save(out, Path(tmp) / f"{label}{rank}.pt")
@@ -4335,6 +4704,7 @@ def parallel_phase(arrays, device, root: str, card: str) -> dict:
     procs = []
     try:
         rows = check_sync_bn_kernels(device)
+        rows.update(sync_node_launch_times(device))
         # the ranks start up while this process runs the reference
         procs = [ctx.Process(target=_parallel_rank,
                              args=(r, w, ports[label], be, label, on, tmp))
@@ -4346,8 +4716,10 @@ def parallel_phase(arrays, device, root: str, card: str) -> dict:
         exp = Experiment(parallel_config(root, "parallel_ref"),
                          device=device,
                          data=pipeline.loader_from_arrays(arrays))
+        start = _snapshot(exp.ef_params), _snapshot(exp.arch)
         ref, ref_launches, ref_ms = parallel_steps(exp, train, valid)
-        del exp
+        node_ref, node_ref_launches = node_stage1(exp, train, *start)
+        del exp, start
         one_launch = {}
         for shape, (xb, gb) in sync_bn_inputs(device).items():
             for a, b in SYNC_BN_DTYPES:
@@ -4421,14 +4793,27 @@ def parallel_phase(arrays, device, root: str, card: str) -> dict:
         f"{gloo[0]['bn_ms']['bwd']:.3f} ms on rank 0 (informational: two "
         f"ranks share one card)")
 
+    # the node kernels' data-parallel mode on two ranks
+    node_err = check_sync_node_ranks(gloo, device)
+    ms = gloo[0]["node"]["call_ms"]
+    log(f"node sync on two ranks, a whole call with its gloo all-reduces "
+        f"at a rank's half of {SYNC_NODE_CASE} bfloat16 on rank 0: forward "
+        f"{ms['fwd']:.3f} ms (plain version {ms['plain_fwd']:.3f} ms), "
+        f"backward {ms['bwd']:.3f} ms (plain version {ms['plain_bwd']:.3f} "
+        "ms) (informational: two ranks share one card)")
+
     # the main path on two gloo ranks, and on one NCCL rank, against one
-    # process with no process group
+    # process with no process group; stage 1 with the node kernels
     for r, out in enumerate(gloo):
         _parallel_agrees(f"parallel gloo rank {r}", out, ref)
+        _node_stage1_agrees(f"parallel gloo rank {r} node stage 1", out,
+                            node_ref, node_ref_launches)
     a, b = (out["result"] for out in gloo)
     for tree in ("ef", "arch", "w_heads"):
         expect(_same_bits(a[tree], b[tree]),
                f"parallel: the two ranks' {tree} differ")
+    expect(_same_bits(*(out["node_stage1"]["ef"] for out in gloo)),
+           "parallel: the two ranks' EF after node stage 1 differ")
     _parallel_agrees("parallel nccl (one rank)", nccl, ref)
     log(f"parallel train_step (stages 1 and 2) at B={PARALLEL_BATCH}: one "
         f"process {ref_ms:.1f} ms, two gloo ranks on one card "
@@ -4437,7 +4822,18 @@ def parallel_phase(arrays, device, root: str, card: str) -> dict:
         f"card) on {card}")
     log(f"parallel phase took {time.perf_counter() - t0:.1f} s")
     for name, row in rows.items():
-        row["launches"] = gloo[0]["launches"][name]
+        if name not in SYNC_NODE_KERNELS:
+            row["launches"] = gloo[0]["launches"][name]
+            continue
+        counts = {k: gloo[0]["node_launches"][k]
+                  for k in SYNC_NODE_KERNELS[name][0]}
+        expect(len(set(counts.values())) == 1,
+               f"{name}: its launches ran unequal times {counts}")
+        fwd = name == "mixed_node_fwd_sync"
+        row.update(launches=max(counts.values()), launch_counts=counts,
+                   err=node_err["bfloat16"][0 if fwd else 1],
+                   call_ms=ms["fwd" if fwd else "bwd"],
+                   plain_call_ms=ms["plain_fwd" if fwd else "plain_bwd"])
     return rows
 
 
@@ -5122,6 +5518,22 @@ def main(argv=None) -> int:
                 "bound_ms": r["bound_ms"], "max_abs_err": r["err"],
                 "fp32_ms": gen_unified[(64, "float32")]["ms"]}
     for name, r in sync_rows.items():
+        if name in SYNC_NODE_KERNELS:
+            cell, edges = SYNC_NODE_CASE
+            h, w, c, _ = NODE_SHAPES[cell]
+            rows.append({
+                "name": name, "route": "cuda",
+                "source": "lctvqa_torch/csrc/mixedop.cu",
+                "replaces": SYNC_NODE_KERNELS[name][1],
+                "max_abs_err": r["err"],
+                **{k: r[k] for k in (
+                    "launches", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "device_us", "launch_counts", "launch_ms",
+                    "launch_device_us", "call_ms", "plain_call_ms")},
+                "shape": f"{cell} {h}x{w} Cs={c // 4} E={edges} "
+                         f"N={PARALLEL_BATCH // PARALLEL_RANKS} bfloat16 (a "
+                         f"rank's half of N={PARALLEL_BATCH})"})
+            continue
         rows.append({"name": name, "route": "cuda",
                      "source": "lctvqa_torch/csrc/bn.cu",
                      "replaces": SYNC_BN_KERNELS[name],

@@ -50,7 +50,21 @@
 // addresses; the edge inputs are read through their strides, so a channel
 // slice needs no copy. The planes and statistics are what the backward
 // reads.
+//
+// Data-parallel mode (the *_sync entry points): each rank holds its share
+// of the batch, and every batch statistic is the global batch's. Each
+// launch is an entry point of its own, so that the caller can sum over the
+// ranks between them: the edge's last block writes this rank's per-channel
+// sums (in the same fixed order) to a small fp32 buffer instead of the
+// statistics, the caller all-reduces that buffer, and the next entry point
+// first turns the global sums into the statistics with the global count
+// (one small launch), then runs its stage. Forward: A, sums of the inner
+// BNs; B, sums of the six folded BNs; Z. Backward (below): R, sum g and
+// sum g o; S, sums of dz and dz xhat; X. Each entry point zeroes its own
+// counters. The parameter gradients stay this rank's share, taken with the
+// global statistics, for the caller to sum with the other gradients.
 #include <cmath>
+#include <type_traits>
 
 #include "fragments.cuh"
 #include "lstm_common.cuh"
@@ -284,8 +298,11 @@ __device__ __forceinline__ bool flush_and_count(const float* red,
 // In the last block of edge e: mean and 1/sqrt(var + eps) of `slots` slots
 // (slot_of) from the per-block sums, each the sum over blocks in a fixed
 // order (a lane's stride of 32, then a shuffle tree), one warp per entry.
+// With `sums` (data-parallel mode) it writes the two sums there instead,
+// laid out as stat.
 __device__ __forceinline__ void finish_stats(const float* partial,
-                                             float* stat, const int* slot_of,
+                                             float* stat, float* sums,
+                                             const int* slot_of,
                                              int slots, int e, int E, int Cs,
                                              long long nblk,
                                              float inv_count, float eps) {
@@ -315,12 +332,32 @@ __device__ __forceinline__ void finish_stats(const float* partial,
       s += __shfl_down_sync(0xffffffffu, s, d);
       q += __shfl_down_sync(0xffffffffu, q, d);
     }
-    if (lane == 0) {
+    if (lane == 0 && sums != nullptr) {
+      sums[entry * 2] = s;
+      sums[entry * 2 + 1] = q;
+    } else if (lane == 0) {
       const float mean = s * inv_count;
       const float var = q * inv_count - mean * mean;
       stat[entry * 2] = mean;
       stat[entry * 2 + 1] = 1.f / sqrtf(var + eps);
     }
+  }
+}
+
+// Data-parallel mode: mean and 1/sqrt(var + eps) of stat entries [lo, hi)
+// from the global sums (laid out as stat) of `count` pixels, with
+// finish_stats' arithmetic.
+__global__ void __launch_bounds__(kNodeThreads)
+    node_stat_finish_kernel(const float* __restrict__ sums,
+                            float* __restrict__ stat, long long lo,
+                            long long hi, float inv_count, float eps) {
+  for (long long i = lo + (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < hi; i += (long long)gridDim.x * blockDim.x) {
+    const float s = sums[i * 2], q = sums[i * 2 + 1];
+    const float mean = s * inv_count;
+    const float var = q * inv_count - mean * mean;
+    stat[i * 2] = mean;
+    stat[i * 2 + 1] = 1.f / sqrtf(var + eps);
   }
 }
 
@@ -336,13 +373,15 @@ constexpr size_t stage_smem_floats(int Cs, int branches, int slots) {
 // Launch A. grid (tiles, N, E). The edge's x tile with a 4-pixel halo, the
 // first stage of the four conv branches and both pools: six planes and
 // their per-block sums; the edge's last block finishes the statistics of
-// slots 0 and 1 (the sep convs' inner BatchNorm).
+// slots 0 and 1 (the sep convs' inner BatchNorm), or with `sums` writes
+// their sums.
 template <typename T, int TILE>
 __global__ void __launch_bounds__(kNodeThreads, 4)
     node_stage_a_kernel(NodeArgs args, T* __restrict__ obuf,
                         float* __restrict__ partial,
-                        float* __restrict__ stat, unsigned* ctr, int E,
-                        int H, int W, int Cs, int vec_x) {
+                        float* __restrict__ stat, float* __restrict__ sums,
+                        unsigned* ctr, int E, int H, int W, int Cs,
+                        int vec_x) {
   constexpr int HALO = 4;
   constexpr int PWID = TILE + 2 * HALO;
   constexpr int PLANE = PWID * PWID;
@@ -466,19 +505,20 @@ __global__ void __launch_bounds__(kNodeThreads, 4)
   const int slots[6] = {0, 1, 4, 5, 6, 7};
   if (flush_and_count(red, slots, 6, partial, ctr, e, E, Cs, g,
                       (unsigned)g.nblk))
-    finish_stats(partial, stat, slots, 2, e, E, Cs, g.nblk, 1.f / (float)M,
-                 1e-5f);
+    finish_stats(partial, stat, sums, slots, 2, e, E, Cs, g.nblk,
+                 1.f / (float)M, 1e-5f);
 }
 
 // Launch B. grid (tiles, N, 2 * E): z = 2 * e + which (0: sep3, 1: sep5).
 // The second stage of the sep convs from the first stage's plane through
-// its BatchNorm; the edge's last block finishes the six folded statistics.
+// its BatchNorm; the edge's last block finishes the six folded statistics
+// (with `sums`: writes their sums).
 template <typename T, int TILE>
 __global__ void __launch_bounds__(kNodeThreads)
     node_stage_b_kernel(NodeArgs args, T* __restrict__ obuf,
                         float* __restrict__ partial,
-                        float* __restrict__ stat, unsigned* ctr, int E,
-                        int H, int W, int Cs) {
+                        float* __restrict__ stat, float* __restrict__ sums,
+                        unsigned* ctr, int E, int H, int W, int Cs) {
   constexpr int HALO = 2;
   constexpr int PWID = TILE + 2 * HALO;
   constexpr int PLANE = PWID * PWID;
@@ -540,7 +580,7 @@ __global__ void __launch_bounds__(kNodeThreads)
   if (flush_and_count(red, slot_of, 1, partial, ctr, e, E, Cs, g,
                       2u * (unsigned)g.nblk)) {
     const int folds[kFoldSlots] = {2, 3, 4, 5, 6, 7};
-    finish_stats(partial, stat, folds, kFoldSlots, e, E, Cs, g.nblk,
+    finish_stats(partial, stat, sums, folds, kFoldSlots, e, E, Cs, g.nblk,
                  1.f / (float)M, 1e-5f);
   }
 }
@@ -674,30 +714,52 @@ inline bool edges_vec4(const NodeArgs& args, int E, int Cs, size_t elem) {
   return true;
 }
 
+template <int TILE>
+long long fwd_blocks(int N, int H, int W) {
+  return (long long)N * ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+}
+
+// The counters after the partial sums: E for launch A's, E for launch B's.
+template <int TILE>
+unsigned* fwd_counters(float* partial, int E, int N, int H, int W, int Cs) {
+  return reinterpret_cast<unsigned*>(
+      partial + (long long)8 * E * Cs * 2 * fwd_blocks<TILE>(N, H, W));
+}
+
 template <typename T, int TILE>
-cudaError_t node_fwd(const NodeArgs& args, const float* weights, T* obuf,
-                     float* partial, float* stat, float* out, int E, int N,
-                     int H, int W, int Cs, cudaStream_t s) {
+cudaError_t launch_stage_a(const NodeArgs& args, T* obuf, float* partial,
+                           float* stat, float* sums, unsigned* ctr, int E,
+                           int N, int H, int W, int Cs, cudaStream_t s) {
   const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
-  const long long nblk = (long long)N * tiles;
-  const long long M = (long long)N * H * W;
-  // two counters per edge after the partial sums: launch A's, launch B's
-  unsigned* ctr =
-      reinterpret_cast<unsigned*>(partial + (long long)8 * E * Cs * 2 * nblk);
-  const size_t smem_a = stage_smem_floats<TILE, 4>(Cs, 4, 6) * sizeof(float);
-  const size_t smem_b = stage_smem_floats<TILE, 2>(Cs, 1, 1) * sizeof(float);
-  cudaError_t rc = allow_smem(node_stage_a_kernel<T, TILE>, smem_a);
-  if (rc != cudaSuccess) return rc;
-  rc = allow_smem(node_stage_b_kernel<T, TILE>, smem_b);
-  if (rc != cudaSuccess) return rc;
-  rc = cudaMemsetAsync(ctr, 0, 2 * E * sizeof(unsigned), s);
+  const size_t smem = stage_smem_floats<TILE, 4>(Cs, 4, 6) * sizeof(float);
+  const cudaError_t rc = allow_smem(node_stage_a_kernel<T, TILE>, smem);
   if (rc != cudaSuccess) return rc;
   const int vec = edges_vec4(args, E, Cs, sizeof(T));
-  node_stage_a_kernel<T, TILE><<<dim3(tiles, N, E), kNodeThreads, smem_a, s>>>(
-      args, obuf, partial, stat, ctr, E, H, W, Cs, vec);
+  node_stage_a_kernel<T, TILE><<<dim3(tiles, N, E), kNodeThreads, smem, s>>>(
+      args, obuf, partial, stat, sums, ctr, E, H, W, Cs, vec);
+  return cudaGetLastError();
+}
+
+template <typename T, int TILE>
+cudaError_t launch_stage_b(const NodeArgs& args, T* obuf, float* partial,
+                           float* stat, float* sums, unsigned* ctr, int E,
+                           int N, int H, int W, int Cs, cudaStream_t s) {
+  const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+  const size_t smem = stage_smem_floats<TILE, 2>(Cs, 1, 1) * sizeof(float);
+  const cudaError_t rc = allow_smem(node_stage_b_kernel<T, TILE>, smem);
+  if (rc != cudaSuccess) return rc;
   node_stage_b_kernel<T, TILE>
-      <<<dim3(tiles, N, 2 * E), kNodeThreads, smem_b, s>>>(
-          args, obuf, partial, stat, ctr + E, E, H, W, Cs);
+      <<<dim3(tiles, N, 2 * E), kNodeThreads, smem, s>>>(
+          args, obuf, partial, stat, sums, ctr, E, H, W, Cs);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_final(const NodeArgs& args, const float* weights,
+                         const T* obuf, const float* stat, float* out, int E,
+                         int N, int H, int W, int Cs, cudaStream_t s) {
+  const long long M = (long long)N * H * W;
+  const int vec = edges_vec4(args, E, Cs, sizeof(T));
   const int px = M % 2 == 0 ? 2 : 1;
   const long long items = (long long)((Cs + 3) / 4) * (M / px);
   const long long want = (items + kNodeThreads - 1) / kNodeThreads;
@@ -710,6 +772,33 @@ cudaError_t node_fwd(const NodeArgs& args, const float* weights, T* obuf,
     node_final_kernel<T, 1><<<blocks, kNodeThreads, smem_z, s>>>(
         args, weights, obuf, stat, out, E, N, H, W, Cs, vec);
   return cudaGetLastError();
+}
+
+// Data-parallel mode: stat entries [lo, hi) from the global sums.
+inline cudaError_t launch_stat_finish(const float* sums, float* stat,
+                                      long long lo, long long hi,
+                                      long long count, cudaStream_t s) {
+  const long long want = (hi - lo + kNodeThreads - 1) / kNodeThreads;
+  node_stat_finish_kernel<<<(int)(want < 132 ? want : 132), kNodeThreads, 0,
+                            s>>>(sums, stat, lo, hi, 1.f / (float)count,
+                                 1e-5f);
+  return cudaGetLastError();
+}
+
+template <typename T, int TILE>
+cudaError_t node_fwd(const NodeArgs& args, const float* weights, T* obuf,
+                     float* partial, float* stat, float* out, int E, int N,
+                     int H, int W, int Cs, cudaStream_t s) {
+  unsigned* ctr = fwd_counters<TILE>(partial, E, N, H, W, Cs);
+  cudaError_t rc = cudaMemsetAsync(ctr, 0, 2 * E * sizeof(unsigned), s);
+  if (rc != cudaSuccess) return rc;
+  rc = launch_stage_a<T, TILE>(args, obuf, partial, stat, nullptr, ctr, E, N,
+                               H, W, Cs, s);
+  if (rc != cudaSuccess) return rc;
+  rc = launch_stage_b<T, TILE>(args, obuf, partial, stat, nullptr, ctr + E,
+                               E, N, H, W, Cs, s);
+  if (rc != cudaSuccess) return rc;
+  return launch_final<T>(args, weights, obuf, stat, out, E, N, H, W, Cs, s);
 }
 
 // Edge of the square pixel tile of one block of launches A and B: the most
@@ -732,6 +821,68 @@ cudaError_t node_fwd_tile(const NodeArgs& args, const float* weights,
       return node_fwd<T, 8>(args, weights, (T*)obuf, partial, stat, out, E,
                             N, H, W, Cs, s);
   }
+}
+
+// f(std::integral_constant<int, TILE>) at the tile of launches A, B, S, X.
+template <typename F>
+cudaError_t with_tile(int Cs, F f) {
+  switch (fwd_tile(Cs)) {
+    case 32:
+      return f(std::integral_constant<int, 32>());
+    case 16:
+      return f(std::integral_constant<int, 16>());
+    default:
+      return f(std::integral_constant<int, 8>());
+  }
+}
+
+// The data-parallel forward, one entry point a launch (see the top of the
+// file). A: zero A's counters, launch A, its sums of slots 0 and 1 into
+// `sums` ([8, E, Cs, 2] as stat).
+template <typename T>
+cudaError_t node_fwd_sync_a(const NodeArgs& args, void* obuf, float* partial,
+                            float* sums, int E, int N, int H, int W, int Cs,
+                            cudaStream_t s) {
+  return with_tile(Cs, [&](auto tile) {
+    constexpr int TILE = decltype(tile)::value;
+    unsigned* ctr = fwd_counters<TILE>(partial, E, N, H, W, Cs);
+    cudaError_t rc = cudaMemsetAsync(ctr, 0, E * sizeof(unsigned), s);
+    if (rc != cudaSuccess) return rc;
+    return launch_stage_a<T, TILE>(args, (T*)obuf, partial, nullptr, sums,
+                                   ctr, E, N, H, W, Cs, s);
+  });
+}
+
+// B: the statistics of slots 0 and 1 from the global sums of `count`
+// pixels, zero B's counters, launch B, its sums of slots 2..7 into `sums`.
+template <typename T>
+cudaError_t node_fwd_sync_b(const NodeArgs& args, void* obuf, float* partial,
+                            float* sums, float* stat, long long count, int E,
+                            int N, int H, int W, int Cs, cudaStream_t s) {
+  cudaError_t rc =
+      launch_stat_finish(sums, stat, 0, 2LL * E * Cs, count, s);
+  if (rc != cudaSuccess) return rc;
+  return with_tile(Cs, [&](auto tile) {
+    constexpr int TILE = decltype(tile)::value;
+    unsigned* ctr = fwd_counters<TILE>(partial, E, N, H, W, Cs) + E;
+    cudaError_t rc2 = cudaMemsetAsync(ctr, 0, E * sizeof(unsigned), s);
+    if (rc2 != cudaSuccess) return rc2;
+    return launch_stage_b<T, TILE>(args, (T*)obuf, partial, stat, sums, ctr,
+                                   E, N, H, W, Cs, s);
+  });
+}
+
+// Z: the statistics of slots 2..7 from the global sums, then launch Z.
+template <typename T>
+cudaError_t node_fwd_sync_z(const NodeArgs& args, const float* weights,
+                            const void* obuf, const float* sums, float* stat,
+                            float* out, long long count, int E, int N, int H,
+                            int W, int Cs, cudaStream_t s) {
+  const cudaError_t rc =
+      launch_stat_finish(sums, stat, 2LL * E * Cs, 8LL * E * Cs, count, s);
+  if (rc != cudaSuccess) return rc;
+  return launch_final<T>(args, weights, (const T*)obuf, stat, out, E, N, H,
+                         W, Cs, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -892,7 +1043,34 @@ __device__ __forceinline__ float fold_grad(const float* fc3, float gv,
   return fc3[0] * (gv - gb - (o - fc3[1]) * fc3[2]);
 }
 
-// Launch R. grid (chunks, E * channel groups of 4). The chunk's planes one
+// The folded BatchNorms' backward coefficients of edge e and its gbar from
+// sums [Cs][kRSums] (sum g, then sum g o of the six folded ops) over
+// 1 / inv_count pixels; the whole block calls it.
+__device__ __forceinline__ void fold_coefs(const float* sums,
+                                           const float* __restrict__ stat,
+                                           const float* __restrict__ weights,
+                                           float* __restrict__ fc,
+                                           float* __restrict__ gbar, int e,
+                                           int E, int Cs, float inv_count) {
+  for (int c = threadIdx.x; c < Cs; c += blockDim.x) {
+    const float gs = sums[c * kRSums];
+    gbar[e * Cs + c] = gs * inv_count;
+    for (int s = 0; s < kFoldSlots; ++s) {
+      const size_t entry = ((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c;
+      const float mu = stat[entry * 2], r = stat[entry * 2 + 1];
+      const float sc = sums[c * kRSums + 1 + s] - mu * gs;
+      float* out = fc + (((size_t)s * E + e) * Cs + c) * 3;
+      out[0] = weights[e * 8 + kSlotOp[s]] * r;
+      out[1] = mu;
+      out[2] = r * r * sc * inv_count;
+    }
+  }
+}
+
+// Launch R. grid (chunks, E * channel groups of 4). With `sums_out`
+// (data-parallel mode) the edge's last block writes this rank's sums there
+// ([E, Cs, kRSums]) in place of the coefficients; d w comes from this
+// rank's sums either way. The chunk's planes one
 // at a time (a block reads one contiguous run of a plane at once, as DRAM
 // prefers); g, read four channels a load, comes from L1 after the first
 // pass.
@@ -902,8 +1080,8 @@ __global__ void __launch_bounds__(kNodeThreads)
                       const float* __restrict__ stat,
                       const float* __restrict__ weights, float* part_r,
                       float* __restrict__ fc, float* __restrict__ gbar,
-                      float* __restrict__ dwt, unsigned* ctr, int E,
-                      long long M, int Cs, int vec_g) {
+                      float* __restrict__ sums_out, float* __restrict__ dwt,
+                      unsigned* ctr, int E, long long M, int Cs, int vec_g) {
   constexpr int kPer = kChunk / kNodeThreads;  // pixels a thread
   __shared__ float red[kNodeWarps][4];
   __shared__ float sums[kMaxCs * kRSums];
@@ -961,19 +1139,11 @@ __global__ void __launch_bounds__(kNodeThreads)
       [](int i) { return (long long)i; },
       [&](int i, float v) { sums[i] = v; });
   __syncthreads();
-  const float inv_count = 1.f / (float)M;
-  for (int c = threadIdx.x; c < Cs; c += blockDim.x) {
-    const float gs = sums[c * kRSums];
-    gbar[e * Cs + c] = gs * inv_count;
-    for (int s = 0; s < kFoldSlots; ++s) {
-      const size_t entry = ((size_t)(kFirstFoldSlot + s) * E + e) * Cs + c;
-      const float mu = stat[entry * 2], r = stat[entry * 2 + 1];
-      const float sc = sums[c * kRSums + 1 + s] - mu * gs;
-      float* out = fc + (((size_t)s * E + e) * Cs + c) * 3;
-      out[0] = weights[e * 8 + kSlotOp[s]] * r;
-      out[1] = mu;
-      out[2] = r * r * sc * inv_count;
-    }
+  if (sums_out != nullptr) {
+    for (int i = threadIdx.x; i < Cs * kRSums; i += blockDim.x)
+      sums_out[(size_t)e * Cs * kRSums + i] = sums[i];
+  } else {
+    fold_coefs(sums, stat, weights, fc, gbar, e, E, Cs, 1.f / (float)M);
   }
   if (threadIdx.x < kFoldSlots) {
     const int s = threadIdx.x;
@@ -1253,6 +1423,29 @@ constexpr size_t bwd_smem_floats(int Cs) {
          + kRedFloats + kNodeWarps;
 }
 
+// Data-parallel mode, before S: the coefficients from R's global sums
+// [E, Cs, kRSums] of `count` pixels. grid (E).
+__global__ void __launch_bounds__(kNodeThreads)
+    node_bwd_coef_kernel(const float* __restrict__ sums,
+                         const float* __restrict__ stat,
+                         const float* __restrict__ weights,
+                         float* __restrict__ fc, float* __restrict__ gbar,
+                         int E, int Cs, float inv_count) {
+  const int e = blockIdx.x;
+  fold_coefs(sums + (size_t)e * Cs * kRSums, stat, weights, fc, gbar, e, E,
+             Cs, inv_count);
+}
+
+// Data-parallel mode, before X: the means of dz and dz xhat from S's global
+// sums ([2, E, Cs, 2], laid out as mstat).
+__global__ void __launch_bounds__(kNodeThreads)
+    node_bwd_mean_kernel(const float* __restrict__ sums,
+                         float* __restrict__ mstat, int n, float inv_count) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += gridDim.x * blockDim.x)
+    mstat[i] = sums[i] * inv_count;
+}
+
 // Launch S. grid (tiles, N, 2 E): z = 2 e + which (0: sep3, 1: sep5).
 template <typename T, int TILE, int KK>
 __device__ __forceinline__ void sep2_branch(
@@ -1339,6 +1532,8 @@ __host__ __device__ constexpr int bwd_min_blocks() {
   return TILE >= 16 ? 2 : 1;
 }
 
+// With `sums_out` (data-parallel mode) the edge's last block writes the sums
+// of dz and dz xhat there in place of their means.
 template <typename T, int TILE>
 __global__ void __launch_bounds__(kNodeThreads, bwd_min_blocks<TILE>())
     node_bwd_s_kernel(NodeArgs args, const float* __restrict__ g,
@@ -1348,7 +1543,8 @@ __global__ void __launch_bounds__(kNodeThreads, bwd_min_blocks<TILE>())
                       const float* __restrict__ gbar, float* __restrict__ dzp,
                       float* part_s, float* __restrict__ part_dw,
                       float* __restrict__ part_pw, float* __restrict__ mstat,
-                      unsigned* ctr, int E, int H, int W, int Cs, int vec_g) {
+                      float* __restrict__ sums_out, unsigned* ctr, int E,
+                      int H, int W, int Cs, int vec_g) {
   extern __shared__ __align__(16) float smem[];
   const int e = blockIdx.z / 2, which = blockIdx.z % 2;
   const NodeEdge ed = args.edge[e];
@@ -1373,7 +1569,11 @@ __global__ void __launch_bounds__(kNodeThreads, bwd_min_blocks<TILE>())
       },
       [&](int i, float v) {
         const int which2 = i / (2 * Cs), rest = i % (2 * Cs);
-        mstat[(((size_t)which2 * E + e) * Cs) * 2 + rest] = v * inv_count;
+        const size_t at = (((size_t)which2 * E + e) * Cs) * 2 + rest;
+        if (sums_out != nullptr)
+          sums_out[at] = v;  // data-parallel mode: this rank's sums
+        else
+          mstat[at] = v * inv_count;
       });
 }
 
@@ -1694,44 +1894,92 @@ __global__ void __launch_bounds__(kNodeThreads, bwd_min_blocks<TILE>())
 // and X: the forward's.
 inline int bwd_tile(int Cs) { return fwd_tile(Cs); }
 
+// The backward's block count per edge of S and X, its scratch layout, its
+// counters (E each for R, S and X) and whether g (and dx) load four
+// channels at once.
+template <int TILE>
+struct BwdPlan {
+  int tiles;
+  long long nblk, M, nchunk;
+  BwdScratch b;
+  unsigned* ctr;
+  int vec_g;
+  BwdPlan(float* scratch, const float* g, const void* dx, size_t elem, int E,
+          int N, int H, int W, int Cs) {
+    tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+    nblk = (long long)N * tiles;
+    M = (long long)N * H * W;
+    nchunk = (M + kChunk - 1) / kChunk;
+    b = bwd_scratch(E, M, nblk, Cs);
+    ctr = reinterpret_cast<unsigned*>(scratch + b.ctr);
+    vec_g = Cs % 4 == 0 && (uintptr_t)g % 16 == 0 &&
+            (dx == nullptr || (uintptr_t)dx % (4 * elem) == 0);
+  }
+};
+
+template <typename T, int TILE>
+cudaError_t launch_bwd_r(const BwdPlan<TILE>& p, const float* g,
+                         const T* obuf, const float* stat,
+                         const float* weights, float* scratch, float* sums,
+                         float* dwt, int E, int Cs, cudaStream_t s) {
+  node_bwd_r_kernel<T>
+      <<<dim3((unsigned)p.nchunk, E * ((Cs + 3) / 4)), kNodeThreads, 0, s>>>(
+      g, obuf, stat, weights, scratch + p.b.part_r, scratch + p.b.fc,
+      scratch + p.b.gbar, sums, dwt, p.ctr, E, p.M, Cs, p.vec_g);
+  return cudaGetLastError();
+}
+
+template <typename T, int TILE>
+cudaError_t launch_bwd_s(const BwdPlan<TILE>& p, const NodeArgs& args,
+                         const float* g, const T* obuf, const float* stat,
+                         float* scratch, float* sums, int E, int N, int H,
+                         int W, int Cs, cudaStream_t s) {
+  const size_t smem = bwd_smem_floats<TILE, 2>(Cs) * sizeof(float);
+  const cudaError_t rc = allow_smem(node_bwd_s_kernel<T, TILE>, smem);
+  if (rc != cudaSuccess) return rc;
+  node_bwd_s_kernel<T, TILE>
+      <<<dim3(p.tiles, N, 2 * E), kNodeThreads, smem, s>>>(
+          args, g, obuf, stat, scratch + p.b.fc, scratch + p.b.gbar,
+          scratch + p.b.dzp, scratch + p.b.part_s, scratch + p.b.part_dw,
+          scratch + p.b.part_pw, scratch + p.b.mstat, sums, p.ctr + E, E, H,
+          W, Cs, p.vec_g);
+  return cudaGetLastError();
+}
+
+template <typename T, int TILE>
+cudaError_t launch_bwd_x(const BwdPlan<TILE>& p, const NodeArgs& args, T* dx,
+                         const float* weights, const float* g, const T* obuf,
+                         const float* stat, float* scratch, float* ddw,
+                         float* dpw, float* dwt, int E, int N, int H, int W,
+                         int Cs, cudaStream_t s) {
+  const size_t smem = bwd_smem_floats<TILE, 4>(Cs) * sizeof(float);
+  const cudaError_t rc = allow_smem(node_bwd_x_kernel<T, TILE>, smem);
+  if (rc != cudaSuccess) return rc;
+  const int vec_x = edges_vec4(args, E, Cs, sizeof(T));
+  node_bwd_x_kernel<T, TILE><<<dim3(p.tiles, N, E), kNodeThreads, smem, s>>>(
+      args, dx, weights, g, obuf, stat, scratch + p.b.fc, scratch + p.b.gbar,
+      scratch + p.b.dzp, scratch + p.b.mstat, scratch + p.b.part_dw,
+      scratch + p.b.part_pw, scratch + p.b.part_skip, ddw, dpw, dwt,
+      p.ctr + 2 * E, E, H, W, Cs, vec_x, p.vec_g);
+  return cudaGetLastError();
+}
+
 template <typename T, int TILE>
 cudaError_t node_bwd(const NodeArgs& args, T* dx, const float* weights,
                      const float* g, const T* obuf, const float* stat,
                      float* scratch, float* ddw, float* dpw, float* dwt,
                      int E, int N, int H, int W, int Cs, cudaStream_t s) {
-  const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
-  const long long nblk = (long long)N * tiles;
-  const long long M = (long long)N * H * W;
-  const long long nchunk = (M + kChunk - 1) / kChunk;
-  const BwdScratch b = bwd_scratch(E, M, nblk, Cs);
-  unsigned* ctr = reinterpret_cast<unsigned*>(scratch + b.ctr);
-  const size_t smem_s = bwd_smem_floats<TILE, 2>(Cs) * sizeof(float);
-  const size_t smem_x = bwd_smem_floats<TILE, 4>(Cs) * sizeof(float);
-  cudaError_t rc = allow_smem(node_bwd_s_kernel<T, TILE>, smem_s);
+  const BwdPlan<TILE> p(scratch, g, dx, sizeof(T), E, N, H, W, Cs);
+  cudaError_t rc = cudaMemsetAsync(p.ctr, 0, 3 * E * sizeof(unsigned), s);
   if (rc != cudaSuccess) return rc;
-  rc = allow_smem(node_bwd_x_kernel<T, TILE>, smem_x);
+  rc = launch_bwd_r<T, TILE>(p, g, obuf, stat, weights, scratch, nullptr,
+                             dwt, E, Cs, s);
   if (rc != cudaSuccess) return rc;
-  rc = cudaMemsetAsync(ctr, 0, 3 * E * sizeof(unsigned), s);
+  rc = launch_bwd_s<T, TILE>(p, args, g, obuf, stat, scratch, nullptr, E, N,
+                             H, W, Cs, s);
   if (rc != cudaSuccess) return rc;
-  const int vec_g = Cs % 4 == 0 && (uintptr_t)g % 16 == 0 &&
-                    (uintptr_t)dx % (4 * sizeof(T)) == 0;
-  const int vec_x = edges_vec4(args, E, Cs, sizeof(T));
-  node_bwd_r_kernel<T>
-      <<<dim3((unsigned)nchunk, E * ((Cs + 3) / 4)), kNodeThreads, 0, s>>>(
-      g, obuf, stat, weights, scratch + b.part_r, scratch + b.fc,
-      scratch + b.gbar, dwt, ctr, E, M, Cs, vec_g);
-  node_bwd_s_kernel<T, TILE>
-      <<<dim3(tiles, N, 2 * E), kNodeThreads, smem_s, s>>>(
-          args, g, obuf, stat, scratch + b.fc, scratch + b.gbar,
-          scratch + b.dzp, scratch + b.part_s, scratch + b.part_dw,
-          scratch + b.part_pw, scratch + b.mstat, ctr + E, E, H, W, Cs,
-          vec_g);
-  node_bwd_x_kernel<T, TILE><<<dim3(tiles, N, E), kNodeThreads, smem_x, s>>>(
-      args, dx, weights, g, obuf, stat, scratch + b.fc, scratch + b.gbar,
-      scratch + b.dzp, scratch + b.mstat, scratch + b.part_dw,
-      scratch + b.part_pw, scratch + b.part_skip, ddw, dpw, dwt, ctr + 2 * E,
-      E, H, W, Cs, vec_x, vec_g);
-  return cudaGetLastError();
+  return launch_bwd_x<T, TILE>(p, args, dx, weights, g, obuf, stat, scratch,
+                               ddw, dpw, dwt, E, N, H, W, Cs, s);
 }
 
 template <typename T>
@@ -1751,6 +1999,75 @@ cudaError_t node_bwd_tile(const NodeArgs& args, void* dx,
       return node_bwd<T, 8>(args, (T*)dx, weights, g, (const T*)obuf, stat,
                             scratch, ddw, dpw, dwt, E, N, H, W, Cs, s);
   }
+}
+
+// The data-parallel backward, one entry point a launch (see the top of the
+// file). R: zero R's counters, launch R: d w of the folded ops from this
+// rank's sums, the sums into `sums` [E, Cs, kRSums].
+template <typename T>
+cudaError_t node_bwd_sync_r(const float* g, const void* obuf,
+                            const float* stat, const float* weights,
+                            float* scratch, float* sums, float* dwt, int E,
+                            int N, int H, int W, int Cs, cudaStream_t s) {
+  return with_tile(Cs, [&](auto tile) {
+    constexpr int TILE = decltype(tile)::value;
+    const BwdPlan<TILE> p(scratch, g, nullptr, sizeof(T), E, N, H, W, Cs);
+    const cudaError_t rc = cudaMemsetAsync(p.ctr, 0, E * sizeof(unsigned), s);
+    if (rc != cudaSuccess) return rc;
+    return launch_bwd_r<T, TILE>(p, g, (const T*)obuf, stat, weights,
+                                 scratch, sums, dwt, E, Cs, s);
+  });
+}
+
+// S: the folded BatchNorms' coefficients from R's global sums of `count`
+// pixels, zero S's counters, launch S: its sums of dz and dz xhat into
+// `sums_s` [2, E, Cs, 2].
+template <typename T>
+cudaError_t node_bwd_sync_s(const NodeArgs& args, const float* g,
+                            const void* obuf, const float* stat,
+                            const float* weights, float* scratch,
+                            const float* sums_r, float* sums_s,
+                            long long count, int E, int N, int H, int W,
+                            int Cs, cudaStream_t s) {
+  return with_tile(Cs, [&](auto tile) {
+    constexpr int TILE = decltype(tile)::value;
+    const BwdPlan<TILE> p(scratch, g, nullptr, sizeof(T), E, N, H, W, Cs);
+    node_bwd_coef_kernel<<<E, kNodeThreads, 0, s>>>(
+        sums_r, stat, weights, scratch + p.b.fc, scratch + p.b.gbar, E, Cs,
+        1.f / (float)count);
+    cudaError_t rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
+    rc = cudaMemsetAsync(p.ctr + E, 0, E * sizeof(unsigned), s);
+    if (rc != cudaSuccess) return rc;
+    return launch_bwd_s<T, TILE>(p, args, g, (const T*)obuf, stat, scratch,
+                                 sums_s, E, N, H, W, Cs, s);
+  });
+}
+
+// X: the means of dz and dz xhat from S's global sums, zero X's counters,
+// launch X (dx, d dw, d pw and d w[skip] of this rank's pixels).
+template <typename T>
+cudaError_t node_bwd_sync_x(const NodeArgs& args, void* dx,
+                            const float* weights, const float* g,
+                            const void* obuf, const float* stat,
+                            float* scratch, const float* sums_s, float* ddw,
+                            float* dpw, float* dwt, long long count, int E,
+                            int N, int H, int W, int Cs, cudaStream_t s) {
+  return with_tile(Cs, [&](auto tile) {
+    constexpr int TILE = decltype(tile)::value;
+    const BwdPlan<TILE> p(scratch, g, dx, sizeof(T), E, N, H, W, Cs);
+    const int n = 4 * E * Cs;
+    node_bwd_mean_kernel<<<(n + kNodeThreads - 1) / kNodeThreads,
+                           kNodeThreads, 0, s>>>(sums_s, scratch + p.b.mstat,
+                                                 n, 1.f / (float)count);
+    cudaError_t rc = cudaGetLastError();
+    if (rc != cudaSuccess) return rc;
+    rc = cudaMemsetAsync(p.ctr + 2 * E, 0, E * sizeof(unsigned), s);
+    if (rc != cudaSuccess) return rc;
+    return launch_bwd_x<T, TILE>(p, args, (T*)dx, weights, g, (const T*)obuf,
+                                 stat, scratch, ddw, dpw, dwt, E, N, H, W, Cs,
+                                 s);
+  });
 }
 
 }  // namespace
@@ -1828,6 +2145,145 @@ int lctvqa_mixed_node_bwd(const void* args, void* dx, const void* weights,
         a, dx, (const float*)weights, (const float*)g, obuf,
         (const float*)stat, (float*)scratch, (float*)ddw, (float*)dpw,
         (float*)dwt, E, N, H, W, Cs, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The data-parallel mode (the top of the file): the same arguments as
+// lctvqa_mixed_node_fwd / _bwd, split over one entry point a launch, with
+// `sums` buffers that the caller sums over the ranks between them and
+// `count`, the global batch's pixels (N H W times the ranks). Forward
+// sums: fp32 [8, E, Cs, 2], A writes its first two slots, B the rest.
+// Backward: sums_r fp32 [E, Cs, 7], sums_s fp32 [2, E, Cs, 2]. d w, d dw
+// and d pw are this rank's share, taken with the global statistics.
+static inline bool node_sizes_ok(int E, int N, int H, int W, int Cs) {
+  using namespace lctvqa;
+  return E >= 1 && E <= kMaxEdges && Cs >= 1 && Cs <= kMaxCs && N >= 1 &&
+         N <= 65535 && H >= 1 && W >= 1;
+}
+
+int lctvqa_mixed_node_fwd_sync_a(const void* args, void* obuf, void* partial,
+                                 void* sums, int E, int N, int H, int W,
+                                 int Cs, int dtype, void* stream) {
+  using namespace lctvqa;
+  if (!node_sizes_ok(E, N, H, W, Cs)) return (int)cudaErrorInvalidValue;
+  const NodeArgs& a = *static_cast<const NodeArgs*>(args);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return (int)node_fwd_sync_a<float>(a, obuf, (float*)partial,
+                                       (float*)sums, E, N, H, W, Cs, s);
+  if (dtype == kBFloat16)
+    return (int)node_fwd_sync_a<__nv_bfloat16>(a, obuf, (float*)partial,
+                                               (float*)sums, E, N, H, W, Cs,
+                                               s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int lctvqa_mixed_node_fwd_sync_b(const void* args, void* obuf, void* partial,
+                                 void* sums, void* stat, long long count,
+                                 int E, int N, int H, int W, int Cs,
+                                 int dtype, void* stream) {
+  using namespace lctvqa;
+  if (!node_sizes_ok(E, N, H, W, Cs) || count < 1)
+    return (int)cudaErrorInvalidValue;
+  const NodeArgs& a = *static_cast<const NodeArgs*>(args);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return (int)node_fwd_sync_b<float>(a, obuf, (float*)partial,
+                                       (float*)sums, (float*)stat, count, E,
+                                       N, H, W, Cs, s);
+  if (dtype == kBFloat16)
+    return (int)node_fwd_sync_b<__nv_bfloat16>(
+        a, obuf, (float*)partial, (float*)sums, (float*)stat, count, E, N, H,
+        W, Cs, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int lctvqa_mixed_node_fwd_sync_z(const void* args, const void* weights,
+                                 const void* obuf, const void* sums,
+                                 void* stat, void* out, long long count,
+                                 int E, int N, int H, int W, int Cs,
+                                 int dtype, void* stream) {
+  using namespace lctvqa;
+  if (!node_sizes_ok(E, N, H, W, Cs) || count < 1)
+    return (int)cudaErrorInvalidValue;
+  const NodeArgs& a = *static_cast<const NodeArgs*>(args);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return (int)node_fwd_sync_z<float>(a, (const float*)weights, obuf,
+                                       (const float*)sums, (float*)stat,
+                                       (float*)out, count, E, N, H, W, Cs, s);
+  if (dtype == kBFloat16)
+    return (int)node_fwd_sync_z<__nv_bfloat16>(
+        a, (const float*)weights, obuf, (const float*)sums, (float*)stat,
+        (float*)out, count, E, N, H, W, Cs, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int lctvqa_mixed_node_bwd_sync_r(const void* g, const void* obuf,
+                                 const void* stat, const void* weights,
+                                 void* scratch, void* sums_r, void* dwt,
+                                 int E, int N, int H, int W, int Cs,
+                                 int dtype, void* stream) {
+  using namespace lctvqa;
+  if (!node_sizes_ok(E, N, H, W, Cs)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return (int)node_bwd_sync_r<float>(
+        (const float*)g, obuf, (const float*)stat, (const float*)weights,
+        (float*)scratch, (float*)sums_r, (float*)dwt, E, N, H, W, Cs, s);
+  if (dtype == kBFloat16)
+    return (int)node_bwd_sync_r<__nv_bfloat16>(
+        (const float*)g, obuf, (const float*)stat, (const float*)weights,
+        (float*)scratch, (float*)sums_r, (float*)dwt, E, N, H, W, Cs, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int lctvqa_mixed_node_bwd_sync_s(const void* args, const void* g,
+                                 const void* obuf, const void* stat,
+                                 const void* weights, void* scratch,
+                                 const void* sums_r, void* sums_s,
+                                 long long count, int E, int N, int H, int W,
+                                 int Cs, int dtype, void* stream) {
+  using namespace lctvqa;
+  if (!node_sizes_ok(E, N, H, W, Cs) || count < 1)
+    return (int)cudaErrorInvalidValue;
+  const NodeArgs& a = *static_cast<const NodeArgs*>(args);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return (int)node_bwd_sync_s<float>(
+        a, (const float*)g, obuf, (const float*)stat, (const float*)weights,
+        (float*)scratch, (const float*)sums_r, (float*)sums_s, count, E, N,
+        H, W, Cs, s);
+  if (dtype == kBFloat16)
+    return (int)node_bwd_sync_s<__nv_bfloat16>(
+        a, (const float*)g, obuf, (const float*)stat, (const float*)weights,
+        (float*)scratch, (const float*)sums_r, (float*)sums_s, count, E, N,
+        H, W, Cs, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+int lctvqa_mixed_node_bwd_sync_x(const void* args, void* dx,
+                                 const void* weights, const void* g,
+                                 const void* obuf, const void* stat,
+                                 void* scratch, const void* sums_s, void* ddw,
+                                 void* dpw, void* dwt, long long count, int E,
+                                 int N, int H, int W, int Cs, int dtype,
+                                 void* stream) {
+  using namespace lctvqa;
+  if (!node_sizes_ok(E, N, H, W, Cs) || count < 1)
+    return (int)cudaErrorInvalidValue;
+  const NodeArgs& a = *static_cast<const NodeArgs*>(args);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == kFloat32)
+    return (int)node_bwd_sync_x<float>(
+        a, dx, (const float*)weights, (const float*)g, obuf,
+        (const float*)stat, (float*)scratch, (const float*)sums_s,
+        (float*)ddw, (float*)dpw, (float*)dwt, count, E, N, H, W, Cs, s);
+  if (dtype == kBFloat16)
+    return (int)node_bwd_sync_x<__nv_bfloat16>(
+        a, dx, (const float*)weights, (const float*)g, obuf,
+        (const float*)stat, (float*)scratch, (const float*)sums_s,
+        (float*)ddw, (float*)dpw, (float*)dwt, count, E, N, H, W, Cs, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -40,7 +40,7 @@ from lctvqa_torch import convert
 from lctvqa_torch.config import ModelConfig
 from lctvqa_torch.data import pipeline
 from lctvqa_torch.models import search, vqa_ef
-from lctvqa_torch.parallel import distributed, mesh as mesh_lib, tp as tp_lib
+from lctvqa_torch.parallel import distributed, tp as tp_lib
 from lctvqa_torch.quant import quantize_model
 from lctvqa_torch.text import VocabDict
 from lctvqa_torch.train import checkpoint
@@ -73,6 +73,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ranks to start on this host, one process a GPU "
                         "(0 = one a card, or --tp of them with --device "
                         "cpu)")
+    p.add_argument("--trusted", action="store_true",
+                   help="the JAX package's flag for legacy pickle "
+                        "checkpoints; the port reads only ZIP checkpoints "
+                        "and refuses a pickle with or without it")
     return p
 
 
@@ -158,7 +162,6 @@ def _evaluate_on(args, data: Optional[dict],
                            ans_vocab_size=av.vocab_size,
                            compute_dtype=args.compute_dtype)
     show(f"loaded epoch {state['epoch']} from {exp_dir}")
-    mesh_lib.check_model_config(mcfg)
     if args.int8:
         # one tree rewrite; every forward below dispatches int8 on the
         # quantized conv and linear params

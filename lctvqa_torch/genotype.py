@@ -70,6 +70,10 @@ def main(argv=None):
     p.add_argument("-o", "--out", default="",
                    help="also write the repr to this file (usable later "
                         "via --genotype <file>)")
+    p.add_argument("--trusted", action="store_true",
+                   help="the JAX package's flag for legacy pickle "
+                        "checkpoints; the port reads only ZIP checkpoints "
+                        "and refuses a pickle with or without it")
     args = p.parse_args(argv)
     g = genotype_from_checkpoint(args.checkpoint)
     print(repr(g))

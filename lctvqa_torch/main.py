@@ -193,10 +193,6 @@ def main(argv=None):
     outside = distributed.launched() or args.multihost
     n = 1 if outside else distributed.ranks_on_host(args.num_devices,
                                                     args.device)
-    if args.pallas_mixed_op and (n > 1 or outside):
-        from lctvqa_torch.parallel.mesh import MIXED_OP_UNDER_DP
-        raise NotImplementedError("--pallas_mixed_op under data parallelism "
-                                  "is not ported: " + MIXED_OP_UNDER_DP)
     join = None
     if args.multihost:
         join = (args.coordinator_address or None, args.num_processes or None,

@@ -452,7 +452,7 @@ def bn_bwd_apply(x: Tensor, g: Tensor, stat: Tensor, sums: Tensor,
     return dx
 
 
-def _global_sums(sums: Tensor) -> Tensor:
+def global_sums(sums: Tensor) -> Tensor:
     """This rank's [2, C] sums summed over the data group, in place."""
     torch.distributed.all_reduce(sums, group=distributed.data_group())
     return sums
@@ -467,7 +467,7 @@ def batchnorm_fwd_stat_sync(x: Tensor,
     the sums, an apply launch. -> (y, stat, the x the kernels read)."""
     x = _aligned(x, x.shape[-1]) if x.device.type == "cuda" else x
     count = x.numel() // x.shape[-1] * distributed.data_world()
-    y, stat = bn_fwd_apply(x, _global_sums(bn_sums(x)), count, out_dtype,
+    y, stat = bn_fwd_apply(x, global_sums(bn_sums(x)), count, out_dtype,
                            eps)
     return y, stat, x
 
@@ -476,7 +476,7 @@ def batchnorm_bwd_sync(x: Tensor, g: Tensor, stat: Tensor) -> Tensor:
     """`batchnorm_bwd` over the global batch: a sums launch, the
     all-reduce, an apply launch."""
     count = x.numel() // x.shape[-1] * distributed.data_world()
-    return bn_bwd_apply(x, g, stat, _global_sums(bn_bwd_sums(x, g, stat)),
+    return bn_bwd_apply(x, g, stat, global_sums(bn_bwd_sums(x, g, stat)),
                         count)
 
 

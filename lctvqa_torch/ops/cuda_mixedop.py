@@ -29,12 +29,23 @@ N*H*W values of the compute dtype per call. The plain version of the
 backward is autograd through `mixed_node_plain`. First order only.
 
 The wrapper takes the plain version only for CPU tensors; for CUDA
-tensors it launches the kernels or raises. Under data parallelism (a
-process group, `parallel/distributed.py`) it raises on either device:
-the folded BatchNorms' statistics would be one rank's, and the kernels
-have no point between their stages at which to sum them over the ranks
-(ROADMAP.md section 2). It takes any N >= 1 and any
-H, W: the only condition on an edge is stride 1. A call that no backward
+tensors it launches the kernels or raises. It takes any N >= 1 and any
+H, W: the only condition on an edge is stride 1.
+
+Under data parallelism (a process group, `parallel/distributed.py`) every
+batch statistic of the node is the global batch's, as on the JAX
+package's mesh. The plain version takes its moments through
+`cuda_bn.batch_moments`, whose all-reduce is differentiable, so its
+backward stays autograd through it. The kernels run in their
+data-parallel mode (`node_fwd_sync`, `node_bwd_sync`, each call a
+`SyncForward` / `SyncBackward`): one entry point a launch, the edge's
+last block writing this rank's sums where the one-process kernel
+finishes the statistics, and the sums all-reduced over the data group
+between the launches: A, all-reduce, B, all-reduce, Z forward; R,
+all-reduce, S, all-reduce, X backward. The gradients of
+the packed weights and of `weights` stay this rank's share, taken with
+the global statistics, for `distributed.grad` to sum with the others.
+Without a process group nothing of this runs. A call that no backward
 will read (no input needs a gradient, or grad mode is off) launches the
 forward directly, without the autograd Function. The launch shape
 (`node_tile`) and the layout of each kernel's one tensor (`node_scratch`:
@@ -55,6 +66,7 @@ from torch.autograd.function import once_differentiable
 
 from lctvqa_torch.ops import _build as K
 from lctvqa_torch.ops import conv as C
+from lctvqa_torch.ops import cuda_bn
 from lctvqa_torch.parallel import distributed
 
 Tensor = torch.Tensor
@@ -74,6 +86,25 @@ MIXED_NODE = K.register(K.Kernel(
     "mixed_node_fwd", "lctvqa_mixed_node_fwd", [K.PTR] * 6 + [K.INT] * 6))
 MIXED_NODE_BWD = K.register(K.Kernel(
     "mixed_node_bwd", "lctvqa_mixed_node_bwd", [K.PTR] * 10 + [K.INT] * 6))
+# the data-parallel mode: one entry point a launch (mixedop.cu)
+FWD_SYNC_A = K.register(K.Kernel(
+    "mixed_node_fwd_sync_a", "lctvqa_mixed_node_fwd_sync_a",
+    [K.PTR] * 4 + [K.INT] * 6))
+FWD_SYNC_B = K.register(K.Kernel(
+    "mixed_node_fwd_sync_b", "lctvqa_mixed_node_fwd_sync_b",
+    [K.PTR] * 5 + [K.LONG] + [K.INT] * 6))
+FWD_SYNC_Z = K.register(K.Kernel(
+    "mixed_node_fwd_sync_z", "lctvqa_mixed_node_fwd_sync_z",
+    [K.PTR] * 6 + [K.LONG] + [K.INT] * 6))
+BWD_SYNC_R = K.register(K.Kernel(
+    "mixed_node_bwd_sync_r", "lctvqa_mixed_node_bwd_sync_r",
+    [K.PTR] * 7 + [K.INT] * 6))
+BWD_SYNC_S = K.register(K.Kernel(
+    "mixed_node_bwd_sync_s", "lctvqa_mixed_node_bwd_sync_s",
+    [K.PTR] * 8 + [K.LONG] + [K.INT] * 6))
+BWD_SYNC_X = K.register(K.Kernel(
+    "mixed_node_bwd_sync_x", "lctvqa_mixed_node_bwd_sync_x",
+    [K.PTR] * 11 + [K.LONG] + [K.INT] * 6))
 
 # what one launch takes (kMaxEdges, kMaxCs of mixedop.cu)
 MAX_EDGES = 8
@@ -140,8 +171,10 @@ def _round(x: Tensor, dtype) -> Tensor:
 
 
 def _stats(o32: Tensor):
-    mean = o32.mean((0, 1, 2))
-    var = (o32 * o32).mean((0, 1, 2)) - mean * mean
+    """Mean and 1/sqrt(var + eps) over (N, H, W) of the global batch
+    (`cuda_bn.batch_moments`: this tensor's without a process group)."""
+    mean, sq = cuda_bn.batch_moments(o32, (0, 1, 2))
+    var = sq - mean * mean
     return mean, torch.rsqrt(var + EPS)
 
 
@@ -335,22 +368,152 @@ def node_bwd_launch(xs: List[Tensor], nodes: List[NodeWeights], weights: Tensor,
     lay = node_bwd_scratch(e, n, h, w, cs, dtype)
     buf = torch.empty(lay["total"], dtype=torch.uint8, device=device)
     base = buf.data_ptr()
-
-    def part(key, dt, shape):
-        nbytes = math.prod(shape) * _ELEM_BYTES[dt]
-        return buf[lay[key]:lay[key] + nbytes].view(dt).view(shape)
-
-    dx = part("dx", dtype, (e, n, h, w, cs))
-    ddw = part("ddw", f32, (e, 8, MAX_TAPS, cs))
-    dpw = part("dpw", f32, (e, 8, cs, cs))
-    dweights = part("dweights", f32, (e, 8))
     args = _edge_args(xs, nodes)
     MIXED_NODE_BWD.launch(device, args.buffer_info()[0], base + lay["dx"],
                           weights, g, obuf, stat, base + lay["scratch"],
                           base + lay["ddw"], base + lay["dpw"],
                           base + lay["dweights"], e, n, h, w, cs,
                           K.DTYPE_CODES[dtype])
-    return list(dx.unbind(0)), ddw, dpw, dweights
+    return _bwd_outputs(buf, lay, e, n, h, w, cs, dtype)
+
+
+def _bwd_outputs(buf: Tensor, lay: dict, e: int, n: int, h: int, w: int,
+                 cs: int, dtype):
+    """The backward's outputs as views of its one tensor -> (dxs, ddw,
+    dpw, dweights)."""
+    def part(key, dt, shape):
+        nbytes = math.prod(shape) * _ELEM_BYTES[dt]
+        return buf[lay[key]:lay[key] + nbytes].view(dt).view(shape)
+
+    dx = part("dx", dtype, (e, n, h, w, cs))
+    return (list(dx.unbind(0)), part("ddw", f32, (e, 8, MAX_TAPS, cs)),
+            part("dpw", f32, (e, 8, cs, cs)), part("dweights", f32, (e, 8)))
+
+
+class SyncForward:
+    """One call of the forward's data-parallel mode on this rank's rows:
+    its buffers and its three launches, `a`, `b` and `z`. `sums` is fp32
+    [8, E, Cs, 2] (mixedop.cu's stat layout): `a` writes this rank's sums
+    of slots 0 and 1, `b` turns those (by then the global batch's) into
+    their statistics and writes its sums of slots 2..7, `z` turns those
+    into theirs. `ranks` (default: the data group's) sets the global count
+    of pixels, equal shares."""
+
+    def __init__(self, xs: List[Tensor], nodes: List[NodeWeights],
+                 weights: Tensor, cs: int, device, ranks=None):
+        n, h, w, _ = xs[0].shape
+        e, dtype = len(xs), xs[0].dtype
+        self.dims = (e, n, h, w, cs, K.DTYPE_CODES[dtype])
+        self.device, self.weights = device, weights
+        self.count = n * h * w * (ranks or distributed.data_world())
+        lay = self.lay = node_scratch(e, n, h, w, cs, dtype)
+        self.scratch = torch.empty(lay["total"], dtype=torch.uint8,
+                                   device=device)
+        self.sums = torch.empty((SLOTS, e, cs, 2), dtype=f32, device=device)
+        self.out = torch.empty((n, h, w, cs), dtype=f32, device=device)
+        self.args = _edge_args(xs, nodes)  # alive for every launch
+        base = self.scratch.data_ptr()
+        self.obuf_at = base + lay["obuf"]
+        self.partial_at = base + lay["partial"]
+        self.stat_at = base + lay["stat"]
+        self.obuf = self.scratch[:lay["partial"]].view(dtype)[
+            :SLOTS * e * cs * n * h * w].view(SLOTS, e, cs, n * h * w)
+        self.stat = self.scratch[lay["stat"]:].view(f32).view(SLOTS, e, cs,
+                                                              2)
+
+    def a(self) -> None:
+        FWD_SYNC_A.launch(self.device, self.args.buffer_info()[0],
+                          self.obuf_at, self.partial_at, self.sums,
+                          *self.dims)
+
+    def b(self) -> None:
+        FWD_SYNC_B.launch(self.device, self.args.buffer_info()[0],
+                          self.obuf_at, self.partial_at, self.sums,
+                          self.stat_at, self.count, *self.dims)
+
+    def z(self) -> None:
+        FWD_SYNC_Z.launch(self.device, self.args.buffer_info()[0],
+                          self.weights, self.obuf_at, self.sums,
+                          self.stat_at, self.out, self.count, *self.dims)
+
+
+def node_fwd_sync(xs: List[Tensor], nodes: List[NodeWeights],
+                  weights: Tensor, cs: int, device):
+    """`node_fwd_launch` in the data-parallel mode: launch A, the inner
+    BatchNorms' sums all-reduced over the data group, launch B, the folded
+    BatchNorms' sums all-reduced, launch Z. -> (out, obuf, stat) as
+    `node_fwd_launch` gives them, the statistics the global batch's."""
+    call = SyncForward(xs, nodes, weights, cs, device)
+    call.a()
+    cuda_bn.global_sums(call.sums[:2])
+    call.b()
+    cuda_bn.global_sums(call.sums[2:])
+    call.z()
+    return call.out, call.obuf, call.stat
+
+
+class SyncBackward:
+    """One call of the backward's data-parallel mode on what a
+    `SyncForward` left: its buffers and its three launches, `r`, `s` and
+    `x`. `r` writes this rank's sums of g and g o ([E, Cs, 7], `sums_r`)
+    and d weights of the folded ops, `s` takes the global ones and writes
+    its sums of dz and dz xhat ([2, E, Cs, 2], `sums_s`), `x` takes the
+    global ones. `outputs()` are `node_bwd_launch`'s."""
+
+    def __init__(self, xs: List[Tensor], nodes: List[NodeWeights],
+                 weights: Tensor, g: Tensor, obuf: Tensor, stat: Tensor,
+                 cs: int, device, ranks=None):
+        n, h, w, _ = xs[0].shape
+        e, dtype = len(xs), xs[0].dtype
+        self.dims = (e, n, h, w, cs, K.DTYPE_CODES[dtype])
+        self.shape = (e, n, h, w, cs, dtype)
+        self.device, self.weights, self.g = device, weights, g
+        self.obuf, self.stat = obuf, stat
+        self.count = n * h * w * (ranks or distributed.data_world())
+        lay = self.lay = node_bwd_scratch(e, n, h, w, cs, dtype)
+        self.buf = torch.empty(lay["total"], dtype=torch.uint8, device=device)
+        self.sums_r = torch.empty((e, cs, BWD_SUMS), dtype=f32, device=device)
+        self.sums_s = torch.empty((2, e, cs, 2), dtype=f32, device=device)
+        self.args = _edge_args(xs, nodes)
+        self.at = {k: self.buf.data_ptr() + lay[k]
+                   for k in ("dx", "ddw", "dpw", "dweights", "scratch")}
+
+    def r(self) -> None:
+        BWD_SYNC_R.launch(self.device, self.g, self.obuf, self.stat,
+                          self.weights, self.at["scratch"], self.sums_r,
+                          self.at["dweights"], *self.dims)
+
+    def s(self) -> None:
+        BWD_SYNC_S.launch(self.device, self.args.buffer_info()[0], self.g,
+                          self.obuf, self.stat, self.weights,
+                          self.at["scratch"], self.sums_r, self.sums_s,
+                          self.count, *self.dims)
+
+    def x(self) -> None:
+        BWD_SYNC_X.launch(self.device, self.args.buffer_info()[0],
+                          self.at["dx"], self.weights, self.g, self.obuf,
+                          self.stat, self.at["scratch"], self.sums_s,
+                          self.at["ddw"], self.at["dpw"],
+                          self.at["dweights"], self.count, *self.dims)
+
+    def outputs(self):
+        return _bwd_outputs(self.buf, self.lay, *self.shape)
+
+
+def node_bwd_sync(xs: List[Tensor], nodes: List[NodeWeights], weights: Tensor,
+                  g: Tensor, obuf: Tensor, stat: Tensor, cs: int, device):
+    """`node_bwd_launch` in the data-parallel mode, on what `node_fwd_sync`
+    left: launch R, its sums of g and g o all-reduced, launch S, its sums
+    of dz and dz xhat all-reduced, launch X. dx is this rank's rows'; d dw,
+    d pw and d weights are this rank's share of the global gradient. ->
+    as `node_bwd_launch`."""
+    call = SyncBackward(xs, nodes, weights, g, obuf, stat, cs, device)
+    call.r()
+    cuda_bn.global_sums(call.sums_r)
+    call.s()
+    cuda_bn.global_sums(call.sums_s)
+    call.x()
+    return call.outputs()
 
 
 def sep_inner_inputs_plain(xs: Sequence[Tensor],
@@ -414,7 +577,9 @@ class MixedNodeFn(torch.autograd.Function):
     the forward left. Inputs: weights [E, 8] fp32, then the E edge slices
     [N, H, W, cs] (views, channel stride 1), the E packed dw and the E
     packed pw. More edges than one launch takes are split: edges are
-    independent given the output's gradient."""
+    independent given the output's gradient, and under a process group
+    each chunk's edges carry their own statistics, summed over the ranks
+    (`node_fwd_sync`, `node_bwd_sync`)."""
 
     @staticmethod
     def forward(ctx, weights: Tensor, cs: int, e: int, *tensors: Tensor):
@@ -423,8 +588,9 @@ class MixedNodeFn(torch.autograd.Function):
         nodes = [NodeWeights(d, p) for d, p in zip(dws, pws)]
         step = MAX_EDGES
         out, kept = None, []
+        fwd = node_fwd_sync if distributed.active() else node_fwd_launch
         for lo in range(0, e, step):
-            part, obuf, stat = node_fwd_launch(
+            part, obuf, stat = fwd(
                 list(xs[lo:lo + step]), nodes[lo:lo + step],
                 weights if e <= step else weights[lo:lo + step].contiguous(),
                 cs, device)
@@ -444,8 +610,9 @@ class MixedNodeFn(torch.autograd.Function):
         nodes = [NodeWeights(d, p) for d, p in zip(dws, pws)]
         g = g.to(f32).contiguous()
         dxs, ddws, dpws, dwts = [], [], [], []
+        bwd = node_bwd_sync if distributed.active() else node_bwd_launch
         for i, lo in enumerate(range(0, e, step)):
-            dx, ddw, dpw, dwt = node_bwd_launch(
+            dx, ddw, dpw, dwt = bwd(
                 list(xs[lo:lo + step]), nodes[lo:lo + step],
                 weights if e <= step else weights[lo:lo + step].contiguous(),
                 g, kept[2 * i],
@@ -504,11 +671,6 @@ def mixed_node(xs: Sequence[Tensor], p_list: Sequence[dict], weights: Tensor,
     states [N, H, W, C] of one compute dtype (fp32 or bf16), of which
     channels [0, cs) are read in place; p_list: the E edges' mixed-op
     params; weights [E, 8] fp32. -> [N, H, W, cs] fp32."""
-    if distributed.active():
-        from lctvqa_torch.parallel.mesh import MIXED_OP_UNDER_DP
-        raise NotImplementedError("the mixed-op node kernels under data "
-                                  "parallelism are not ported: "
-                                  + MIXED_OP_UNDER_DP)
     xs = list(xs)
     nodes = [node_weights(p) for p in p_list]
     if xs[0].device.type == "cpu":
@@ -525,9 +687,10 @@ def mixed_node(xs: Sequence[Tensor], p_list: Sequence[dict], weights: Tensor,
             weights, cs, e, *[x[..., :cs] for x in xs],
             *[nw.dw for nw in nodes], *[nw.pw for nw in nodes])
     # no backward will read the stage outputs: no Function, no views
+    fwd = node_fwd_sync if distributed.active() else _node_fwd
     out = None
     for lo in range(0, e, MAX_EDGES):
-        part = _node_fwd(
+        part = fwd(
             xs[lo:lo + MAX_EDGES], nodes[lo:lo + MAX_EDGES],
             weights if e <= MAX_EDGES
             else weights[lo:lo + MAX_EDGES].contiguous(),

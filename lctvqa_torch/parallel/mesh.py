@@ -8,7 +8,9 @@ batch of B rows (`shard_batch`; the loaders take the same rows,
 `data/pipeline.py::epoch_batches`), and the steps sum their gradients,
 counters and BatchNorm statistics over the ranks, so that every rank
 ends each step with the parameters one process would have on the whole
-batch.
+batch. Every kernel flag runs on it: the BatchNorm kernel and the
+mixed-op node kernels take the global batch's statistics in their
+data-parallel modes (`ops/cuda_bn.py`, `ops/cuda_mixedop.py`).
 """
 
 from __future__ import annotations
@@ -19,11 +21,6 @@ import numpy as np
 import torch
 
 from lctvqa_torch.parallel import distributed
-
-# where ROADMAP.md queues the node kernels under data parallelism
-MIXED_OP_UNDER_DP = ("ROADMAP.md section 2, 'the mixed-node kernels under "
-                     "data parallelism' (collectives between the node's "
-                     "BatchNorm stages)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,16 +47,6 @@ def make_mesh(num_devices: int = 0, multihost: bool = False) -> Mesh:
 def from_config(mesh_cfg) -> Mesh:
     """`make_mesh` of a `MeshConfig`."""
     return make_mesh(mesh_cfg.num_devices, mesh_cfg.multihost)
-
-
-def check_model_config(mcfg) -> None:
-    """Raise, under data parallelism, for a kernel flag whose kernel would
-    compute the statistics of this rank's rows only: the mixed-op node
-    kernels fold batch-stat BatchNorms inside their launches."""
-    if distributed.active() and mcfg.pallas_mixed_op:
-        raise NotImplementedError(
-            "--pallas_mixed_op under data parallelism is not ported: "
-            + MIXED_OP_UNDER_DP)
 
 
 def shard_rows(n: int, mesh: Mesh) -> slice:

@@ -60,14 +60,6 @@ def dev_batch(batch: dict, keys=pipeline.DEVICE_KEYS) -> dict:
     return {k: v for k, v in batch.items() if k in keys}
 
 
-def data_mesh(cfg: Config) -> mesh_lib.Mesh:
-    """The data axis of `cfg.mesh` over the process group; a kernel flag
-    the mesh cannot take raises."""
-    mesh = mesh_lib.from_config(cfg.mesh)
-    mesh_lib.check_model_config(cfg.model)
-    return mesh
-
-
 def setup_logger(exp_dir: str) -> None:
     """Log to stdout and to `exp_dir`/log.txt."""
     fmt = "%(asctime)s %(message)s"
@@ -121,7 +113,7 @@ class Experiment:
         where the caller asks for it; a missing card raises. With a
         process group of several ranks (`parallel.distributed.initialize`
         first) the loop is data parallel over them."""
-        self.mesh = data_mesh(cfg)
+        self.mesh = mesh_lib.from_config(cfg.mesh)
         self.is_main = distributed.rank() == 0
         self.device = distributed.local_device(device)
         forced_remat = (cfg.train.architect_mode == "exact-indirect"

@@ -49,11 +49,10 @@ from lctvqa_torch.optim.architect_lct import plain_model_config
 from lctvqa_torch.optim.optimizers import (arch_optimizer, model_optimizer,
                                            set_learning_rate, step_lr,
                                            tree_leaves, tree_map, with_grad)
-from lctvqa_torch.parallel import distributed
+from lctvqa_torch.parallel import distributed, mesh as mesh_lib
 from lctvqa_torch.train import checkpoint
-from lctvqa_torch.train.experiment import (check_exp_dir, data_mesh,
-                                           dev_batch, load_checkpoint,
-                                           setup_logger)
+from lctvqa_torch.train.experiment import (check_exp_dir, dev_batch,
+                                           load_checkpoint, setup_logger)
 from lctvqa_torch.train.metrics import (VqaStruct, calc_bleu_scores,
                                         calc_bleu_scores_unified, mask_unk,
                                         num_correct, unified_ans_acc)
@@ -190,7 +189,7 @@ class DartsExperiment:
         "valid"}), by default `pipeline_npy.get_npy_loader` over
         `cfg.data.input_dir` (which holds BLEU4's valid.npy either way).
         Data parallel over a process group of several ranks."""
-        self.mesh = data_mesh(cfg)
+        self.mesh = mesh_lib.from_config(cfg.mesh)
         self.is_main = distributed.rank() == 0
         self.device = distributed.local_device(device)
         self.cfg = cfg

@@ -573,6 +573,75 @@ def test_mixed_node_bwd_kernel_matches_plain(cuda, case, dtype):
     assert not bool(wg.grad[:, 0].any())  # 'none'
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [c for c in NODE_CASES if c[0] % 2 == 0],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_mixed_node_sync_launches_on_two_halves_match_the_whole_batch(
+        cuda, case, dtype):
+    """The node kernels' data-parallel mode in one process: a SyncForward
+    and a SyncBackward on each half of the batch, their sums added between
+    the launches as two ranks' all-reduce adds them. The halves' outputs
+    and dx together, and their weight-gradient shares summed, against the
+    plain version on the whole batch (its inner ReLU decisions the
+    kernels'), at the one-process kernel's tolerances; both halves hold
+    the same statistics."""
+    n, h, w, c, k, edges = case
+    if edges > cuda_mixedop.MAX_EDGES:
+        pytest.skip("one launch takes at most MAX_EDGES edges")
+    cs = c // k
+    gen = torch.Generator().manual_seed(17)
+    xs, ops, wts = _node_case(gen, n, h, w, c, k, edges, dtype, cuda)
+    g = torch.randn(n, h, w, cs, generator=gen).to(cuda)
+    nodes = [cuda_mixedop.node_weights(p) for p in ops]
+    halves = [slice(0, n // 2), slice(n // 2, n)]
+    parts = [[x[r][..., :cs] for x in xs] for r in halves]
+
+    def add(bufs):
+        total = sum(b.clone() for b in bufs)
+        for b in bufs:
+            b.copy_(total)
+
+    fwd = [cuda_mixedop.SyncForward(p, nodes, wts, cs, cuda, ranks=2)
+           for p in parts]
+    for step, part in (("a", slice(0, 2)), ("b", slice(2, None)),
+                       ("z", None)):
+        for f in fwd:
+            getattr(f, step)()
+        if part is not None:
+            add([f.sums[part] for f in fwd])
+    bwd = [cuda_mixedop.SyncBackward(p, nodes, wts, g[r].contiguous(),
+                                     f.obuf, f.stat, cs, cuda, ranks=2)
+           for p, r, f in zip(parts, halves, fwd)]
+    for step, sums in (("r", "sums_r"), ("s", "sums_s"), ("x", None)):
+        for b in bwd:
+            getattr(b, step)()
+        if sums is not None:
+            add([getattr(b, sums) for b in bwd])
+    outs = [b.outputs() for b in bwd]
+    torch.cuda.synchronize()
+    assert torch.equal(fwd[0].stat, fwd[1].stat)
+    kept = (torch.cat([f.obuf[:2] for f in fwd], -1), fwd[0].stat)
+    fp32 = dtype == torch.float32
+    out = torch.cat([f.out for f in fwd])
+    want = cuda_mixedop.mixed_node_plain(xs, nodes, wts, cs)
+    if fp32:
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
+    else:
+        assert float((out - want).abs().max()) <= 4 * 2.0 ** -7 * float(
+            wts.max())
+    dxs, ddw, dpw, dwt = cuda_mixedop.mixed_node_bwd_plain(
+        xs, nodes, wts, g, cs, kept=kept)
+    for e in range(edges):
+        got = torch.cat([o[0][e] for o in outs])
+        assert got.dtype == dtype
+        _scaled_close(got, dxs[e], 1e-4 if fp32 else 2.0 ** -7, f"dx[{e}]")
+    tol = 1e-4 if fp32 else 2e-3
+    for i, (name, full) in enumerate((("d dw", ddw), ("d pw", dpw),
+                                      ("d weights", dwt))):
+        _scaled_close(outs[0][i + 1] + outs[1][i + 1], full, tol, name)
+
+
 def test_mixed_node_gradients_reach_the_conv_leaves_and_repeat(cuda):
     """Through node_weights' packing every conv leaf of every edge gets a
     gradient, equal to autograd's through the plain version; weights get

@@ -13,6 +13,7 @@ greedy tokens); logits within 1e-4 (tests/test_full_model_torch_parity.py).
 
 import dataclasses
 import os
+import pickle
 import subprocess
 import sys
 
@@ -123,6 +124,36 @@ def test_genotype_decodes_and_resolves_across_packages(tmp_path):
     genotype.main([t_path, "-o", str(out)])
     assert genotype.parse_genotype_repr(out.read_text()) == \
         genotype.genotype_from_checkpoint(t_path)
+
+
+
+@pytest.mark.parametrize("cli", ["eval", "genotype"])
+def test_cli_takes_trusted_and_still_refuses_a_pickle(cli, tmp_path, synth,
+                                                      capsys):
+    """--trusted, the JAX CLIs' flag for legacy pickle checkpoints
+    (lctvqa/eval.py, lctvqa/genotype.py), is taken by the port's eval and
+    genotype CLIs as by its export and serve CLIs. A pickle checkpoint is
+    refused with it as without it: the port never unpickles a file.
+    genotype decodes a ZIP checkpoint with the flag given."""
+    exp = tmp_path / "exp" / "p"
+    exp.mkdir(parents=True)
+    legacy = exp / "ef_model.ckpt"
+    with open(legacy, "wb") as f:
+        pickle.dump({"epoch": 1, "arch": None}, f)
+    if cli == "eval":
+        run = t_eval.main
+        argv = ["--exp", "p", "--root_stats_dir", str(tmp_path / "exp"),
+                "--input_dir", synth, "--device", "cpu", "--num_show", "0",
+                "--trusted"]
+    else:
+        run = genotype.main
+        argv = [str(legacy), "--trusted"]
+        t_path, _, _ = _search_ckpts(tmp_path)
+        genotype.main([t_path, "--trusted"])
+        assert capsys.readouterr().out.strip() == repr(
+            genotype.genotype_from_checkpoint(t_path))
+    with pytest.raises(ValueError, match="not a ZIP checkpoint"):
+        run(argv)
 
 
 def _derived_cfgs(name="PC_DARTS_cifar", **kw):

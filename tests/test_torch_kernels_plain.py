@@ -195,7 +195,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                            "greedy_generate", "bn_fwd", "bn_bwd",
                            "mixed_node_fwd", "mixed_node_bwd",
                            "bn_fwd_sums", "bn_fwd_apply", "bn_bwd_sums",
-                           "bn_bwd_apply"}
+                           "bn_bwd_apply", "mixed_node_fwd_sync_a",
+                           "mixed_node_fwd_sync_b", "mixed_node_fwd_sync_z",
+                           "mixed_node_bwd_sync_r", "mixed_node_bwd_sync_s",
+                           "mixed_node_bwd_sync_x"}
 
 
 def test_non_cpu_non_cuda_tensors_raise():

@@ -15,7 +15,12 @@ Tolerances are tests/test_mesh.py's: losses rtol 1e-5; parameters rtol
 2e-4, atol 1e-5; the arch atol 1e-6. The two ranks' parameters must be
 the same bits. The ranks' stage 1 is also held against the JAX
 package's single-device stage 1 at 1e-4, on its initial weights carried
-across with `convert`.
+across with `convert`. With `pallas_mixed_op` (the mixed-op node
+kernels, whose plain version the CPU runs) the node's batch statistics
+are the global batch's: stage 1 and the darts family's train step on two
+ranks against one process, stage 1 against the JAX package's (whose
+flag takes its XLA path off a TPU, as its sharded run does), and one
+node call's output and gradients against the concatenated batch.
 """
 
 import contextlib
@@ -217,21 +222,47 @@ def one_rank_group(inputs: dict) -> dict:
         distributed.set_data_group(None)
 
 
-def mixed_op_refusals(inputs: dict) -> list:
-    """What --pallas_mixed_op raises under the process group: the mesh's
-    check, and the node kernel's wrapper itself."""
+def node_kernel_steps(inputs: dict, rows: slice) -> dict:
+    """Stage 1 and the darts family's train step with `pallas_mixed_op` on
+    `rows` of the global batch, from the same weights as `run_steps`."""
+    from lctvqa_torch.train.experiment_darts import make_darts_steps
+    from lctvqa_torch.train.steps import make_lct_steps
+
+    cfg = inputs["node_cfg"]
+    tb = _tensors({k: v[rows] for k, v in inputs["train"].items()})
+    gen = torch.Generator().manual_seed(distributed.rank_seed(3))
+    ef, arch = inputs["ef"], inputs["arch"]
+    steps = make_lct_steps(cfg, 1, "cpu")
+    p, _, loss, c1, c2 = steps["stage1"](ef, arch, steps["ef_tx"].init(ef),
+                                         tb, gen)
+    out = {"node_stage1": {"params": _numpy(p), "loss": float(loss),
+                           "counts": (int(c1), int(c2))}}
+    darts = make_darts_steps(cfg, 1)
+    p, _, loss = darts["train"](ef, darts["tx"].init(ef), arch, tb, gen)
+    out["node_darts_train"] = {"params": _numpy(p), "loss": float(loss)}
+    return out
+
+
+def node_call(inputs: dict, rows: slice) -> dict:
+    """One call of the mixed-op node (`cuda_mixedop.mixed_node`) on `rows`
+    of its edge states, and its gradients for the loss sum(out * g):
+    w.r.t. the rows' states, and this rank's share of those w.r.t. the
+    conv weights and the mixture weights."""
     from lctvqa_torch.ops import cuda_mixedop
 
-    got = []
-    for call in (lambda: mesh_lib.check_model_config(dataclasses.replace(
-                     inputs["cfg"].model, pallas_mixed_op=True)),
-                 lambda: cuda_mixedop.mixed_node([], [], None, 1)):
-        try:
-            call()
-            got.append("no error")
-        except NotImplementedError as e:
-            got.append(str(e))
-    return got
+    node = inputs["node"]
+    xs = [torch.from_numpy(x[rows]).requires_grad_() for x in node["xs"]]
+    ops = tree_map(lambda v: torch.from_numpy(v).requires_grad_(),
+                   node["ops"])
+    wts = torch.from_numpy(node["weights"]).requires_grad_()
+    out = cuda_mixedop.mixed_node(xs, ops, wts, node["cs"])
+    leaves = tree_leaves(ops)
+    grads = torch.autograd.grad(out, [*xs, *leaves, wts],
+                                torch.from_numpy(node["g"][rows]))
+    e = len(xs)
+    return {"out": out.detach().numpy(),
+            "dxs": [g.numpy() for g in grads[:e]],
+            "params": [g.numpy() for g in grads[e:]]}
 
 
 def _rank_main(rank: int, port: int, tmp: str) -> None:
@@ -243,12 +274,13 @@ def _rank_main(rank: int, port: int, tmp: str) -> None:
         inputs = torch.load(Path(tmp) / "inputs.pt", weights_only=False)
         rows = mesh_lib.shard_rows(B, mesh_lib.make_mesh(WORLD))
         with no_randomness():
-            out = {"steps": run_steps(inputs, rows),
+            out = {"steps": {**run_steps(inputs, rows),
+                             **node_kernel_steps(inputs, rows)},
                    "bn": sync_batchnorm(inputs["bn_x"], inputs["bn_g"],
                                         rows),
                    "eval": eval_runs(inputs),
                    "one_rank": one_rank_group(inputs),
-                   "mixed_op": mixed_op_refusals(inputs),
+                   "node": node_call(inputs, rows),
                    "rows": rows,
                    "place": (distributed.rank(), distributed.world(),
                              list(distributed.process_index_range(11)),
@@ -269,7 +301,7 @@ def make_inputs(tmp: Path) -> dict:
     """Every rank's inputs: seeded weights (the JAX package's stage 1
     takes them through convert), the batches, a BatchNorm input and a
     fixed-VGG EF checkpoint with its data for eval."""
-    from lctvqa_torch.models import vqa_ef, vqa_w
+    from lctvqa_torch.models import search, vqa_ef, vqa_w
     from lctvqa_torch.train import checkpoint
 
     cfg = config()
@@ -284,6 +316,15 @@ def make_inputs(tmp: Path) -> dict:
     gen = np.random.default_rng(11)
     x = (1.5 * gen.standard_normal((B, 6, 6, 8)) + 0.3).astype(np.float32)
     g = gen.standard_normal(x.shape).astype(np.float32)
+    # one node of three stride-1 edges on [B, 6, 6, 8] states, k = 4
+    node_ops = [tree_map(lambda t: t.numpy(), search.mixed_op_init(
+        torch.Generator().manual_seed(20 + j), 8, 1, 4)) for j in range(3)]
+    mix = np.exp(gen.standard_normal((3, 8))).astype(np.float32)
+    node = {"xs": [(gen.standard_normal((B, 6, 6, 8)) + 0.2).astype(
+                np.float32) for _ in range(3)],
+            "ops": node_ops, "cs": 2,
+            "weights": mix / mix.sum(1, keepdims=True) / 3,
+            "g": gen.standard_normal((B, 6, 6, 2)).astype(np.float32)}
 
     arrays = synthetic.make_arrays(num_images=8, num_questions=16,
                                    img_size=32)
@@ -300,7 +341,8 @@ def make_inputs(tmp: Path) -> dict:
     checkpoint.save_state(str(exp / "ef_model.ckpt"),
                           {"ef_params": fixed, "arch": None, "epoch": 1},
                           config=fixed_cfg)
-    return {"cfg": cfg, "ef": ef, "arch": arch, "w": w,
+    return {"cfg": cfg, "node_cfg": config(pallas_mixed_op=True), "ef": ef,
+            "arch": arch, "w": w, "node": node,
             "train": global_batch(0, cfg.model),
             "valid": global_batch(1, cfg.model),
             "bn_x": x, "bn_g": g, "arrays": arrays,
@@ -314,9 +356,9 @@ def make_inputs(tmp: Path) -> dict:
             ).numpy()}
 
 
-def jax_stage1(inputs: dict) -> dict:
-    """The JAX package's single-device stage 1 on the global batch,
-    compiled with LLVM's optimizations off."""
+def jax_stage1(inputs: dict, key: str = "cfg") -> dict:
+    """The JAX package's single-device stage 1 on the global batch, at the
+    model of inputs[key], compiled with LLVM's optimizations off."""
     import jax
     import jax.numpy as jnp
 
@@ -324,7 +366,7 @@ def jax_stage1(inputs: dict) -> dict:
                                TrainConfig as JTrain)
     from lctvqa.train import steps as j_steps
 
-    mcfg = inputs["cfg"].model
+    mcfg = inputs[key].model
     j_cfg = JConfig(model=JModel(**{f.name: getattr(mcfg, f.name)
                                     for f in dataclasses.fields(JModel)
                                     if hasattr(mcfg, f.name)}),
@@ -361,10 +403,13 @@ def ranks(tmp_path_factory):
     try:
         whole = slice(0, B)
         with no_randomness():
-            ref = {"steps": run_steps(inputs, whole),
+            ref = {"steps": {**run_steps(inputs, whole),
+                             **node_kernel_steps(inputs, whole)},
                    "bn": sync_batchnorm(inputs["bn_x"], inputs["bn_g"],
-                                        whole)}
+                                        whole),
+                   "node": node_call(inputs, whole)}
         ref["jax_stage1"] = jax_stage1(inputs)
+        ref["jax_node_stage1"] = jax_stage1(inputs, "node_cfg")
         for p in procs:
             p.join(JOIN_SECONDS)
     finally:
@@ -418,15 +463,21 @@ def _step_matches(ranks, key, tree, atol):
         _close(got[tree], want[tree], 2e-4, atol)
 
 
-def test_stage1_on_two_ranks_matches_one_process_and_jax(ranks):
+@pytest.mark.parametrize("key,jax_key", [
+    ("stage1", "jax_stage1"), ("node_stage1", "jax_node_stage1")],
+    ids=["plain_ops", "node_kernels"])
+def test_stage1_on_two_ranks_matches_one_process_and_jax(ranks, key,
+                                                         jax_key):
     """Stage 1 (the EF update: answer and question CE, the global
     gradient clipped, Adam) on two ranks: loss, counters and parameters
     those of one process on the global batch; and those of the JAX
-    package's single-device stage 1 at 1e-4."""
-    _step_matches(ranks, "stage1", "params", 1e-5)
+    package's single-device stage 1 at 1e-4. With the node kernels
+    (`pallas_mixed_op`) every node's batch statistics are the global
+    batch's, as on the JAX package's mesh."""
+    _step_matches(ranks, key, "params", 1e-5)
     _, ref, outs = ranks
-    want = ref["jax_stage1"]
-    got = outs[0]["steps"]["stage1"]
+    want = ref[jax_key]
+    got = outs[0]["steps"][key]
     np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-4)
     assert got["counts"] == want["counts"]
     _close(got["params"], _numpy(want["params"]), 1e-4, 1e-4)
@@ -534,14 +585,33 @@ def run_steps_stage1_alone(inputs, rows):
     return {"params": _numpy(p), "loss": float(loss)}
 
 
-def test_mixed_op_kernels_refuse_data_parallelism(ranks):
-    """--pallas_mixed_op under a process group raises and names the
-    ROADMAP entry, at the mesh's check and at the node kernel's wrapper
-    (on either device), rather than fold one rank's statistics."""
-    _, _, outs = ranks
+def test_darts_train_step_with_the_node_kernels_on_two_ranks(ranks):
+    """The darts family's train step with `pallas_mixed_op` on two ranks:
+    loss and parameters those of one process on the global batch, the
+    ranks' the same bits."""
+    _step_matches(ranks, "node_darts_train", "params", 1e-5)
+
+
+def test_node_call_on_two_ranks_matches_the_concatenated_batch(ranks):
+    """One mixed-op node call on each rank's rows, its statistics summed
+    over the ranks: the output and the states' gradients are one
+    process's on those rows of the concatenated batch, and the ranks'
+    shares of the conv and mixture weights' gradients sum to one
+    process's, 1e-5."""
+    _, ref, outs = ranks
+    want = ref["node"]
     for out in outs:
-        for msg in out["mixed_op"]:
-            assert "mixed-node kernels under data parallelism" in msg, msg
+        rows = out["rows"]
+        np.testing.assert_allclose(out["node"]["out"], want["out"][rows],
+                                   rtol=1e-5, atol=1e-5)
+        for got, full in zip(out["node"]["dxs"], want["dxs"], strict=True):
+            np.testing.assert_allclose(got, full[rows], rtol=1e-5,
+                                       atol=1e-5)
+    shares = [out["node"]["params"] for out in outs]
+    for i, full in enumerate(want["params"]):
+        np.testing.assert_allclose(shares[0][i] + shares[1][i], full,
+                                   rtol=1e-5, atol=1e-5)
+    assert max(float(np.abs(g).max()) for g in want["params"]) > 0
 
 
 def test_each_rank_takes_its_rows_index_range_and_streams(ranks):

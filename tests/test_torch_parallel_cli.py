@@ -42,11 +42,14 @@ def _main(cwd, *argv):
 
 def test_cli_trains_on_two_ranks_and_resumes(synth, tmp_path):
     """An epoch of the LCT loop (stages 1 and 2, validation with BLEU4) on
-    two ranks: one log, written by rank 0 alone, that names the split;
-    the checkpoints of both models with the mesh in their config; then
-    --resume on two ranks continues from them, every rank reading them
-    (the optimizers' steps go on from where the first run left them)."""
-    argv = ("--input_dir", synth, "--skip_stage3", "--exp", "dp")
+    two ranks with the mixed-op node kernels (`--pallas_mixed_op`, whose
+    statistics are the global batch's): one log, written by rank 0
+    alone, that names the split; the checkpoints of both models with the
+    mesh and the flag in their config; then --resume on two ranks
+    continues from them, every rank reading them (the optimizers' steps
+    go on from where the first run left them)."""
+    argv = ("--input_dir", synth, "--skip_stage3", "--pallas_mixed_op",
+            "--exp", "dp")
     _main(tmp_path, *argv, "--num_epochs", "1")
     out = tmp_path / "experiment_data" / "dp"
     log = (out / "log.txt").read_text()
@@ -57,6 +60,7 @@ def test_cli_trains_on_two_ranks_and_resumes(synth, tmp_path):
     # 16 training questions in global batches of 8: two steps
     assert state["epoch"] == 1 and state["ef_opt"]["step"] == 2
     assert state["config"]["mesh"]["num_devices"] == 2
+    assert state["config"]["model"]["pallas_mixed_op"]
     assert sorted(p.name for p in out.iterdir() if p.suffix == ".ckpt") == [
         "ef_model.ckpt", "w_model.ckpt"]
     _main(tmp_path, *argv, "--num_epochs", "2", "--resume")

@@ -589,9 +589,7 @@ def test_cli_runs_the_three_stages_on_the_cpu(synth, tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--skip_stage3", "--fuse_mixed_ops"], "Not ported"),
     (["--skip_stage3", "--remat_cells"], "Not ported"),
-    (["--skip_stage3", "--pack_conv_branches"], "Not ported"),
-    (["--skip_stage3", "--pallas_mixed_op", "--device", "cpu",
-      "--num_devices", "2"], "mixed-node kernels under data parallelism")],
+    (["--skip_stage3", "--pack_conv_branches"], "Not ported")],
     ids=lambda v: "_".join(v).replace("--", "") if isinstance(v, list)
     else None)
 def test_cli_flags_of_unported_paths_raise(argv, match):
