@@ -13,6 +13,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --int8      # only phase 12
     python3 chip_smoke.py --parallel  # only phase 13
     python3 chip_smoke.py --data      # only phase 14
+    python3 chip_smoke.py --programs  # only phase 15
     python3 chip_smoke.py --grad-spread
                                       # only how far the derived EF's fp32
                                       # gradients move under one rounding
@@ -33,7 +34,10 @@ non-zero:
 1. Build the CUDA kernels from lctvqa_torch/csrc with nvcc.
 2. Each kernel against its plain PyTorch version at full width, with the
    median times of both and of the one PyTorch call that computes the
-   same function where there is one. TF32 is off for matmuls and
+   same function where there is one. The check calls the public wrapper
+   (for a serving kernel its operator); the kernel's time is taken on
+   the function that the operator's CUDA implementation calls, without
+   the dispatch, which phase 15 times. TF32 is off for matmuls and
    convolutions in this phase. Tolerances, as |kernel - plain| <= tol +
    tol * |plain| unless said otherwise:
    - LSTM cell, sequences, decode (E 300, H 512, T 30, V 8192; B = 1, 8,
@@ -345,6 +349,25 @@ non-zero:
    LSTM kernel, each stage-2 step an LSTM kernel. The Prefetcher's wait a
    step and the phase's wall time are printed.
 
+15. The serving functions as torch.export programs
+   (lctvqa_torch/export.py::export_programs) on the card. First each of
+   the six serving kernels' operators (`lctvqa_torch::lstm_cell`,
+   `lstm_seq_final`, `lstm_seq`, `greedy_generate`, `mixed_node`,
+   `batchnorm`) at a B = 64 bf16 serving shape: its result the same bits
+   as the direct call of the function its CUDA implementation calls, and
+   the host enqueue of each (informational). Then every function of the
+   W, VGG19-EF and darts-EF artifacts (phase 3's), the derived EF's and a
+   unified artifact on the supernet at UNIFIED_VOCAB words (written
+   here), at both flag sets in bf16, on PROGRAM_WORKERS spawned
+   processes: traced with a symbolic batch (the seconds printed), the program run at batches 1, 2, 5 and 64 against the eager
+   ServingModel call (ids and tokens exactly, floats within 2e-4; the
+   largest difference printed, 0 expected: the same kernels run); the
+   launch counts of one B = 64 call of each equal, non-zero for each
+   serving kernel of the flag set (program_kernels) and equal to the
+   graph's number of each operator; then one B = 64 call of each timed
+   in turns, while other workers may trace or time (informational). The
+   phase's wall time is printed.
+
 It prints the card's name and power limit, one JSON line of the kernels
 (times, bounds and launch counts; `derived_launches`, `darts_launches`
 and `unified_launches` are phases 10 and 11's kernel-flag training runs';
@@ -352,7 +375,8 @@ the decode's row carries its V = 8197 case under `unified_vocab`; the
 two-launch BatchNorm kernels' rows count phase 13's rank 0, and so do
 the data-parallel node rows, mixed_node_fwd_sync and mixed_node_bwd_sync,
 their `launches` a call's count on phase 13's node stage 1 with each
-launch's under `launch_counts`), and last
+launch's under `launch_counts`; `program_launches` is a B = 64 call of
+each of phase 15's programs, summed), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -605,6 +629,43 @@ def _lstm_fns():
     }
 
 
+def _lstm_kernel_calls():
+    """LSTM kernel -> the function that its operator's CUDA implementation
+    calls, as (weights, xs [B, T, E], h0, c0): phase 2 times a kernel's
+    `ms` on it, the kernel's call without the operator's dispatch, as
+    before the operators; phase 15 times the dispatch
+    (op_enqueue_times)."""
+    from lctvqa_torch.ops import cuda_lstm as L
+
+    return {
+        "lstm_cell": lambda w, xs, h, c: L._cell_kernel(w, xs[:, 0], h, c),
+        "lstm_seq_final": lambda w, xs, h, c: L._seq_final_kernel(
+            w, xs, *L._zeros_state(w, xs, h, c)),
+        "lstm_seq_all": lambda w, xs, h, c: L._seq_all_kernel(
+            w, xs, *L._zeros_state(w, xs, h, c)),
+    }
+
+
+def _generate_kernel_call(qst, h0, seq, dtype):
+    """greedy_generate without its operator (as _lstm_kernel_calls)."""
+    from lctvqa_torch.ops import cuda_generate as G
+
+    return G._generate_kernel(G.decode_weights(qst, dtype), h0, seq)
+
+
+def _node_kernel_call(xs, ops, wts, cs):
+    """mixed_node without its operator (as _lstm_kernel_calls); a tree
+    older than the operators has no `_node_op_cuda`, and its mixed_node
+    is that call."""
+    from lctvqa_torch.ops import cuda_mixedop as M
+
+    direct = getattr(M, "_node_op_cuda", None)
+    if direct is None:
+        return M.mixed_node(xs, ops, wts, cs)
+    nodes = [M.node_weights(p) for p in ops]
+    return direct(xs, [n.dw for n in nodes], [n.pw for n in nodes], wts, cs)
+
+
 def h_rounding_probe(w, b: int, steps: int):
     """bf16 inputs on which rounding h to bf16 before the recurrent product
     decides the result. x = 0; h0 is 1 - 2^-10 on even units (rounds to
@@ -708,6 +769,7 @@ def check_kernels(device, mcfg, batches=BATCHES, time_fn=time_ms,
     qst = _to(qst, device)
     seq, hid = mcfg.max_qst_len, mcfg.lstm_hidden_size
     results = {name: {} for name in names}
+    direct = _lstm_kernel_calls()
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=device)
     for b in batches:
         ids = torch.randint(0, mcfg.qst_vocab_size, (b, seq), generator=gen)
@@ -731,12 +793,13 @@ def check_kernels(device, mcfg, batches=BATCHES, time_fn=time_ms,
                        f"{name} B={b} {dname}: max |kernel - plain| = {err}"
                        f" exceeds {TOL[dname]}")
                 r = results[name][(b, dname)] = {
-                    "err": err, "ms": time_fn(lambda: kern(*args)),
+                    "err": err, "ms": time_fn(lambda: direct[name](*args)),
                     "plain_ms": time_fn(lambda: plain(*args)),
                     "library_ms": time_library(library[name]),
                     "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
                 if name != "lstm_cell" and time_fn is time_ms:
-                    r["cold_ms"] = time_cold_ms(lambda: kern(*args), flush)
+                    r["cold_ms"] = time_cold_ms(
+                        lambda: direct[name](*args), flush)
                     r["library_cold_ms"] = time_cold_ms(library[name], flush)
                 if dname != "bfloat16":
                     continue
@@ -767,8 +830,8 @@ def check_kernels(device, mcfg, batches=BATCHES, time_fn=time_ms,
                 f"greedy_generate B={b} {dname}: tokens differ, gaps {gaps}")
             results["greedy_generate"][(b, dname)] = {
                 "err": max(gaps, default=0.0),
-                "ms": time_fn(lambda: cuda_generate.greedy_generate(
-                    qst, h0, seq, dtype)),
+                "ms": time_fn(lambda: _generate_kernel_call(qst, h0, seq,
+                                                            dtype)),
                 "plain_ms": time_fn(lambda: cuda_generate.greedy_generate_plain(
                     qst, h0, seq, dtype)),
                 "library_ms": None,
@@ -958,7 +1021,8 @@ def seq_device_times(device, mcfg, b=64, iters=10):
 
 
 def cell_device_times(device, mcfg, b=64, iters=20):
-    """Device time per call of the cell's wrapper and of nn.LSTMCell at
+    """Device time per call of the cell kernel's call (without its
+    operator, as _lstm_kernel_calls) and of nn.LSTMCell at
     batch `b`, on the inputs check_kernels gives them (x a strided fp32
     view, h = c the image embedding), with the host's enqueue time per
     call -> {dtype: {"kernel_us", "library_us", "kernel_launches",
@@ -976,7 +1040,7 @@ def cell_device_times(device, mcfg, b=64, iters=20):
     out = {}
     for dname, dtype in DTYPES.items():
         w = L.cell_weights(lp, dtype)
-        kern = lambda: L.lstm_cell(w, xs[:, 0], h0, h0)  # noqa: E731
+        kern = lambda: L._cell_kernel(w, xs[:, 0], h0, h0)  # noqa: E731
         lib = lstm_library_fns(w, xs, h0, device)["lstm_cell"]
         k_us, k_rows = device_times(kern, iters)
         l_us, l_rows = device_times(lib, iters)
@@ -998,7 +1062,8 @@ NODE_PROFILE = (("cell0", 5, 64, "bfloat16"), ("cell2", 3, 64, "bfloat16"))
 
 
 def node_device_times(device, picks=NODE_PROFILE, iters=10):
-    """mixed_node_fwd at each pick: device time of each launch of one call
+    """mixed_node_fwd at each pick, called without its operator
+    (_node_kernel_call): device time of each launch of one call
     (torch.profiler), the event-timed call and the host's enqueue time ->
     {pick: {"device_us", "launches", "ms", "enqueue_us", "rows"}}."""
     from lctvqa_torch.models import search
@@ -1016,7 +1081,7 @@ def node_device_times(device, picks=NODE_PROFILE, iters=10):
         wts = (torch.softmax(torch.randn(edges, 8, generator=gen), 1)
                * torch.softmax(torch.randn(edges, generator=gen),
                                0)[:, None]).to(device)
-        fn = lambda: cuda_mixedop.mixed_node(xs, ops, wts, c // 4)  # noqa
+        fn = lambda: _node_kernel_call(xs, ops, wts, c // 4)  # noqa
         total, rows = device_times(fn, iters)
         tag = f"mixed_node_fwd {cell} E={edges} N={n} {dname}"
         r = out[(cell, edges, n, dname)] = {
@@ -1068,7 +1133,8 @@ def node_bwd_device_times(device, picks=NODE_PROFILE, iters=10):
 
 
 def generate_device_times(device, mcfg, batches=BATCHES, iters=10):
-    """greedy_generate at full width, B in `batches`, both dtypes: device
+    """greedy_generate at full width, B in `batches`, both dtypes, called
+    without its operator (_generate_kernel_call): device
     time per call (torch.profiler), the event-timed call and the host's
     enqueue; where the tree has the grid design, its launch plan and the
     time of as many empty grid barriers as one call crosses ->
@@ -1088,7 +1154,7 @@ def generate_device_times(device, mcfg, batches=BATCHES, iters=10):
         h0 = N.l2_normalize(torch.randn(b, hid, generator=gen)).to(device)
         for dname, dtype in DTYPES.items():
             qd = dict(qst, decode=G.decode_weights(qst, dtype))
-            fn = lambda: G.greedy_generate(qd, h0, seq, dtype)  # noqa
+            fn = lambda: _generate_kernel_call(qd, h0, seq, dtype)  # noqa
             total, rows = device_times(fn, iters)
             tag = f"greedy_generate B={b} {dname}"
             r = out[(b, dname)] = {
@@ -1176,8 +1242,10 @@ def check_bn_kernel(device, time_fn=time_ms):
                                5 * n, "float32")
                 r = results[(shape, in_name, out_name)] = {
                     "err": err, "bound_ms": ms, "bound_by": by,
-                    "ms": time_fn(lambda: cuda_bn.batchnorm_fwd(
-                        x, out_dtype=out_dt)),
+                    # the call without the operator (as
+                    # _lstm_kernel_calls)
+                    "ms": time_fn(lambda: cuda_bn.batchnorm_fwd_stat(
+                        x, out_dt)[0]),
                     "plain_ms": time_fn(lambda: cuda_bn.batchnorm_plain(
                         x, out_dtype=out_dt)),
                     "library_ms": time_library(lambda: F.batch_norm(
@@ -1235,7 +1303,7 @@ def check_node_kernel(device, batches=BATCHES, time_fn=time_ms):
                     r = results[(cell, edges, n, dname)] = {
                         "err": err, "bound_ms": ms, "bound_by": by,
                         "library_ms": None,
-                        "ms": time_fn(lambda: cuda_mixedop.mixed_node(
+                        "ms": time_fn(lambda: _node_kernel_call(
                             xs, ops[:edges], wts, cs)),
                         "plain_ms": time_fn(
                             lambda: cuda_mixedop.mixed_node_plain(
@@ -1313,7 +1381,8 @@ def _device_times_or_none(fn, iters):
 
 def bn_device_times(device, iters=10):
     """bn_fwd and bn_bwd at every BN_SHAPES entry and dtype pair (forward:
-    x, y; backward: x, g): the event-timed call, the device time of each
+    x, y; backward: x, g; the forward without its operator, as
+    _lstm_kernel_calls): the event-timed call, the device time of each
     launch of one call (torch.profiler), the host's enqueue, and the
     library call's time and device time (F.batch_norm(training=True) on the
     channels-last view; autograd's backward of it) -> {"fwd": {(shape, x,
@@ -1337,7 +1406,7 @@ def bn_device_times(device, iters=10):
                 g = gbase.to(b_dt)
                 gl = g.to(yl.dtype).permute(0, 3, 1, 2)
                 calls = {
-                    "fwd": (lambda: cuda_bn.batchnorm_fwd(x, out_dtype=b_dt),
+                    "fwd": (lambda: cuda_bn.batchnorm_fwd_stat(x, b_dt)[0],
                             lambda: F.batch_norm(nchw, None, None,
                                                  training=True, eps=1e-5)),
                     "bwd": (lambda: cuda_bn.batchnorm_bwd(x, g, stat),
@@ -1691,7 +1760,8 @@ def model_configs():
     """Full width: ModelConfig's defaults, whose encoder is the PC-DARTS
     supernet, and the same with the fixed VGG19 encoder and with the
     derived network of DERIVED_GENOTYPE (its cells' shape, 4 nodes and 4
-    concatenated, is the defaults')."""
+    concatenated, is the defaults'), and the unified model on the supernet
+    at phase 11's vocabulary of UNIFIED_VOCAB words."""
     import dataclasses
 
     from lctvqa_torch.config import ModelConfig
@@ -1702,16 +1772,18 @@ def model_configs():
     fixed = dataclasses.replace(darts, arch_type="fixed")
     derived = dataclasses.replace(darts, arch_type="derived",
                                   genotype=getattr(genotypes, DERIVED_GENOTYPE))
-    return {"w": fixed, "ef": fixed, "darts": darts, "derived": derived}
+    unified = dataclasses.replace(darts, qst_vocab_size=UNIFIED_VOCAB)
+    return {"w": fixed, "ef": fixed, "darts": darts, "derived": derived,
+            "unified": unified}
 
 
 def write_artifacts(out_dir: Path, names=("w", "ef", "darts")):
-    """Seeded full-width W, fixed-EF and darts-EF params -> artifact files.
-    The supernet's arch parameters are scaled up from their 1e-3 init so
-    that the op mixture is not uniform."""
+    """Seeded full-width params of model_configs()'s W, EF and unified
+    models -> artifact files. The supernet's arch parameters are scaled up
+    from their 1e-3 init so that the op mixture is not uniform."""
     from lctvqa_torch import __version__, convert
     from lctvqa_torch.export import ARTIFACT_VERSION, save_artifact
-    from lctvqa_torch.models import vqa_ef, vqa_w
+    from lctvqa_torch.models import unified, vqa_ef, vqa_w
 
     paths = {}
     for seed, name in enumerate(names, start=SEED + 1):
@@ -1720,6 +1792,8 @@ def write_artifacts(out_dir: Path, names=("w", "ef", "darts")):
         gen = torch.Generator().manual_seed(seed)
         if name == "w":
             params, arch = vqa_w.init_w_model(gen, mcfg), None
+        elif name == "unified":
+            params, arch = unified.init_unified_model(gen, mcfg)
         else:
             params, arch = vqa_ef.init_ef_model(gen, mcfg)
         bundle = {"params": convert.to_jax(params)}
@@ -1728,14 +1802,15 @@ def write_artifacts(out_dir: Path, names=("w", "ef", "darts")):
                 {k: 500.0 * v for k, v in arch.items()})
         n = sum(p.numel() for p in _leaves(params))
         meta = {"artifact_version": ARTIFACT_VERSION,
-                "family": "w" if name == "w" else "ef",
+                "family": name if name in ("w", "unified") else "ef",
                 "int8": False, "platforms": ["cuda"],
                 "img_size": mcfg.img_size, "max_qst_len": mcfg.max_qst_len,
                 "qst_vocab_size": mcfg.qst_vocab_size,
                 "ans_vocab_size": mcfg.ans_vocab_size,
                 "arch_type": mcfg.arch_type, "epoch": None,
-                "lctvqa_version": __version__, "qst_words": qst_words,
-                "ans_words": ans_words}
+                "lctvqa_version": __version__,
+                "unified_words" if name == "unified" else "qst_words":
+                qst_words, "ans_words": ans_words}
         path = out_dir / f"{name}.lctx"
         save_artifact({"exported": {}, "params": bundle, "meta": meta},
                       str(path))
@@ -5119,6 +5194,340 @@ def data_phase(arrays, device, root: str, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the serving functions as torch.export programs
+# ---------------------------------------------------------------------------
+
+# the artifacts, their longest traces first (the supernet's graph)
+PROGRAM_ARTIFACTS = ("darts", "unified", "derived", "ef", "w")
+PROGRAM_BATCHES = (1, 2, 5, 64)
+# one a core of the card's host: the traces are single-threaded Python
+PROGRAM_WORKERS = 8
+# an operator of a program's graph -> the kernel its CUDA implementation
+# launches, once a call at these shapes
+OP_KERNELS = {"lstm_cell": "lstm_cell", "lstm_seq_final": "lstm_seq_final",
+              "lstm_seq": "lstm_seq_all", "greedy_generate": "greedy_generate",
+              "mixed_node": "mixed_node_fwd", "batchnorm": "bn_fwd"}
+
+
+def program_kernels(name: str, fname: str, fn: str) -> set:
+    """The serving kernels that `fn` of artifact `name` launches at the
+    flag set `fname`: the cell at every step with the default flags; with
+    the kernel flags W's final-state sequence kernel, the EF encoders'
+    every-step one, the decode for `generate`, the node and BatchNorm
+    kernels on the supernet, the BatchNorm kernel in the derived net."""
+    if fname == "default":
+        return {"lstm_cell"}
+    kernels = {"w": {"lstm_seq_final"}, "unified": set()}.get(
+        name, {"lstm_seq_all"})
+    if fn == "generate":
+        kernels = kernels | {"greedy_generate"}
+    if name in ("darts", "unified"):
+        kernels = kernels | {"mixed_node_fwd", "bn_fwd"}
+    if name == "derived":
+        kernels = kernels | {"bn_fwd"}
+    return kernels
+
+
+def _graph_ops(program) -> dict:
+    counts = collections.Counter()
+    for node in program.graph.nodes:
+        if (node.op == "call_function"
+                and getattr(node.target, "namespace", None) == "lctvqa_torch"):
+            counts[node.target._schema.name.split("::")[1]] += 1
+    return dict(counts)
+
+
+def _outputs_differ(got, want) -> float:
+    """The largest |program - eager| over the outputs (floats), or the
+    number of differing ids and tokens; inf where a shape or dtype
+    differs."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    worst = 0.0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return float("inf")
+        if g.is_floating_point():
+            worst = max(worst, float((g - w).abs().max()))
+        else:
+            worst = max(worst, float((g != w).sum()))
+    return worst
+
+
+def _program_worker(jobs, next_job, results, device: str) -> None:
+    """A spawned process of phase 15: takes jobs (artifact path, name,
+    flag set, function) in turn until none is left, traces and checks each
+    (_program_checks), then times its program against its eager call
+    (_time_program) while other workers may still trace on the host's
+    cores or time on the card: the times are informational. Puts each
+    job's numbers on `results`, or the traceback of a failure, then
+    None."""
+    import traceback
+
+    torch.set_num_threads(1)  # the host's cores go to the other workers
+    try:
+        while True:
+            with next_job.get_lock():
+                i = next_job.value
+                next_job.value += 1
+            if i >= len(jobs):
+                break
+            path, name, fname, fn = jobs[i]
+            FAILURES.clear()
+            with kernel_flags(fname) as flags:
+                r, calls = _program_checks(path, name, fname, fn, flags,
+                                           torch.device(device))
+                r["eager_ms"], r["program_ms"] = _time_program(calls)
+            r["failures"] = list(FAILURES)
+            results.put(r)
+            del calls  # the job's model and program
+    except BaseException:
+        results.put({"error": traceback.format_exc()})
+    finally:
+        results.put(None)
+
+
+def _time_program(calls):
+    """One eager call and one program call at the largest batch, in turns
+    after 2 of each, host clock around a synchronize -> their median ms
+    over 5."""
+    eager, prog = calls(max(PROGRAM_BATCHES))
+    times = {eager: [], prog: []}
+    for _ in range(2):
+        eager(), prog()
+    for _ in range(5):
+        for call in (eager, prog):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            times[call].append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times[eager]), statistics.median(times[prog])
+
+
+def _program_checks(path: str, name: str, fname: str, fn: str, flags,
+                    device):
+    """The artifact's ServingModel with `flags`, `fn` traced with
+    export.export_programs, the program against the eager call at
+    PROGRAM_BATCHES (tokens and ids exactly, floats within export._agree's
+    2e-4), the launch counts of one call of each at B = 64 (equal,
+    non-zero for program_kernels, each the graph's number of its
+    operator). -> (the numbers, calls: b -> (eager call, program call)
+    on new inputs of b rows)."""
+    from lctvqa_torch.export import (FUNCTIONS, ServingModel, export_programs,
+                                     read_artifact)
+    from lctvqa_torch.ops import _build
+
+    art = read_artifact(path)
+    s, steps = art["meta"]["img_size"], art["meta"]["max_qst_len"]
+    vocab = art["meta"]["qst_vocab_size"]
+    expect(fn in FUNCTIONS[art["meta"]["family"]], f"{name} has no {fn}")
+    model = ServingModel(art, device, genotype=ARTIFACT_GENOTYPE.get(name),
+                         **flags)
+    del art
+    t_job = time.perf_counter()
+    program = export_programs(model, max_batch=max(PROGRAM_BATCHES),
+                              functions=(fn,))[fn]
+    trace_s = time.perf_counter() - t_job
+    run = program.module()
+    graph = _graph_ops(program)
+    rng = np.random.default_rng(SEED + 15)
+
+    def calls(b):
+        u8 = rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)
+        qst = rng.integers(0, vocab, (b, steps), dtype=np.int32)
+        eager_args = (u8, qst) if fn == "answer_logits" else (u8,)
+
+        def program_call():
+            with torch.no_grad():
+                return run(*(torch.from_numpy(a).to(device)
+                             for a in eager_args))
+
+        return (lambda: getattr(model, fn)(*eager_args)), program_call
+
+    diffs = {}
+    for b in PROGRAM_BATCHES:
+        eager, prog = calls(b)
+        diff = diffs[b] = _outputs_differ(prog(), eager())
+        expect(diff <= (2e-4 if fn == "answer_logits" else 0.0),
+               f"program {name} {fname} {fn} B={b}: differs from the eager "
+               f"call by {diff}")
+    launches = {}
+    for what, call in zip(("eager", "program"), calls(max(PROGRAM_BATCHES))):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        call()
+        torch.cuda.synchronize()
+        launches[what] = {k: v for k, v in _build.launch_counts().items()
+                          if v}
+    got = launches["program"]
+    expect(got == launches["eager"],
+           f"program {name} {fname} {fn}: launches {got} against the eager "
+           f"call's {launches['eager']}")
+    expect(set(got) == program_kernels(name, fname, fn),
+           f"program {name} {fname} {fn}: launched {sorted(got)}, expected "
+           f"{sorted(program_kernels(name, fname, fn))}")
+    expect({OP_KERNELS[op]: n for op, n in graph.items()} == got,
+           f"program {name} {fname} {fn}: operators {graph}, launches {got}")
+    return ({"name": name, "flags": fname, "fn": fn, "trace_s": trace_s,
+             "checked_s": time.perf_counter() - t_job,
+             "nodes": len(program.graph.nodes), "graph_ops": graph,
+             "launches": got, "diffs": diffs}, calls)
+
+
+def op_enqueue_times(device) -> dict:
+    """Each operator at a serving shape (B = 64 bf16 at the full widths;
+    the node at cell0 with E = 5; BatchNorm at [64,64,64,32] fp32 in, bf16
+    out) called through torch.ops and through the function its CUDA
+    implementation calls (`host_enqueue_us`, in turns), and the two
+    results the same bits. -> {op: {"op_us", "direct_us"}}."""
+    from lctvqa_torch.models.qst_encoder import ef_qst_encoder_init
+    from lctvqa_torch.ops import (cuda_bn, cuda_generate, cuda_lstm,
+                                  cuda_mixedop)
+    from lctvqa_torch.ops import nn as N
+
+    bf16 = torch.bfloat16
+    mcfg = model_configs()["ef"]
+    gen = torch.Generator().manual_seed(SEED + 15)
+    qst = _to(ef_qst_encoder_init(gen, mcfg.qst_vocab_size,
+                                  mcfg.word_embed_size, mcfg.img_embed_size,
+                                  1, mcfg.lstm_hidden_size), device)
+    b, steps, hid = 64, mcfg.max_qst_len, mcfg.lstm_hidden_size
+    ids = torch.randint(0, mcfg.qst_vocab_size, (b, steps), generator=gen)
+    xs = torch.tanh(N.embed(qst["word2vec"], ids.to(device)))
+    h0 = N.l2_normalize(torch.randn(b, hid, generator=gen)).to(device)
+    w = cuda_lstm.cell_weights(qst["lstm"]["layers"][0], bf16)
+    d = cuda_generate.decode_weights(qst, bf16)
+    h, wd, c, _ = NODE_SHAPES["cell0"]
+    xn, ops, wts = _node_inputs(gen, b, h, wd, c, 5, bf16, device)
+    nodes = [cuda_mixedop.node_weights(p) for p in ops]
+    dws, pws = [n.dw for n in nodes], [n.pw for n in nodes]
+    x_bn = torch.randn(64, 64, 64, 32, generator=gen).to(device)
+    cases = {
+        "lstm_cell": (cuda_lstm.LSTM_CELL_OP, (xs[:, 0], h0, h0, *w),
+                      lambda: cuda_lstm._cell_out(w, xs[:, 0], h0, h0)),
+        "lstm_seq_final": (cuda_lstm.LSTM_SEQ_FINAL_OP, (xs, h0, h0, *w),
+                           lambda: cuda_lstm._seq_final_kernel(w, xs, h0,
+                                                               h0)),
+        "lstm_seq": (cuda_lstm.LSTM_SEQ_OP, (xs, h0, h0, *w),
+                     lambda: cuda_lstm._seq_all_kernel(w, xs, h0, h0)),
+        "greedy_generate": (
+            cuda_generate.GREEDY_GENERATE_OP,
+            (h0, d.x0, *d.cell, d.fc2_w, d.fc2_b, d.table, steps),
+            lambda: cuda_generate._generate_kernel(d, h0, steps)),
+        "mixed_node": (cuda_mixedop.MIXED_NODE_OP, (xn, dws, pws, wts, c // 4),
+                       lambda: cuda_mixedop._node_op_cuda(xn, dws, pws, wts,
+                                                          c // 4)),
+        "batchnorm": (cuda_bn.BATCHNORM_OP, (x_bn, bf16, 1e-5),
+                      lambda: cuda_bn._bn_op_cuda(x_bn, bf16, 1e-5)),
+    }
+    out = {}
+    with torch.no_grad():
+        for name, (op, args, direct) in cases.items():
+            same = _outputs_differ(_leaves_tuple(op(*args)),
+                                   _leaves_tuple(direct()))
+            expect(same == 0.0, f"operator {name}: its result differs from "
+                   f"the direct call's by {same}")
+            us = {"op_us": [], "direct_us": []}
+            for _ in range(3):
+                us["op_us"].append(host_enqueue_us(lambda: op(*args)))
+                us["direct_us"].append(host_enqueue_us(direct))
+            out[name] = {k: statistics.median(v) for k, v in us.items()}
+            log(f"host enqueue {name}: {out[name]['op_us']:.1f} us through "
+                f"torch.ops, {out[name]['direct_us']:.1f} us direct")
+    return out
+
+
+def _leaves_tuple(out):
+    return tuple(out) if isinstance(out, (tuple, list)) else (out,)
+
+
+def _node_inputs(gen, n, h, w, c, edges, dtype, device):
+    """`edges` edge states [n, h, w, c] of `dtype`, their mixed-op params and
+    the [edges, 8] mixture, at the supernet's channel proportion 1/4."""
+    from lctvqa_torch.models import search
+
+    ops = [_to(search.mixed_op_init(gen, c, 1, 4), device)
+           for _ in range(edges)]
+    xs = [torch.randn(n, h, w, c, generator=gen).to(device, dtype)
+          for _ in range(edges)]
+    wts = (torch.softmax(torch.randn(edges, 8, generator=gen), 1)
+           * torch.softmax(torch.randn(edges, generator=gen), 0)[:, None])
+    return xs, ops, wts.to(device)
+
+
+def programs_phase(device, root: str, card: str, paths=None) -> dict:
+    """Phase 15: each operator's host enqueue, then every serving function
+    of the W, VGG19-EF, darts-EF, derived-EF and unified artifacts (`paths`
+    where an earlier phase wrote them, else written here) at both flag
+    sets as a program, on PROGRAM_WORKERS spawned processes
+    (_program_worker), the longest traces first. Prints each job's numbers
+    and the phase's wall time. -> {"program_launches": launches of one
+    B = 64 call of every program, summed by kernel, "jobs", "enqueue"}."""
+    import multiprocessing
+    import queue
+
+    from lctvqa_torch.export import FUNCTIONS
+
+    t0 = time.perf_counter()
+    paths = dict(paths or {})
+    missing = tuple(n for n in PROGRAM_ARTIFACTS if n not in paths)
+    paths.update(write_artifacts(Path(root), names=missing))
+    enqueue = op_enqueue_times(device)
+    torch.cuda.empty_cache()
+    family = {"w": "w", "unified": "unified"}
+    jobs = [(paths[name], name, fname, fn) for name in PROGRAM_ARTIFACTS
+            for fname in KERNEL_FLAGS
+            for fn in FUNCTIONS[family.get(name, "ef")]]
+    ctx = multiprocessing.get_context("spawn")
+    n = min(PROGRAM_WORKERS, len(jobs))
+    out, next_job = ctx.Queue(), ctx.Value("i", 0)
+    args = (jobs, next_job, out, str(device))
+    procs = [ctx.Process(target=_program_worker, args=args)
+             for _ in range(n)]
+    for proc in procs:
+        proc.start()
+    results, errors, done = [], [], 0
+    while done < n:  # drained before the workers are joined
+        try:
+            item = out.get(timeout=10)
+        except queue.Empty:
+            if not any(proc.is_alive() for proc in procs):
+                break  # a worker died without a word
+            continue
+        if item is None:
+            done += 1
+        elif "error" in item:
+            errors.append(item["error"])
+        else:
+            results.append(item)
+    for proc in procs:
+        proc.join(60)
+    codes = [proc.exitcode for proc in procs]
+    if errors or done < n or any(codes):
+        raise RuntimeError(f"phase 15: {n - done} worker(s) gave no end, "
+                           f"exit codes {codes}\n" + "\n".join(errors))
+    expect(len(results) == len(jobs),
+           f"phase 15: {len(results)} results of {len(jobs)} jobs")
+    totals = collections.Counter()
+    for r in results:
+        totals.update(r["launches"])
+        for failure in r["failures"]:
+            expect(False, failure)
+        diffs = ", ".join(f"B={b} {d:.3g}" for b, d in r["diffs"].items())
+        log(f"program {r['name']} {r['flags']} {r['fn']}: traced in "
+            f"{r['trace_s']:.1f} s ({r['nodes']} nodes; checked after "
+            f"{r['checked_s']:.1f} s), operators {r['graph_ops']}, "
+            f"launches at B=64 {r['launches']}; largest |program - eager| "
+            f"{diffs}; B=64 "
+            f"bf16 program {r['program_ms']:.2f} ms, eager "
+            f"{r['eager_ms']:.2f} ms on {card}")
+    log(f"programs phase took {time.perf_counter() - t0:.1f} s on {card}")
+    return {"program_launches": dict(totals), "jobs": results,
+            "enqueue": enqueue}
+
+
 def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
                 cell_dev, node_dev, gen_plan, gen_dev, node_bwd_dev):
     """The kernels line: one row per kernel at the largest shape the
@@ -5292,6 +5701,10 @@ def main(argv=None) -> int:
                       help="only build, then phase 14 (the offline data "
                       "builders, the C++ gather core, and the LCT main path "
                       "fed by it)")
+    mode.add_argument("--programs", action="store_true",
+                      help="only build, then phase 15 (the serving "
+                      "functions as torch.export programs against the "
+                      "eager calls, and the operators' host enqueue)")
     mode.add_argument("--kernel-times", action="store_true",
                       help="only build, then time the cell, the node "
                       "forward and backward, the decode, the BatchNorm "
@@ -5369,6 +5782,11 @@ def main(argv=None) -> int:
     if args.data:
         with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
             data_phase(train_arrays(), device, tmp, card)
+        log(card)
+        return 1 if FAILURES else 0
+    if args.programs:
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+            programs_phase(device, tmp, card)
         log(card)
         return 1 if FAILURES else 0
     if args.grad_spread:
@@ -5504,6 +5922,10 @@ def main(argv=None) -> int:
         # LCT main path fed by it, the counts at 0
         data_phase(arrays, device, tmp, card)
 
+        # 15. the serving functions as torch.export programs, each call's
+        # counts at 0 just before it
+        programs = programs_phase(device, tmp, card, paths)
+
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
                        launches, seq_plan, cell_dev, node_dev, gen_plan,
                        gen_dev, node_bwd_dev)
@@ -5511,6 +5933,8 @@ def main(argv=None) -> int:
         row["derived_launches"] = derived_launches[row["name"]]
         row["darts_launches"] = family_launches["darts"][row["name"]]
         row["unified_launches"] = family_launches["unified"][row["name"]]
+        row["program_launches"] = programs["program_launches"].get(
+            row["name"], 0)
         if row["name"] == "greedy_generate":
             r = gen_unified[(64, "bfloat16")]
             row["unified_vocab"] = {

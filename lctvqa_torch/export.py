@@ -39,9 +39,15 @@ an EF model, or a unified one where its params hold "qa"), int8 with
 reads a checkpoint of either package from `<root_stats_dir>/E` (for
 `vqa` with its `arch_par.ckpt` where there is one), writes the artifact
 and, with `--check`, reloads it through `ServingModel` and holds it
-against the model functions applied to the checkpoint's trees. Writing
-`torch.export` programs under "exported" is the next slice (ROADMAP.md,
-queue 1 item 6b).
+against the model functions applied to the checkpoint's trees.
+
+`export_programs` traces a ServingModel's serving functions into
+`torch.export` programs (step 1 of ROADMAP.md queue 1 item 6b): a
+symbolic batch, the JAX programs' uint8 and int32 inputs, the weights as
+the program's buffers, and each serving kernel a `lctvqa_torch::`
+operator of the graph (`ops/_build.py::define_op`). The programs are not
+yet written into the artifact, and int8 models and fp32 models on the
+card are not traced (step 2).
 """
 
 from __future__ import annotations
@@ -52,7 +58,8 @@ import json
 import os
 import pickle
 import zipfile
-from typing import Any, Dict, List, Optional, Union
+from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
+                    Union)
 
 import numpy as np
 import torch
@@ -374,6 +381,32 @@ def _has_int8(tree) -> bool:
     return False
 
 
+def answer_logits(family: str, config: ModelConfig, params, arch,
+                  u8: torch.Tensor, qst: torch.Tensor) -> torch.Tensor:
+    """The served `answer_logits` on a prepared tree: uint8 images [B, S,
+    S, 3] and integer question ids [B, T] on the params' device -> fp32
+    logits [B, A]. Normalization and the cast of the ids to int64 happen
+    here, so that a traced program takes the JAX programs' inputs."""
+    img = normalize_images(u8)
+    qst = qst.to(torch.int64)
+    if family == "w":
+        return vqa_w.w_forward(params, config, img, qst)
+    logits, _ = vqa_ef.ef_forward(params, arch, config, img, qst)
+    return logits
+
+
+def generate(family: str, config: ModelConfig, params, arch,
+             u8: torch.Tensor):
+    """The served `generate` on a prepared tree: uint8 images -> EF:
+    (greedy question tokens int32 [B, T], answer ids int64 [B]); unified:
+    the greedy stream, int32 [B, T]."""
+    img = normalize_images(u8)
+    if family == "unified":
+        return unified_model.unified_generate(params, arch, config, img)
+    qst, ans = vqa_ef.ef_generate(params, arch, config, img)
+    return qst, torch.argmax(ans, dim=1)
+
+
 class ServingModel:
     """A loaded artifact on one device: params as tensors plus the model
     functions. `device` defaults to "cuda" and there is no fallback: on a
@@ -455,13 +488,9 @@ class ServingModel:
         if "answer_logits" not in self.functions:
             raise ValueError(f"{self.family} artifacts have no "
                              "answer_logits function")
-        img = normalize_images(self._tensor(u8_images, torch.uint8))
-        qst = self._tensor(qst_ids, torch.int64)
-        if self.family == "w":
-            return vqa_w.w_forward(self.params, self.config, img, qst)
-        logits, _ = vqa_ef.ef_forward(self.params, self.arch, self.config,
-                                      img, qst)
-        return logits
+        return answer_logits(self.family, self.config, self.params,
+                             self.arch, self._tensor(u8_images, torch.uint8),
+                             self._tensor(qst_ids, torch.int64))
 
     @torch.inference_mode()
     def generate(self, u8_images):
@@ -470,13 +499,8 @@ class ServingModel:
         stream, int32 [B, T]."""
         if self.family == "w":
             raise ValueError("W-model artifacts have no generate function")
-        img = normalize_images(self._tensor(u8_images, torch.uint8))
-        if self.family == "unified":
-            return unified_model.unified_generate(self.params, self.arch,
-                                                  self.config, img)
-        qst, ans = vqa_ef.ef_generate(self.params, self.arch, self.config,
-                                      img)
-        return qst, torch.argmax(ans, dim=1)
+        return generate(self.family, self.config, self.params, self.arch,
+                        self._tensor(u8_images, torch.uint8))
 
     def generated_answers(self, u8_images) -> List[str]:
         """Answer strings of greedy generation: a unified stream's words
@@ -501,6 +525,144 @@ def load_artifact(path: str, device: Union[str, torch.device] = "cuda",
                   **overrides) -> ServingModel:
     return ServingModel(read_artifact(path, trusted=trusted), device,
                         genotype, **overrides)
+
+
+# ---------------------------------------------------------------------------
+# torch.export programs
+# ---------------------------------------------------------------------------
+
+class _Buffer(NamedTuple):
+    """A tensor leaf of a serving module's tree: the buffer that holds it."""
+
+    name: str
+
+
+def _register_tree(module: torch.nn.Module, tree, path: str, seen: dict):
+    """The tree with each tensor replaced by a `_Buffer`, the tensor
+    registered as a buffer of `module` named by its tree path (the first
+    path where one tensor is reached from several). Dicts, lists, tuples
+    and NamedTuples keep their structure; other leaves (a prepared
+    weight's dtype tag, None) stay as they are."""
+    if isinstance(tree, torch.Tensor):
+        if id(tree) not in seen:
+            if tree.is_inference():
+                raise ValueError(
+                    f"{path} is an inference tensor: build the ServingModel "
+                    "outside torch.inference_mode to trace its programs")
+            module.register_buffer(path, tree)
+            seen[id(tree)] = _Buffer(path)
+        return seen[id(tree)]
+    if isinstance(tree, dict):
+        return {k: _register_tree(module, v, f"{path}__{k}", seen)
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_register_tree(module, v, f"{path}__{f}", seen)
+                            for f, v in zip(tree._fields, tree)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_register_tree(module, v, f"{path}__{i}", seen)
+                          for i, v in enumerate(tree))
+    return tree
+
+
+def _fill(tree, module: torch.nn.Module):
+    """`_register_tree`'s skeleton with the module's buffers put back."""
+    if isinstance(tree, _Buffer):
+        return module.get_buffer(tree.name)
+    if isinstance(tree, dict):
+        return {k: _fill(v, module) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_fill(v, module) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_fill(v, module) for v in tree)
+    return tree
+
+
+class _ServingModule(torch.nn.Module):
+    """One serving function of a ServingModel as a module whose buffers
+    are the model's prepared params and arch, named by their tree paths
+    ("params__qst__lstm__layers__0__cell__w_ih"), so that a program's
+    state_dict carries them as the JAX programs take the params as
+    arguments."""
+
+    def __init__(self, model: "ServingModel"):
+        super().__init__()
+        self.family, self.config = model.family, model.config
+        seen: dict = {}
+        self._params = _register_tree(self, model.params, "params", seen)
+        self._arch = _register_tree(self, model.arch, "arch", seen)
+
+    def trees(self):
+        return _fill(self._params, self), _fill(self._arch, self)
+
+
+class _AnswerLogits(_ServingModule):
+    def forward(self, u8: torch.Tensor, qst: torch.Tensor) -> torch.Tensor:
+        return answer_logits(self.family, self.config, *self.trees(), u8,
+                             qst)
+
+
+class _Generate(_ServingModule):
+    def forward(self, u8: torch.Tensor):
+        return generate(self.family, self.config, *self.trees(), u8)
+
+
+def export_programs(model: "ServingModel", max_batch: int = 64,
+                    functions: Optional[Sequence[str]] = None
+                    ) -> Dict[str, "torch.export.ExportedProgram"]:
+    """Each serving function of `model` (or those named in `functions`) as
+    a `torch.export` program (counterpart of lctvqa/export.py's
+    `_build_fns` and its `jax.export` loop, without serializing): inputs
+    the JAX programs' uint8 images [B, S, S, 3] and int32 question ids
+    [B, T], the batch B symbolic from 1 to `max_batch`; the weights and
+    arch the program's buffers (its state_dict). Traced under no_grad on
+    the model's device, to which a program is then tied (it asserts its
+    inputs' device), with the kernel flags of the model's config and the
+    process-wide BatchNorm switch (`ops/conv.py::USE_PALLAS_BN`) as they
+    are now: each kernel on that path is a `lctvqa_torch::` operator of
+    the graph. The programs are not written into an artifact, and int8
+    models and fp32 models on the card are not traced (ROADMAP.md queue 1
+    item 6b, step 2)."""
+    if model.meta.get("int8") or _has_int8(model.params):
+        raise NotImplementedError(
+            "int8 programs are ROADMAP.md queue 1 item 6b, step 2: the int8 "
+            "products pad the batch with a branch on its size")
+    if (model.device.type == "cuda"
+            and N.torch_dtype(model.config.compute_dtype) == torch.float32):
+        raise NotImplementedError(
+            "fp32 programs on the card are ROADMAP.md queue 1 item 6b, step "
+            "2: an fp32 convolution turns cuDNN's TF32 off around its call "
+            "(ops/conv.py::_ExactConvFn), which a program does not record, "
+            "so it would run at the caller's TF32 setting")
+    if max_batch < 1:
+        raise ValueError("max_batch must be >= 1")
+    names = list(functions) if functions is not None else model.functions
+    unknown = sorted(set(names) - set(model.functions))
+    if unknown:
+        raise ValueError(f"{model.family} artifacts have no {unknown}")
+    s, steps = model.config.img_size, model.config.max_qst_len
+    u8 = torch.zeros((2, s, s, 3), dtype=torch.uint8, device=model.device)
+    qst = torch.zeros((2, steps), dtype=torch.int32, device=model.device)
+    batch = torch.export.Dim("batch", min=1, max=max_batch)
+    programs = {}
+    # no Python stack trace kept on each node (a third of the trace time of
+    # the supernet's graph); a PyTorch without the switch keeps them
+    fx_config = torch.fx.config
+    kept = getattr(fx_config, "do_not_emit_stack_traces", False)
+    fx_config.do_not_emit_stack_traces = True
+    try:
+        with torch.no_grad():
+            for name in names:
+                if name == "answer_logits":
+                    module, args = _AnswerLogits(model), (u8, qst)
+                    dims = {"u8": {0: batch}, "qst": {0: batch}}
+                else:
+                    module, args = _Generate(model), (u8,)
+                    dims = {"u8": {0: batch}}
+                programs[name] = torch.export.export(
+                    module, args, dynamic_shapes=dims, strict=False)
+    finally:
+        fx_config.do_not_emit_stack_traces = kept
+    return programs
 
 
 # ---------------------------------------------------------------------------
@@ -578,9 +740,10 @@ def check_roundtrip(path: str, state: Dict[str, Any], mcfg: ModelConfig,
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Export an experiment's checkpoint, written by either "
-        "package, as a serving artifact. No torch.export programs are "
-        "written yet (the next slice, ROADMAP.md queue 1 item 6b): the port "
-        "serves the artifact's params with its own model code.")
+        "package, as a serving artifact. The port serves the artifact's "
+        "params with its own model code; export.export_programs traces them "
+        "into torch.export programs (ROADMAP.md queue 1 item 6b, step 1), "
+        "which are not yet written into the artifact (step 2).")
     p.add_argument("--exp", type=str, required=True)
     p.add_argument("--root_stats_dir", type=str, default="./experiment_data")
     p.add_argument("--model", type=str, default="ef",

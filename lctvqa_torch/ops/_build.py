@@ -12,6 +12,13 @@ unchanged one is not. A failed build raises; nothing falls back.
 Every kernel is a `Kernel`: its C symbol, its argument types and a count
 of its launches, which a run reads to show that its main path went
 through the kernel.
+
+The forward kernels of a served call are also PyTorch operators of the
+namespace `lctvqa_torch` (`define_op`, used by each `cuda_*.py` beside
+its kernel): the CUDA implementation is the kernel's path, the CPU one
+its plain version, and a fake one gives the output's shape and dtype, so
+that `torch.export` traces a serving function through them
+(`export.export_programs`).
 """
 
 from __future__ import annotations
@@ -201,3 +208,43 @@ def dtype_code(name: str, dtype: torch.dtype) -> int:
         raise ValueError(f"{name}: compute dtype {dtype} is not supported by "
                          "the kernel (float32 or bfloat16)")
     return DTYPE_CODES[dtype]
+
+
+# ---------------------------------------------------------------------------
+# the operators
+# ---------------------------------------------------------------------------
+
+OPS_NAMESPACE = "lctvqa_torch"
+_LIB = torch.library.Library(OPS_NAMESPACE, "DEF")
+# the devices an operator is implemented for; a wrapper given a tensor on
+# another (a meta tensor) raises as it always has
+OP_DEVICES = ("cpu", "cuda")
+
+
+def define_op(schema: str, cuda, cpu, fake):
+    """Define `lctvqa_torch::<schema>` with its CUDA implementation (the
+    kernel's path: it launches or raises), its CPU implementation (the
+    plain version, run without autograd) and its fake one (shapes and
+    dtypes only) -> the operator's overload, to call. The operators carry
+    no gradient: a caller that needs one takes the kernel's autograd
+    Function instead."""
+    name = schema.split("(", 1)[0]
+
+    def on_cpu(*args):
+        with torch.no_grad():
+            return cpu(*args)
+
+    _LIB.define(schema)
+    _LIB.impl(name, cuda, "CUDA")
+    _LIB.impl(name, on_cpu, "CPU")
+    torch.library.register_fake(f"{OPS_NAMESPACE}::{name}", fake, lib=_LIB)
+    return getattr(getattr(torch.ops, OPS_NAMESPACE), name).default
+
+
+def fresh(out: torch.Tensor, *inputs: torch.Tensor) -> torch.Tensor:
+    """`out`, or a copy of it where it shares memory with an input: an
+    operator's output must not alias its inputs."""
+    if any(out.untyped_storage().data_ptr() == t.untyped_storage().data_ptr()
+           for t in inputs):
+        return out.clone()
+    return out

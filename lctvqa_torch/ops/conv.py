@@ -14,7 +14,10 @@ rank's rows, `cuda_bn.batch_moments`); the `bn_capture`/`bn_eval`
 contexts reproduce a reference run's eval-mode running statistics when
 asked. Affine-free BatchNorm of a CUDA
 tensor goes through the BatchNorm kernels (`ops/cuda_bn.py`, forward and
-backward) when `USE_PALLAS_BN` is on, except under either context.
+backward) when `USE_PALLAS_BN` is on, except under either context; so
+does a CPU tensor's call that needs no gradient, outside a process
+group: it is the `batchnorm` operator, whose CPU implementation is the
+plain version, which every other CPU call takes here.
 
 The `second_order` context is for code that differentiates a gradient
 (the architects of stage 3): in it `batchnorm` takes the plain route
@@ -360,7 +363,13 @@ def batchnorm(params, x: torch.Tensor, eps: float = 1e-5,
     if ctx is not None:
         return _batchnorm_ctx(ctx, params, x, eps, out_dtype)
     if (USE_PALLAS_BN and not params and x.dim() == 4 and eps == 1e-5
-            and x.device.type != "cpu" and not _SECOND_ORDER.get()):
+            and not _SECOND_ORDER.get() and (
+                x.device.type != "cpu" or not (
+                    distributed.active()
+                    or (x.requires_grad and torch.is_grad_enabled())))):
+        # a CPU tensor only where the plain version runs as the operator:
+        # one that needs a gradient, or under a process group, takes the
+        # plain route below, with autograd, as it always has
         return cuda_bn.batchnorm_fwd(x, out_dtype=out_dtype)
     return batchnorm_plain(params, x, eps, out_dtype)
 

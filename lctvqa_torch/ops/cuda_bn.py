@@ -31,7 +31,8 @@ apply launch from the sums all-reduced over the ranks between them
 CPU tensor takes. The plain BatchNorm (`batchnorm_stats_plain`,
 `batch_moments`) sums its statistics over the ranks the same way, through
 a differentiable all-reduce. Without a process group nothing of this
-runs.
+runs, and a forward that needs no gradient is the operator
+`lctvqa_torch::batchnorm` (`_build.define_op`), on either device.
 """
 
 from __future__ import annotations
@@ -554,11 +555,35 @@ class BatchNormFn(torch.autograd.Function):
         return batchnorm_bwd(x, g, stat), None, None
 
 
+def _bn_op_cuda(x: Tensor, out_dtype: Optional[torch.dtype],
+                eps: float) -> Tensor:
+    return batchnorm_fwd_stat(x, out_dtype, eps)[0]
+
+
+def _fake_bn(x: Tensor, out_dtype: Optional[torch.dtype],
+             eps: float) -> Tensor:
+    name = BN_FWD.name
+    K.check(x.dim() >= 2 and x.numel() > 0, name,
+            f"needs a non-empty [..., C] tensor, got {tuple(x.shape)}")
+    K.dtype_code(name, x.dtype)
+    K.dtype_code(name, out_dtype or f32)
+    return x.new_empty(x.shape, dtype=out_dtype or f32)
+
+
+BATCHNORM_OP = K.define_op(
+    "batchnorm(Tensor x, ScalarType? out_dtype, float eps) -> Tensor",
+    _bn_op_cuda, lambda x, out_dtype, eps: batchnorm_plain(x, eps, out_dtype),
+    _fake_bn)
+
+
 def batchnorm_fwd(x: Tensor, out_dtype: Optional[torch.dtype] = None,
                   eps: float = EPS) -> Tensor:
     """Affine-free batch-stat BN of an NHWC tensor (replaces
     batchnorm_pallas), differentiable once. x [N, H, W, C] fp32 or bf16
-    -> [N, H, W, C] in `out_dtype` (default fp32)."""
+    -> [N, H, W, C] in `out_dtype` (default fp32). A call that needs no
+    gradient, outside a process group, is the `batchnorm` operator."""
     if x.requires_grad and torch.is_grad_enabled():
         return BatchNormFn.apply(x, out_dtype, eps)
+    if x.device.type in K.OP_DEVICES and not distributed.active():
+        return BATCHNORM_OP(x, out_dtype, eps)
     return batchnorm_fwd_stat(x, out_dtype, eps)[0]

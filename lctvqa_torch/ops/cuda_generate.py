@@ -18,7 +18,8 @@ too small for the grid makes the wrapper raise.
 
 On CPU tensors the plain version runs, which is the model's own decode
 loop with the plain LSTM cell; on CUDA tensors the kernel launches or the
-call raises.
+call raises. A call is the operator `lctvqa_torch::greedy_generate`
+(`_build.define_op`), on either device.
 """
 
 from __future__ import annotations
@@ -193,17 +194,69 @@ def generate_plan_on_device(emb: int, hid: int, vpad: int,
             "smem_bytes": smem}
 
 
+def _generate_op_cuda(h0, x0, w_ih, w_hh, b, fc2_w, fc2_b, table,
+                      max_length: int) -> torch.Tensor:
+    K.check(max_length >= 1, GENERATE.name, "needs max_length >= 1")
+    return _generate_kernel(DecodeWeights(CellWeights(w_ih, w_hh, b), table,
+                                          x0, fc2_w, fc2_b), h0, max_length)
+
+
+def _generate_op_cpu(h0, x0, w_ih, w_hh, b, fc2_w, fc2_b, table,
+                     max_length: int) -> torch.Tensor:
+    """`greedy_generate_plain` on the question encoder's params that the
+    decode's weights hold: the cast LSTM layer, the embedding table, and
+    the head without its padding (x0 is the loop's own first step)."""
+    vocab = table.shape[0]
+    params = {"lstm": {"layers": [{"cell": CellWeights(w_ih, w_hh, b)}]},
+              "word2vec": {"table": table},
+              "fc2": {"w": fc2_w[:, :vocab], "b": fc2_b[:vocab]}}
+    return greedy_generate_plain(params, h0, max_length, w_ih.dtype)
+
+
+def _fake_generate(h0, x0, w_ih, w_hh, b, fc2_w, fc2_b, table,
+                   max_length: int) -> torch.Tensor:
+    name = GENERATE.name
+    K.check(max_length >= 1, name, "needs max_length >= 1")
+    vocab, emb = table.shape
+    hid = w_hh.shape[0]
+    vpad = fc2_w.shape[1]
+    K.dtype_code(name, w_ih.dtype)
+    K.check(w_ih.shape == (emb, 4 * hid) and w_hh.shape == (hid, 4 * hid)
+            and w_hh.dtype == w_ih.dtype and b.shape == (4 * hid,)
+            and b.dtype == f32, name,
+            f"the LSTM weights must be w_ih [{emb}, {4 * hid}], w_hh "
+            f"[{hid}, {4 * hid}] of one dtype and b [{4 * hid}] float32")
+    K.check(h0.dim() == 2 and h0.shape[1] == hid, name,
+            f"image embedding must be [B, {hid}] (h0 = c0)")
+    K.check(x0.shape == (emb,) and table.dtype == f32 and x0.dtype == f32,
+            name, f"x0 must be [{emb}] and the table [V, {emb}], float32")
+    K.check(fc2_w.shape[0] == hid and fc2_w.dtype == w_ih.dtype
+            and vpad % 8 == 0 and 0 <= vpad - vocab < 8
+            and fc2_b.shape == (vpad,) and fc2_b.dtype == f32, name,
+            f"fc2 must map {hid} -> {vocab}, padded to a multiple of 8")
+    return h0.new_empty((h0.shape[0], max_length), dtype=torch.int32)
+
+
+GREEDY_GENERATE_OP = K.define_op(
+    "greedy_generate(Tensor h0, Tensor x0, Tensor w_ih, Tensor w_hh, "
+    "Tensor b, Tensor fc2_w, Tensor fc2_b, Tensor table, int max_length) "
+    "-> Tensor",
+    _generate_op_cuda, _generate_op_cpu, _fake_generate)
+
+
 def greedy_generate(qst_params, image_embedding: torch.Tensor,
                     max_length: int,
                     dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Fused greedy decode (replaces greedy_generate_pallas).
-    image_embedding [B, H]; returns int32 tokens [B, max_length]."""
-    if image_embedding.device.type == "cpu":
-        return greedy_generate_plain(qst_params, image_embedding, max_length,
-                                     dtype)
-    K.check(max_length >= 1, GENERATE.name, "needs max_length >= 1")
-    return _generate_kernel(decode_weights(qst_params, dtype), image_embedding,
-                            max_length)
+    image_embedding [B, H]; returns int32 tokens [B, max_length]. It is
+    the `greedy_generate` operator (tokens carry no gradient; the kernel
+    shares nothing across ranks)."""
+    d = decode_weights(qst_params, dtype)
+    if image_embedding.device.type not in K.OP_DEVICES:
+        return _generate_kernel(d, image_embedding, max_length)  # raises
+    h0 = image_embedding.reshape(image_embedding.shape[0], -1).to(f32)
+    return GREEDY_GENERATE_OP(h0, d.x0, *d.cell, d.fc2_w, d.fc2_b, d.table,
+                              max_length)
 
 
 def _generate_kernel(d: DecodeWeights, image_embedding: torch.Tensor,

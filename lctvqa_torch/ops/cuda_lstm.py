@@ -33,7 +33,10 @@ derivative is a tangent rule in plain array code that recomputes the
 gates. Here `LstmCellFn`, `LstmSeqFinalFn` and `LstmSeqFn` launch the
 kernel forward and take the gradient by autograd through the plain
 version on the same rounded operands, recomputed in the backward. First
-order only.
+order only. A call that needs no gradient is one of the operators
+`lctvqa_torch::lstm_cell`, `lstm_seq_final` and `lstm_seq`
+(`_build.define_op`), on either device: these kernels share nothing
+across ranks, so a process group changes nothing of their route.
 """
 
 from __future__ import annotations
@@ -310,9 +313,14 @@ def grid_barrier_probe(blocks: int, barriers: int,
 
 def _cell_kernel(w: CellWeights, x: Tensor, h: Tensor,
                  c: Tensor) -> Tuple[Tensor, Tensor]:
+    return _cell_out(w, x, h, c).unbind(0)
+
+
+def _cell_out(w: CellWeights, x: Tensor, h: Tensor, c: Tensor) -> Tensor:
     """The cell kernel on weights that `cell_weights` checked: per call only
     devices, shapes and the layout of x, h and c are looked at, and a cast
-    or copy is made only where one is needed."""
+    or copy is made only where one is needed. -> h' and c' as one fp32
+    [2, B, H], the kernel's output."""
     w_ih = w.w_ih
     device = w_ih.device
     if not (device.type == "cuda" and x.device == device
@@ -336,7 +344,7 @@ def _cell_kernel(w: CellWeights, x: Tensor, h: Tensor,
     if bsz:
         CELL.launch(device, x, x.stride(0), x_code, h, c, w_ih, w.w_hh, w.b,
                     out, bsz, emb, hid, plan["code"])
-    return out.unbind(0)
+    return out
 
 
 def _seq(kernel: K.Kernel, w: CellWeights, xs: Tensor, h0, c0,
@@ -413,6 +421,91 @@ LstmSeqFinalFn = _plain_grad_fn("LstmSeqFinalFn", _seq_final_kernel,
 LstmSeqFn = _plain_grad_fn("LstmSeqFn", _seq_all_kernel, _seq_all_plain)
 
 
+# ---------------------------------------------------------------------------
+# the operators: a served call's route (no gradient)
+# ---------------------------------------------------------------------------
+
+def _fake_weights(name: str, emb: int, w_ih: Tensor, w_hh: Tensor,
+                  b: Tensor) -> int:
+    """What the kernels check of a layer's weights, shapes and dtypes only
+    -> H."""
+    hid = w_hh.shape[0]
+    K.check(w_ih.shape == (emb, 4 * hid) and w_hh.shape == (hid, 4 * hid)
+            and b.shape == (4 * hid,) and b.dtype == f32, name,
+            f"weights must be w_ih [{emb}, {4 * hid}], w_hh [{hid}, "
+            f"{4 * hid}] and b [{4 * hid}] float32, got "
+            f"{tuple(w_ih.shape)}, {tuple(w_hh.shape)}, {tuple(b.shape)}")
+    K.check(w_hh.dtype == w_ih.dtype, name,
+            "w_ih and w_hh must share one compute dtype")
+    K.dtype_code(name, w_ih.dtype)
+    return hid
+
+
+def _fake_cell(x, h, c, w_ih, w_hh, b):
+    K.check(x.dim() == 2, CELL.name, f"x must be [B, E], got {tuple(x.shape)}")
+    bsz, emb = x.shape
+    hid = _fake_weights(CELL.name, emb, w_ih, w_hh, b)
+    K.check(h.shape == (bsz, hid) and c.shape == (bsz, hid), CELL.name,
+            f"h and c must be [{bsz}, {hid}]")
+    if isinstance(emb, int) and isinstance(hid, int):  # not symbolic
+        cell_plan(emb, hid, w_ih.dtype)
+    return x.new_empty((2, bsz, hid), dtype=f32)
+
+
+def _fake_seq(name, xs, h0, c0, w_ih, w_hh, b):
+    K.check(xs.dim() == 3, name, f"xs must be [B, T, E], got "
+            f"{tuple(xs.shape)}")
+    bsz, steps, emb = xs.shape
+    hid = _fake_weights(name, emb, w_ih, w_hh, b)
+    K.check(emb + 4 * hid <= 8192 and hid <= 1024, name,
+            f"E={emb}, H={hid} too large (needs E + 4H <= 8192, H <= 1024)")
+    K.check(steps >= 1, name, "needs at least one time step")
+    K.check(h0.shape == (bsz, hid) and c0.shape == (bsz, hid), name,
+            f"h0 and c0 must be [{bsz}, {hid}]")
+    return [xs.new_empty((bsz, hid), dtype=f32) for _ in range(2)]
+
+
+def _seq_final_op_cpu(xs, h0, c0, w_ih, w_hh, b):
+    h_n, c_n = lstm_seq_final_plain(CellWeights(w_ih, w_hh, b), xs, h0, c0)
+    return K.fresh(h_n, h0, c0), K.fresh(c_n, h0, c0)
+
+
+def _seq_op_cpu(xs, h0, c0, w_ih, w_hh, b):
+    out, h_n, c_n = _seq_all_plain(CellWeights(w_ih, w_hh, b), xs, h0, c0)
+    return out, K.fresh(h_n, h0, c0), K.fresh(c_n, h0, c0)
+
+
+def _fake_seq_all(xs, h0, c0, w_ih, w_hh, b):
+    h_n, c_n = _fake_seq(SEQ_ALL.name, xs, h0, c0, w_ih, w_hh, b)
+    return xs.new_empty((*xs.shape[:2], w_hh.shape[0]), dtype=f32), h_n, c_n
+
+
+_W = "Tensor w_ih, Tensor w_hh, Tensor b"
+# one [2, B, H] output, h' then c': the kernel writes both into one
+# allocation, and an operator's outputs may not share memory
+LSTM_CELL_OP = K.define_op(
+    f"lstm_cell(Tensor x, Tensor h, Tensor c, {_W}) -> Tensor",
+    lambda x, h, c, *w: _cell_out(CellWeights(*w), x, h, c),
+    lambda x, h, c, *w: torch.stack(lstm_cell_plain(CellWeights(*w), x, h,
+                                                    c)),
+    _fake_cell)
+LSTM_SEQ_FINAL_OP = K.define_op(
+    f"lstm_seq_final(Tensor xs, Tensor h0, Tensor c0, {_W}) "
+    "-> (Tensor, Tensor)",
+    lambda xs, h0, c0, *w: _seq_final_kernel(CellWeights(*w), xs, h0, c0),
+    _seq_final_op_cpu,
+    lambda *a: tuple(_fake_seq(SEQ_FINAL.name, *a)))
+LSTM_SEQ_OP = K.define_op(
+    f"lstm_seq(Tensor xs, Tensor h0, Tensor c0, {_W}) "
+    "-> (Tensor, Tensor, Tensor)",
+    lambda xs, h0, c0, *w: _seq_all_kernel(CellWeights(*w), xs, h0, c0),
+    _seq_op_cpu, _fake_seq_all)
+
+
+# ---------------------------------------------------------------------------
+# the public functions
+# ---------------------------------------------------------------------------
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
@@ -420,37 +513,39 @@ def _needs_grad(*tensors) -> bool:
 def lstm_cell(w: CellWeights, x: Tensor, h: Tensor,
               c: Tensor) -> Tuple[Tensor, Tensor]:
     """One LSTM step (replaces lstm_cell_pallas), differentiable once.
-    x [B, E], h/c [B, H]."""
+    x [B, E], h/c [B, H]. A call that needs no gradient is the
+    `lstm_cell` operator."""
+    if x.device.type in K.OP_DEVICES and not _needs_grad(x, h, c, *w):
+        return LSTM_CELL_OP(x, h, c, *w).unbind(0)
     if x.device.type == "cpu":
         return lstm_cell_plain(w, x, h, c)
-    if _needs_grad(x, h, c, *w):
-        return LstmCellFn.apply(x, h, c, *w)
-    return _cell_kernel(w, x, h, c)
+    return LstmCellFn.apply(x, h, c, *w)
 
 
 def lstm_seq_final(w: CellWeights, xs: Tensor, h0: Optional[Tensor] = None,
                    c0: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Whole recurrence, final state only (replaces lstm_seq_final_pallas),
     differentiable once. xs [B, T, E]; h0/c0 [B, H] or None (zeros).
-    -> (h_n, c_n) fp32."""
+    -> (h_n, c_n) fp32. A call that needs no gradient is the
+    `lstm_seq_final` operator."""
+    h0, c0 = _zeros_state(w, xs, h0, c0)
+    if xs.device.type in K.OP_DEVICES and not _needs_grad(xs, h0, c0, *w):
+        return LSTM_SEQ_FINAL_OP(xs, h0, c0, *w)
     if xs.device.type == "cpu":
         return lstm_seq_final_plain(w, xs, h0, c0)
-    h0, c0 = _zeros_state(w, xs, h0, c0)
-    if _needs_grad(xs, h0, c0, *w):
-        return LstmSeqFinalFn.apply(xs, h0, c0, *w)
-    return _seq_final_kernel(w, xs, h0, c0)
+    return LstmSeqFinalFn.apply(xs, h0, c0, *w)
 
 
 def lstm_seq(w: CellWeights, xs: Tensor, h0: Optional[Tensor] = None,
              c0: Optional[Tensor] = None):
     """Whole recurrence with every step's h (replaces lstm_seq_pallas),
     differentiable once. -> (outputs [B, T, H], (h_n, c_n) [B, H]), all
-    fp32."""
-    if xs.device.type == "cpu":
-        return lstm_seq_plain(w, xs, h0, c0)
+    fp32. A call that needs no gradient is the `lstm_seq` operator."""
     h0, c0 = _zeros_state(w, xs, h0, c0)
-    if _needs_grad(xs, h0, c0, *w):
-        out, h_n, c_n = LstmSeqFn.apply(xs, h0, c0, *w)
+    if xs.device.type in K.OP_DEVICES and not _needs_grad(xs, h0, c0, *w):
+        out, h_n, c_n = LSTM_SEQ_OP(xs, h0, c0, *w)
+    elif xs.device.type == "cpu":
+        return lstm_seq_plain(w, xs, h0, c0)
     else:
-        out, h_n, c_n = _seq_all_kernel(w, xs, h0, c0)
+        out, h_n, c_n = LstmSeqFn.apply(xs, h0, c0, *w)
     return out, (h_n, c_n)

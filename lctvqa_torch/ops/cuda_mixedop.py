@@ -50,7 +50,9 @@ will read (no input needs a gradient, or grad mode is off) launches the
 forward directly, without the autograd Function. The launch shape
 (`node_tile`) and the layout of each kernel's one tensor (`node_scratch`:
 the forward's scratch; `node_bwd_scratch`: the backward's outputs and
-scratch) are computed here, as the C entry point computes them.
+scratch) are computed here, as the C entry point computes them. A call
+that needs no gradient, outside a process group, is the operator
+`lctvqa_torch::mixed_node` (`_build.define_op`), on either device.
 """
 
 from __future__ import annotations
@@ -624,17 +626,10 @@ class MixedNodeFn(torch.autograd.Function):
         return (torch.cat(dwts), None, None, *dxs, *ddws, *dpws)
 
 
-def _check_node_call(xs: List[Tensor], nodes: List[NodeWeights],
-                     weights: Tensor, cs: int) -> None:
+def _check_node_shapes(xs: Sequence[Tensor], nodes: Sequence[NodeWeights],
+                       weights: Tensor, cs: int) -> None:
+    """What the kernel takes of a call's shapes and dtypes."""
     name = MIXED_NODE.name
-    device = weights.device
-    if not (device.type == "cuda" and all(x.device == device for x in xs)
-            and all(nw.dw.device == device and nw.pw.device == device
-                    for nw in nodes)):
-        tensors = {f"x{i}": x for i, x in enumerate(xs)}
-        tensors.update({f"dw{i}": nw.dw for i, nw in enumerate(nodes)})
-        tensors.update({f"pw{i}": nw.pw for i, nw in enumerate(nodes)})
-        K.check_cuda_tensors(name, weights=weights, **tensors)
     e = len(xs)
     K.check(e >= 1 and len(nodes) == e, name,
             f"needs as many param sets as edges, got {e} and {len(nodes)}")
@@ -645,8 +640,6 @@ def _check_node_call(xs: List[Tensor], nodes: List[NodeWeights],
     K.check(xs[0].numel() > 0 and 1 <= cs <= shape[-1], name,
             f"needs non-empty states with at least cs={cs} channels, got "
             f"{tuple(shape)}")
-    K.check(all(x.stride(3) == 1 for x in xs), name,
-            "edge states must have channel stride 1")
     K.check(cs <= MAX_CS and shape[0] <= 65535, name,
             f"cs={cs}, N={shape[0]} too large (needs cs <= {MAX_CS}, "
             "N <= 65535)")
@@ -658,36 +651,36 @@ def _check_node_call(xs: List[Tensor], nodes: List[NodeWeights],
     dw_shape, pw_shape = (8, MAX_TAPS, cs), (8, cs, cs)
     for nw in nodes:
         K.check(nw.dw.shape == dw_shape and nw.pw.shape == pw_shape
-                and nw.dw.dtype == f32 and nw.pw.dtype == f32
-                and nw.dw.is_contiguous() and nw.pw.is_contiguous(), name,
-                f"packed weights must be contiguous fp32 [8, {MAX_TAPS}, "
-                f"{cs}] and [8, {cs}, {cs}]")
+                and nw.dw.dtype == f32 and nw.pw.dtype == f32, name,
+                f"packed weights must be fp32 [8, {MAX_TAPS}, {cs}] and "
+                f"[8, {cs}, {cs}]")
 
 
-def mixed_node(xs: Sequence[Tensor], p_list: Sequence[dict], weights: Tensor,
-               cs: int) -> Tensor:
-    """One cell node's stride-1 mixed ops, summed over its E edges
-    (replaces mixed_node_pallas_hwcn), differentiable once. xs: E edge
-    states [N, H, W, C] of one compute dtype (fp32 or bf16), of which
-    channels [0, cs) are read in place; p_list: the E edges' mixed-op
-    params; weights [E, 8] fp32. -> [N, H, W, cs] fp32."""
-    xs = list(xs)
-    nodes = [node_weights(p) for p in p_list]
-    if xs[0].device.type == "cpu":
-        return mixed_node_plain(xs, nodes, weights, cs)
-    _check_node_call(xs, nodes, weights, cs)
-    if weights.dtype != f32 or not weights.is_contiguous():
-        weights = weights.to(f32).contiguous()
-    e = len(xs)
-    if torch.is_grad_enabled() and (
-            weights.requires_grad or any(x.requires_grad for x in xs)
-            or any(nw.dw.requires_grad or nw.pw.requires_grad
-                   for nw in nodes)):
-        return MixedNodeFn.apply(
-            weights, cs, e, *[x[..., :cs] for x in xs],
-            *[nw.dw for nw in nodes], *[nw.pw for nw in nodes])
-    # no backward will read the stage outputs: no Function, no views
+def _check_node_call(xs: List[Tensor], nodes: List[NodeWeights],
+                     weights: Tensor, cs: int) -> None:
+    name = MIXED_NODE.name
+    device = weights.device
+    if not (device.type == "cuda" and all(x.device == device for x in xs)
+            and all(nw.dw.device == device and nw.pw.device == device
+                    for nw in nodes)):
+        tensors = {f"x{i}": x for i, x in enumerate(xs)}
+        tensors.update({f"dw{i}": nw.dw for i, nw in enumerate(nodes)})
+        tensors.update({f"pw{i}": nw.pw for i, nw in enumerate(nodes)})
+        K.check_cuda_tensors(name, weights=weights, **tensors)
+    _check_node_shapes(xs, nodes, weights, cs)
+    K.check(all(x.stride(3) == 1 for x in xs), name,
+            "edge states must have channel stride 1")
+    K.check(all(nw.dw.is_contiguous() and nw.pw.is_contiguous()
+                for nw in nodes), name, "packed weights must be contiguous")
+
+
+def _node_forward(xs: List[Tensor], nodes: List[NodeWeights],
+                  weights: Tensor, cs: int) -> Tensor:
+    """The forward kernel on checked edges, in launches of at most
+    MAX_EDGES edges (the data-parallel mode under a process group), their
+    outputs summed; nothing kept for a backward."""
     fwd = node_fwd_sync if distributed.active() else _node_fwd
+    e = len(xs)
     out = None
     for lo in range(0, e, MAX_EDGES):
         part = fwd(
@@ -697,3 +690,59 @@ def mixed_node(xs: Sequence[Tensor], p_list: Sequence[dict], weights: Tensor,
             cs, weights.device)[0]
         out = part if out is None else out + part
     return out
+
+
+def _node_op_cuda(xs, dws, pws, weights, cs: int) -> Tensor:
+    nodes = [NodeWeights(d, p) for d, p in zip(dws, pws)]
+    _check_node_call(xs, nodes, weights, cs)
+    if weights.dtype != f32 or not weights.is_contiguous():
+        weights = weights.to(f32).contiguous()
+    return _node_forward(xs, nodes, weights, cs)
+
+
+def _fake_node(xs, dws, pws, weights, cs: int) -> Tensor:
+    K.check(len(dws) == len(pws), MIXED_NODE.name,
+            "needs as many dw as pw tensors")
+    _check_node_shapes(xs, [NodeWeights(d, p) for d, p in zip(dws, pws)],
+                       weights, cs)
+    return xs[0].new_empty((*xs[0].shape[:3], cs), dtype=f32)
+
+
+MIXED_NODE_OP = K.define_op(
+    "mixed_node(Tensor[] xs, Tensor[] dw, Tensor[] pw, Tensor weights, "
+    "int cs) -> Tensor",
+    _node_op_cuda,
+    lambda xs, dws, pws, weights, cs: mixed_node_plain(
+        xs, [NodeWeights(d, p) for d, p in zip(dws, pws)], weights, cs),
+    _fake_node)
+
+
+def mixed_node(xs: Sequence[Tensor], p_list: Sequence[dict], weights: Tensor,
+               cs: int) -> Tensor:
+    """One cell node's stride-1 mixed ops, summed over its E edges
+    (replaces mixed_node_pallas_hwcn), differentiable once. xs: E edge
+    states [N, H, W, C] of one compute dtype (fp32 or bf16), of which
+    channels [0, cs) are read in place; p_list: the E edges' mixed-op
+    params; weights [E, 8] fp32. -> [N, H, W, cs] fp32. A call that needs
+    no gradient, outside a process group, is the `mixed_node`
+    operator."""
+    xs = list(xs)
+    nodes = [node_weights(p) for p in p_list]
+    grad = torch.is_grad_enabled() and (
+        weights.requires_grad or any(x.requires_grad for x in xs)
+        or any(nw.dw.requires_grad or nw.pw.requires_grad for nw in nodes))
+    if xs[0].device.type in K.OP_DEVICES and not (
+            grad or distributed.active()):
+        return MIXED_NODE_OP(xs, [nw.dw for nw in nodes],
+                             [nw.pw for nw in nodes], weights, cs)
+    if xs[0].device.type == "cpu":
+        return mixed_node_plain(xs, nodes, weights, cs)
+    _check_node_call(xs, nodes, weights, cs)
+    if weights.dtype != f32 or not weights.is_contiguous():
+        weights = weights.to(f32).contiguous()
+    if grad:
+        return MixedNodeFn.apply(
+            weights, cs, len(xs), *[x[..., :cs] for x in xs],
+            *[nw.dw for nw in nodes], *[nw.pw for nw in nodes])
+    # no backward will read the stage outputs: no Function, no views
+    return _node_forward(xs, nodes, weights, cs)

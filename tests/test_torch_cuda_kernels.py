@@ -1127,3 +1127,119 @@ def test_mixed_node_bwd_on_the_draw_with_relu_ties(cuda, dtype):
                           f"N={n} E={edges} {what}")
         seen += 1
     assert seen == 4
+
+
+# ---------------------------------------------------------------------------
+# the operators (`lctvqa_torch::*`, the served calls' route)
+# ---------------------------------------------------------------------------
+
+OPS = ("lstm_cell", "lstm_seq_final", "lstm_seq", "greedy_generate",
+       "mixed_node", "batchnorm")
+
+
+def _op_case(name, dtype, device, wanted=False):
+    """(operator, its arguments on `device`, its plain version on them):
+    serving shapes cut to odd sizes. `wanted` makes a weight require a
+    gradient, which opcheck's autograd test needs."""
+    gen = torch.Generator().manual_seed(11)
+    b, t, e, h = 5, 6, 20, 48
+
+    def grad(tensor):
+        return tensor.clone().requires_grad_() if wanted else tensor
+
+    if name in ("lstm_cell", "lstm_seq_final", "lstm_seq"):
+        w = _weights(gen, e, h, dtype, device)
+        w = cuda_lstm.CellWeights(grad(w.w_ih), w.w_hh, w.b)
+        xs = torch.randn(b, t, e, generator=gen).to(device)
+        h0 = (0.5 * torch.randn(b, h, generator=gen)).to(device)
+        c0 = (0.5 * torch.randn(b, h, generator=gen)).to(device)
+        if name == "lstm_cell":
+            return (cuda_lstm.LSTM_CELL_OP, (xs[:, 0], h0, c0, *w),
+                    lambda: torch.stack(cuda_lstm.lstm_cell_plain(
+                        w, xs[:, 0], h0, c0)))
+        if name == "lstm_seq_final":
+            return (cuda_lstm.LSTM_SEQ_FINAL_OP, (xs, h0, c0, *w),
+                    lambda: cuda_lstm.lstm_seq_final_plain(w, xs, h0, c0))
+        return (cuda_lstm.LSTM_SEQ_OP, (xs, h0, c0, *w),
+                lambda: cuda_lstm._seq_all_plain(w, xs, h0, c0))
+    if name == "greedy_generate":
+        vocab = 130
+        qst = {"word2vec": N.embedding_init(gen, vocab, e),
+               "lstm": lstm_init(gen, e, h),
+               "fc2": N.xavier_linear_init(gen, h, vocab)}
+        qst = {k: {kk: (vv.to(device) if isinstance(vv, torch.Tensor) else
+                        [{n: a.to(device) for n, a in lp.items()}
+                         for lp in vv])
+                   for kk, vv in v.items()} for k, v in qst.items()}
+        img = N.l2_normalize(torch.randn(b, h, generator=gen)).to(device)
+        d = cuda_generate.decode_weights(qst, dtype)
+        args = (img, d.x0, grad(d.cell.w_ih), d.cell.w_hh, d.cell.b, d.fc2_w,
+                d.fc2_b, d.table, t)
+        return (cuda_generate.GREEDY_GENERATE_OP, args,
+                lambda: cuda_generate.greedy_generate_plain(qst, img, t,
+                                                            dtype), qst)
+    if name == "mixed_node":
+        xs, ops, wts = _node_case(gen, 3, 7, 9, 8, 4, 3, dtype, device)
+        nodes = [cuda_mixedop.node_weights(p) for p in ops]
+        args = ([grad(x) for x in xs], [n.dw for n in nodes],
+                [n.pw for n in nodes], wts, 2)
+        return (cuda_mixedop.MIXED_NODE_OP, args,
+                lambda: cuda_mixedop.mixed_node_plain(xs, nodes, wts, 2))
+    x = (1.5 * torch.randn(3, 5, 7, 20, generator=gen) + 0.3).to(device,
+                                                                  dtype)
+    return (cuda_bn.BATCHNORM_OP, (grad(x), dtype, 1e-5),
+            lambda: cuda_bn.batchnorm_plain(x, 1e-5, dtype))
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_operator_opcheck_on_the_card(cuda, name):
+    """The schema, the fake against the CUDA implementation (the kernel),
+    autograd's registration and AOT dispatch with dynamic shapes."""
+    op, args = _op_case(name, torch.bfloat16, cuda, wanted=True)[:2]
+    import warnings
+
+    with warnings.catch_warnings():
+        # the AOT check backprops through the operator, which has no
+        # autograd kernel: PyTorch warns, and no gradient is compared
+        warnings.filterwarnings("ignore", ".*an autograd kernel was not")
+        torch.library.opcheck(op, args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("name", OPS)
+def test_operator_matches_plain_on_the_card(cuda, name, dtype):
+    """Each operator on CUDA tensors launches its kernel once and agrees
+    with its plain version at chip_smoke's phase-2 limits: LSTM h/c
+    (TOL), greedy tokens exactly in fp32 and in bf16 but at a near tie
+    (plain logits within 1e-3), the node's fp32 1e-5 and bf16 4 * 2^-7 *
+    max|w|, BatchNorm's 1e-5 and one bf16 ulp."""
+    case = _op_case(name, dtype, cuda)
+    op, args, plain = case[:3]
+    kernel = {"lstm_seq": "lstm_seq_all", "mixed_node": "mixed_node_fwd",
+              "batchnorm": "bn_fwd"}.get(name, name)
+    before = _build.launch_counts()[kernel]
+    got = op(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[kernel] == before + 1
+    want = plain()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert [g.shape for g in got] == [w.shape for w in want]
+    assert [g.dtype for g in got] == [w.dtype for w in want]
+    for g, w in zip(got, want):
+        if name.startswith("lstm"):
+            _close(g, w, dtype)
+        elif name == "greedy_generate":
+            gaps = _chip_smoke()._token_gaps(case[3], args[0], g, w, dtype)
+            assert not gaps or (dtype == torch.bfloat16
+                                and max(gaps) <= 1e-3), gaps
+        elif name == "mixed_node":
+            tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+                   else dict(rtol=0, atol=4 * 2.0 ** -7
+                             * float(args[3].max())))
+            torch.testing.assert_close(g, w, **tol)
+        else:
+            rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                       atol=1e-5)
