@@ -350,7 +350,8 @@ non-zero:
    step and the phase's wall time are printed.
 
 15. The serving functions as torch.export programs
-   (lctvqa_torch/export.py::export_programs) on the card. First each of
+   (lctvqa_torch/export.py::export_programs, lctvqa_torch/programs.py)
+   on the card. First each of
    the six serving kernels' operators (`lctvqa_torch::lstm_cell`,
    `lstm_seq_final`, `lstm_seq`, `greedy_generate`, `mixed_node`,
    `batchnorm`) at a B = 64 bf16 serving shape: its result the same bits
@@ -364,9 +365,25 @@ non-zero:
    largest difference printed, 0 expected: the same kernels run); the
    launch counts of one B = 64 call of each equal, non-zero for each
    serving kernel of the flag set (program_kernels) and equal to the
-   graph's number of each operator; then one B = 64 call of each timed
-   in turns, while other workers may trace or time (informational). The
-   phase's wall time is printed.
+   graph's number of each operator. Besides, fp32 W at both flag sets
+   and the int8 W and derived EF (export_state(int8=True) of those
+   artifacts' params) with the kernel flags: an int8 program's
+   `aten._int_mm` nodes as many as its eager call's int8 products. Each
+   program is then written into a copy of its artifact
+   (export.program_entry, save_artifact: its bytes printed), loaded back
+   with programs.load_programs (the seconds printed) and held against
+   the eager call at batches 1, 2, 5 and 64 exactly, its launches at B
+   = 64 the eager call's, with cuDNN's TF32 on globally (PyTorch's
+   default; the loader turns it off for fp32, and how far the fp32
+   program is off without that is printed); then one B = 64 call of
+   the eager model, the traced program and the loaded one timed in
+   turns, while other workers may trace or time (informational). Once
+   the derived EF's kernel-flag programs are in, a fresh process runs
+   `lctvqa_torch.serve --programs` on them (merged into one artifact)
+   without --genotype: its /answer and /generate replies, one request
+   at a time, equal the model code's server's with the genotype,
+   /healthz says programs, and it imported neither lctvqa_torch.models
+   nor lctvqa_torch.export. The phase's wall time is printed.
 
 It prints the card's name and power limit, one JSON line of the kernels
 (times, bounds and launch counts; `derived_launches`, `darts_launches`
@@ -5200,6 +5217,13 @@ def data_phase(arrays, device, root: str, card: str) -> dict:
 
 # the artifacts, their longest traces first (the supernet's graph)
 PROGRAM_ARTIFACTS = ("darts", "unified", "derived", "ef", "w")
+# jobs beyond every function of PROGRAM_ARTIFACTS at both flag sets: name
+# -> (the artifact whose params it serves, ModelConfig overrides, the flag
+# sets it runs at); the int8 ones on write_int8_artifacts' copies
+PROGRAM_VARIANTS = {"derived_int8": ("derived", {}, ("kernels",)),
+                    "w_fp32": ("w", {"compute_dtype": "float32"},
+                               ("default", "kernels")),
+                    "w_int8": ("w", {}, ("kernels",))}
 PROGRAM_BATCHES = (1, 2, 5, 64)
 # one a core of the card's host: the traces are single-threaded Python
 PROGRAM_WORKERS = 8
@@ -5255,14 +5279,14 @@ def _outputs_differ(got, want) -> float:
     return worst
 
 
-def _program_worker(jobs, next_job, results, device: str) -> None:
+def _program_worker(jobs, next_job, results, device: str, root: str) -> None:
     """A spawned process of phase 15: takes jobs (artifact path, name,
-    flag set, function) in turn until none is left, traces and checks each
-    (_program_checks), then times its program against its eager call
-    (_time_program) while other workers may still trace on the host's
-    cores or time on the card: the times are informational. Puts each
-    job's numbers on `results`, or the traceback of a failure, then
-    None."""
+    flag set, function) in turn until none is left, traces, checks and
+    round-trips each through an artifact file (_program_checks), then
+    times its program, the loaded one and its eager call (_time_program)
+    while other workers may still trace on the host's cores or time on
+    the card: the times are informational. Puts each job's numbers on
+    `results`, or the traceback of a failure, then None."""
     import traceback
 
     torch.set_num_threads(1)  # the host's cores go to the other workers
@@ -5277,11 +5301,12 @@ def _program_worker(jobs, next_job, results, device: str) -> None:
             FAILURES.clear()
             with kernel_flags(fname) as flags:
                 r, calls = _program_checks(path, name, fname, fn, flags,
-                                           torch.device(device))
-                r["eager_ms"], r["program_ms"] = _time_program(calls)
+                                           torch.device(device), root)
+                (r["eager_ms"], r["program_ms"],
+                 r["loaded_ms"]) = _time_program(calls)
             r["failures"] = list(FAILURES)
             results.put(r)
-            del calls  # the job's model and program
+            del calls  # the job's model and programs
     except BaseException:
         results.put({"error": traceback.format_exc()})
     finally:
@@ -5289,91 +5314,160 @@ def _program_worker(jobs, next_job, results, device: str) -> None:
 
 
 def _time_program(calls):
-    """One eager call and one program call at the largest batch, in turns
-    after 2 of each, host clock around a synchronize -> their median ms
-    over 5."""
-    eager, prog = calls(max(PROGRAM_BATCHES))
-    times = {eager: [], prog: []}
+    """One eager call, one call of the traced program and one of the
+    program loaded from the artifact at the largest batch, in turns after
+    2 of each, host clock around a synchronize -> their median ms over
+    5."""
+    fns = calls(max(PROGRAM_BATCHES))
+    times = {f: [] for f in fns}
     for _ in range(2):
-        eager(), prog()
+        for f in fns:
+            f()
     for _ in range(5):
-        for call in (eager, prog):
+        for f in fns:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            call()
+            f()
             torch.cuda.synchronize()
-            times[call].append(1e3 * (time.perf_counter() - t0))
-    return statistics.median(times[eager]), statistics.median(times[prog])
+            times[f].append(1e3 * (time.perf_counter() - t0))
+    return tuple(statistics.median(times[f]) for f in fns)
 
 
 def _program_checks(path: str, name: str, fname: str, fn: str, flags,
-                    device):
-    """The artifact's ServingModel with `flags`, `fn` traced with
-    export.export_programs, the program against the eager call at
-    PROGRAM_BATCHES (tokens and ids exactly, floats within export._agree's
-    2e-4), the launch counts of one call of each at B = 64 (equal,
-    non-zero for program_kernels, each the graph's number of its
-    operator). -> (the numbers, calls: b -> (eager call, program call)
-    on new inputs of b rows)."""
-    from lctvqa_torch.export import (FUNCTIONS, ServingModel, export_programs,
-                                     read_artifact)
-    from lctvqa_torch.ops import _build
+                    device, root: str):
+    """The artifact's ServingModel with `flags` (and PROGRAM_VARIANTS'
+    overrides), `fn` traced with export.export_programs, the program
+    against the eager call at PROGRAM_BATCHES (tokens and ids exactly,
+    floats within export._agree's 2e-4), the launch counts of one call of
+    each at B = 64 (equal, non-zero for program_kernels, each the graph's
+    number of its operator; an int8 model's `aten._int_mm` nodes its
+    eager call's int8 products). Then the round trip: the program
+    written into a copy of the artifact (export.program_entry,
+    save_artifact), loaded with programs.load_programs, and held against
+    the eager call at PROGRAM_BATCHES exactly, its launches at B = 64 the
+    eager call's, with cuDNN's TF32 on (PyTorch's default), which the
+    loader turns off for an fp32 program; the copy kept for the derived
+    EF's kernel-flag jobs (phase 15's server), else removed. An fp32
+    traced program runs under ops/conv.py::_no_tf32 too, as the loader
+    runs it. -> (the numbers, calls: b -> (eager call, program call,
+    loaded call) on new inputs of b rows)."""
+    from lctvqa_torch import export, programs
+    from lctvqa_torch.ops import _build, int8
+    from lctvqa_torch.ops.conv import _no_tf32
 
-    art = read_artifact(path)
-    s, steps = art["meta"]["img_size"], art["meta"]["max_qst_len"]
-    vocab = art["meta"]["qst_vocab_size"]
-    expect(fn in FUNCTIONS[art["meta"]["family"]], f"{name} has no {fn}")
-    model = ServingModel(art, device, genotype=ARTIFACT_GENOTYPE.get(name),
-                         **flags)
-    del art
+    base, overrides, _ = PROGRAM_VARIANTS.get(name, (name, {}, None))
+    art = export.read_artifact(path)
+    meta = art["meta"]
+    s, steps, vocab = (meta["img_size"], meta["max_qst_len"],
+                       meta["qst_vocab_size"])
+    expect(fn in export.FUNCTIONS[meta["family"]], f"{name} has no {fn}")
+    model = export.ServingModel(art, device,
+                                genotype=ARTIFACT_GENOTYPE.get(base),
+                                **flags, **overrides)
+    exact = model.config.compute_dtype == "float32"
     t_job = time.perf_counter()
-    program = export_programs(model, max_batch=max(PROGRAM_BATCHES),
-                              functions=(fn,))[fn]
+    program = export.export_programs(model, max_batch=max(PROGRAM_BATCHES),
+                                     functions=(fn,))[fn]
     trace_s = time.perf_counter() - t_job
     run = program.module()
     graph = _graph_ops(program)
+    int_mm = sum(n.op == "call_function"
+                 and n.target is torch.ops.aten._int_mm.default
+                 for n in program.graph.nodes)
     rng = np.random.default_rng(SEED + 15)
+    held = {}
 
     def calls(b):
         u8 = rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8)
         qst = rng.integers(0, vocab, (b, steps), dtype=np.int32)
         eager_args = (u8, qst) if fn == "answer_logits" else (u8,)
 
-        def program_call():
-            with torch.no_grad():
+        def program_call(tf32_off=exact):
+            with torch.no_grad(), (_no_tf32() if tf32_off
+                                   else contextlib.nullcontext()):
                 return run(*(torch.from_numpy(a).to(device)
                              for a in eager_args))
 
-        return (lambda: getattr(model, fn)(*eager_args)), program_call
+        return ((lambda: getattr(model, fn)(*eager_args)), program_call,
+                (lambda: getattr(held["loaded"], fn)(*eager_args)))
 
     diffs = {}
     for b in PROGRAM_BATCHES:
-        eager, prog = calls(b)
+        eager, prog, _ = calls(b)
         diff = diffs[b] = _outputs_differ(prog(), eager())
         expect(diff <= (2e-4 if fn == "answer_logits" else 0.0),
                f"program {name} {fname} {fn} B={b}: differs from the eager "
                f"call by {diff}")
-    launches = {}
-    for what, call in zip(("eager", "program"), calls(max(PROGRAM_BATCHES))):
+
+    def launched(call):
         torch.cuda.synchronize()
         _build.reset_launch_counts()
+        int8.reset_launch_counts()
         call()
         torch.cuda.synchronize()
-        launches[what] = {k: v for k, v in _build.launch_counts().items()
-                          if v}
+        return ({k: v for k, v in _build.launch_counts().items() if v},
+                int8.LAUNCHES["int8_matmul"])
+
+    launches = {}
+    eager, prog, _ = calls(max(PROGRAM_BATCHES))
+    launches["eager"], products = launched(eager)
+    launches["program"], _ = launched(prog)
     got = launches["program"]
     expect(got == launches["eager"],
            f"program {name} {fname} {fn}: launches {got} against the eager "
            f"call's {launches['eager']}")
-    expect(set(got) == program_kernels(name, fname, fn),
+    expect(set(got) == program_kernels(base, fname, fn),
            f"program {name} {fname} {fn}: launched {sorted(got)}, expected "
-           f"{sorted(program_kernels(name, fname, fn))}")
+           f"{sorted(program_kernels(base, fname, fn))}")
     expect({OP_KERNELS[op]: n for op, n in graph.items()} == got,
            f"program {name} {fname} {fn}: operators {graph}, launches {got}")
+    expect(int_mm == products and (int_mm > 0) == bool(meta.get("int8")),
+           f"program {name} {fname} {fn}: {int_mm} aten._int_mm nodes, "
+           f"{products} int8 products in the eager call")
+    checked_s = time.perf_counter() - t_job
+
+    # the round trip through an artifact file
+    t0 = time.perf_counter()
+    files, record = export.program_entry(model, {fn: program},
+                                         max(PROGRAM_BATCHES))
+    copy = Path(root) / f"{name}_{fname}_{fn}.lctx"
+    export.save_artifact({**art, programs.PROGRAMS_DIR: {device.type: files},
+                          "meta": {**meta, "torch_programs": {
+                              device.type: record}}}, str(copy))
+    del art, files
+    write_s = time.perf_counter() - t0
+    (added,) = export.program_bytes(str(copy)).values()
+    t0 = time.perf_counter()
+    held["loaded"] = programs.load_programs(str(copy), device)
+    load_s = time.perf_counter() - t0
+    if not (name == "derived" and fname == "kernels"):
+        copy.unlink()
+    cudnn = torch.backends.cudnn
+    was, cudnn.allow_tf32 = cudnn.allow_tf32, True
+    loaded_diffs = {}
+    for b in PROGRAM_BATCHES:
+        eager, _, load = calls(b)
+        diff = loaded_diffs[b] = _outputs_differ(load(), eager())
+        expect(diff == 0.0, f"loaded program {name} {fname} {fn} B={b}: "
+               f"differs from the eager call by {diff}")
+    eager, prog, load = calls(max(PROGRAM_BATCHES))
+    loaded_launches, _ = launched(load)
+    expect(loaded_launches == launches["eager"],
+           f"loaded program {name} {fname} {fn}: launches {loaded_launches}"
+           f" against the eager call's {launches['eager']}")
+    # without the loader's switch, at the global TF32 setting
+    tf32_diff = (_outputs_differ(prog(tf32_off=False), eager()) if exact
+                 else None)
+    expect(cudnn.allow_tf32 is True, f"loaded program {name} {fname} {fn}: "
+           "cuDNN's TF32 switch not restored")
+    cudnn.allow_tf32 = was
     return ({"name": name, "flags": fname, "fn": fn, "trace_s": trace_s,
-             "checked_s": time.perf_counter() - t_job,
-             "nodes": len(program.graph.nodes), "graph_ops": graph,
-             "launches": got, "diffs": diffs}, calls)
+             "checked_s": checked_s, "nodes": len(program.graph.nodes),
+             "graph_ops": graph, "launches": got, "diffs": diffs,
+             "int_mm": int_mm, "bytes": added, "write_s": write_s,
+             "load_s": load_s, "loaded_diffs": loaded_diffs,
+             "tf32_diff": tf32_diff, "copy": str(copy),
+             "dtype": model.config.compute_dtype}, calls)
 
 
 def op_enqueue_times(device) -> dict:
@@ -5457,14 +5551,178 @@ def _node_inputs(gen, n, h, w, c, edges, dtype, device):
     return xs, ops, wts.to(device)
 
 
+INT8_ARTIFACTS = {"w_int8": "w", "derived_int8": "derived"}
+
+
+def write_int8_artifacts(paths) -> None:
+    """The W and derived-EF artifacts' params quantized
+    (export.export_state(int8=True), as the export CLI's --int8) into
+    the files that `paths` names for "w_int8" and "derived_int8"."""
+    from lctvqa_torch import convert, export
+
+    for name, base in INT8_ARTIFACTS.items():
+        art = export.read_artifact(paths[base])
+        params = convert.from_jax(art["params"]["params"])
+        state = ({"w_params": params} if base == "w" else
+                 {"ef_params": params, "arch": art["params"].get("arch")})
+        export.save_artifact(export.export_state(
+            state, model_configs()[base], int8=True), paths[name])
+
+
+# a fresh process: `python -m lctvqa_torch.serve --programs` on argv[1] in
+# a thread; its port is on the "serving ..." line; after a line on stdin
+# it prints the model and export modules it imported
+SERVE_PROGRAMS = """
+import json, sys, threading
+from lctvqa_torch import serve
+threading.Thread(target=serve.main, daemon=True, args=([
+    "--artifact", sys.argv[1], "--programs", "--device", sys.argv[2],
+    "--max_batch", sys.argv[3], "--port", "0", "--warmup"],)).start()
+sys.stdin.readline()
+print(json.dumps(sorted(m for m in sys.modules if m.startswith(
+    ("lctvqa_torch.models", "lctvqa_torch.export")))), flush=True)
+"""
+
+
+def _merge_programs(copies, out: str) -> str:
+    """One artifact of the copies' programs (one function each, one
+    platform, the same params and buffers) -> its path."""
+    from lctvqa_torch import export, programs
+
+    arts = [export.read_artifact(c) for c in copies]
+    (platform,) = arts[0]["meta"]["torch_programs"]
+    recs = [a["meta"]["torch_programs"][platform] for a in arts]
+    expect(all(r["buffers"] == recs[0]["buffers"] for r in recs),
+           "phase 15: the derived EF's programs have other buffers")
+    files = {k: v for a in arts
+             for k, v in a[programs.PROGRAMS_DIR][platform].items()}
+    record = {**recs[0], "functions": sorted(files)}
+    export.save_artifact({**arts[0], programs.PROGRAMS_DIR: {platform: files},
+                          "meta": {**arts[0]["meta"], "torch_programs": {
+                              platform: record}}}, out)
+    return out
+
+
+def serve_programs(copies, fp_path: str, device, root: str, card: str,
+                   n: int = 4) -> dict:
+    """The derived EF's kernel-flag programs (phase 15's copies, merged
+    into one artifact) served by `python -m lctvqa_torch.serve --programs`
+    in a fresh process without --genotype, against the model code's
+    server on the fp artifact with the genotype: n /answer and n
+    /generate requests, one at a time (a derived net's BatchNorm is
+    batch-statistics, so one row a batch on both), equal replies; /healthz
+    says programs; the process imported neither lctvqa_torch.models nor
+    lctvqa_torch.export. -> the readings."""
+    import re
+
+    from lctvqa_torch import export, serve
+    from lctvqa_torch.ops import _build
+
+    t0 = time.perf_counter()
+    path = _merge_programs(copies, str(Path(root) / "derived_programs.lctx"))
+    env = dict(os.environ, PYTHONPATH=str(Path(_build.__file__).parents[2]))
+    proc = subprocess.Popen([sys.executable, "-c", SERVE_PROGRAMS, path,
+                             device.type, str(max(PROGRAM_BATCHES))],
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    watchdog = threading.Timer(600, proc.kill)  # a hung server ends here
+    watchdog.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip())
+            if line.startswith("serving "):
+                break
+        found = re.search(r"http://[^:]+:(\d+)", lines[-1] if lines else "")
+        if not found:
+            raise RuntimeError("serve --programs did not start:\n"
+                               + "\n".join(lines))
+        port = int(found.group(1))
+        start_s = time.perf_counter() - t0
+        meta = export.read_artifact(fp_path)["meta"]
+        qst_words, size = meta["qst_words"], meta["img_size"]
+        rng = np.random.default_rng(SEED + 16)
+        u8 = rng.integers(0, 256, (n, size, size, 3), dtype=np.uint8)
+        asks = [("/answer", {"image_b64": base64.b64encode(
+                    u8[i].tobytes()).decode(), "question": " ".join(
+                    rng.choice(qst_words[4:], 6))}) for i in range(n)]
+        asks += [("/generate", {"image_b64": base64.b64encode(
+                     u8[i].tobytes()).decode()}) for i in range(n)]
+        with kernel_flags("kernels") as flags:
+            srv = serve.make_server(fp_path, port=0, window_ms=5.0,
+                                    max_batch=max(PROGRAM_BATCHES),
+                                    device=device, genotype=DERIVED_GENOTYPE,
+                                    **flags)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            try:
+                eager_port = srv.server_address[1]
+                got = [_post(port, r, p) for r, p in asks]
+                want = [_post(eager_port, r, p) for r, p in asks]
+            finally:
+                srv.shutdown()
+                srv.server_close()
+        with _OPENER.open(f"http://127.0.0.1:{port}/healthz",
+                          timeout=60) as r:
+            health = json.loads(r.read())
+        proc.stdin.write("done\n")
+        proc.stdin.flush()
+        out = proc.stdout.read()
+        proc.wait(timeout=60)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    loaded = json.loads(out.strip().splitlines()[-1])
+    expect(got == want and all(st == 200 for st, _ in got),
+           f"serve --programs: {got[:2]} against the model code's "
+           f"{want[:2]}")
+    expect(health.get("serving") == "programs", f"serve --programs: "
+           f"/healthz {health}")
+    expect(loaded == [], f"serve --programs imported {loaded}")
+    log(f"serve --programs (derived EF, no --genotype): started and warmed "
+        f"in {start_s:.1f} s ({lines[-2] if len(lines) > 1 else ''}); "
+        f"{len(got)} replies equal to the model code's, e.g. {got[-1][1]}; "
+        f"/healthz {health['serving']}; model or export modules imported: "
+        f"{loaded}; {time.perf_counter() - t0:.1f} s on {card}")
+    return {"start_s": start_s, "replies": len(got)}
+
+
+def _log_program_job(r: dict, card: str) -> None:
+    """A phase 15 job's numbers, and its failures, as it comes in."""
+    for failure in r["failures"]:
+        expect(False, failure)
+    diffs = ", ".join(f"B={b} {d:.3g}" for b, d in r["diffs"].items())
+    loaded = ", ".join(f"B={b} {d:.3g}" for b, d in r["loaded_diffs"].items())
+    extra = (f"; with cuDNN TF32 on, the traced program without the loader's "
+             f"switch differs by {r['tf32_diff']:.3g}"
+             if r["tf32_diff"] is not None else "")
+    extra += (f"; {r['int_mm']} aten._int_mm nodes, each an eager int8 "
+              "product" if r["int_mm"] else "")
+    log(f"program {r['name']} {r['flags']} {r['fn']} {r['dtype']}: traced in "
+        f"{r['trace_s']:.1f} s ({r['nodes']} nodes; checked after "
+        f"{r['checked_s']:.1f} s), operators {r['graph_ops']}, launches at "
+        f"B=64 {r['launches']}; largest |program - eager| {diffs}; written "
+        f"into the artifact in {r['write_s']:.1f} s (+{r['bytes']} bytes), "
+        f"loaded in {r['load_s']:.1f} s, largest |loaded - eager| "
+        f"{loaded}{extra}; B=64 loaded program {r['loaded_ms']:.2f} ms, "
+        f"traced program {r['program_ms']:.2f} ms, eager {r['eager_ms']:.2f} "
+        f"ms on {card}")
+
+
 def programs_phase(device, root: str, card: str, paths=None) -> dict:
     """Phase 15: each operator's host enqueue, then every serving function
     of the W, VGG19-EF, darts-EF, derived-EF and unified artifacts (`paths`
     where an earlier phase wrote them, else written here) at both flag
-    sets as a program, on PROGRAM_WORKERS spawned processes
-    (_program_worker), the longest traces first. Prints each job's numbers
-    and the phase's wall time. -> {"program_launches": launches of one
-    B = 64 call of every program, summed by kernel, "jobs", "enqueue"}."""
+    sets as a program, fp32 W at both and int8 W and derived EF with the
+    kernel flags (PROGRAM_VARIANTS), on PROGRAM_WORKERS spawned processes
+    (_program_worker), the longest traces first, each program also
+    written into a copy of its artifact and loaded back; once the derived
+    EF's kernel-flag programs are in, `serve --programs` against the model
+    code (serve_programs) on a thread meanwhile. Prints each job's
+    numbers and the phase's wall time. -> {"program_launches": launches
+    of one B = 64 call of every program, summed by kernel, "jobs",
+    "enqueue", "serve"}."""
     import multiprocessing
     import queue
 
@@ -5474,21 +5732,40 @@ def programs_phase(device, root: str, card: str, paths=None) -> dict:
     paths = dict(paths or {})
     missing = tuple(n for n in PROGRAM_ARTIFACTS if n not in paths)
     paths.update(write_artifacts(Path(root), names=missing))
+    paths.update({n: str(Path(root) / f"{n}.lctx") for n in INT8_ARTIFACTS})
+    write_int8_artifacts(paths)
     enqueue = op_enqueue_times(device)
     torch.cuda.empty_cache()
     family = {"w": "w", "unified": "unified"}
-    jobs = [(paths[name], name, fname, fn) for name in PROGRAM_ARTIFACTS
-            for fname in KERNEL_FLAGS
-            for fn in FUNCTIONS[family.get(name, "ef")]]
+    jobs = []
+    for name in (*PROGRAM_ARTIFACTS[:3], "derived_int8",
+                 *PROGRAM_ARTIFACTS[3:], "w_fp32", "w_int8"):
+        base, _, fnames = PROGRAM_VARIANTS.get(
+            name, (name, {}, tuple(KERNEL_FLAGS)))
+        jobs += [(paths.get(name, paths[base]), name, fname, fn)
+                 for fname in fnames
+                 for fn in FUNCTIONS[family.get(base, "ef")]]
+    copies_dir = Path(root) / "program_copies"
+    copies_dir.mkdir(exist_ok=True)
     ctx = multiprocessing.get_context("spawn")
     n = min(PROGRAM_WORKERS, len(jobs))
     out, next_job = ctx.Queue(), ctx.Value("i", 0)
-    args = (jobs, next_job, out, str(device))
+    args = (jobs, next_job, out, str(device), str(copies_dir))
     procs = [ctx.Process(target=_program_worker, args=args)
              for _ in range(n)]
     for proc in procs:
         proc.start()
     results, errors, done = [], [], 0
+    served, server = {}, None
+
+    def serve_thread(copies):
+        try:
+            served.update(serve_programs(copies, paths["derived"], device,
+                                         root, card))
+        except BaseException:
+            import traceback
+            served["error"] = traceback.format_exc()
+
     while done < n:  # drained before the workers are joined
         try:
             item = out.get(timeout=10)
@@ -5502,30 +5779,45 @@ def programs_phase(device, root: str, card: str, paths=None) -> dict:
             errors.append(item["error"])
         else:
             results.append(item)
+            _log_program_job(item, card)
+            copies = [r["copy"] for r in results
+                      if (r["name"], r["flags"]) == ("derived", "kernels")]
+            if server is None and len(copies) == 2:
+                server = threading.Thread(target=serve_thread, args=(copies,))
+                server.start()
     for proc in procs:
         proc.join(60)
     codes = [proc.exitcode for proc in procs]
+    if server is not None:
+        server.join()
     if errors or done < n or any(codes):
         raise RuntimeError(f"phase 15: {n - done} worker(s) gave no end, "
                            f"exit codes {codes}\n" + "\n".join(errors))
+    if server is None or "error" in served:
+        raise RuntimeError("phase 15: serve --programs "
+                           + served.get("error", "did not run"))
     expect(len(results) == len(jobs),
            f"phase 15: {len(results)} results of {len(jobs)} jobs")
     totals = collections.Counter()
     for r in results:
         totals.update(r["launches"])
-        for failure in r["failures"]:
-            expect(False, failure)
-        diffs = ", ".join(f"B={b} {d:.3g}" for b, d in r["diffs"].items())
-        log(f"program {r['name']} {r['flags']} {r['fn']}: traced in "
-            f"{r['trace_s']:.1f} s ({r['nodes']} nodes; checked after "
-            f"{r['checked_s']:.1f} s), operators {r['graph_ops']}, "
-            f"launches at B=64 {r['launches']}; largest |program - eager| "
-            f"{diffs}; B=64 "
-            f"bf16 program {r['program_ms']:.2f} ms, eager "
-            f"{r['eager_ms']:.2f} ms on {card}")
+
+    def spread(key, jobs=results):
+        values = [key(r) for r in jobs]
+        return f"{min(values):.2f}-{max(values):.2f}"
+
+    big = [r for r in results if r["nodes"] > 2000]
+    log(f"programs over {len(results)} jobs at B=64: loaded / traced "
+        f"program {spread(lambda r: r['loaded_ms'] / r['program_ms'])}x, "
+        f"loaded / eager {spread(lambda r: r['loaded_ms'] / r['eager_ms'])}"
+        f"x; bytes a graph node {spread(lambda r: r['bytes'] / r['nodes'])}"
+        f"; load ms a graph node "
+        f"{spread(lambda r: 1e3 * r['load_s'] / r['nodes'])} "
+        f"({spread(lambda r: 1e3 * r['load_s'] / r['nodes'], big)} over "
+        f"2,000 nodes) on {card}")
     log(f"programs phase took {time.perf_counter() - t0:.1f} s on {card}")
     return {"program_launches": dict(totals), "jobs": results,
-            "enqueue": enqueue}
+            "enqueue": enqueue, "serve": served}
 
 
 def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
@@ -5703,8 +5995,10 @@ def main(argv=None) -> int:
                       "fed by it)")
     mode.add_argument("--programs", action="store_true",
                       help="only build, then phase 15 (the serving "
-                      "functions as torch.export programs against the "
-                      "eager calls, and the operators' host enqueue)")
+                      "functions as torch.export programs, traced and "
+                      "loaded back from the artifact, against the eager "
+                      "calls; serve --programs; the operators' host "
+                      "enqueue)")
     mode.add_argument("--kernel-times", action="store_true",
                       help="only build, then time the cell, the node "
                       "forward and backward, the decode, the BatchNorm "

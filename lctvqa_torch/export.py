@@ -2,12 +2,11 @@
 `export_state`, `save_artifact`, `read_artifact`, `ServingModel` and
 `load_artifact`).
 
-An artifact is one ZIP file (no pickle): `meta.json`, `tree.json` (the
-param tree's skeleton and the leaves' dtypes and shapes), `leaves/<i>`
-(raw little-endian bytes) and `exported/<name>` (the JAX package's
-StableHLO programs, which the port carries through and never runs). The
-format is the JAX package's, so either package reads what the other
-wrote. Params inside are in the JAX layout (`convert.to_jax`).
+The artifact file (`save_artifact`, `read_artifact`; one ZIP, no
+pickle, the JAX package's format with the port's programs beside it)
+and the program loader live in `programs.py`, which needs none of the
+model code; this module re-exports the file layer. Params inside are in
+the JAX layout (`convert.to_jax`).
 
 `ServingModel` runs the port's own model code, with its CUDA kernels, on
 an artifact's params. Model dimensions come from the param shapes and
@@ -23,153 +22,70 @@ the answer out of it), each fp or int8 (`quant.py`: "w_q" leaves, which
 the weight preparation at load leaves int8), whichever package wrote
 it. The supernet's arch parameters ride in the bundle. A derived
 network's genotype does not: the JAX package writes it only into its
-StableHLO programs, so the caller names it (`load_artifact(path,
-genotype=...)`, serve's `--genotype`: a preset, a search checkpoint or a
-repr file), and a genotype whose network does not have the artifact's
-param shapes raises.
+StableHLO programs, and the port only into its own, so the model code
+needs it named (`load_artifact(path, genotype=...)`, serve's
+`--genotype`: a preset, a search checkpoint or a repr file), and a
+genotype whose network does not have the artifact's param shapes
+raises. `programs.load_programs` serves an artifact's programs with no
+genotype.
 
 `export_state` makes an artifact of a checkpoint's trees, recognizing
 the family as the JAX package's does (a DARTS-family `vqa_model.ckpt` is
 an EF model, or a unified one where its params hold "qa"), int8 with
-`int8=True`; it writes no programs. The CLI,
+`int8=True`, and with `platforms=("cuda", "cpu")` (either or both) the
+serving functions traced on each platform by `export_programs` into the
+artifact (`torch_exported/<platform>/<name>/`, the layout in
+`programs.py`); the default writes none, and the file is the one the
+JAX package would write. The CLI,
 
     python -m lctvqa_torch.export --exp E --model ef|w|vqa [--int8] \
-        [--input_dir D] [--out F] [--check] [--device cuda|cpu]
+        [--input_dir D] [--out F] [--platforms cuda,cpu] \
+        [--max_batch 64] [--check] [--device cuda|cpu]
 
 reads a checkpoint of either package from `<root_stats_dir>/E` (for
 `vqa` with its `arch_par.ckpt` where there is one), writes the artifact
 and, with `--check`, reloads it through `ServingModel` and holds it
-against the model functions applied to the checkpoint's trees.
+against the model functions applied to the checkpoint's trees, then,
+where it holds programs for `--device`'s platform, reloads those with
+`programs.load_programs` and holds them against the ServingModel.
 
 `export_programs` traces a ServingModel's serving functions into
-`torch.export` programs (step 1 of ROADMAP.md queue 1 item 6b): a
-symbolic batch, the JAX programs' uint8 and int32 inputs, the weights as
-the program's buffers, and each serving kernel a `lctvqa_torch::`
-operator of the graph (`ops/_build.py::define_op`). The programs are not
-yet written into the artifact, and int8 models and fp32 models on the
-card are not traced (step 2).
+`torch.export` programs: a symbolic batch, the JAX programs' uint8 and
+int32 inputs, the weights as the program's buffers, and each serving
+kernel a `lctvqa_torch::` operator of the graph
+(`ops/_build.py::define_op`); an int8 product is `aten._int_mm` on the
+card.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import os
-import pickle
-import zipfile
-from typing import (Any, Dict, List, NamedTuple, Optional, Sequence,
-                    Union)
+import time
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from lctvqa_torch import convert
+from lctvqa_torch import convert, programs as P
 from lctvqa_torch.config import ModelConfig
 from lctvqa_torch.data.pipeline import normalize_images
 from lctvqa_torch.models import (derived, search, unified as unified_model,
                                  vqa_ef, vqa_w)
 from lctvqa_torch.models.genotypes import Genotype
-from lctvqa_torch.ops import cuda_generate
+from lctvqa_torch.ops import conv
 from lctvqa_torch.ops import nn as N
-from lctvqa_torch.ops.cuda_lstm import cell_weights
-from lctvqa_torch.ops.cuda_mixedop import node_weights
+from lctvqa_torch.programs import (  # noqa: F401 (re-exported)
+    ARTIFACT_VERSION, FUNCTIONS, SERVING_FIELDS, _Buffer, _fill, _has_int8,
+    _np_dtype, _prepare, _register_tree, _skeleton_to_tree,
+    _tree_to_skeleton, prepare_serving_tree, read_artifact, save_artifact)
 from lctvqa_torch.quant import quantize_model
-from lctvqa_torch.text import VocabDict, extract_answer_words
-
-ARTIFACT_VERSION = 1
-
-
-# ---------------------------------------------------------------------------
-# the artifact file
-# ---------------------------------------------------------------------------
-
-def _tree_to_skeleton(tree, leaves: list):
-    """JSON-able skeleton of a params tree; array leaves are appended to
-    `leaves` and replaced by their index. Node types are tagged so that
-    the rebuilt tree has exactly the written structure (tuple or list
-    matters to the JAX package's exported call)."""
-    if isinstance(tree, dict):
-        return {"__d__": {k: _tree_to_skeleton(v, leaves)
-                          for k, v in tree.items()}}
-    if isinstance(tree, list):
-        return {"__l__": [_tree_to_skeleton(v, leaves) for v in tree]}
-    if isinstance(tree, tuple):
-        return {"__t__": [_tree_to_skeleton(v, leaves) for v in tree]}
-    leaves.append(np.asarray(tree))
-    return {"__leaf__": len(leaves) - 1}
-
-
-def _skeleton_to_tree(skel, leaves: list):
-    if "__leaf__" in skel:
-        return leaves[skel["__leaf__"]]
-    if "__d__" in skel:
-        return {k: _skeleton_to_tree(v, leaves)
-                for k, v in skel["__d__"].items()}
-    if "__l__" in skel:
-        return [_skeleton_to_tree(v, leaves) for v in skel["__l__"]]
-    return tuple(_skeleton_to_tree(v, leaves) for v in skel["__t__"])
-
-
-def _np_dtype(name: str):
-    try:
-        return np.dtype(name)
-    except TypeError:  # bfloat16 etc. live in ml_dtypes
-        import ml_dtypes
-        return np.dtype(getattr(ml_dtypes, name))
-
-
-def save_artifact(artifact: Dict[str, Any], path: str) -> None:
-    """Write {"exported", "params", "meta"} as the ZIP described above.
-    `params` is a tree of numpy arrays in the JAX layout."""
-    leaves: list = []
-    skeleton = _tree_to_skeleton(artifact["params"], leaves)
-    tmp = path + ".tmp"
-    with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED) as z:
-        z.writestr("meta.json", json.dumps(artifact["meta"]))
-        z.writestr("tree.json", json.dumps(
-            {"skeleton": skeleton,
-             "leaves": [{"dtype": a.dtype.name, "shape": list(a.shape)}
-                        for a in leaves]}))
-        for i, a in enumerate(leaves):
-            z.writestr(f"leaves/{i}", a.tobytes())
-        for name, blob in artifact["exported"].items():
-            z.writestr(f"exported/{name}", blob)
-    os.replace(tmp, path)
-
-
-def read_artifact(path: str, trusted: bool = False) -> Dict[str, Any]:
-    """Read an artifact file -> artifact dict. ZIP artifacts (the current
-    format) load with no code execution; legacy pickle artifacts require
-    trusted=True (serve CLI: --trusted)."""
-    if not zipfile.is_zipfile(path):
-        if not trusted:
-            raise ValueError(
-                f"{path} is a legacy pickle artifact; pickle.load executes "
-                "arbitrary code from the file. Pass trusted=True/--trusted "
-                "only for artifacts you produced yourself, or re-export")
-        with open(path, "rb") as f:
-            return pickle.load(f)
-    with zipfile.ZipFile(path) as z:
-        meta = json.loads(z.read("meta.json"))
-        tree = json.loads(z.read("tree.json"))
-        leaves = [
-            np.frombuffer(z.read(f"leaves/{i}"),
-                          _np_dtype(spec["dtype"])).reshape(spec["shape"])
-            for i, spec in enumerate(tree["leaves"])]
-        params = _skeleton_to_tree(tree["skeleton"], leaves)
-        exported = {n[len("exported/"):]: z.read(n) for n in z.namelist()
-                    if n.startswith("exported/")}
-    return {"exported": exported, "params": params, "meta": meta}
-
+from lctvqa_torch.text import VocabDict, extract_answer_words  # noqa: F401
 
 # ---------------------------------------------------------------------------
 # the serving model
 # ---------------------------------------------------------------------------
-
-FUNCTIONS = {"w": ("answer_logits",), "ef": ("answer_logits", "generate"),
-             "unified": ("generate",)}
-
 
 def _read_vocab(input_dir: Optional[str]) -> Dict[str, Any]:
     """The word lists of `input_dir`'s vocabulary files that exist."""
@@ -184,12 +100,14 @@ def _read_vocab(input_dir: Optional[str]) -> Dict[str, Any]:
 
 
 def export_state(state: Dict[str, Any], mcfg: ModelConfig,
-                 input_dir: Optional[str] = None,
-                 int8: bool = False) -> Dict[str, Any]:
+                 input_dir: Optional[str] = None, int8: bool = False,
+                 platforms: Sequence[str] = (),
+                 max_batch: int = 64) -> Dict[str, Any]:
     """A checkpoint's trees in the port's layout (tensors, or a port
     checkpoint as `checkpoint.load_state` returns it) -> an artifact dict
     for `save_artifact`, with no programs under "exported" (the JAX
-    package's StableHLO is not written here). `state` is an
+    package's StableHLO is not written here) and, for each of
+    `platforms`, the port's programs (`add_programs`). `state` is an
     `ef_model.ckpt` ({"ef_params", "arch", ...}), a `w_model.ckpt`
     ({"w_params", ...}) or a DARTS-family `vqa_model.ckpt` ({"params",
     ...}, with "arch" from `arch_par.ckpt`): a unified model where its
@@ -197,7 +115,9 @@ def export_state(state: Dict[str, Any], mcfg: ModelConfig,
     trained with; `input_dir`'s vocabularies go into meta, and one whose
     size is not the model's raises. `int8` quantizes the params
     (`quant.quantize_model`); the supernet raises, as in the JAX
-    package."""
+    package. Without `platforms` the dict is the one the JAX package
+    would write, with no "torch_exported" and no "torch_programs" in
+    meta."""
     if "w_params" in state:
         family, params = "w", state["w_params"]
     elif "ef_params" in state:
@@ -235,7 +155,58 @@ def export_state(state: Dict[str, Any], mcfg: ModelConfig,
                              f"{len(words)} entries but the model's "
                              f"{size_key} is {meta[size_key]}")
     meta.update(vocab)
-    return {"exported": {}, "params": bundle, "meta": meta}
+    artifact = {"exported": {}, "params": bundle, "meta": meta}
+    if platforms:
+        add_programs(artifact, mcfg, platforms, max_batch)
+    return artifact
+
+
+def add_programs(artifact: Dict[str, Any], mcfg: ModelConfig,
+                 platforms: Sequence[str], max_batch: int = 64) -> None:
+    """Trace every serving function of `artifact` on each of `platforms`
+    ("cuda", "cpu") and put the programs under artifact["torch_exported"]
+    and their records under meta["torch_programs"] (`programs.py`). Each
+    platform's ServingModel takes the compute dtype and kernel flags of
+    `mcfg` (SERVING_FIELDS) and a derived network's genotype; the
+    BatchNorm kernel switch is the process's (`ops/conv.py`). "cuda" on a
+    host without a card raises; nothing falls back."""
+    unknown = sorted(set(platforms) - set(P.PLATFORMS))
+    if unknown:
+        raise ValueError(f"platforms {list(platforms)}: each must be one "
+                         f"of {P.PLATFORMS}")
+    genotype = mcfg.genotype if mcfg.arch_type == "derived" else None
+    flags = {f: getattr(mcfg, f) for f in SERVING_FIELDS}
+    files, records = {}, {}
+    for platform in dict.fromkeys(platforms):
+        model = ServingModel(artifact, platform, genotype, **flags)
+        files[platform], records[platform] = program_entry(
+            model, export_programs(model, max_batch), max_batch)
+        del model
+    artifact[P.PROGRAMS_DIR] = files
+    artifact["meta"]["torch_programs"] = records
+
+
+def program_entry(model: "ServingModel", traced: Dict[str, Any],
+                  max_batch: int):
+    """`model`'s programs `traced` (export_programs, on the model's device)
+    -> (their files, their record): what an artifact holds for the
+    model's platform under "torch_exported" and meta["torch_programs"]
+    (`programs.py`)."""
+    buffers = P.serving_buffers(model.params, model.arch)
+    for name, program in traced.items():
+        if set(program.state_dict) != set(buffers):
+            raise AssertionError(f"{name}'s state is not the serving "
+                                 "buffers")
+    record = {
+        "functions": sorted(traced),
+        "compute_dtype": model.config.compute_dtype,
+        "flags": {f: getattr(model.config, f) for f in SERVING_FIELDS
+                  if f != "compute_dtype"},
+        "batchnorm_kernel": conv.USE_PALLAS_BN, "max_batch": max_batch,
+        "torch_version": torch.__version__,
+        "buffers": P.buffer_record(buffers)}
+    return ({name: P.program_files(program)
+             for name, program in traced.items()}, record)
 
 
 def _w(p):
@@ -343,44 +314,6 @@ def model_config(meta: Dict[str, Any], params, genotype=None,
         **encoder, **overrides)
 
 
-def _prepare(tree, dtype: Optional[torch.dtype], node_kernel: bool = False):
-    """The weights cast for the compute dtype once, at load, so that no
-    call casts them again: linear weights rounded to it (kept fp32), conv
-    weights (dense, depthwise and pointwise alike) cast to it, each LSTM
-    layer's kernel weights under "cell" and, with `node_kernel`, each
-    stride-1 mixed op's packed fp32 kernel weights under "node". int8
-    weights stay int8 (an int8 linear's [in, out] weight is laid out
-    column-major, the operand layout of the card's int8 GEMM)."""
-    if isinstance(tree, list):
-        return [_prepare(t, dtype, node_kernel) for t in tree]
-    if not isinstance(tree, dict):
-        return tree
-    if "w_q" in tree:
-        w_q = tree["w_q"]
-        return {**tree, "w_q": w_q.t().contiguous().t()
-                if w_q.dim() == 2 else w_q}
-    if "w_ih" in tree:
-        return {**tree, "cell": cell_weights(tree, dtype)}
-    if "w" in tree and tree["w"].dim() == 2:
-        return N.prepare_linear(tree, dtype)
-    if "w" in tree and dtype is not None:
-        return {**tree, "w": tree["w"].to(dtype)}
-    out = {k: _prepare(v, dtype, node_kernel) for k, v in tree.items()}
-    # a mixed op; on a stride-1 edge skip_connect has no params
-    if node_kernel and "sep_conv_3x3" in tree and not tree["skip_connect"]:
-        out["node"] = node_weights(tree)
-    return out
-
-
-def _has_int8(tree) -> bool:
-    """Whether a param tree holds a quantized conv or linear ("w_q")."""
-    if isinstance(tree, dict):
-        return "w_q" in tree or any(_has_int8(v) for v in tree.values())
-    if isinstance(tree, (list, tuple)):
-        return any(_has_int8(v) for v in tree)
-    return False
-
-
 def answer_logits(family: str, config: ModelConfig, params, arch,
                   u8: torch.Tensor, qst: torch.Tensor) -> torch.Tensor:
     """The served `answer_logits` on a prepared tree: uint8 images [B, S,
@@ -416,9 +349,11 @@ class ServingModel:
     Config overrides (`compute_dtype`, `use_pallas_lstm`,
     `pallas_seq_lstm`, `pallas_generate`, `pallas_mixed_op`) pick the
     numerics and the kernels. The weights are cast for the compute dtype
-    and packed for the kernels once, here. `genotype` (a Genotype, or a
-    preset name, search checkpoint or repr file that resolve_genotype
-    reads) is a derived network's, which the artifact does not carry.
+    and packed for the kernels once, here (`programs.
+    prepare_serving_tree`). `genotype` (a Genotype, or a preset name,
+    search checkpoint or repr file that resolve_genotype reads) is a
+    derived network's, which the artifact's params do not carry
+    (`programs.load_programs` serves its programs without one).
 
     A supernet's BatchNorm is batch-statistics (no artifact carries
     running statistics), so a row's answer depends on the other rows of
@@ -450,30 +385,18 @@ class ServingModel:
             from lctvqa_torch.genotype import resolve_genotype
             genotype = resolve_genotype(genotype)
         self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' but no CUDA device is "
-                               "available; pass device='cpu' explicitly to "
-                               "serve on the CPU")
+        P.check_device(self.device)
         self.meta = meta
         self.family = family
         self.config = model_config(meta, params, genotype, **overrides)
-        dtype = N.torch_dtype(self.config.compute_dtype)
-        self.params = _prepare(
-            convert.from_jax(params, self.device), dtype,
-            node_kernel=(self.config.pallas_mixed_op
-                         and self.config.fold_bn_mixture))
         arch = artifact["params"].get("arch")
         if self.config.arch_type == "darts" and arch is None:
             raise ValueError("a darts EF artifact needs its arch parameters "
                              "under params['arch']")
-        self.arch = (None if arch is None
-                     else convert.from_jax(arch, self.device))
-        # the decoder: the EF model's question encoder, or the unified
-        # model's stream LSTM and head
-        self._decoder = "qa" if family == "unified" else "qst"
-        if family != "w" and self.config.pallas_generate:
-            dec = self.params[self._decoder]
-            dec["decode"] = cuda_generate.decode_weights(dec, dtype)
+        self.params, self.arch = prepare_serving_tree(
+            params, arch, family, N.torch_dtype(self.config.compute_dtype),
+            {f: getattr(self.config, f) for f in SERVING_FIELDS},
+            self.device)
 
     @property
     def functions(self):
@@ -503,20 +426,10 @@ class ServingModel:
                         self._tensor(u8_images, torch.uint8))
 
     def generated_answers(self, u8_images) -> List[str]:
-        """Answer strings of greedy generation: a unified stream's words
-        strictly between `<sep>` and `<end>`, or the answer vocabulary's
-        word of the EF's answer to its own question (the vocabularies
-        come from the artifact's meta)."""
-        out = self.generate(u8_images)
-        key = "unified_words" if self.family == "unified" else "ans_words"
-        words = self.meta.get(key)
-        if not words:
-            raise ValueError(f"artifact was exported without its "
-                             f"vocabularies; no {key} embedded")
-        if self.family == "unified":
-            return [extract_answer_words([words[int(i)] for i in row])
-                    for row in out.cpu().numpy()]
-        return [words[int(i)] for i in out[1].cpu().numpy()]
+        """Answer strings of greedy generation (`programs.
+        generated_answers`)."""
+        return P.generated_answers(self.family, self.meta,
+                                   self.generate(u8_images))
 
 
 def load_artifact(path: str, device: Union[str, torch.device] = "cuda",
@@ -530,52 +443,6 @@ def load_artifact(path: str, device: Union[str, torch.device] = "cuda",
 # ---------------------------------------------------------------------------
 # torch.export programs
 # ---------------------------------------------------------------------------
-
-class _Buffer(NamedTuple):
-    """A tensor leaf of a serving module's tree: the buffer that holds it."""
-
-    name: str
-
-
-def _register_tree(module: torch.nn.Module, tree, path: str, seen: dict):
-    """The tree with each tensor replaced by a `_Buffer`, the tensor
-    registered as a buffer of `module` named by its tree path (the first
-    path where one tensor is reached from several). Dicts, lists, tuples
-    and NamedTuples keep their structure; other leaves (a prepared
-    weight's dtype tag, None) stay as they are."""
-    if isinstance(tree, torch.Tensor):
-        if id(tree) not in seen:
-            if tree.is_inference():
-                raise ValueError(
-                    f"{path} is an inference tensor: build the ServingModel "
-                    "outside torch.inference_mode to trace its programs")
-            module.register_buffer(path, tree)
-            seen[id(tree)] = _Buffer(path)
-        return seen[id(tree)]
-    if isinstance(tree, dict):
-        return {k: _register_tree(module, v, f"{path}__{k}", seen)
-                for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_register_tree(module, v, f"{path}__{f}", seen)
-                            for f, v in zip(tree._fields, tree)))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_register_tree(module, v, f"{path}__{i}", seen)
-                          for i, v in enumerate(tree))
-    return tree
-
-
-def _fill(tree, module: torch.nn.Module):
-    """`_register_tree`'s skeleton with the module's buffers put back."""
-    if isinstance(tree, _Buffer):
-        return module.get_buffer(tree.name)
-    if isinstance(tree, dict):
-        return {k: _fill(v, module) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_fill(v, module) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_fill(v, module) for v in tree)
-    return tree
-
 
 class _ServingModule(torch.nn.Module):
     """One serving function of a ServingModel as a module whose buffers
@@ -619,20 +486,12 @@ def export_programs(model: "ServingModel", max_batch: int = 64,
     inputs' device), with the kernel flags of the model's config and the
     process-wide BatchNorm switch (`ops/conv.py::USE_PALLAS_BN`) as they
     are now: each kernel on that path is a `lctvqa_torch::` operator of
-    the graph. The programs are not written into an artifact, and int8
-    models and fp32 models on the card are not traced (ROADMAP.md queue 1
-    item 6b, step 2)."""
-    if model.meta.get("int8") or _has_int8(model.params):
-        raise NotImplementedError(
-            "int8 programs are ROADMAP.md queue 1 item 6b, step 2: the int8 "
-            "products pad the batch with a branch on its size")
-    if (model.device.type == "cuda"
-            and N.torch_dtype(model.config.compute_dtype) == torch.float32):
-        raise NotImplementedError(
-            "fp32 programs on the card are ROADMAP.md queue 1 item 6b, step "
-            "2: an fp32 convolution turns cuDNN's TF32 off around its call "
-            "(ops/conv.py::_ExactConvFn), which a program does not record, "
-            "so it would run at the caller's TF32 setting")
+    the graph, each int8 product on the card `aten._int_mm` on operands
+    padded without a branch on the batch (`ops/int8.py::int8_matmul`).
+    An fp32 program's convolutions follow cuDNN's TF32 switch at call
+    time, which `programs.ProgramModel` turns off around each call, as
+    the eager fp32 convolution does (`ops/conv.py::_ExactConvFn`).
+    `programs.program_files` serializes a program for the artifact."""
     if max_batch < 1:
         raise ValueError("max_batch must be >= 1")
     names = list(functions) if functions is not None else model.functions
@@ -669,11 +528,6 @@ def export_programs(model: "ServingModel", max_batch: int = 64,
 # the export CLI
 # ---------------------------------------------------------------------------
 
-# the ModelConfig fields a served model takes from the checkpoint's config
-SERVING_FIELDS = ("compute_dtype", "use_pallas_lstm", "pallas_seq_lstm",
-                  "pallas_generate", "pallas_mixed_op", "fold_bn_mixture")
-
-
 def _agree(got, want, what: str) -> None:
     """Floats within 2e-4, ids and tokens exactly (the JAX package's
     round-trip check)."""
@@ -689,12 +543,14 @@ def _agree(got, want, what: str) -> None:
 
 
 def check_roundtrip(path: str, state: Dict[str, Any], mcfg: ModelConfig,
-                    int8: bool, device: Union[str, torch.device]) -> None:
+                    int8: bool, device: Union[str, torch.device]
+                    ) -> "ServingModel":
     """The artifact at `path`, reloaded through `ServingModel` on
     `device`, against the model functions applied directly to the
     checkpoint's trees in `state` (quantized as the export did), at
     batch sizes 2 and 5 (counterpart of lctvqa/export.py's
-    `_check_roundtrip`). Raises AssertionError where they differ."""
+    `_check_roundtrip`). Raises AssertionError where they differ;
+    returns the reloaded model."""
     device = torch.device(device)
     model = load_artifact(
         path, device, genotype=(mcfg.genotype if mcfg.arch_type == "derived"
@@ -735,15 +591,56 @@ def check_roundtrip(path: str, state: Dict[str, Any], mcfg: ModelConfig,
                        f"generate at batch {batch}")
     print(f"check ok: {model.functions} agree at batch sizes 2 and 5 on "
           f"{device}")
+    return model
+
+
+def check_programs(path: str, model: "ServingModel") -> None:
+    """The artifact's programs for the platform of `model` (the eager
+    ServingModel of the same artifact), reloaded through
+    `programs.load_programs`, against `model` at batch sizes 2 and 5:
+    tokens and ids exactly, floats through `_agree` (the programs run the
+    eager call's kernels on its inputs, so they are expected to equal it
+    bit for bit). Raises AssertionError where they differ."""
+    device = model.device
+    t0 = time.perf_counter()
+    prog = P.load_programs(path, device)
+    load_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    s, steps = model.config.img_size, model.config.max_qst_len
+    for batch in (2, 5):
+        u8 = rng.integers(0, 256, (batch, s, s, 3), dtype=np.uint8)
+        qst = rng.integers(0, model.config.qst_vocab_size, (batch, steps),
+                           dtype=np.int32)
+        for fn in model.functions:
+            args = (u8, qst) if fn == "answer_logits" else (u8,)
+            got, want = getattr(prog, fn)(*args), getattr(model, fn)(*args)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for i, (g, w) in enumerate(zip(got, want, strict=True)):
+                _agree(g, w, f"program {fn} output {i} at batch {batch}")
+    print(f"check ok: the {device.type} programs {prog.functions} (loaded "
+          f"in {load_s:.1f} s) agree with the model at batch sizes 2 and 5")
+
+
+def program_bytes(path: str) -> Dict[str, int]:
+    """Bytes each platform's programs add to the artifact file."""
+    import zipfile
+
+    out: Dict[str, int] = {}
+    with zipfile.ZipFile(path) as z:
+        for info in z.infolist():
+            parts = info.filename.split("/")
+            if parts[0] == P.PROGRAMS_DIR:
+                out[parts[1]] = out.get(parts[1], 0) + info.compress_size
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Export an experiment's checkpoint, written by either "
-        "package, as a serving artifact. The port serves the artifact's "
-        "params with its own model code; export.export_programs traces them "
-        "into torch.export programs (ROADMAP.md queue 1 item 6b, step 1), "
-        "which are not yet written into the artifact (step 2).")
+        "package, as a serving artifact: its params, and with --platforms "
+        "its serving functions as torch.export programs, which `python -m "
+        "lctvqa_torch.serve --programs` runs without the model code.")
     p.add_argument("--exp", type=str, required=True)
     p.add_argument("--root_stats_dir", type=str, default="./experiment_data")
     p.add_argument("--model", type=str, default="ef",
@@ -760,9 +657,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_dir", type=str, default=None,
                    help="dataset dir; embeds the vocab word lists so the "
                         "server can decode answers")
+    p.add_argument("--platforms", type=str, default="",
+                   help="comma-separated: 'cuda', 'cpu' or both; trace the "
+                        "serving functions on each (a program runs only on "
+                        "the platform it was traced on; 'cuda' needs a "
+                        "card) into the artifact. Default: no programs, "
+                        "the artifact the JAX package would write")
+    p.add_argument("--max_batch", type=int, default=64,
+                   help="the largest batch the programs take (a server's "
+                        "largest bucket must not exceed it)")
     p.add_argument("--check", action="store_true",
                    help="after exporting, reload the artifact and hold it "
-                        "against the model applied to the checkpoint")
+                        "against the model applied to the checkpoint, and "
+                        "its programs for --device's platform against the "
+                        "reloaded model")
     p.add_argument("--trusted", action="store_true",
                    help="the JAX package's flag for legacy pickle "
                         "checkpoints; the port reads only ZIP checkpoints "
@@ -775,7 +683,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> str:
     """-> the artifact's path."""
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    platforms = tuple(p for p in args.platforms.split(",") if p)
+    if args.check and platforms and (torch.device(args.device).type
+                                     not in platforms):
+        parser.error(f"--check runs on --device {args.device}, for which "
+                     f"--platforms {args.platforms} writes no programs")
     from lctvqa_torch.train import checkpoint
 
     exp_dir = os.path.join(args.root_stats_dir, args.exp)
@@ -791,16 +705,26 @@ def main(argv=None) -> str:
         if checkpoint.exists(ap):
             state = dict(state, arch=checkpoint.load_state(ap)["arch"])
     trees = dict(convert.checkpoint_params(state), epoch=state.get("epoch"))
+    t0 = time.perf_counter()
     artifact = export_state(trees, cfg.model, input_dir=args.input_dir,
-                            int8=args.int8)
+                            int8=args.int8, platforms=platforms,
+                            max_batch=args.max_batch)
+    trace_s = time.perf_counter() - t0
     out = args.out or os.path.join(exp_dir, f"{args.model}_serving.lctx")
     save_artifact(artifact, out)
-    meta = artifact["meta"]
-    print(f"exported {meta['family']} artifact {FUNCTIONS[meta['family']]} "
-          f"-> {out} ({os.path.getsize(out)} bytes; int8={args.int8}; no "
-          "torch.export programs)")
+    family = artifact["meta"]["family"]
+    del artifact
+    sizes = program_bytes(out)
+    progs = ("; ".join(f"{p} programs {n} bytes" for p, n in sizes.items())
+             + f", traced in {trace_s:.1f} s" if sizes
+             else "no torch.export programs")
+    print(f"exported {family} artifact {FUNCTIONS[family]} -> {out} "
+          f"({os.path.getsize(out)} bytes; int8={args.int8}; {progs})")
     if args.check:
-        check_roundtrip(out, trees, cfg.model, args.int8, args.device)
+        model = check_roundtrip(out, trees, cfg.model, args.int8,
+                                args.device)
+        if platforms:
+            check_programs(out, model)
     return out
 
 

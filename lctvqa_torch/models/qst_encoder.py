@@ -20,9 +20,8 @@ import torch
 from lctvqa_torch.ops import cuda_lstm
 from lctvqa_torch.ops import nn as N
 from lctvqa_torch.ops.cuda_lstm import cell_weights
-from lctvqa_torch.ops.lstm import lstm, lstm_cell, lstm_init
-
-START_TOKEN = 2  # <start> id (the vocab builder puts it at index 2)
+from lctvqa_torch.ops.lstm import (START_TOKEN, decode_tokens,  # noqa: F401
+                                   lstm, lstm_init)
 
 
 def w_qst_encoder_init(gen, qst_vocab_size, word_embed_size, embed_size,
@@ -122,22 +121,5 @@ def ef_qst_generate(params, image_embedding: torch.Tensor, max_length: int,
                                              max_length, dtype=dtype)
     if not deterministic and sample_gen is None:
         raise ValueError("sampling needs a generator")
-    with torch.no_grad():
-        w = cell_weights(layers[0], dtype)
-        b = image_embedding.shape[0]
-        h = c = image_embedding.reshape(b, -1).to(torch.float32)
-        start = torch.full((b,), START_TOKEN, dtype=torch.long,
-                           device=image_embedding.device)
-        x = torch.tanh(N.embed(params["word2vec"], start))
-        tokens = []
-        for _ in range(max_length):
-            h, c = lstm_cell(w, x, h, c, use_kernel)
-            logits = N.linear(params["fc2"], torch.tanh(h), dtype=dtype)
-            if deterministic:
-                tok = torch.argmax(logits, dim=-1)  # first maximum
-            else:
-                probs = torch.softmax(logits / temperature, dim=-1)
-                tok = torch.multinomial(probs, 1, generator=sample_gen)[:, 0]
-            tokens.append(tok)
-            x = N.embed(params["word2vec"], tok)  # no tanh (quirk)
-        return torch.stack(tokens, 1).to(torch.int32)
+    return decode_tokens(params, image_embedding, max_length, dtype,
+                         use_kernel, deterministic, sample_gen, temperature)

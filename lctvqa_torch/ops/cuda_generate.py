@@ -32,6 +32,7 @@ import torch
 from lctvqa_torch.ops import _build as K
 from lctvqa_torch.ops.cuda_lstm import (SMEM_PER_BLOCK, CellWeights,
                                         cell_weights)
+from lctvqa_torch.ops.lstm import START_TOKEN, decode_tokens
 
 f32 = torch.float32
 
@@ -48,11 +49,7 @@ def greedy_generate_plain(qst_params, image_embedding: torch.Tensor,
                           max_length: int,
                           dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """The decode loop in plain PyTorch. Returns int32 [B, max_length]."""
-    from lctvqa_torch.models.qst_encoder import ef_qst_generate
-
-    return ef_qst_generate(qst_params, image_embedding, max_length,
-                           dtype=dtype, use_kernel=False,
-                           use_generate_kernel=False)
+    return decode_tokens(qst_params, image_embedding, max_length, dtype)
 
 
 class DecodeWeights(NamedTuple):
@@ -71,8 +68,6 @@ def decode_weights(qst_params,
     8-column, 16-byte pieces, so V is padded to a multiple of 8 with
     columns that never win (weight 0, bias -inf). Question-encoder params
     that hold them under "decode" (a served model's) return them."""
-    from lctvqa_torch.models.qst_encoder import START_TOKEN
-
     if "decode" in qst_params:
         d = qst_params["decode"]
         if d.cell.w_ih.dtype != (dtype or f32):

@@ -8,7 +8,9 @@ No Pallas kernel is involved there, and none is written here.
   On the card it is `torch._int_mm`, cuBLASLt's GEMM on Hopper's int8
   tensor cores. That call takes M > 16 and K and N multiples of 8, so
   the operands are padded with zero rows and columns, which leave the
-  int32 sums as they are, and the result is sliced back.
+  int32 sums as they are, and the result is sliced back; the padding
+  branches on no batch size, so that a traced program keeps its batch
+  symbolic.
 - `int8_conv2d(x_q, w_q, ...)`: an NHWC int8 activation and an OIHW int8
   weight -> the NHWC int32 convolution. The patch matrix is built in
   int8 from kh*kw strided slices of the zero-padded input, concatenated
@@ -74,7 +76,17 @@ def _up(n: int, multiple: int) -> int:
 def int8_matmul(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
     """int8 [M, K] @ int8 [K, N] -> int32 [M, N], exact. A CPU tensor
     takes the plain version; a CUDA tensor `torch._int_mm` on operands
-    padded to its shapes (M > 16, K and N multiples of 8)."""
+    padded to its shapes (M > 16, K and N multiples of 8).
+
+    M is the batch, or the batch times a conv's output pixels, so a
+    traced call sees it symbolic. Then A always gets 17 zero rows, with
+    no branch on M's value, and the output is sliced back to [:M, :N]:
+    rows up to sym_max(M, 17) would leave the slice a guard, M <= max(17,
+    M), that torch.export cannot prove, and a test of M > 16 would hold
+    for the trace's batch of 2 or more and fail at a batch of 1. An
+    eager call (M an int) pads A to 17 rows where M <= 16, as it did.
+    The padding of K and N depends on the weights' shapes alone; A is
+    copied only where it is padded."""
     device = _check_int8("int8_matmul", a_q=a_q, b_q=b_q)
     if a_q.dim() != 2 or b_q.dim() != 2 or a_q.shape[1] != b_q.shape[0]:
         raise ValueError(f"int8_matmul: shapes {tuple(a_q.shape)} and "
@@ -82,14 +94,14 @@ def int8_matmul(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
     if device.type == "cpu":
         return int8_matmul_plain(a_q, b_q)
     (m, k), n = a_q.shape, b_q.shape[1]
-    mp, kp, np_ = max(m, 17), _up(k, 8), _up(n, 8)
-    if (mp, kp) != (m, k):
-        a_q = F.pad(a_q, (0, kp - k, 0, mp - m))
+    kp, np_ = _up(k, 8), _up(n, 8)
+    rows = 17 if isinstance(m, torch.SymInt) else max(17 - m, 0)
+    if kp != k or rows:
+        a_q = F.pad(a_q, (0, kp - k, 0, rows))
     if (kp, np_) != (k, n):  # padded column-major, as weight_matrix lays it
         b_q = F.pad(b_q.t(), (0, kp - k, 0, np_ - n)).t()
     LAUNCHES["int8_matmul"] += 1
-    out = torch._int_mm(a_q, b_q)
-    return out if (mp, np_) == (m, n) else out[:m, :n]
+    return torch._int_mm(a_q, b_q)[:m, :n]
 
 
 def conv_out_size(size: int, k: int, stride: int, pad: int, dil: int) -> int:

@@ -39,12 +39,27 @@ statistics of the dispatched batch, so an answer depends on the other
 requests of its group and on those pad rows: a group of 3 is answered as
 the batch of 4 whose last row repeats the first.
 
-A derived-EF artifact does not carry its genotype: `--genotype` names it
-(a preset, a search checkpoint or a repr file).
+Two ways to run an artifact:
+
+- the model code (the default): `export.ServingModel` rebuilds the
+  model from the artifact's params at `--compute_dtype` and the kernel
+  flags' defaults. A derived-EF artifact does not carry its genotype:
+  `--genotype` names it (a preset, a search checkpoint or a repr file);
+- `--programs`: `programs.ProgramModel` runs the torch.export programs
+  that `python -m lctvqa_torch.export --platforms cuda[,cpu]` wrote into
+  the artifact, at the compute dtype and flags they were traced with,
+  and imports none of the model code (`lctvqa_torch.models`,
+  `.export`): a derived EF needs no `--genotype`, and `--compute_dtype`
+  and `--genotype` are refused. The server refuses to start where the
+  batcher's largest bucket exceeds the programs' `max_batch`.
+
+`/healthz` says which of the two serves ("serving": "programs" or
+"model code").
 
     python -m lctvqa_torch.serve --artifact w.lctx --warmup
     python -m lctvqa_torch.serve --artifact ef_serving.lctx \
         --genotype PC_DARTS_cifar
+    python -m lctvqa_torch.serve --artifact ef_serving.lctx --programs
     python -m lctvqa_torch.serve --artifact unified.lctx
 
 (an artifact of a trained checkpoint: `python -m lctvqa_torch.export`,
@@ -63,14 +78,19 @@ import threading
 import time
 import traceback
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Any, Dict, List, Optional
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from lctvqa_torch.config import ModelConfig
-from lctvqa_torch.export import ServingModel, load_artifact
+from lctvqa_torch.programs import ProgramModel, load_programs
 from lctvqa_torch.text import VocabDict, extract_answer_words, tokenize
+
+if TYPE_CHECKING:  # the model code is imported only where it serves
+    from lctvqa_torch.export import ServingModel
+
+    Model = Union[ServingModel, ProgramModel]
 
 
 def _to_host(out):
@@ -96,7 +116,7 @@ class MicroBatcher:
     group.
     """
 
-    def __init__(self, model: ServingModel, window_ms: float = 5.0,
+    def __init__(self, model: Model, window_ms: float = 5.0,
                  max_batch: int = 64):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
@@ -165,11 +185,20 @@ class MicroBatcher:
 
 
 class TorchVqaService:
-    """Request decoding and response encoding around a ServingModel and
-    its MicroBatcher (the JAX package's `VqaService`)."""
+    """Request decoding and response encoding around a ServingModel (or
+    a ProgramModel) and its MicroBatcher (the JAX package's
+    `VqaService`). Programs take at most their recorded `max_batch`
+    rows, so a batcher whose largest bucket exceeds it raises here."""
 
-    def __init__(self, model: ServingModel, window_ms: float = 5.0,
+    def __init__(self, model: Model, window_ms: float = 5.0,
                  max_batch: int = 64):
+        largest = MicroBatcher.buckets(max_batch)[-1]
+        if isinstance(model, ProgramModel) and largest > model.max_batch:
+            raise ValueError(
+                f"max_batch {max_batch} dispatches batches of up to "
+                f"{largest} rows, more than the artifact's programs take "
+                f"({model.max_batch}); lower --max_batch or re-export with "
+                "a larger one")
         self.model = model
         self.meta = model.meta
         self.batcher = MicroBatcher(model, window_ms, max_batch)
@@ -269,6 +298,8 @@ class TorchVqaService:
     def healthz(self) -> Dict[str, Any]:
         return {"ok": True, "family": self.meta["family"],
                 "functions": self.model.functions,
+                "serving": ("programs" if isinstance(self.model, ProgramModel)
+                            else "model code"),
                 "dispatch_batches": len(self.batcher.batch_sizes)}
 
     def meta_public(self) -> Dict[str, Any]:
@@ -337,13 +368,27 @@ class VqaHTTPServer(ThreadingHTTPServer):
 def make_server(artifact_path: str, host: str = "127.0.0.1", port: int = 0,
                 window_ms: float = 5.0, max_batch: int = 64,
                 trusted: bool = False, device: str = "cuda",
-                genotype=None, **overrides) -> VqaHTTPServer:
+                genotype=None, programs: bool = False,
+                **overrides) -> VqaHTTPServer:
     """Build (but don't start) the HTTP server; `.server_address[1]` is the
-    bound port. `genotype` is a derived EF's (export.ServingModel);
+    bound port. `programs` serves the artifact's torch.export programs
+    for `device`'s platform (`programs.load_programs`, no model code),
+    which take no `genotype` or `overrides`. Otherwise the model code
+    serves: `genotype` is a derived EF's (export.ServingModel) and
     `overrides` are ModelConfig fields (compute_dtype and the kernel
     flags)."""
-    model = load_artifact(artifact_path, device=device, trusted=trusted,
-                          genotype=genotype, **overrides)
+    if programs:
+        if genotype is not None or overrides or trusted:
+            raise ValueError(
+                "the programs run at the dtype and flags they were exported "
+                "with, on a ZIP artifact; genotype, trusted and "
+                f"{sorted(overrides)} are not taken with programs")
+        model = load_programs(artifact_path, device)
+    else:
+        from lctvqa_torch.export import load_artifact
+
+        model = load_artifact(artifact_path, device=device, trusted=trusted,
+                              genotype=genotype, **overrides)
     service = TorchVqaService(model, window_ms=window_ms,
                               max_batch=max_batch)
     handler = type("Handler", (_Handler,), {"service": service})
@@ -366,20 +411,32 @@ def main(argv=None):
     p.add_argument("--device", type=str, default="cuda",
                    help="'cpu' serves without a GPU (the kernels' plain "
                         "versions)")
-    p.add_argument("--compute_dtype", type=str,
-                   default=ModelConfig().compute_dtype,
+    p.add_argument("--compute_dtype", type=str, default=None,
                    choices=("bfloat16", "float32"),
-                   help="matmul operand dtype; the artifact does not record "
-                        "the one it was trained with")
+                   help="matmul operand dtype of the model code (default "
+                        f"{ModelConfig().compute_dtype}); the artifact's "
+                        "params do not record the one it was trained with, "
+                        "its programs do (not taken with --programs)")
     p.add_argument("--genotype", type=str, default=None,
-                   help="a derived EF artifact's genotype: a preset name, a "
-                        "search checkpoint or a Genotype-repr file")
+                   help="a derived EF artifact's genotype for the model "
+                        "code: a preset name, a search checkpoint or a "
+                        "Genotype-repr file (not needed with --programs)")
+    p.add_argument("--programs", action="store_true",
+                   help="serve the artifact's torch.export programs for "
+                        "--device's platform (export --platforms) without "
+                        "the model code")
     args = p.parse_args(argv)
+    if args.programs and (args.compute_dtype or args.genotype):
+        p.error("--programs serves at the dtype and flags the programs "
+                "were exported with, genotype included; drop "
+                "--compute_dtype and --genotype")
+    overrides = {} if args.programs else {
+        "compute_dtype": args.compute_dtype or ModelConfig().compute_dtype}
 
     srv = make_server(args.artifact, args.host, args.port, args.window_ms,
                       args.max_batch, trusted=args.trusted,
                       device=args.device, genotype=args.genotype,
-                      compute_dtype=args.compute_dtype)
+                      programs=args.programs, **overrides)
     host, port = srv.server_address[:2]
     svc: TorchVqaService = srv.RequestHandlerClass.service  # type: ignore
     if args.warmup:
@@ -387,7 +444,7 @@ def main(argv=None):
         print(f"warmup: {n} calls run", flush=True)
     print(f"serving {svc.meta['family']}"
           f"{' int8' if svc.meta.get('int8') else ''} artifact "
-          f"({svc.model.functions}) "
+          f"({svc.model.functions}; {svc.healthz()['serving']}) "
           f"on http://{host}:{port} with {torch.device(args.device)}  "
           f"window={args.window_ms}ms max_batch={args.max_batch}",
           flush=True)

@@ -1243,3 +1243,73 @@ def test_operator_matches_plain_on_the_card(cuda, name, dtype):
             rtol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
             torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
                                        atol=1e-5)
+
+
+@pytest.mark.parametrize("kn", [(75, 13), (512, 1024)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("m", [1, 16, 17, 64 * 49])
+def test_int8_matmul_matches_plain(cuda, m, kn):
+    """The card's int8 product (`torch._int_mm` on operands padded to M >
+    16 and K, N multiples of 8, the output sliced back) against its plain
+    version, bit for bit, on both sides of the row padding and at a
+    conv's patch rows (B = 64 of 7x7 outputs); one launch a call."""
+    from lctvqa_torch.ops import int8
+
+    k, n = kn
+    gen = torch.Generator().manual_seed(m + k)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    b = torch.randint(-127, 128, (n, k), generator=gen,
+                      dtype=torch.int8).t()  # column-major, as weights are
+    before = int8.LAUNCHES["int8_matmul"]
+    got = int8.int8_matmul(a.to(cuda), b.to(cuda))
+    assert int8.LAUNCHES["int8_matmul"] == before + 1
+    assert got.shape == (m, n) and got.dtype == torch.int32
+    assert torch.equal(got.cpu(), int8.int8_matmul_plain(a, b))
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_a_cuda_program_round_trips_through_the_artifact(cuda, tmp_path,
+                                                         kind):
+    """A small W artifact with its cuda programs (export_state(platforms=
+    ("cuda",)), save_artifact), loaded with programs.load_programs on the
+    card: equal to the eager ServingModel's call bit for bit at batches
+    1, 2 and 5 with the same launches; cuDNN's TF32 on when called (the
+    loader turns it off for fp32), and still on after."""
+    import dataclasses
+
+    import numpy as np
+
+    from lctvqa_torch import export, programs
+    from lctvqa_torch.config import small_test_config
+    from lctvqa_torch.models import vqa_w
+
+    mcfg = dataclasses.replace(
+        small_test_config().model, arch_type="fixed", img_size=32,
+        compute_dtype="float32" if kind == "float32" else "bfloat16",
+        pallas_seq_lstm=True)
+    params = vqa_w.init_w_model(torch.Generator().manual_seed(1), mcfg)
+    path = str(tmp_path / "w.lctx")
+    export.save_artifact(export.export_state(
+        {"w_params": params}, mcfg, int8=kind == "int8",
+        platforms=("cuda",), max_batch=8), path)
+    loaded = programs.load_programs(path, "cuda")
+    eager = export.load_artifact(path, "cuda", **{
+        f: getattr(mcfg, f) for f in export.SERVING_FIELDS})
+    torch.backends.cudnn.allow_tf32 = True
+    rng = np.random.default_rng(2)
+    for b in (1, 2, 5):
+        u8 = rng.integers(0, 256, (b, 32, 32, 3), dtype=np.uint8)
+        qst = rng.integers(0, mcfg.qst_vocab_size, (b, mcfg.max_qst_len),
+                           dtype=np.int32)
+        counts = []
+        for model in (loaded, eager):
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            out = model.answer_logits(u8, qst)
+            torch.cuda.synchronize()
+            counts.append(_build.launch_counts())
+            if model is loaded:
+                got = out
+        assert counts[0] == counts[1] and counts[0]["lstm_seq_final"] == 1
+        assert got.dtype == out.dtype and torch.equal(got, out), b
+    assert torch.backends.cudnn.allow_tf32 is True

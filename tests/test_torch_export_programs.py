@@ -10,7 +10,9 @@ and the program equals that call bit for bit at batches 1, 2 and 5; the
 W and darts-EF programs match the JAX package's serving functions
 (`lctvqa/export.py::_build_fns`, jitted, on the same params: floats
 within 1e-4, tokens and ids exactly); a question one id longer than the
-program's raises before anything is computed; an int8 model raises.
+program's raises before anything is computed. Writing the programs
+into an artifact, reading them back and the int8 and fp32 programs are
+tests/test_torch_program_artifacts.py's.
 
 Sizes are `small_test_config`'s; the supernet is cut to two nodes a cell
 (two reduction cells, each with one stride-1 edge on the node operator),
@@ -36,7 +38,6 @@ from lctvqa_torch.export import ServingModel, export_programs
 from lctvqa_torch.models import genotypes, search, unified, vqa_ef, vqa_w
 from lctvqa_torch.ops import (conv, cuda_bn, cuda_generate, cuda_lstm,
                               cuda_mixedop)
-from lctvqa_torch.quant import quantize_model
 from test_torch_train import one_cpu_thread  # noqa: F401 (autouse)
 
 # the supernet's nodes per cell and nodes concatenated at its output
@@ -318,28 +319,3 @@ def test_a_longer_question_raises_before_computing(traced):
                                             match="qst|shape"):
         run(*_args("answer_logits", u8, longer))
     assert seen.counts == {}
-
-
-def test_int8_model_raises():
-    """int8 programs are step 2 of ROADMAP 6b: the int8 products pad the
-    batch with a branch on its size."""
-    artifact, _ = _artifact("w_kernels")
-    params = convert.to_jax(quantize_model(convert.from_jax(
-        artifact["params"]["params"])))
-    artifact = {**artifact, "params": {"params": params},
-                "meta": {**artifact["meta"], "int8": True}}
-    model = ServingModel(artifact, "cpu", compute_dtype="float32")
-    with pytest.raises(NotImplementedError, match="6b, step 2"):
-        export_programs(model)
-
-
-def test_fp32_model_on_the_card_raises():
-    """fp32 programs on the card are step 2 of ROADMAP 6b: the fp32
-    convolution turns cuDNN's TF32 off around its call, which a trace
-    does not record. The guard is read before any tracing, so a CPU model
-    that says it lies on the card stands in for one."""
-    artifact, _ = _artifact("w_kernels")
-    model = ServingModel(artifact, "cpu", compute_dtype="float32")
-    model.device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="6b, step 2.*TF32"):
-        export_programs(model)
