@@ -14,6 +14,7 @@ NVIDIA GPU.
     python3 chip_smoke.py --parallel  # only phase 13
     python3 chip_smoke.py --data      # only phase 14
     python3 chip_smoke.py --programs  # only phase 15
+    python3 chip_smoke.py --remat     # only phase 16
     python3 chip_smoke.py --grad-spread
                                       # only how far the derived EF's fp32
                                       # gradients move under one rounding
@@ -383,7 +384,35 @@ non-zero:
    without --genotype: its /answer and /generate replies, one request
    at a time, equal the model code's server's with the genotype,
    /healthz says programs, and it imported neither lctvqa_torch.models
-   nor lctvqa_torch.export. The phase's wall time is printed.
+   nor lctvqa_torch.export. The phase's wall time is printed. The
+   default-flag programs of the two supernet artifacts (darts EF,
+   unified) are traced at PROGRAM_CUT_LAYERS cells: their full-width
+   traces took 50-77 s each.
+
+16. The supernet's execution modes and the reference's 224 px LCT
+   configuration (`--remat` runs it alone). (a) The node kernels,
+   forward and backward, at cell 0 of the 224 px trunk (224x224, Cs 4,
+   N 64, E 3 and 5, both dtypes) and the BatchNorm kernels at its
+   largest input ([64,224,224,32], every dtype pair) against their plain
+   versions at phase 2's limits, TF32 off; times and bounds. (b) At full
+   width, 64 px, B = 64, on one set of weights and one batch:
+   fuse_mixed_ops, pack_conv_branches and the edge-batched cell with the
+   kernel flags against the default folded path: the trunk's features
+   in fp32 within 1e-4 of their scale and in bf16 within 5e-2, stage 1's
+   loss (1e-2) and gradients in bf16 (5e-2 of each leaf's scale); each
+   mode's stage-1 step timed, our kernels' launches and the device
+   kernels a step (torch.profiler; informational). (c) At 224 px and
+   B = REMAT_BATCH, one stage-1 step with and without remat_cells
+   (kernel flags, bf16): the peak device memory of each, the loss within
+   1e-5, each gradient leaf within 2e-3 of its scale; the forward
+   kernels launch twice a step with remat. (d) The 224 px LCT loop at
+   full width through Experiment with the kernel flags and remat_cells,
+   bf16, B = BATCH_224, the counts set to 0 just before: STEPS_224 + 1
+   stage-1 + stage-2 steps, then validation on one batch (greedy decode,
+   BLEU4): finite losses, BLEU4 in range, each stage-1 step's node and
+   BatchNorm launches (the forward ones twice); ms a step, launches a
+   step and the peak device memory printed. The phase's wall time is
+   printed.
 
 It prints the card's name and power limit, one JSON line of the kernels
 (times, bounds and launch counts; `derived_launches`, `darts_launches`
@@ -393,7 +422,9 @@ two-launch BatchNorm kernels' rows count phase 13's rank 0, and so do
 the data-parallel node rows, mixed_node_fwd_sync and mixed_node_bwd_sync,
 their `launches` a call's count on phase 13's node stage 1 with each
 launch's under `launch_counts`; `program_launches` is a B = 64 call of
-each of phase 15's programs, summed), and last
+each of phase 15's programs, summed; the node and BatchNorm rows carry
+phase 16's 224 px shapes under `at_224` and every row its launches in
+phase 16's 224 px run under `lct224_launches`), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -569,6 +600,20 @@ def time_cold_ms(fn, flush, reps: int = 10) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off for matmuls and convolutions, restored after."""
+    was = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = was
 
 
 def time_library(fn):
@@ -1223,15 +1268,16 @@ def check_bn_plan(device, x, other, backward: bool, tag: str):
     return plan
 
 
-def check_bn_kernel(device, time_fn=time_ms):
-    """bn_fwd at the supernet's shapes -> {(shape, in, out): {...}}."""
+def check_bn_kernel(device, time_fn=time_ms, shapes=BN_SHAPES):
+    """bn_fwd at the supernet's shapes (`shapes`) -> {(shape, in, out):
+    {...}}."""
     import torch.nn.functional as F
 
     from lctvqa_torch.ops import cuda_bn
 
     gen = torch.Generator().manual_seed(SEED + 10)
     results = {}
-    for shape in BN_SHAPES:
+    for shape in shapes:
         base = (1.5 * torch.randn(shape, generator=gen) + 0.3).to(device)
         for in_name, in_dt in DTYPES.items():
             x = base.to(in_dt)
@@ -1282,15 +1328,16 @@ def node_bound(n, h, w, cs, edges, dname):
     return bound(edges * elems * wb + elems * 4, flops, "float32")
 
 
-def check_node_kernel(device, batches=BATCHES, time_fn=time_ms):
-    """mixed_node_fwd at the four cell shapes ->
+def check_node_kernel(device, batches=BATCHES, time_fn=time_ms,
+                      shapes=NODE_SHAPES):
+    """mixed_node_fwd at the four cell shapes (`shapes`) ->
     {(cell, E, N, dtype): {...}}."""
     from lctvqa_torch.models import search
     from lctvqa_torch.ops import cuda_mixedop
 
     gen = torch.Generator().manual_seed(SEED + 11)
     results = {}
-    for cell, (h, w, c, edge_counts) in NODE_SHAPES.items():
+    for cell, (h, w, c, edge_counts) in shapes.items():
         cs = c // 4
         ops = [_to(search.mixed_op_init(gen, c, 1, 4), device)
                for _ in range(max(edge_counts))]
@@ -1335,17 +1382,17 @@ def _grad_err(got, want):
             float(want.float().abs().max()))
 
 
-def check_bn_bwd_kernel(device, time_fn=time_ms):
-    """bn_bwd at the supernet's shapes -> {(shape, x dtype, g dtype): {...}}.
-    The library call is autograd's backward of F.batch_norm(training=True)
-    on the channels-last view."""
+def check_bn_bwd_kernel(device, time_fn=time_ms, shapes=BN_SHAPES):
+    """bn_bwd at the supernet's shapes (`shapes`) -> {(shape, x dtype, g
+    dtype): {...}}. The library call is autograd's backward of
+    F.batch_norm(training=True) on the channels-last view."""
     import torch.nn.functional as F
 
     from lctvqa_torch.ops import cuda_bn
 
     gen = torch.Generator().manual_seed(SEED + 20)
     results = {}
-    for shape in BN_SHAPES:
+    for shape in shapes:
         base = (1.5 * torch.randn(shape, generator=gen) + 0.3).to(device)
         gbase = torch.randn(shape, generator=gen).to(device)
         for x_name, x_dt in DTYPES.items():
@@ -1478,21 +1525,21 @@ def _untimed(fn, **kwargs) -> float:
 
 
 def check_node_bwd_kernel(device, batches=BATCHES, time_fn=time_ms,
-                          fault_draw=NODE_BWD_FAULT_DRAW):
-    """mixed_node_bwd at the four cell shapes -> {(cell, E, N, dtype):
-    {...}} (of the draw `batches`). `err` is the largest error of any
+                          fault_draw=NODE_BWD_FAULT_DRAW, shapes=NODE_SHAPES):
+    """mixed_node_bwd at the four cell shapes (`shapes`) -> {(cell, E, N,
+    dtype): {...}} (of the draw `batches`). `err` is the largest error of any
     gradient relative to that gradient's scale against the plain backward
     that takes the kernel's inner ReLU decisions, `autograd_err` against
     autograd through the plain forward. Then, untimed, the same on the
     inputs of `fault_draw`, which gave the inner ReLU decisions that the
     two forwards take differently (ROADMAP.md section 3)."""
-    results = _node_bwd_draw(device, batches, time_fn)
+    results = _node_bwd_draw(device, batches, time_fn, shapes)
     if fault_draw:
-        _node_bwd_draw(device, fault_draw, _untimed)
+        _node_bwd_draw(device, fault_draw, _untimed, shapes)
     return results
 
 
-def node_bwd_cases(device, batches):
+def node_bwd_cases(device, batches, shapes=NODE_SHAPES):
     """check_node_bwd_kernel's inputs in the order of its draw (a seeded
     torch.Generator, so that a draw is the same on every card): for each
     cell shape, N in `batches`, E and dtype, (cell, N, E, dtype name, the
@@ -1501,7 +1548,7 @@ def node_bwd_cases(device, batches):
     from lctvqa_torch.ops import cuda_mixedop as M
 
     gen = torch.Generator().manual_seed(SEED + 21)
-    for cell, (h, w, c, edge_counts) in NODE_SHAPES.items():
+    for cell, (h, w, c, edge_counts) in shapes.items():
         cs = c // 4
         ops = [_to(search.mixed_op_init(gen, c, 1, 4), device)
                for _ in range(max(edge_counts))]
@@ -1519,13 +1566,13 @@ def node_bwd_cases(device, batches):
                     yield cell, n, edges, dname, xs, all_nodes[:edges], wts, g
 
 
-def _node_bwd_draw(device, batches, time_fn):
+def _node_bwd_draw(device, batches, time_fn, shapes=NODE_SHAPES):
     from lctvqa_torch.ops import cuda_mixedop as M
 
     results = {}
-    for cell, n, edges, dname, xs, nodes, wts, g in node_bwd_cases(device,
-                                                                   batches):
-        h, w, c, _ = NODE_SHAPES[cell]
+    for cell, n, edges, dname, xs, nodes, wts, g in node_bwd_cases(
+            device, batches, shapes):
+        h, w, c, _ = shapes[cell]
         cs, dtype = c // 4, DTYPES[dname]
         _, obuf, stat = M.node_fwd_launch(xs, nodes, wts, cs,
                                           device)
@@ -1794,17 +1841,21 @@ def model_configs():
             "unified": unified}
 
 
-def write_artifacts(out_dir: Path, names=("w", "ef", "darts")):
+def write_artifacts(out_dir: Path, names=("w", "ef", "darts"),
+                    overrides=None):
     """Seeded full-width params of model_configs()'s W, EF and unified
-    models -> artifact files. The supernet's arch parameters are scaled up
-    from their 1e-3 init so that the op mixture is not uniform."""
+    models (with ModelConfig `overrides`) -> artifact files. The
+    supernet's arch parameters are scaled up from their 1e-3 init so that
+    the op mixture is not uniform."""
+    import dataclasses
+
     from lctvqa_torch import __version__, convert
     from lctvqa_torch.export import ARTIFACT_VERSION, save_artifact
     from lctvqa_torch.models import unified, vqa_ef, vqa_w
 
     paths = {}
     for seed, name in enumerate(names, start=SEED + 1):
-        mcfg = model_configs()[name]
+        mcfg = dataclasses.replace(model_configs()[name], **(overrides or {}))
         qst_words, ans_words = vocab_words(mcfg)
         gen = torch.Generator().manual_seed(seed)
         if name == "w":
@@ -3566,19 +3617,12 @@ def check_unified_decode(device):
     near ties), TF32 off; the card's plan is generate_plan's."""
     import dataclasses
 
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
+    with tf32_off():
         mcfg = dataclasses.replace(model_configs()["w"],
                                    qst_vocab_size=UNIFIED_VOCAB)
         res = check_kernels(device, mcfg,
                             names=("greedy_generate",))["greedy_generate"]
         check_generate_plan(device, mcfg)
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = tf32
     return res
 
 
@@ -5225,6 +5269,10 @@ PROGRAM_VARIANTS = {"derived_int8": ("derived", {}, ("kernels",)),
                                ("default", "kernels")),
                     "w_int8": ("w", {}, ("kernels",))}
 PROGRAM_BATCHES = (1, 2, 5, 64)
+# the supernet artifacts' default-flag programs are traced at this many
+# cells (their full-width traces took 50-77 s each, PERF.md)
+PROGRAM_CUT_LAYERS = 2
+PROGRAM_CUT = ("darts", "unified")
 # one a core of the card's host: the traces are single-threaded Python
 PROGRAM_WORKERS = 8
 # an operator of a program's graph -> the kernel its CUDA implementation
@@ -5719,8 +5767,10 @@ def programs_phase(device, root: str, card: str, paths=None) -> dict:
     (_program_worker), the longest traces first, each program also
     written into a copy of its artifact and loaded back; once the derived
     EF's kernel-flag programs are in, `serve --programs` against the model
-    code (serve_programs) on a thread meanwhile. Prints each job's
-    numbers and the phase's wall time. -> {"program_launches": launches
+    code (serve_programs) on a thread meanwhile. The supernet artifacts'
+    default-flag jobs serve a copy cut to PROGRAM_CUT_LAYERS cells. Prints
+    each job's numbers and the phase's wall time. -> {"program_launches":
+    launches
     of one B = 64 call of every program, summed by kernel, "jobs",
     "enqueue", "serve"}."""
     import multiprocessing
@@ -5734,6 +5784,10 @@ def programs_phase(device, root: str, card: str, paths=None) -> dict:
     paths.update(write_artifacts(Path(root), names=missing))
     paths.update({n: str(Path(root) / f"{n}.lctx") for n in INT8_ARTIFACTS})
     write_int8_artifacts(paths)
+    cut_dir = Path(root) / "program_cut"
+    cut_dir.mkdir(exist_ok=True)
+    cut = write_artifacts(cut_dir, names=PROGRAM_CUT,
+                          overrides={"darts_layers": PROGRAM_CUT_LAYERS})
     enqueue = op_enqueue_times(device)
     torch.cuda.empty_cache()
     family = {"w": "w", "unified": "unified"}
@@ -5742,7 +5796,8 @@ def programs_phase(device, root: str, card: str, paths=None) -> dict:
                  *PROGRAM_ARTIFACTS[3:], "w_fp32", "w_int8"):
         base, _, fnames = PROGRAM_VARIANTS.get(
             name, (name, {}, tuple(KERNEL_FLAGS)))
-        jobs += [(paths.get(name, paths[base]), name, fname, fn)
+        jobs += [(cut[name] if fname == "default" and name in cut
+                  else paths.get(name, paths[base]), name, fname, fn)
                  for fname in fnames
                  for fn in FUNCTIONS[family.get(base, "ef")]]
     copies_dir = Path(root) / "program_copies"
@@ -5818,6 +5873,468 @@ def programs_phase(device, root: str, card: str, paths=None) -> dict:
     log(f"programs phase took {time.perf_counter() - t0:.1f} s on {card}")
     return {"program_launches": dict(totals), "jobs": results,
             "enqueue": enqueue, "serve": served}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the supernet's execution modes and the reference's 224 px LCT
+# configuration
+# ---------------------------------------------------------------------------
+
+# the reference's full resolution
+IMG_224 = 224
+# the 224 px training run's batch: the reference's 64, which the card holds
+# with remat_cells (PERF.md)
+BATCH_224 = 64
+STEPS_224 = 3
+# remat_cells against no remat: one stage-1 step at this batch
+REMAT_BATCH = 16
+# cell 0 of the 224 px trunk: H, W, C of its states, stride-1 edges a node
+NODE_SHAPES_224 = {"cell0_224": (224, 224, 16, (3, 5))}
+# the 224 px trunk's largest BatchNorm input: cell 1's preprocess outputs,
+# [B, 224, 224, 32], 3.2 M rows at B = 64
+BN_SHAPES_224 = ((64, 224, 224, 32),)
+# the supernet's ways of running at 64 px: name -> (the KERNEL_FLAGS set
+# it runs under, its other ModelConfig overrides); fused_kernels is the
+# edge-batched cell with the kernel flags, whose BatchNorms then take the
+# kernel at the stacked widths E * Cs (up to 80 channels)
+MODE_SETS = {
+    "default": ("default", {}),
+    "fused": ("default", {"fuse_mixed_ops": True}),
+    "packed": ("default", {"pack_conv_branches": True}),
+    "kernels": ("kernels", {}),
+    "fused_kernels": ("kernels", {"fuse_mixed_ops": True})}
+# fused and packed against the default folded path at 64 px, B = 64. fp32:
+# the same math summed in other orders (the packed chain's zero taps, the
+# fused path's stacked convolutions and fp32 products): features within
+# 1e-4 of their scale, stage-1 gradients at phase 8's limit (TRAIN_GRAD_TOL
+# of each leaf's scale + TRAIN_GRAD_FLOOR of the largest). bf16: the
+# rounding points differ (the fused path's pointwise products sum bf16
+# operands in fp32 where the default path's convolutions round their sums
+# to bf16; the packed chain rounds one 9x9 convolution where the default
+# path rounds four smaller ones), each rounding 2^-8 of a value, through
+# four cells: the features within 5e-2 of their scale and the gradient,
+# all leaves as one vector, within 5e-2 of its norm. Leaf by leaf it is
+# not held: the smallest leaves (1e-4 of the largest) sum terms of the
+# large leaves' size that cancel, so their rounding error is 2^-8 of
+# those terms, not of their own scale; the kernel flags' own path lay 4.9x
+# phase 8's floor off the default path there on an H100 (PERF.md). The
+# worst leaf's share is printed
+MODE_FEATURE_TOL = 1e-4
+MODE_BF16_TOL = 5e-2
+# remat_cells against no remat at REMAT_BATCH: each gradient leaf within
+# 2e-3 of its scale (+ TRAIN_GRAD_FLOOR of the largest): the node
+# backward's bf16 limit on the conv weights (phase 2), the tighter of the
+# node's and BatchNorm's
+REMAT_GRAD_TOL = 2e-3
+MODE_STEPS = 3
+
+
+def kernels_224(device) -> dict:
+    """The node kernels, forward and backward, at cell 0 of the 224 px
+    trunk (N = 64, E = 3 and 5, both dtypes) and the BatchNorm kernels at
+    its largest input, each against its plain version at phase 2's limits,
+    TF32 off; times and bounds printed. -> {"node", "node_bwd", "bn",
+    "bn_bwd"}: phase 2's result dicts."""
+    with tf32_off():
+        out = {"node": check_node_kernel(device, batches=(BATCH_224,),
+                                         shapes=NODE_SHAPES_224)}
+        torch.cuda.empty_cache()
+        out["node_bwd"] = check_node_bwd_kernel(
+            device, batches=(BATCH_224,), fault_draw=(),
+            shapes=NODE_SHAPES_224)
+        torch.cuda.empty_cache()
+        out["bn"] = check_bn_kernel(device, shapes=BN_SHAPES_224)
+        torch.cuda.empty_cache()
+        out["bn_bwd"] = check_bn_bwd_kernel(device, shapes=BN_SHAPES_224)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _mode_config(mode: str, dtype: str, **kw):
+    """Full width, dropout off, the mode's flags."""
+    import dataclasses
+
+    from lctvqa_torch.config import ModelConfig
+
+    fname, overrides = MODE_SETS[mode]
+    return dataclasses.replace(ModelConfig(compute_dtype=dtype,
+                                           dropout_rate=0.0),
+                               **KERNEL_FLAGS[fname], **overrides, **kw)
+
+
+def _random_batch(mcfg, b: int, device, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    s = mcfg.img_size
+    batch = {
+        "image_u8": rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8),
+        "question": rng.integers(4, mcfg.qst_vocab_size,
+                                 (b, mcfg.max_qst_len)).astype(np.int32),
+        "answer_label": rng.integers(0, mcfg.ans_vocab_size,
+                                     b).astype(np.int32),
+        "answer_multi_choice": rng.integers(
+            -1, mcfg.ans_vocab_size, (b, 10)).astype(np.int32)}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _features(mcfg, ef, arch, batch):
+    """The supernet's trunk features [B, 12544] (fp32)."""
+    from lctvqa_torch.data.pipeline import normalize_images
+    from lctvqa_torch.models import search, search_fused
+    from lctvqa_torch.ops.nn import torch_dtype
+
+    net = (search_fused.network_apply_fused if mcfg.fuse_mixed_ops
+           else search.network_apply)
+    with torch.no_grad():
+        return net(ef["darts"], arch, mcfg, normalize_images(
+            batch["image_u8"]), dtype=torch_dtype(mcfg.compute_dtype))
+
+
+def _stage1_grads(mcfg, ef, arch, batch):
+    """Stage 1's loss and its gradient per EF leaf (dropout off)."""
+    from lctvqa_torch.data.pipeline import normalize_images
+    from lctvqa_torch.models import vqa_ef
+    from lctvqa_torch.optim.optimizers import tree_leaves, with_grad
+
+    p = with_grad(ef)
+    loss = vqa_ef.ef_loss(p, arch, mcfg, normalize_images(batch["image_u8"]),
+                          batch["question"], batch["answer_label"],
+                          deterministic=True)
+    leaves = tree_leaves(p)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss.detach()), [
+        torch.zeros_like(q) if g is None else g.detach()
+        for q, g in zip(leaves, grads)]
+
+
+def _leaves_within(got, want, tol: float, tag: str,
+                   held: bool = True) -> float:
+    """Each leaf within tol of its scale + TRAIN_GRAD_FLOOR of the largest
+    (counted as failures where `held`) -> the worst share of the
+    limit."""
+    top = max(float(w.float().abs().max()) for w in want)
+    worst, same = 0.0, 0
+    for i, (a, b) in enumerate(zip(got, want)):
+        err, scale = _grad_err(a, b)
+        limit = tol * scale + TRAIN_GRAD_FLOOR * top
+        worst = max(worst, err / limit)
+        same += bool(torch.equal(a, b))
+        expect(not held or (bool(torch.isfinite(a.float()).all())
+                            and err <= limit),
+               f"{tag}: leaf {i} {tuple(a.shape)} differs by {err} "
+               f"(scale {scale}, largest leaf {top})")
+    log(f"{tag}: {len(want)} leaves, {same} the same bits, worst error "
+        f"{worst:.3f} of {'its limit' if held else 'a limit of'} ({tol} of "
+        f"the leaf's scale + {TRAIN_GRAD_FLOOR} of the largest, {top:.3e})")
+    return worst
+
+
+def _norm_within(got, want, tol: float, tag: str) -> float:
+    """All leaves as one vector: |got - want| within tol of |want| -> the
+    relative error."""
+    diff = torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm((a.float() - b.float()).flatten())
+        for a, b in zip(got, want)]))
+    norm = torch.linalg.vector_norm(torch.stack([
+        torch.linalg.vector_norm(b.float().flatten()) for b in want]))
+    rel = float(diff / norm)
+    expect(all(bool(torch.isfinite(a.float()).all()) for a in got)
+           and rel <= tol, f"{tag}: |got - want| = {rel:.3e} of |want|, "
+           f"limit {tol}")
+    log(f"{tag}: |got - want| = {rel:.3e} of |want| (limit {tol})")
+    return rel
+
+
+def _time_stage1(mcfg, ef, arch, batch, device, tag: str, card: str):
+    """MODE_STEPS stage-1 steps after two (host clock around synchronized
+    steps; each from the same weights), one under torch.profiler. -> (ms a
+    step, our kernels' launches a step, device kernels a step, device
+    busy share)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lctvqa_torch.config import Config, TrainConfig
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.train.steps import make_lct_steps
+
+    cfg = Config(model=mcfg, train=TrainConfig(batch_size=64,
+                                               skip_stage3=True))
+    steps = make_lct_steps(cfg, 1, device)
+    opt = steps["ef_tx"].init(ef)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def step():
+        return steps["stage1"](ef, arch, opt, batch, gen)
+
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    times = []
+    before = _build.launch_counts()
+    for _ in range(MODE_STEPS):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    ours = {k: v // MODE_STEPS for k, v in _delta(
+        before, _build.launch_counts()).items() if v}
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in events)
+    kernels = sum(e.count for e in events)
+    ms = statistics.median(times)
+    log(f"mode {tag}: stage 1 {ms:.1f} ms/step (median of {MODE_STEPS}, "
+        f"host clock), our kernels a step {ours}; under the profiler "
+        f"{kernels} device kernels, device {dev_us / 1e3:.1f} ms of "
+        f"{wall:.1f} ms wall ({100 * dev_us / 1e3 / wall:.1f}% busy) on "
+        f"{card}")
+    expect(kernels > 0, f"mode {tag}: the profiler saw no device kernel")
+    return ms, ours, kernels, dev_us / 1e3 / wall
+
+
+def check_modes(device, card: str) -> dict:
+    """fuse_mixed_ops and pack_conv_branches (and the edge-batched cell
+    and the node kernel with the kernel flags) against the default folded
+    path at full width, 64 px, B = 64, on the same weights and batch: the
+    trunk's features and stage 1's loss and gradients in fp32
+    (MODE_FEATURE_TOL; TRAIN_GRAD_TOL leaf by leaf) and in bf16
+    (MODE_BF16_TOL; the gradient as one vector); then each mode's bf16
+    stage-1 step timed, with its
+    launches and device kernels a step (informational). -> {mode: (ms,
+    our launches, device kernels, busy share)}."""
+    from lctvqa_torch.models import vqa_ef
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    base = _mode_config("default", "bfloat16")
+    ef, arch = vqa_ef.init_ef_model(gen, base)
+    ef = _to(ef, device)
+    arch = {k: (500.0 * v).to(device) for k, v in arch.items()}
+    batch = _random_batch(base, 64, device, SEED + 31)
+    want = {}
+    out = {}
+    # dtype -> (feature limit, loss limit)
+    limits = {"float32": (MODE_FEATURE_TOL, TRAIN_LOSS_TOL),
+              "bfloat16": (MODE_BF16_TOL, 1e-2)}
+    for mode, (fname, _) in MODE_SETS.items():
+        with kernel_flags(fname):
+            for dname, (f_tol, l_tol) in limits.items():
+                mcfg = _mode_config(mode, dname)
+                with tf32_off():
+                    got = {"features": _features(mcfg, ef, arch, batch),
+                           "grads": _stage1_grads(mcfg, ef, arch, batch)}
+                if mode == "default":
+                    want[dname] = got
+                    continue
+                ref = want[dname]
+                err, scale = _grad_err(got["features"], ref["features"])
+                expect(err <= f_tol * scale, f"mode {mode}: {dname} "
+                       f"features differ by {err} (scale {scale})")
+                log(f"mode {mode}: {dname} features {err:.3e} off the "
+                    f"default path's (scale {scale:.3e}, limit "
+                    f"{f_tol * scale:.3e})")
+                loss, ref_loss = got["grads"][0], ref["grads"][0]
+                expect(abs(loss - ref_loss) <= l_tol + l_tol * abs(ref_loss),
+                       f"mode {mode}: {dname} stage-1 loss {loss} vs "
+                       f"{ref_loss}")
+                tag = (f"mode {mode}: stage-1 gradients {dname} against the "
+                       "default path")
+                if dname == "float32":
+                    _leaves_within(got["grads"][1], ref["grads"][1],
+                                   TRAIN_GRAD_TOL, tag)
+                else:
+                    _norm_within(got["grads"][1], ref["grads"][1],
+                                 MODE_BF16_TOL, tag)
+                    _leaves_within(got["grads"][1], ref["grads"][1],
+                                   MODE_BF16_TOL, tag, held=False)
+                del got
+            out[mode] = _time_stage1(mcfg, ef, arch, batch, device, mode,
+                                     card)
+        torch.cuda.empty_cache()
+    ours = {m: r[1] for m, r in out.items()}
+    expect(all(ours["kernels"].get(k) == v
+               for k, v in STAGE1_LAUNCHES.items()),
+           f"modes: the kernel flags' stage-1 launches {ours['kernels']}")
+    expect(ours["fused_kernels"].get("bn_fwd", 0) > 0
+           and "mixed_node_fwd" not in ours["fused_kernels"],
+           f"modes: the edge-batched cell with the kernel flags launched "
+           f"{ours['fused_kernels']}")
+    for mode in ("default", "fused", "packed"):
+        expect(not any(k in ours[mode] for k in STAGE1_LAUNCHES),
+               f"modes: {mode} launched {ours[mode]}")
+    return out
+
+
+def remat_against_plain(device, card: str) -> dict:
+    """One stage-1 step (kernel flags, bf16, dropout off) at 224 px and
+    REMAT_BATCH rows with and without remat_cells, from the same weights
+    and batch: the step's peak device memory each, the loss equal within
+    1e-5, every gradient leaf (Adam's first moment, (1 - b1) g) within
+    REMAT_GRAD_TOL. -> {remat: peak bytes}."""
+    import dataclasses
+
+    from lctvqa_torch.config import Config, TrainConfig
+    from lctvqa_torch.models import vqa_ef
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.optim.optimizers import tree_leaves
+    from lctvqa_torch.train.steps import make_lct_steps
+
+    base = _mode_config("kernels", "bfloat16", img_size=IMG_224)
+    ef, arch = vqa_ef.init_ef_model(torch.Generator().manual_seed(SEED + 40),
+                                    base)
+    ef = _to(ef, device)
+    arch = {k: (500.0 * v).to(device) for k, v in arch.items()}
+    batch = _random_batch(base, REMAT_BATCH, device, SEED + 41)
+    res, peaks = {}, {}
+    with kernel_flags("kernels"):
+        for remat in (False, True):
+            cfg = Config(model=dataclasses.replace(base, remat_cells=remat),
+                         train=TrainConfig(batch_size=REMAT_BATCH,
+                                           skip_stage3=True))
+            steps = make_lct_steps(cfg, 1, device)
+            opt = steps["ef_tx"].init(ef)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            before = _build.launch_counts()
+            t0 = time.perf_counter()
+            _, opt, loss, _, _ = steps["stage1"](
+                ef, arch, opt, batch,
+                torch.Generator(device=device).manual_seed(SEED))
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            calls = _delta(before, _build.launch_counts())
+            peaks[remat] = torch.cuda.max_memory_allocated()
+            res[remat] = (float(loss), tree_leaves(opt["m"]))
+            twice = 2 if remat else 1
+            expect(calls["mixed_node_fwd"] == twice * 14
+                   and calls["mixed_node_bwd"] == 14
+                   and calls["bn_fwd"] == twice * 40
+                   and calls["bn_bwd"] == 40,
+                   f"remat {remat}: stage-1 launches {calls}")
+            log(f"224 px B={REMAT_BATCH} stage 1, remat_cells={remat}: "
+                f"peak {peaks[remat] / 2**30:.2f} GiB "
+                f"({(peaks[remat] - held) / 2**30:.2f} GiB over the "
+                f"{held / 2**30:.2f} held before the step), {ms:.1f} ms "
+                f"(one step, its first call: informational), launches "
+                f"{ {k: v for k, v in calls.items() if v} } on {card}")
+    (l0, g0), (l1, g1) = res[False], res[True]
+    expect(abs(l1 - l0) <= 1e-5 * abs(l0), f"remat: stage-1 loss {l1} vs "
+           f"{l0} without remat")
+    _leaves_within(g1, g0, REMAT_GRAD_TOL,
+                   f"224 px B={REMAT_BATCH} remat against no remat")
+    expect(peaks[True] < peaks[False],
+           f"remat: peak {peaks[True]} not below {peaks[False]}")
+    del res, ef
+    torch.cuda.empty_cache()
+    return peaks
+
+
+def train_224(device, root: str, card: str, batch: int = BATCH_224,
+              steps: int = STEPS_224) -> dict:
+    """The reference's 224 px LCT configuration at full width through
+    Experiment: bf16, the kernel flags, remat_cells, B = `batch`, stage 3
+    off; `steps` + 1 stage-1 + stage-2 steps, the counts set to 0 just
+    before and read just after, then validation on one batch (greedy
+    decode, BLEU4 against the npy records). Checks: finite losses, each
+    stage-1 step's node and BatchNorm launches STAGE1_LAUNCHES with the
+    forward ones twice (the cells recomputed), BLEU4 in [0, 100]. Prints
+    ms a step by stage, launches a step and the peak device memory. ->
+    launches of the run."""
+    from lctvqa_torch.config import (Config, DataConfig, ModelConfig,
+                                     TrainConfig)
+    from lctvqa_torch.data import pipeline, synthetic
+    from lctvqa_torch.ops import _build
+    from lctvqa_torch.train.experiment import Experiment
+
+    tag = f"224 px B={batch}"
+    mcfg = ModelConfig(compute_dtype="bfloat16", img_size=IMG_224,
+                       remat_cells=True, **KERNEL_FLAGS["kernels"])
+    data = {"num_images": batch, "num_questions": batch * (steps + 1)}
+    records = str(Path(root) / "records224")
+    synthetic.make_npy_records(records, **data,
+                               n_answers=mcfg.ans_vocab_size, seed=SEED)
+    arrays = synthetic.make_arrays(
+        **data, img_size=IMG_224, n_answers=mcfg.ans_vocab_size, seed=SEED,
+        max_qst_len=mcfg.max_qst_len, qst_vocab_size=mcfg.qst_vocab_size)
+    # validation on one batch
+    arrays["val"] = {k: (v[:batch] if k in ("enc_qst", "qst_len", "enc_ans",
+                                            "img_id") else v)
+                     for k, v in arrays["val"].items()}
+    cfg = Config(model=mcfg,
+                 train=TrainConfig(batch_size=batch, num_epochs=1,
+                                   skip_stage3=True, seed=SEED),
+                 data=DataConfig(input_dir=records), root_stats_dir=root,
+                 exp_name="lct224")
+    with kernel_flags("kernels"):
+        exp = Experiment(cfg, device=device,
+                         data=pipeline.loader_from_arrays(arrays))
+        record = []
+        record_stages(exp, ("stage1", "stage2"), record)
+        batches = iter(exp._batches("train"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        _build.reset_launch_counts()
+        losses = []
+        for _ in range(steps + 1):
+            out = exp.train_step(next(batches))
+            losses += [float(out[0]), float(out[3])]
+        launches = _build.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        exp.val()
+        val_s = time.perf_counter() - t0
+    log_text = (Path(exp.exp_dir) / "log.txt").read_text()
+    bleu = [float(line.split("BLEU4: ")[1].split()[0])
+            for line in log_text.splitlines() if "BLEU4: " in line]
+    expect(all(np.isfinite(losses + exp.val_ef_loss)),
+           f"{tag}: a loss is not finite: {losses}, {exp.val_ef_loss}")
+    expect(len(bleu) == 1 and 0.0 <= bleu[0] <= 100.0,
+           f"{tag}: validation's BLEU4 {bleu}")
+    for name, ms, calls in record:
+        if name == "stage1":
+            want = {k: v * (2 if k.endswith("fwd") else 1)
+                    for k, v in STAGE1_LAUNCHES.items()}
+            expect(all(calls.get(k) == v for k, v in want.items()),
+                   f"{tag}: stage-1 launches {calls}, expected {want}")
+    timed = {n: [ms for name, ms, _ in record[2:] if name == n]
+             for n in ("stage1", "stage2")}
+    s1, s2 = (statistics.median(timed[n]) for n in ("stage1", "stage2"))
+    per_step = {n: {k: v for k, v in c.items() if v}
+                for n, _, c in record[:2]}
+    log(f"{tag} bf16 kernel flags remat_cells: EF losses {losses[0::2]}, W "
+        f"losses {losses[1::2]}, validation loss {exp.val_ef_loss[-1]:.4f}, "
+        f"BLEU4 {bleu} ({val_s:.1f} s for one batch)")
+    log(f"{tag}: stage 1 {s1:.1f} ms/step, stage 2 {s2:.1f} ms/step, "
+        f"{batch * 1e3 / (s1 + s2):.1f} pairs/s (medians of {steps} steps "
+        f"after the first, host clock between synchronizes); launches a "
+        f"step by stage {per_step}; peak device memory "
+        f"{peak / 2**30:.2f} GiB ({held / 2**30:.2f} GiB held before the "
+        f"first step) on {card}")
+    del exp
+    torch.cuda.empty_cache()
+    return launches
+
+
+def modes_phase(device, root: str, card: str) -> dict:
+    """Phase 16: kernels_224, check_modes, remat_against_plain, train_224;
+    its wall time printed. -> {"kernels": kernels_224's, "launches":
+    train_224's, "modes", "peaks"}."""
+    t0 = time.perf_counter()
+    out = {"kernels": kernels_224(device)}
+    out["modes"] = check_modes(device, card)
+    out["peaks"] = remat_against_plain(device, card)
+    out["launches"] = train_224(device, root, card)
+    log(f"phase 16 took {time.perf_counter() - t0:.1f} s on {card}")
+    return out
 
 
 def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
@@ -5999,6 +6516,11 @@ def main(argv=None) -> int:
                       "loaded back from the artifact, against the eager "
                       "calls; serve --programs; the operators' host "
                       "enqueue)")
+    mode.add_argument("--remat", action="store_true",
+                      help="only build, then phase 16 (the supernet's "
+                      "execution modes against the default path, and the "
+                      "reference's 224 px LCT configuration with "
+                      "remat_cells)")
     mode.add_argument("--kernel-times", action="store_true",
                       help="only build, then time the cell, the node "
                       "forward and backward, the decode, the BatchNorm "
@@ -6083,6 +6605,11 @@ def main(argv=None) -> int:
             programs_phase(device, tmp, card)
         log(card)
         return 1 if FAILURES else 0
+    if args.remat:
+        with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
+            modes_phase(device, tmp, card)
+        log(card)
+        return 1 if FAILURES else 0
     if args.grad_spread:
         derived_gradient_spread(device)
         log(card)
@@ -6097,32 +6624,29 @@ def main(argv=None) -> int:
 
     # 2. kernels vs plain versions, TF32 off; later phases run at
     # PyTorch's defaults, as a server does
-    tf32 = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    kern = check_kernels(device, model_configs()["w"])
-    seq_plan = check_seq_plan(device, model_configs()["w"])
-    check_cell_plan(device, model_configs()["w"])
-    gen_plan = check_generate_plan(device, model_configs()["w"])
-    seq_device_times(device, model_configs()["w"])
-    cell_dev = cell_device_times(device, model_configs()["w"])
-    kern_bn = check_bn_kernel(device)
-    kern_node = check_node_kernel(device)
-    node_dev = node_device_times(device)
-    kern_bn_bwd = check_bn_bwd_kernel(device)
-    kern_node_bwd = check_node_bwd_kernel(device)
-    node_bwd_dev = node_bwd_device_times(device, picks=NODE_PROFILE[:1])
-    gen_dev = generate_device_times(device, model_configs()["w"],
-                                    batches=(64,))
-    gen_unified = check_unified_decode(device)
-    check_lstm_functions(device, model_configs()["w"])
-    check_pool_gradients(device)
-    (torch.backends.cuda.matmul.allow_tf32,
-     torch.backends.cudnn.allow_tf32) = tf32
+    with tf32_off():
+        kern = check_kernels(device, model_configs()["w"])
+        seq_plan = check_seq_plan(device, model_configs()["w"])
+        check_cell_plan(device, model_configs()["w"])
+        gen_plan = check_generate_plan(device, model_configs()["w"])
+        seq_device_times(device, model_configs()["w"])
+        cell_dev = cell_device_times(device, model_configs()["w"])
+        kern_bn = check_bn_kernel(device)
+        kern_node = check_node_kernel(device)
+        node_dev = node_device_times(device)
+        kern_bn_bwd = check_bn_bwd_kernel(device)
+        kern_node_bwd = check_node_bwd_kernel(device)
+        node_bwd_dev = node_bwd_device_times(device, picks=NODE_PROFILE[:1])
+        gen_dev = generate_device_times(device, model_configs()["w"],
+                                        batches=(64,))
+        gen_unified = check_unified_decode(device)
+        check_lstm_functions(device, model_configs()["w"])
+        check_pool_gradients(device)
     log(f"kernel phase took {time.perf_counter() - t0:.1f} s; TF32 at "
-        f"PyTorch's defaults from here: matmul {tf32[0]}, cuDNN {tf32[1]}")
+        f"PyTorch's defaults from here: matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+        f"{torch.backends.cudnn.allow_tf32}")
     log(card)
 
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR.parent) as tmp:
@@ -6220,6 +6744,10 @@ def main(argv=None) -> int:
         # counts at 0 just before it
         programs = programs_phase(device, tmp, card, paths)
 
+        # 16. the supernet's execution modes and the 224 px configuration,
+        # its training run's counts at 0 just before it
+        modes = modes_phase(device, tmp, card)
+
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
                        launches, seq_plan, cell_dev, node_dev, gen_plan,
                        gen_dev, node_bwd_dev)
@@ -6264,6 +6792,21 @@ def main(argv=None) -> int:
                      "shape": f"{list(SYNC_BN_ROW[0])} {SYNC_BN_ROW[1]}, "
                               f"{SYNC_BN_ROW[2]} (a rank's half of "
                               "[64,64,64,32])"})
+    at_224 = {"mixed_node_fwd": ("node", ("cell0_224", 5, 64, "bfloat16")),
+              "mixed_node_bwd": ("node_bwd",
+                                 ("cell0_224", 5, 64, "bfloat16")),
+              "bn_fwd": ("bn", (BN_SHAPES_224[0], "float32", "bfloat16")),
+              "bn_bwd": ("bn_bwd",
+                         (BN_SHAPES_224[0], "float32", "bfloat16"))}
+    for row in rows:
+        row["lct224_launches"] = modes["launches"].get(row["name"], 0)
+        if row["name"] in at_224:
+            kind, key = at_224[row["name"]]
+            r = modes["kernels"][kind][key]
+            row["at_224"] = {"shape": str(key), "max_abs_err": r["err"],
+                             **{k: r[k] for k in (
+                                 "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}}
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s in all, "
         f"the build included, on {card}")
     if FAILURES:

@@ -52,7 +52,10 @@ class ModelConfig:
     pallas_seq_lstm: bool = False
     # the whole-loop greedy decode kernel
     pallas_generate: bool = False
-    # JAX-only ways of running the supernet; the port raises when set
+    # ways of running the supernet: edge-batched mixed ops
+    # (models/search_fused.py), the packed depthwise-separable branches of
+    # a folded mixture, each cell recomputed in the backward (also the
+    # derived net's)
     fuse_mixed_ops: bool = False
     pack_conv_branches: bool = False
     remat_cells: bool = False

@@ -11,9 +11,10 @@ retrains the network of a searched (or preset) genotype instead: stages
 `--use_old_dataloader` feeds the loop from the npy records instead of
 the h5 files. `--package darts` runs the 2-stage DARTS loop
 (train/experiment_darts.py; `--qst_only` drops the answer loss) and
-`--package unified` its QA-stream model, both on the npy records. The
-flags are the JAX CLI's where they mean something here. Flags of paths
-that are not ported raise and name the ROADMAP.md entry that says why.
+`--package unified` its QA-stream model, both on the npy records. Every
+flag of the JAX CLI is here and means what it means there;
+`--fuse_mixed_ops`, `--remat_cells` and `--pack_conv_branches` pick how
+the supernet runs (models/search_fused.py, models/search.py).
 
 Data parallelism, one process a GPU (parallel/): `--num_devices N`
 starts N ranks on this host (0, the default: one a card, one on the
@@ -35,16 +36,6 @@ import sys
 
 from lctvqa_torch.config import (Config, DataConfig, MeshConfig,
                                  ModelConfig, TrainConfig)
-
-# flag -> where ROADMAP.md queues it
-NOT_PORTED = {
-    "fuse_mixed_ops": "'Not ported' (search_fused.py, a JAX-only way of "
-                      "running the supernet)",
-    "remat_cells": "'Not ported' (rematerialization of the JAX program)",
-    "pack_conv_branches": "'Not ported' (a JAX-only packing of the conv "
-                          "branches)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="LCT-VQA on PyTorch and CUDA")
@@ -78,8 +69,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="recompute the architect's inner-unroll forwards in "
                         "its outer backward (torch.utils.checkpoint); "
                         "always on for exact-indirect, as in the JAX CLI")
+    p.add_argument("--fuse_mixed_ops", action="store_true",
+                   help="edge-batched mixed ops: each primitive once per "
+                        "node group (models/search_fused.py)")
     p.add_argument("--no_fold_bn", action="store_true",
                    help="explicit per-op BN instead of the folded mixture")
+    p.add_argument("--remat_cells", action="store_true",
+                   help="recompute each cell in the backward "
+                        "(torch.utils.checkpoint): memory over speed")
+    p.add_argument("--pack_conv_branches", action="store_true",
+                   help="the four depthwise-separable branches of a folded "
+                        "mixture as one packed chain")
     p.add_argument("--pallas_mixed_op", action="store_true",
                    help="the mixed-op node kernels (ops/cuda_mixedop.py)")
     _m = ModelConfig()
@@ -124,18 +124,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["lct", "darts", "unified"])
     p.add_argument("--qst_only", action="store_true",
                    help="question-only loss (darts package)")
-    # accepted so that they can be refused by name
-    for flag in NOT_PORTED:
-        p.add_argument(f"--{flag}", action="store_true")
     return p
-
-
-def check_ported(args) -> None:
-    """Raise for every flag whose path the port does not have."""
-    for flag, where in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported: ROADMAP.md, {where}")
 
 
 def config_from_args(args) -> Config:
@@ -149,7 +138,10 @@ def config_from_args(args) -> Config:
                         compute_dtype=args.compute_dtype,
                         genotype=genotype,
                         bn_eval_stats=args.bn_eval_stats,
+                        fuse_mixed_ops=args.fuse_mixed_ops,
                         fold_bn_mixture=not args.no_fold_bn,
+                        remat_cells=args.remat_cells,
+                        pack_conv_branches=args.pack_conv_branches,
                         pallas_mixed_op=args.pallas_mixed_op,
                         pallas_generate=args.pallas_generate,
                         pallas_seq_lstm=args.pallas_seq_lstm)
@@ -185,7 +177,6 @@ def main(argv=None):
     """Train as the flags say. -> the experiment, or None where this
     command started the ranks as processes of their own."""
     args = build_parser().parse_args(argv)
-    check_ported(args)
     cfg = config_from_args(args)
     from lctvqa_torch.models.vqa_ef import check_arch_type
     check_arch_type(cfg.model.arch_type, cfg.model.genotype)

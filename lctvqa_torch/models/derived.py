@@ -10,7 +10,8 @@ BNs stay affine-free, so with `USE_PALLAS_BN` on they go through the
 BatchNorm kernel on the card (ops/conv.py), as the JAX package's go
 through its Pallas BatchNorm on a TPU. Params are nested dicts of fp32
 tensors with the JAX package's tree and names (conv weights OIHW).
-`remat_cells` is a JAX-only way of running the same math and raises.
+`cfg.remat_cells` recomputes each cell in the backward, as the supernet's
+(search.run_cell).
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ from lctvqa_torch.models.genotypes import Genotype
 from lctvqa_torch.models.search import (OUTPUT_SIZE, factorized_reduce_apply,
                                         factorized_reduce_init, op_apply,
                                         op_init, relu_conv_bn_apply,
-                                        relu_conv_bn_init)
+                                        relu_conv_bn_init, remat_cells,
+                                        run_cell)
 from lctvqa_torch.ops import conv as C
 
 
@@ -125,16 +127,17 @@ def derived_network_apply(p, cfg: ModelConfig, genotype: Genotype,
                           x: torch.Tensor,
                           dtype: Optional[torch.dtype] = None):
     """x NHWC -> flattened pooled features [B, c_prev * 49]."""
-    if cfg.remat_cells:
-        raise NotImplementedError(
-            "remat_cells is a JAX-only way of running the network and is "
-            "not ported (ROADMAP.md, 'Not ported')")
     s = C.conv2d(p["stem_conv"], x, stride=1, padding=1, dtype=dtype)
     s0 = s1 = C.batchnorm(p["stem_bn"], s)
+    remat = remat_cells(cfg)
     for cell_p, spec in zip(p["cells"], derived_cell_schedule(cfg, genotype)):
-        s0, s1 = s1, derived_cell_apply(cell_p, s0, s1, genotype,
-                                        spec["reduction"],
-                                        spec["reduction_prev"], dtype)
+
+        def cell(cp, t0, t1, _spec=spec):
+            return derived_cell_apply(cp, t0, t1, genotype,
+                                      _spec["reduction"],
+                                      _spec["reduction_prev"], dtype)
+
+        s0, s1 = s1, run_cell(cell, remat, cell_p, s0, s1)
     out = C.adaptive_avg_pool(s1, OUTPUT_SIZE)
     # flatten in NCHW element order for reference weight compatibility
     return out.permute(0, 3, 1, 2).reshape(out.shape[0], -1)

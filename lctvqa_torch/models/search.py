@@ -15,9 +15,13 @@ names (conv weights OIHW); arch parameters (alphas_normal/reduce
 With `cfg.pallas_mixed_op` each node's stride-1 edges go through one call
 of the mixed-op node kernel (`ops/cuda_mixedop.py`), grouped as the JAX
 package's `cell_apply_hwcn` groups them; the trunk stays NHWC, because
-the CUDA kernel reads a channel slice through the tensor's strides. Not
-ported (other ways of running the same math, off by default in the JAX
-package): `_mixed_fold_packed`, `search_fused.py`, `remat_cells`.
+the CUDA kernel reads a channel slice through the tensor's strides.
+`cfg.pack_conv_branches` runs the four depthwise-separable branches of a
+folded mixture as one packed chain (`_mixed_fold_packed`; the stride-2
+edges beside the node kernel stay unpacked, as in the JAX package's HWCN
+trunk); `cfg.remat_cells` recomputes each cell in the backward
+(`torch.utils.checkpoint`). The edge-batched cell (`fuse_mixed_ops`) is
+models/search_fused.py.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from lctvqa_torch.config import ModelConfig
 from lctvqa_torch.models.genotypes import NONE_IDX, PRIMITIVES, Genotype
@@ -261,8 +266,135 @@ def _mixed_fold(p, x, weights, stride: int, dtype, eps: float = 1e-5):
     return out - bias
 
 
+# The four depthwise-separable primitives share the chain shape
+# relu -> depthwise -> pointwise [-> BN -> relu -> depthwise -> pointwise];
+# _mixed_fold_packed runs them as one packed chain.
+_PACKED_BRANCHES = ("sep_conv_3x3", "sep_conv_5x5",
+                    "dil_conv_3x3", "dil_conv_5x5")
+_SEP_MASK_PATTERN = (1.0, 1.0, 0.0, 0.0)   # which branches have stage 2
+
+
+def _packed_dw1_kernel(p, cs: int):
+    """[Cs*NB, 1, 9, 9] depthwise kernel (OIHW, Cs groups of NB outputs)
+    holding each branch's first depthwise filter centered, dilated taps
+    spread out. Output channel c*NB + b is branch b applied to input
+    channel c: c-major, b-minor, the order of a grouped convolution's
+    outputs."""
+    nb = len(_PACKED_BRANCHES)
+    ref = p["dil_conv_3x3"]["dw"]["w"]
+    kern = ref.new_zeros((cs * nb, 1, 9, 9), dtype=f32)
+    specs = (("sep_conv_3x3", "dw1", 3, 1), ("sep_conv_5x5", "dw1", 5, 1),
+             ("dil_conv_3x3", "dw", 3, 2), ("dil_conv_5x5", "dw", 5, 2))
+    ctr = 4
+    for b, (prim, name, kk, dil) in enumerate(specs):
+        half = (kk - 1) // 2 * dil
+        sl = slice(ctr - half, ctr + half + 1, dil)
+        kern[b::nb, :, sl, sl] = p[prim][name]["w"].to(f32)
+    return kern
+
+
+def _packed_dw2_kernel(p, cs: int):
+    """[Cs*NB, 1, 5, 5] second-stage depthwise kernel: the sep branches'
+    dw2 filters (centered), a delta (the identity) for the dil
+    branches."""
+    nb = len(_PACKED_BRANCHES)
+    ref = p["sep_conv_3x3"]["dw2"]["w"]
+    kern = ref.new_zeros((cs * nb, 1, 5, 5), dtype=f32)
+    kern[0::nb, :, 1:4, 1:4] = ref.to(f32)
+    kern[1::nb] = p["sep_conv_5x5"]["dw2"]["w"].to(f32)
+    kern[2::nb, :, 2, 2] = 1.0
+    kern[3::nb, :, 2, 2] = 1.0
+    return kern
+
+
+def _packed_pw_matrix(blocks, cs: int):
+    """Block-diagonal-by-branch pointwise weight [Cs*NB, Cs*NB, 1, 1]
+    (OIHW) in the interleaved (c-major, b-minor) channel order; a `None`
+    block is the identity. One dense 1x1 convolution: no channel is
+    de-interleaved."""
+    nb = len(blocks)
+    ref = next(w for w in blocks if w is not None)
+    m = ref.new_zeros((cs * nb, cs * nb), dtype=f32)
+    for b, w in enumerate(blocks):
+        # OIHW [co, ci, 1, 1]: the block's rows are outputs
+        m[b::nb, b::nb] = (torch.eye(cs, dtype=f32, device=ref.device)
+                           if w is None else w[:, :, 0, 0].to(f32))
+    return m[:, :, None, None]
+
+
+def _mixed_fold_packed(p, x, weights, stride: int, dtype, eps: float = 1e-5):
+    """_mixed_fold with the four depthwise-separable branches packed into
+    one chain:
+
+        relu(x)                                   (shared by the 4)
+        -> one grouped 9x9 depthwise conv, stride s (filters centered,
+                                                   dilation spread out)
+        -> one block-diagonal 1x1 conv            (each branch's pw1)
+        -> masked inner BN + ReLU                 (sep channels; the dil
+                                                   channels pass)
+        -> one 5x5 depthwise conv                 (sep dw2; a delta for dil)
+        -> one block-diagonal 1x1 conv            (sep pw2; identity for dil)
+        -> each channel's final BN and alpha folded, the branch axis summed
+
+    Zero taps and zero blocks add exact zeros, so this is _mixed_fold's
+    math with the same params; the final BN folds per packed channel
+    because BN is per channel. Statistics as _mixed_fold's."""
+    nb = len(_PACKED_BRANCHES)
+    cs = x.shape[-1]
+    out = None
+    bias = None
+    # pools, skip, none: as _mixed_fold
+    for i, prim in enumerate(PRIMITIVES):
+        a = weights[i].to(f32)
+        if prim == "none" or prim in _PACKED_BRANCHES:
+            continue
+        if prim == "skip_connect" and stride == 1:
+            term = a * x.to(f32)
+        else:
+            y32 = _op_prebn(p[prim], prim, x, stride, dtype).to(f32)
+            mean, sq = cuda_bn.batch_moments(y32, (0, 1, 2))
+            coef = a * torch.rsqrt(sq - mean * mean + eps)
+            term = y32 * coef
+            b = coef * mean
+            bias = b if bias is None else bias + b
+        out = term if out is None else out + term
+
+    od = dtype
+    z = C.conv2d({"w": _packed_dw1_kernel(p, cs)}, torch.relu(x),
+                 stride=stride, padding=4, groups=cs, dtype=dtype,
+                 out_dtype=od)
+    z = C.conv2d({"w": _packed_pw_matrix(
+        [p[pr]["pw1" if pr.startswith("sep") else "pw"]["w"]
+         for pr in _PACKED_BRANCHES], cs)}, z, dtype=dtype, out_dtype=od)
+    # masked inner BN + ReLU: sep channels normalized and rectified
+    z32 = z.to(f32)
+    mean1, sq1 = cuda_bn.batch_moments(z32, (0, 1, 2))
+    sep = torch.tensor(_SEP_MASK_PATTERN, dtype=f32,
+                       device=x.device).repeat(cs) > 0.0
+    zn = (z32 - mean1) * torch.rsqrt(sq1 - mean1 * mean1 + eps)
+    z2 = torch.where(sep, torch.relu(zn), z32)
+    z2 = z2.to(od) if od is not None else z2
+    w2 = C.conv2d({"w": _packed_dw2_kernel(p, cs)}, z2, stride=1, padding=2,
+                  groups=cs * nb, dtype=dtype, out_dtype=od)
+    y = C.conv2d({"w": _packed_pw_matrix(
+        [p["sep_conv_3x3"]["pw2"]["w"], p["sep_conv_5x5"]["pw2"]["w"],
+         None, None], cs)}, w2, dtype=dtype, out_dtype=od)
+    # each branch's final BN and alpha folded; the branch axis summed
+    y32 = y.to(f32)
+    meanp, sqp = cuda_bn.batch_moments(y32, (0, 1, 2))
+    alphas_b = torch.stack([weights[PRIMITIVES.index(pr)]
+                            for pr in _PACKED_BRANCHES]).to(f32)
+    coefp = alphas_b.repeat(cs) * torch.rsqrt(sqp - meanp * meanp + eps)
+    term = (y32 * coefp).reshape(*y32.shape[:-1], cs, nb).sum(-1)
+    biasp = (coefp * meanp).reshape(cs, nb).sum(-1)
+    out = out + term
+    bias = biasp if bias is None else bias + biasp
+    return out - bias
+
+
 def mixed_op_apply(p, x, weights, stride: int, k: int, dtype,
-                   shuffle: bool = True, fold_bn: bool = False):
+                   shuffle: bool = True, fold_bn: bool = False,
+                   pack: bool = False):
     """ops on the first C/k channels, weighted-summed; the untouched rest
     concatenated (max-pooled 2x2 on a reduction edge); channel shuffle.
 
@@ -270,11 +402,15 @@ def mixed_op_apply(p, x, weights, stride: int, k: int, dtype,
     sums beta-weighted edge outputs first and shuffles once per node,
     which is exact because channel_shuffle is linear. fold_bn=True routes
     through _mixed_fold (same math, final BNs folded into the mixture
-    coefficients)."""
+    coefficients); pack=True as well packs the depthwise-separable
+    branches (_mixed_fold_packed)."""
     cs = x.shape[-1] // k
     xtemp, xtemp2 = x[..., :cs], x[..., cs:]
     acc = f32 if dtype is None else dtype
-    if fold_bn:
+    if fold_bn and pack:
+        temp1 = _mixed_fold_packed(p, xtemp, weights, stride,
+                                   dtype).to(acc)
+    elif fold_bn:
         temp1 = _mixed_fold(p, xtemp, weights, stride, dtype).to(acc)
     else:
         outs = [op_apply(p[prim], prim, xtemp, stride, dtype)
@@ -319,13 +455,13 @@ def cell_init(gen, steps, c_pp, c_p, c, reduction, reduction_prev, k):
 
 def cell_apply(p, s0, s1, alphas, betas, steps, multiplier, reduction,
                reduction_prev, k, dtype, fold_bn: bool = False,
-               node_kernel: bool = False):
+               node_kernel: bool = False, pack: bool = False):
     """One cell. With `node_kernel` every node's stride-1 edges join one
     call of the mixed-op node kernel, which computes sum_j beta_j * mix_j
     of their partial-channel slices in one pass (weights beta_e *
     softmax(alpha_e)); the untouched channels are summed beta-weighted
-    outside it; stride-2 edges take _mixed_fold. One shuffle per node
-    either way."""
+    outside it; stride-2 edges take _mixed_fold (packed with `pack`). One
+    shuffle per node either way."""
     if reduction_prev:
         s0 = factorized_reduce_apply(p["pre0"], s0, dtype)
     else:
@@ -345,7 +481,7 @@ def cell_apply(p, s0, s1, alphas, betas, steps, multiplier, reduction,
                 continue
             y = betas[offset + j] * mixed_op_apply(
                 p["ops"][offset + j], h, alphas[offset + j], stride, k,
-                dtype, shuffle=False, fold_bn=fold_bn)
+                dtype, shuffle=False, fold_bn=fold_bn, pack=pack)
             s = y if s is None else s + y
         if group:
             cs = states[group[0]].shape[-1] // k
@@ -426,35 +562,66 @@ def beta_softmax(betas, steps: int):
     return torch.cat(chunks)
 
 
+def remat_cells(cfg: ModelConfig) -> bool:
+    """Whether each cell is recomputed in the backward (cfg.remat_cells):
+    not under running statistics, whose contexts count the BatchNorm calls
+    of one forward, and not where no gradient is taken, so that serving,
+    validation and a traced program run the plain cell."""
+    return (cfg.remat_cells and not cfg.bn_eval_stats
+            and torch.is_grad_enabled())
+
+
+def run_cell(fn, remat: bool, *args):
+    """fn(*args), recomputed in the backward instead of kept where `remat`
+    (`torch.utils.checkpoint`, non-reentrant, so it nests inside stage
+    3's checkpoints and under create_graph). A cell draws no randomness:
+    no RNG state is kept. Its recomputation takes the routes its forward
+    took (`ops.conv.checkpoint_contexts`); under data parallelism it
+    repeats the forward's all-reduces, in the same order on every rank."""
+    if not remat:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=C.checkpoint_contexts)
+
+
+def mixture_weights(arch, cfg: ModelConfig):
+    """(softmaxed alphas, per-group softmaxed betas) of the normal and the
+    reduction cells."""
+    return (torch.softmax(arch["alphas_normal"].to(f32), dim=-1),
+            beta_softmax(arch["betas_normal"].to(f32), cfg.darts_steps),
+            torch.softmax(arch["alphas_reduce"].to(f32), dim=-1),
+            beta_softmax(arch["betas_reduce"].to(f32), cfg.darts_steps))
+
+
 def network_apply(p, arch, cfg: ModelConfig, x,
                   dtype: Optional[torch.dtype] = None):
     """x NHWC -> flattened pooled features [B, c_prev * 49]."""
-    if cfg.pack_conv_branches or cfg.remat_cells:
-        raise NotImplementedError(
-            "pack_conv_branches and remat_cells are JAX-only ways of "
-            "running the supernet and are not ported (ROADMAP.md, 'Not "
-            "ported')")
     s = C.conv2d(p["stem_conv"], x, stride=1, padding=1, dtype=dtype)
     s0 = s1 = C.batchnorm(p["stem_bn"], s)
-
-    w_norm = torch.softmax(arch["alphas_normal"].to(f32), dim=-1)
-    w_red = torch.softmax(arch["alphas_reduce"].to(f32), dim=-1)
-    b_norm = beta_softmax(arch["betas_normal"].to(f32), cfg.darts_steps)
-    b_red = beta_softmax(arch["betas_reduce"].to(f32), cfg.darts_steps)
+    w_norm, b_norm, w_red, b_red = mixture_weights(arch, cfg)
 
     # running-stats eval needs explicit per-op batchnorm calls, so it
     # forces the unfolded form
     fold_bn = cfg.fold_bn_mixture and not cfg.bn_eval_stats
     node_kernel = cfg.pallas_mixed_op and fold_bn
+    # the kernel trunk's stride-2 edges take the unpacked fold, as the JAX
+    # package's HWCN trunk's do
+    pack = cfg.pack_conv_branches and fold_bn and not node_kernel
+    remat = remat_cells(cfg)
 
     for cell_p, spec in zip(p["cells"], cell_schedule(cfg)):
         alphas, betas = ((w_red, b_red) if spec["reduction"]
                          else (w_norm, b_norm))
-        s0, s1 = s1, cell_apply(
-            cell_p, s0, s1, alphas, betas, cfg.darts_steps,
-            cfg.darts_multiplier, spec["reduction"], spec["reduction_prev"],
-            cfg.darts_partial_k, dtype, fold_bn=fold_bn,
-            node_kernel=node_kernel)
+
+        def cell(cp, a, b, t0, t1, _spec=spec):
+            return cell_apply(
+                cp, t0, t1, a, b, cfg.darts_steps, cfg.darts_multiplier,
+                _spec["reduction"], _spec["reduction_prev"],
+                cfg.darts_partial_k, dtype, fold_bn=fold_bn,
+                node_kernel=node_kernel, pack=pack)
+
+        s0, s1 = s1, run_cell(cell, remat, cell_p, alphas, betas, s0, s1)
     out = C.adaptive_avg_pool(s1, OUTPUT_SIZE)
     # flatten in NCHW element order for reference weight compatibility
     return out.permute(0, 3, 1, 2).reshape(out.shape[0], -1)

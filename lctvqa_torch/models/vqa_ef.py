@@ -1,6 +1,7 @@
 """EF model, the question-generating "test-creator" (port of
 lctvqa/models/vqa_ef.py). The image encoder is the PC-DARTS search
-network (`arch_type="darts"`, with its arch parameters in `arch`), a
+network (`arch_type="darts"`, with its arch parameters in `arch`; its
+edge-batched form, models/search_fused.py, with `fuse_mixed_ops`), a
 derived network built from `cfg.genotype` (`arch_type="derived"`,
 models/derived.py) or VGG19 (`arch_type="fixed"`); `arch` is None for
 the last two.
@@ -13,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from lctvqa_torch.config import ModelConfig
-from lctvqa_torch.models import derived, search, vgg
+from lctvqa_torch.models import derived, search, search_fused, vgg
 from lctvqa_torch.models.qst_encoder import (ef_qst_encoder,
                                              ef_qst_encoder_init,
                                              ef_qst_generate)
@@ -67,12 +68,11 @@ def ef_img_encode(params, arch, cfg: ModelConfig, img: torch.Tensor,
     check_arch_type(cfg.arch_type, cfg.genotype)
     dt = N.torch_dtype(cfg.compute_dtype)
     if cfg.arch_type == "darts":
-        if cfg.fuse_mixed_ops:
-            raise NotImplementedError(
-                "fuse_mixed_ops (search_fused.py) is a JAX-only way of "
-                "running the supernet and is not ported (ROADMAP.md, 'Not "
-                "ported')")
-        feat = search.network_apply(params["darts"], arch, cfg, img, dtype=dt)
+        # the edge-batched cell first, ahead of the node kernel, as in the
+        # JAX package
+        net = (search_fused.network_apply_fused if cfg.fuse_mixed_ops
+               else search.network_apply)
+        feat = net(params["darts"], arch, cfg, img, dtype=dt)
     elif cfg.arch_type == "derived":
         feat = derived.derived_network_apply(params["derived"], cfg,
                                              cfg.genotype, img, dtype=dt)

@@ -196,15 +196,6 @@ def test_derived_trunk_bn_eval_stats_capture_and_eval_order():
                                           torch.from_numpy(x_eval))
 
 
-def test_derived_remat_cells_raises():
-    _, tm = _cfgs(remat_cells=True)
-    params = derived.derived_network_init(torch.Generator().manual_seed(0),
-                                          tm, tm.genotype)
-    with pytest.raises(NotImplementedError, match="Not ported"):
-        derived.derived_network_apply(params, tm, tm.genotype,
-                                      torch.zeros(2, 16, 16, 3))
-
-
 def test_convert_maps_amoebanet_1x7_and_7x1_convs():
     """No rule of its own: HWIO <-> OIHW covers the derived tree, the 1x7
     and 7x1 convolutions of AmoebaNet's conv_7x1_1x7 included, exactly

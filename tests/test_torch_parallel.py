@@ -243,6 +243,42 @@ def node_kernel_steps(inputs: dict, rows: slice) -> dict:
     return out
 
 
+def remat_steps(inputs: dict, rows: slice) -> dict:
+    """With `remat_cells` (each cell recomputed in the backward, its
+    BatchNorm and node all-reduces repeated there): stage 1, stage 1 with
+    the node kernels, stage 3's arch gradient (exact-indirect: the cell
+    checkpoints inside stage 3's, under create_graph) and the darts
+    family's train step, on `rows` of the global batch from the same
+    weights as `run_steps`."""
+    from lctvqa_torch.optim.architect_lct import make_lct_arch_grad
+    from lctvqa_torch.train.experiment_darts import make_darts_steps
+    from lctvqa_torch.train.steps import make_lct_steps
+
+    tb = _tensors({k: v[rows] for k, v in inputs["train"].items()})
+    vb = _tensors({k: v[rows] for k, v in inputs["valid"].items()})
+    gen = torch.Generator().manual_seed(distributed.rank_seed(3))
+    ef, arch, w = inputs["ef"], inputs["arch"], inputs["w"]
+    out = {}
+    for key, cfg in (("remat_stage1", inputs["remat_cfg"]),
+                     ("remat_node_stage1", inputs["remat_node_cfg"])):
+        steps = make_lct_steps(cfg, 1, "cpu")
+        p, _, loss, c1, c2 = steps["stage1"](ef, arch,
+                                             steps["ef_tx"].init(ef), tb, gen)
+        out[key] = {"params": _numpy(p), "loss": float(loss),
+                    "counts": (int(c1), int(c2))}
+    cfg = inputs["remat_cfg"]
+    norm = {k: dict(b, image=pipeline.normalize_images(b["image_u8"]))
+            for k, b in (("t", tb), ("v", vb))}
+    g_a, _ = make_lct_arch_grad(cfg.model, cfg.train)(
+        arch, ef, w, norm["t"], norm["v"], LR, LR, gen)
+    out["remat_stage3_grad"] = _numpy(g_a)
+    darts = make_darts_steps(inputs["remat_node_cfg"], 1)
+    p, _, loss = darts["train"](ef, darts["tx"].init(ef), arch, tb, gen)
+    out["remat_node_darts_train"] = {"params": _numpy(p),
+                                     "loss": float(loss)}
+    return out
+
+
 def node_call(inputs: dict, rows: slice) -> dict:
     """One call of the mixed-op node (`cuda_mixedop.mixed_node`) on `rows`
     of its edge states, and its gradients for the loss sum(out * g):
@@ -275,7 +311,8 @@ def _rank_main(rank: int, port: int, tmp: str) -> None:
         rows = mesh_lib.shard_rows(B, mesh_lib.make_mesh(WORLD))
         with no_randomness():
             out = {"steps": {**run_steps(inputs, rows),
-                             **node_kernel_steps(inputs, rows)},
+                             **node_kernel_steps(inputs, rows),
+                             **remat_steps(inputs, rows)},
                    "bn": sync_batchnorm(inputs["bn_x"], inputs["bn_g"],
                                         rows),
                    "eval": eval_runs(inputs),
@@ -341,7 +378,10 @@ def make_inputs(tmp: Path) -> dict:
     checkpoint.save_state(str(exp / "ef_model.ckpt"),
                           {"ef_params": fixed, "arch": None, "epoch": 1},
                           config=fixed_cfg)
-    return {"cfg": cfg, "node_cfg": config(pallas_mixed_op=True), "ef": ef,
+    return {"cfg": cfg, "node_cfg": config(pallas_mixed_op=True),
+            "remat_cfg": config(remat_cells=True),
+            "remat_node_cfg": config(remat_cells=True, pallas_mixed_op=True),
+            "ef": ef,
             "arch": arch, "w": w, "node": node,
             "train": global_batch(0, cfg.model),
             "valid": global_batch(1, cfg.model),
@@ -404,7 +444,8 @@ def ranks(tmp_path_factory):
         whole = slice(0, B)
         with no_randomness():
             ref = {"steps": {**run_steps(inputs, whole),
-                             **node_kernel_steps(inputs, whole)},
+                             **node_kernel_steps(inputs, whole),
+                             **remat_steps(inputs, whole)},
                    "bn": sync_batchnorm(inputs["bn_x"], inputs["bn_g"],
                                         whole),
                    "node": node_call(inputs, whole)}
@@ -590,6 +631,37 @@ def test_darts_train_step_with_the_node_kernels_on_two_ranks(ranks):
     loss and parameters those of one process on the global batch, the
     ranks' the same bits."""
     _step_matches(ranks, "node_darts_train", "params", 1e-5)
+
+
+@pytest.mark.parametrize("key", ["remat_stage1", "remat_node_stage1",
+                                 "remat_node_darts_train"])
+def test_remat_cells_on_two_ranks_matches_one_process(ranks, key):
+    """With `remat_cells` each cell's forward, its all-reduces included,
+    runs again in the backward on every rank: stage 1 (with and without
+    the node kernels) and the darts train step on two ranks are one
+    process's on the global batch, the ranks' the same bits; and one
+    process's remat step is its plain step, loss and parameters at the
+    same tolerances."""
+    _step_matches(ranks, key, "params", 1e-5)
+    _, ref, _ = ranks
+    plain = ref["steps"][key.replace("remat_", "")]
+    got = ref["steps"][key]
+    np.testing.assert_allclose(got["loss"], plain["loss"], rtol=1e-5)
+    assert got.get("counts") == plain.get("counts")
+    _close(got["params"], plain["params"], 2e-4, 1e-5)
+
+
+def test_remat_cells_stage3_grad_on_two_ranks(ranks):
+    """Stage 3's arch gradient with `remat_cells`: the cell checkpoints
+    nested in the architect's under create_graph, on two ranks, within
+    1e-4 of each leaf's scale of one process's, the ranks' the same
+    bits; one process's within that of its plain gradient."""
+    _grads_match(ranks, "remat_stage3_grad")
+    _, ref, _ = ranks
+    for got, want in zip(tree_leaves(ref["steps"]["remat_stage3_grad"]),
+                         tree_leaves(ref["steps"]["stage3_grad"])):
+        assert float(np.abs(got - want).max()) <= 1e-4 * max(
+            float(np.abs(want).max()), 1e-30)
 
 
 def test_node_call_on_two_ranks_matches_the_concatenated_batch(ranks):

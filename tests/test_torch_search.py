@@ -234,15 +234,9 @@ def test_genotype_decode_matches(ef):
     assert tuple(got) == tuple(want)
 
 
-def test_jax_only_options_raise(ef, batch):
-    params, arch = ef
-    for flag in ("pack_conv_branches", "remat_cells", "fuse_mixed_ops"):
-        cfg = dataclasses.replace(MCFG, **{flag: True})
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_ef.ef_img_encode(convert.from_jax(params),
-                               convert.from_jax(arch), cfg,
-                               torch.from_numpy(batch[0]))
-    # a derived EF needs its genotype, as the JAX package's assert says
+def test_derived_ef_needs_its_genotype():
+    """A derived EF needs its genotype, as the JAX package's assert
+    says."""
     with pytest.raises(ValueError, match="needs genotype"):
         t_ef.init_ef_model(torch.Generator().manual_seed(0),
                            dataclasses.replace(MCFG, arch_type="derived"))

@@ -586,19 +586,6 @@ def test_cli_runs_the_three_stages_on_the_cpu(synth, tmp_path):
     assert log.count("STAGE3") < (out / "log.txt").read_text().count("STAGE3")
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--skip_stage3", "--fuse_mixed_ops"], "Not ported"),
-    (["--skip_stage3", "--remat_cells"], "Not ported"),
-    (["--skip_stage3", "--pack_conv_branches"], "Not ported")],
-    ids=lambda v: "_".join(v).replace("--", "") if isinstance(v, list)
-    else None)
-def test_cli_flags_of_unported_paths_raise(argv, match):
-    from lctvqa_torch import main as t_main
-
-    with pytest.raises(NotImplementedError, match=match):
-        t_main.main(argv + ["--input_dir", "/nonexistent"])
-
-
 def test_cli_derived_needs_a_genotype():
     """--arch_type derived runs since the derived net is ported; without
     --genotype it raises before any data is read, as the JAX package's
