@@ -25,6 +25,7 @@ import torch
 
 from lctvqa_torch import native
 from lctvqa_torch.text import VocabDict
+from lctvqa_torch.trace import span
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -251,7 +252,8 @@ class Prefetcher:
     and copies it with `non_blocking=True` on a side stream; the consumer
     makes its current stream wait on the copy's event, so the copy
     overlaps the step before. Other keys stay numpy arrays on the host.
-    An exception in the thread is raised again in the consumer."""
+    An exception in the thread is raised again in the consumer. The
+    consumer's `next()` is the span `feed.wait` (`trace.py`)."""
 
     def __init__(self, it: Iterator[dict], device, depth: int = 2,
                  device_keys=DEVICE_KEYS):
@@ -295,19 +297,20 @@ class Prefetcher:
         return self
 
     def __next__(self):
-        item = self._q.get()
-        if item is None:
-            raise StopIteration
-        if isinstance(item, _WorkerError):
-            raise item.exc
-        batch, event = item
-        if event is not None:
-            stream = torch.cuda.current_stream(self._device)
-            stream.wait_event(event)
-            for k in self._device_keys:
-                if k in batch:  # allocated on the side stream, used on this
-                    batch[k].record_stream(stream)
-        return batch
+        with span("feed.wait"):
+            item = self._q.get()
+            if item is None:
+                raise StopIteration
+            if isinstance(item, _WorkerError):
+                raise item.exc
+            batch, event = item
+            if event is not None:
+                stream = torch.cuda.current_stream(self._device)
+                stream.wait_event(event)
+                for k in self._device_keys:
+                    if k in batch:  # allocated on the side stream, used here
+                        batch[k].record_stream(stream)
+            return batch
 
 
 def get_loader(input_dir: str, batch_size: int, train_portion: float = 1.0,

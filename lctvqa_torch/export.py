@@ -82,6 +82,7 @@ from lctvqa_torch.programs import (  # noqa: F401 (re-exported)
     _tree_to_skeleton, prepare_serving_tree, read_artifact, save_artifact)
 from lctvqa_torch.quant import quantize_model
 from lctvqa_torch.text import VocabDict, extract_answer_words  # noqa: F401
+from lctvqa_torch.trace import span
 
 # ---------------------------------------------------------------------------
 # the serving model
@@ -357,7 +358,12 @@ class ServingModel:
 
     A supernet's BatchNorm is batch-statistics (no artifact carries
     running statistics), so a row's answer depends on the other rows of
-    the batch it is computed in."""
+    the batch it is computed in.
+
+    `answer_logits` and `generate` are the spans `serve.answer_logits`
+    and `serve.generate`, each input's host-to-device conversion
+    `serve.input` (`trace.py`), all outside the functions that
+    `export_programs` traces."""
 
     def __init__(self, artifact: Dict[str, Any],
                  device: Union[str, torch.device] = "cuda",
@@ -403,7 +409,8 @@ class ServingModel:
         return list(FUNCTIONS[self.family])
 
     def _tensor(self, a, dtype) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
+        with span("serve.input"):
+            return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
 
     @torch.inference_mode()
     def answer_logits(self, u8_images, qst_ids) -> torch.Tensor:
@@ -411,9 +418,11 @@ class ServingModel:
         if "answer_logits" not in self.functions:
             raise ValueError(f"{self.family} artifacts have no "
                              "answer_logits function")
-        return answer_logits(self.family, self.config, self.params,
-                             self.arch, self._tensor(u8_images, torch.uint8),
-                             self._tensor(qst_ids, torch.int64))
+        with span("serve.answer_logits"):
+            return answer_logits(self.family, self.config, self.params,
+                                 self.arch,
+                                 self._tensor(u8_images, torch.uint8),
+                                 self._tensor(qst_ids, torch.int64))
 
     @torch.inference_mode()
     def generate(self, u8_images):
@@ -422,8 +431,9 @@ class ServingModel:
         stream, int32 [B, T]."""
         if self.family == "w":
             raise ValueError("W-model artifacts have no generate function")
-        return generate(self.family, self.config, self.params, self.arch,
-                        self._tensor(u8_images, torch.uint8))
+        with span("serve.generate"):
+            return generate(self.family, self.config, self.params,
+                            self.arch, self._tensor(u8_images, torch.uint8))
 
     def generated_answers(self, u8_images) -> List[str]:
         """Answer strings of greedy generation (`programs.

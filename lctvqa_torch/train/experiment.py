@@ -43,7 +43,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lctvqa_torch import convert
+from lctvqa_torch import convert, trace
 from lctvqa_torch.config import Config
 from lctvqa_torch.data import pipeline, pipeline_npy
 from lctvqa_torch.models import search, vqa_ef, vqa_w
@@ -52,7 +52,6 @@ from lctvqa_torch.parallel import distributed, mesh as mesh_lib
 from lctvqa_torch.train import checkpoint, stats
 from lctvqa_torch.train.metrics import VqaStruct, calc_bleu_scores
 from lctvqa_torch.train.steps import make_lct_steps
-from lctvqa_torch.train.timing import StageTimer
 
 
 def dev_batch(batch: dict, keys=pipeline.DEVICE_KEYS) -> dict:
@@ -178,7 +177,7 @@ class Experiment:
         self.train_ef_loss, self.train_ef_acc = [], []
         self.val_ef_loss, self.val_ef_acc = [], []
         self.train_w_loss, self.train_w_acc = [], []
-        self.timer = StageTimer(self.device)
+        trace.TABLE.reset()
         self.bn_running = None  # running statistics (model.bn_eval_stats)
 
         self._load_experiment()
@@ -283,14 +282,14 @@ class Experiment:
         s3_loss = None
         if val_batch is not None:
             lr = self._epoch_lr()
-            with self.timer.stage("stage3"):
+            with trace.span("train.stage3"):
                 self.arch, self.arch_opt, s3_loss = self.steps["stage3"](
                     self.arch, self.arch_opt, self.ef_params, self.w_params,
                     batch, self._to_device(val_batch), lr, lr, self.gen)
                 shown = float(s3_loss)  # read back for the log, as JAX does
             self.log(f"| TRAIN SET | STAGE3 | W'-Val-Loss: {shown:.4f}")
         bn_stats = None
-        with self.timer.stage("stage1"):
+        with trace.span("train.stage1"):
             out = self.steps["stage1"](self.ef_params, self.arch,
                                        self.ef_opt, batch, self.gen)
             if self.cfg.model.bn_eval_stats:
@@ -300,7 +299,7 @@ class Experiment:
             self.ef_params, self.ef_opt, loss, c1, c2 = out
         if self.cfg.train.skip_stage2:
             return loss, c1, c2, None, None, s3_loss
-        with self.timer.stage("stage2"):
+        with trace.span("train.stage2"):
             self.w_params, self.w_opt, loss2, wc = self.steps["stage2"](
                 self.w_params, self.w_opt, self.ef_params, self.arch, batch,
                 self.gen, self.sample_gen)
@@ -362,8 +361,8 @@ class Experiment:
             f"EF-Acc(Exp2): {self.train_ef_acc[-1]:.4f}, "
             f"W-Loss: {self.train_w_loss[-1]:.4f}, "
             f"W-Acc: {self.train_w_acc[-1]:.4f}")
-        self.log(f"| TIMING | {self.timer.summary()}")
-        self.timer.reset()
+        self.log(f"| TIMING | {trace.TABLE.summary()}")
+        trace.TABLE.reset()
         if last_batch is not None:
             self.evaluate_gen_qst(last_batch)
 

@@ -17,6 +17,11 @@ the number of ranks and sums the gradients over the ranks before the
 optimizer (`distributed.grad`), so the clip sees the global gradient and
 every rank takes the same update; the losses and counters a step
 returns are the global batch's. With one rank these are no-ops.
+
+Stages 1 and 2 name their phases with spans (`trace.py`):
+`stage1.forward`, `.backward`, `.optimizer` (the update and the
+step's statistics), and `stage2.generate`, `.forward`, `.backward`,
+`.optimizer`.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from lctvqa_torch.optim.architect_lct import make_lct_arch_grad
 from lctvqa_torch.optim.optimizers import (arch_optimizer, model_optimizer,
                                            tree_leaves, with_grad)
 from lctvqa_torch.parallel import distributed
+from lctvqa_torch.trace import span
 from lctvqa_torch.train.metrics import mask_unk, num_correct
 
 
@@ -59,18 +65,22 @@ def make_lct_steps(cfg: Config, unk_idx: int, device):
 
     # ---------------- STAGE 1: EF weight update
     def stage1(ef_params, arch, ef_opt_state, batch, gen):
-        img, qst = _img(batch), batch["question"]
-        p = with_grad(ef_params)
-        with (C.bn_capture() if mcfg.bn_eval_stats
-              else contextlib.nullcontext()) as cap:
-            ans_logits, qst_logits = vqa_ef.ef_forward(
-                p, arch, mcfg, img, qst, gen=gen, deterministic=False)
-        loss = (cross_entropy(ans_logits, batch["answer_label"])
-                + sequence_teacher_forcing_ce(qst_logits, qst))
-        grads = distributed.grad(loss, tree_leaves(p))
-        ef_params, ef_opt_state = ef_tx.update(ef_params, grads, ef_opt_state)
-        loss, corr1, corr2 = distributed.reduce_stats(
-            (loss.detach(),), _counts(ans_logits.detach(), batch))
+        with span("stage1.forward"):
+            img, qst = _img(batch), batch["question"]
+            p = with_grad(ef_params)
+            with (C.bn_capture() if mcfg.bn_eval_stats
+                  else contextlib.nullcontext()) as cap:
+                ans_logits, qst_logits = vqa_ef.ef_forward(
+                    p, arch, mcfg, img, qst, gen=gen, deterministic=False)
+            loss = (cross_entropy(ans_logits, batch["answer_label"])
+                    + sequence_teacher_forcing_ce(qst_logits, qst))
+        with span("stage1.backward"):
+            grads = distributed.grad(loss, tree_leaves(p))
+        with span("stage1.optimizer"):
+            ef_params, ef_opt_state = ef_tx.update(ef_params, grads,
+                                                   ef_opt_state)
+            loss, corr1, corr2 = distributed.reduce_stats(
+                (loss.detach(),), _counts(ans_logits.detach(), batch))
         if mcfg.bn_eval_stats:
             return ef_params, ef_opt_state, loss, corr1, corr2, cap.stats
         return ef_params, ef_opt_state, loss, corr1, corr2
@@ -83,27 +93,31 @@ def make_lct_steps(cfg: Config, unk_idx: int, device):
     # ---------------- STAGE 2: W update on real + pseudo QA
     def stage2(w_params, w_opt_state, ef_params, arch, batch, gen,
                sample_gen):
-        img, qst = _img(batch), batch["question"]
-        labels = batch["answer_label"]
-        with torch.no_grad():
+        with span("stage2.generate"), torch.no_grad():
+            img, qst = _img(batch), batch["question"]
+            labels = batch["answer_label"]
             pseudo_qst, pseudo_logits = vqa_ef.ef_generate(
                 ef_params, arch, mcfg, img, gen=gen, deterministic=False,
                 sample_deterministic=False, sample_gen=sample_gen,
                 temperature=tcfg.temperature)
             # stage 2 softens WITHOUT temperature, unlike stage 3
             pseudo_ans = torch.softmax(pseudo_logits, dim=-1)
-        p = with_grad(w_params)
-        out1 = vqa_w.w_forward(p, mcfg, img, qst, gen, deterministic=False)
-        out2 = vqa_w.w_forward(p, mcfg, img, pseudo_qst, gen,
-                               deterministic=False)
-        loss = (cross_entropy(out1, labels)
-                + tcfg.w_lambda * soft_xent(out2, pseudo_ans))
-        grads = distributed.grad(loss, tree_leaves(p))
-        w_params, w_opt_state = w_tx.update(w_params, grads, w_opt_state)
-        # W is scored on BOTH the real and the pseudo pairs
-        corr = ((out1.argmax(1) == labels).sum()
-                + (out2.argmax(1) == pseudo_ans.argmax(1)).sum())
-        loss, corr = distributed.reduce_stats((loss.detach(),), (corr,))
+        with span("stage2.forward"):
+            p = with_grad(w_params)
+            out1 = vqa_w.w_forward(p, mcfg, img, qst, gen,
+                                   deterministic=False)
+            out2 = vqa_w.w_forward(p, mcfg, img, pseudo_qst, gen,
+                                   deterministic=False)
+            loss = (cross_entropy(out1, labels)
+                    + tcfg.w_lambda * soft_xent(out2, pseudo_ans))
+        with span("stage2.backward"):
+            grads = distributed.grad(loss, tree_leaves(p))
+        with span("stage2.optimizer"):
+            w_params, w_opt_state = w_tx.update(w_params, grads, w_opt_state)
+            # W is scored on BOTH the real and the pseudo pairs
+            corr = ((out1.argmax(1) == labels).sum()
+                    + (out2.argmax(1) == pseudo_ans.argmax(1)).sum())
+            loss, corr = distributed.reduce_stats((loss.detach(),), (corr,))
         return w_params, w_opt_state, loss, corr
 
     # ---------------- STAGE 3: architecture step
