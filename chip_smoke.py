@@ -113,6 +113,14 @@ non-zero:
      which is wrong on the card in PyTorch 2.11, is logged beside them),
      and the avg pool's second order as stage 3 takes it (a
      Hessian-vector product through a cubed output), 1e-6 (1 + max).
+   - vgg_epilogue at each of VGG19's 16 convolution outputs at 224 px, B
+     64 (vgg_epilogue_shapes), bf16 (fp32 into the adaptive pool) and
+     fp32: equal to its plain version bit for bit, one launch a call; the
+     kernel's device time and the byte bound printed, and the plain
+     version's (the composition it replaces) at [64,224,224,64]. VGG19 at
+     full width, B 8:
+     16 launches a no-grad forward, whose features equal the composition
+     (the same call with an image that needs a gradient) bit for bit.
 3. Full-width W, fixed-EF and darts-EF params (and the supernet's arch
    parameters) from seeded torch.Generators, converted to the JAX
    layout, written as three artifacts with lctvqa_torch.export's
@@ -123,8 +131,8 @@ non-zero:
    mixed-op node and BatchNorm kernels on. Launch counts are zeroed
    before these runs; each kernel must have launched in the run where
    its flag is on, the node and BatchNorm kernels in the other run not at
-   all, and the greedy questions of the two runs must agree for the
-   fixed EF.
+   all, the VGG epilogue (no flag) in both, and the greedy questions of
+   the two runs must agree for the fixed EF.
 5. The darts EF at fixed dispatch groups (1, 4 and 64 rows) through
    ServingModel with both flag sets: one forward launches the node kernel
    14 times; the L2-normalized image features of the two within 1e-5
@@ -195,7 +203,7 @@ non-zero:
    shape without), four more timed by stage, validation. Checks: finite
    losses; no stage-3 call and no mixed-op launch; with the flags on the
    BatchNorm, sequence, decode and cell kernels launch, with them off only
-   the cell; validation logs a BLEU4 in [0, 100]; the kernel-flag run's
+   the cell; W's VGG epilogue at both; validation logs a BLEU4 in [0, 100]; the kernel-flag run's
    checkpoint read back equal. Stage 1's loss and gradients with dropout
    off in fp32 at batch DERIVED_CPU_BATCH = 64: the two flag sets and the
    CPU against each other at phase 8's tolerances (at 8 rows, moving the
@@ -424,7 +432,9 @@ their `launches` a call's count on phase 13's node stage 1 with each
 launch's under `launch_counts`; `program_launches` is a B = 64 call of
 each of phase 15's programs, summed; the node and BatchNorm rows carry
 phase 16's 224 px shapes under `at_224` and every row its launches in
-phase 16's 224 px run under `lct224_launches`), and last
+phase 16's 224 px run under `lct224_launches`; the VGG epilogue's row,
+its launches a W forward and its device times at [64,224,224,64] pooled
+bf16), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -502,6 +512,11 @@ KERNELS = {
                "kernels", "serve"),
     "bn_bwd": ("lctvqa_torch/csrc/bn.cu", "lctvqa/ops/pallas_bn.py:95",
                "kernels", "train"),
+    # W's frozen VGG19 takes it whatever the flags: both serving runs
+    # launch it (phase 4 checks the other too)
+    "vgg_epilogue": ("lctvqa_torch/csrc/vgg_epilogue.cu",
+                     "none (XLA fuses it into the convolutions)", "default",
+                     "serve"),
 }
 # launches of one stage-1 step at full width with the kernel flags on
 STAGE1_LAUNCHES = {"mixed_node_fwd": 14, "mixed_node_bwd": 14, "bn_fwd": 40,
@@ -3087,10 +3102,13 @@ def derived_phase(arrays, device, root: str, card: str) -> dict:
     expect(kern["mixed_node_fwd"] == kern["mixed_node_bwd"] == 0
            and all(kern[k] > 0 for k in ("bn_fwd", "bn_bwd", "lstm_seq_all",
                                          "lstm_seq_final", "greedy_generate",
-                                         "lstm_cell")),
+                                         "lstm_cell", "vgg_epilogue")),
            f"derived kernels run: launches {kern}")
+    # W's frozen VGG19 takes its epilogue whatever the flags
+    always = ("lstm_cell", "vgg_epilogue")
     expect(all(v == 0 for k, v in launches["default"].items()
-               if k != "lstm_cell") and launches["default"]["lstm_cell"] > 0,
+               if k not in always)
+           and all(launches["default"][k] > 0 for k in always),
            f"derived default run: launches {launches['default']}")
     check_derived_gradients(arrays, records, device, root)
     # eval on the kernel-flag run's checkpoint (its flags are the
@@ -5279,19 +5297,23 @@ PROGRAM_WORKERS = 8
 # launches, once a call at these shapes
 OP_KERNELS = {"lstm_cell": "lstm_cell", "lstm_seq_final": "lstm_seq_final",
               "lstm_seq": "lstm_seq_all", "greedy_generate": "greedy_generate",
-              "mixed_node": "mixed_node_fwd", "batchnorm": "bn_fwd"}
+              "mixed_node": "mixed_node_fwd", "batchnorm": "bn_fwd",
+              "vgg_epilogue": "vgg_epilogue"}
 
 
-def program_kernels(name: str, fname: str, fn: str) -> set:
+def program_kernels(name: str, fname: str, fn: str, int8: bool) -> set:
     """The serving kernels that `fn` of artifact `name` launches at the
-    flag set `fname`: the cell at every step with the default flags; with
-    the kernel flags W's final-state sequence kernel, the EF encoders'
-    every-step one, the decode for `generate`, the node and BatchNorm
-    kernels on the supernet, the BatchNorm kernel in the derived net."""
+    flag set `fname`: the VGG19 epilogue where an fp model has the fixed
+    encoder (W, the VGG19 EF), at both flag sets; the cell at every step
+    with the default flags; with the kernel flags W's final-state
+    sequence kernel, the EF encoders' every-step one, the decode for
+    `generate`, the node and BatchNorm kernels on the supernet, the
+    BatchNorm kernel in the derived net."""
+    vgg = {"vgg_epilogue"} if name in ("w", "ef") and not int8 else set()
     if fname == "default":
-        return {"lstm_cell"}
+        return {"lstm_cell"} | vgg
     kernels = {"w": {"lstm_seq_final"}, "unified": set()}.get(
-        name, {"lstm_seq_all"})
+        name, {"lstm_seq_all"}) | vgg
     if fn == "generate":
         kernels = kernels | {"greedy_generate"}
     if name in ("darts", "unified"):
@@ -5464,9 +5486,10 @@ def _program_checks(path: str, name: str, fname: str, fn: str, flags,
     expect(got == launches["eager"],
            f"program {name} {fname} {fn}: launches {got} against the eager "
            f"call's {launches['eager']}")
-    expect(set(got) == program_kernels(base, fname, fn),
+    want = program_kernels(base, fname, fn, bool(meta.get("int8")))
+    expect(set(got) == want,
            f"program {name} {fname} {fn}: launched {sorted(got)}, expected "
-           f"{sorted(program_kernels(base, fname, fn))}")
+           f"{sorted(want)}")
     expect({OP_KERNELS[op]: n for op, n in graph.items()} == got,
            f"program {name} {fname} {fn}: operators {graph}, launches {got}")
     expect(int_mm == products and (int_mm > 0) == bool(meta.get("int8")),
@@ -6337,14 +6360,146 @@ def modes_phase(device, root: str, card: str) -> dict:
     return out
 
 
+def vgg_epilogue_shapes(batch: int = BATCH_224, size: int = 224) -> list:
+    """VGG19's 16 convolution outputs at `size` px: [(NHWC shape, whether
+    a 2x2 pool follows)] in order."""
+    from lctvqa_torch.models.vgg import VGG19_CFG
+
+    shapes = []
+    for i, v in enumerate(VGG19_CFG):
+        if v == "M":
+            size //= 2
+        else:
+            shapes.append(((batch, size, size, v),
+                           VGG19_CFG[i + 1:i + 2] == ("M",)))
+    return shapes
+
+
+def vgg_epilogue_bound(shape, pool: bool, in_dt, out_dt):
+    """y read once (the rows and columns a floor-mode pool reads), the
+    output written once, the bias read; one add, ReLU and, pooled, the
+    max an element read -> bound()'s (ms, "bytes" or "operations")."""
+    n, h, w, c = shape
+    ho, wo = (h // 2, w // 2) if pool else (h, w)
+    read = n * (2 * ho if pool else h) * (2 * wo if pool else w) * c
+    out = n * ho * wo * c
+    n_bytes = (read * in_dt.itemsize + out * out_dt.itemsize + 4 * c)
+    return bound(n_bytes, (3 if pool else 2) * read, "float32")
+
+
+def check_vgg_epilogue(device, iters: int = 10) -> dict:
+    """vgg_epilogue at each of VGG19's 16 epilogues at 224 px and B = 64
+    (vgg_epilogue_shapes), in both compute dtypes with the output dtype
+    the route gives (bf16 between convolutions and fp32 into the adaptive
+    pool; fp32 throughout): the operator against its plain version bit
+    for bit; the device time of the kernel's function (torch.profiler),
+    the byte bound and the share of 3.35 TB/s the kernel reaches by it;
+    the plain version's device time at [64,224,224,64] (the largest
+    shape, and the kernels line's). Then VGG19 at full width, B = 8, 224
+    px (fc layers 64 wide), in both dtypes: one no-grad vgg19_features
+    launches 16 epilogues and equals the composition (the same call with
+    an image that needs a gradient, which takes it) bit for bit. ->
+    {"cases": {(shape, pool, dtype, out dtype): {"layers", "equal",
+    "err", "device_us", "bound_ms", "bound_by", "share"[,
+    "plain_device_us"]}}, "launches": {dtype: per forward}}."""
+    from lctvqa_torch.models import vgg
+    from lctvqa_torch.ops import _build, cuda_vgg
+
+    def profile(fn):
+        # the profiler misses a call, or all of a profile, now and then
+        for _ in range(3):
+            total, rows = device_times(fn, iters, required=False)
+            if rows:
+                return total
+        expect(False, "vgg_epilogue: three profiles in a row saw no kernel")
+        return float("nan")
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    shapes = vgg_epilogue_shapes()
+    out = {"cases": {}, "launches": {}}
+    cases = out["cases"]
+    for dname, dt in DTYPES.items():
+        for i, (shape, pool) in enumerate(shapes):
+            out_dt = (torch.float32 if dt == torch.float32
+                      or i == len(shapes) - 1 else dt)
+            key = (shape, pool, dname, str(out_dt).replace("torch.", ""))
+            if key in cases:
+                cases[key]["layers"].append(i)
+                continue
+            y = torch.randn(shape, device=device, generator=gen).to(dt)
+            b = 0.5 * torch.randn(shape[-1], device=device, generator=gen)
+            before = _build.launch_counts()["vgg_epilogue"]
+            got = cuda_vgg.vgg_epilogue(y, b, pool, out_dt)
+            want = cuda_vgg.vgg_epilogue_plain(y, b, pool, out_dt)
+            torch.cuda.synchronize()
+            expect(_build.launch_counts()["vgg_epilogue"] == before + 1,
+                   f"vgg_epilogue {key}: the operator did not launch once")
+            same = (got.dtype == want.dtype and got.shape == want.shape
+                    and torch.equal(got, want))
+            err = float((got.float() - want.float()).abs().max())
+            expect(same, f"vgg_epilogue {key}: differs from its plain "
+                   f"version by {err}")
+            del got, want
+            dev_us = profile(
+                lambda: cuda_vgg.vgg_epilogue_cuda(y, b, pool, out_dt))
+            bound_ms, bound_by = vgg_epilogue_bound(shape, pool, dt, out_dt)
+            r = cases[key] = {"layers": [i], "equal": same, "err": err,
+                              "device_us": dev_us, "bound_ms": bound_ms,
+                              "bound_by": bound_by,
+                              "share": 1e3 * bound_ms / dev_us}
+            plain = ""
+            if shape == shapes[0][0]:
+                r["plain_device_us"] = profile(
+                    lambda: cuda_vgg.vgg_epilogue_plain(y, b, pool, out_dt))
+                plain = f"; plain {r['plain_device_us']:.1f} us"
+            log(f"kernel vgg_epilogue {list(shape)} {'pool' if pool else ''}"
+                f" {dname} -> {key[3]}: equal {same}; device {dev_us:.1f} "
+                f"us, bound {1e3 * bound_ms:.1f} us ({bound_by}), "
+                f"{100 * r['share']:.1f}% of it{plain}")
+            del y
+            torch.cuda.empty_cache()
+    params = vgg.vgg19_init(torch.Generator().manual_seed(SEED + 24),
+                            fc_dim=64)
+    params = _to(params, device)
+    x = torch.randn(8, 224, 224, 3, device=device, generator=gen)
+    for dname, dt in DTYPES.items():
+        dtype = None if dt == torch.float32 else dt
+        _build.reset_launch_counts()
+        with torch.inference_mode():
+            got = vgg.vgg19_features(params, x, dtype=dtype)
+        torch.cuda.synchronize()
+        n = out["launches"][dname] = _build.launch_counts()["vgg_epilogue"]
+        with torch.enable_grad():
+            want = vgg.vgg19_features(params, x.clone().requires_grad_(),
+                                      dtype=dtype).detach()
+        torch.cuda.synchronize()
+        expect(_build.launch_counts()["vgg_epilogue"] == n,
+               f"vgg19_features {dname}: the grad route launched epilogues")
+        expect(n == 16 and torch.equal(got, want),
+               f"vgg19_features {dname} B=8: {n} epilogues, differs from "
+               f"the composition by {float((got - want).abs().max())}")
+        log(f"vgg19_features {dname} B=8 224 px: {n} epilogues a forward, "
+            f"equal to the composition: {torch.equal(got, want)}")
+    del params, x, got, want
+    torch.cuda.empty_cache()
+    log(f"vgg_epilogue check took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# the kernels line's shape of the VGG epilogue
+VGG_EPILOGUE_ROW = ((BATCH_224, 224, 224, 64), True, "bfloat16", "bfloat16")
+
+
 def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
-                cell_dev, node_dev, gen_plan, gen_dev, node_bwd_dev):
+                cell_dev, node_dev, gen_plan, gen_dev, node_bwd_dev, vgg):
     """The kernels line: one row per kernel at the largest shape the
     batch-64 bf16 path gives it; `launches` of the run of its path. The
     cell's row also has its device time per call and nn.LSTMCell's
     (torch.profiler), the node forward's and backward's the device time of
     each launch of one call, the decode's its device time, its grid and
-    the time of as many empty grid barriers as one call makes."""
+    the time of as many empty grid barriers as one call makes; the VGG
+    epilogue's has device times only (check_vgg_epilogue's)."""
     picks = {name: (lstm[name][(64, "bfloat16")], "B=64 bfloat16")
              for name in LSTM_KERNELS}
     picks["mixed_node_fwd"] = (node[("cell0", 5, 64, "bfloat16")],
@@ -6357,6 +6512,19 @@ def kernel_rows(lstm, bn, node, bn_bwd, node_bwd, launches, seq_plan,
                        "[64,64,64,32] x float32, g bfloat16")
     rows = []
     for name, (source, replaces, _, _) in KERNELS.items():
+        if name == "vgg_epilogue":
+            r = vgg["cases"][VGG_EPILOGUE_ROW]
+            rows.append({"name": name, "route": "cuda", "source": source,
+                         "replaces": replaces, "launches": launches[name],
+                         "max_abs_err": max(v["err"] for v in
+                                            vgg["cases"].values()),
+                         "device_us": r["device_us"],
+                         "plain_device_us": r["plain_device_us"],
+                         "bound_ms": r["bound_ms"],
+                         "bound_by": r["bound_by"],
+                         "shape": "[64,224,224,64] pooled bfloat16 -> "
+                                  "bfloat16"})
+            continue
         r, shape = picks[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
@@ -6643,6 +6811,7 @@ def main(argv=None) -> int:
         gen_unified = check_unified_decode(device)
         check_lstm_functions(device, model_configs()["w"])
         check_pool_gradients(device)
+        kern_vgg = check_vgg_epilogue(device)
     log(f"kernel phase took {time.perf_counter() - t0:.1f} s; TF32 at "
         f"PyTorch's defaults from here: matmul "
         f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
@@ -6672,6 +6841,8 @@ def main(argv=None) -> int:
         for name in ("mixed_node_fwd", "bn_fwd"):
             expect(per_run["default"][name] == 0,
                    f"{name} launched in the default serving run")
+        expect(per_run["kernels"]["vgg_epilogue"] > 0,
+               "vgg_epilogue never launched in the kernels serving run")
         gen_a = responses["default"]["ef_generate"]
         gen_b = responses["kernels"]["ef_generate"]
         expect(gen_a == gen_b, "greedy questions differ between the default "
@@ -6750,7 +6921,7 @@ def main(argv=None) -> int:
 
     rows = kernel_rows(kern, kern_bn, kern_node, kern_bn_bwd, kern_node_bwd,
                        launches, seq_plan, cell_dev, node_dev, gen_plan,
-                       gen_dev, node_bwd_dev)
+                       gen_dev, node_bwd_dev, kern_vgg)
     for row in rows:  # the bf16 kernel-flag training runs of 10 and 11
         row["derived_launches"] = derived_launches[row["name"]]
         row["darts_launches"] = family_launches["darts"][row["name"]]

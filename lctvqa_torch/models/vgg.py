@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from lctvqa_torch.ops import conv as C
+from lctvqa_torch.ops import cuda_vgg
 from lctvqa_torch.ops import nn as N
 
 # torchvision cfg 'E' (vgg19): conv output channels, 'M' = 2x2 max pool
@@ -45,19 +46,51 @@ def feature_dim(params) -> int:
     return params["fc7"]["w"].shape[1]
 
 
+def epilogue_route(p, x: torch.Tensor,
+                   dtype: Optional[torch.dtype]) -> bool:
+    """Whether the convolution of params `p` on `x` hands its bias and
+    ReLU (and the pool after it) to the `vgg_epilogue` operator: fp params
+    with C a multiple of the kernel's 8 channels a thread, a compute dtype
+    of bf16 or fp32 (or None), and no gradient through it, outside
+    `second_order` (stage 3 takes the plain versions of every kernel).
+    Every other call (a trunk being trained, int8, fp16) keeps the
+    composition of `C.conv2d`, `torch.relu` and `C.max_pool`, which the
+    operator's result equals bit for bit."""
+    if "w_q" in p or dtype not in (None, torch.float32, torch.bfloat16):
+        return False
+    if p["w"].shape[0] % cuda_vgg.VEC or C.in_second_order():
+        return False
+    return not (torch.is_grad_enabled() and (
+        x.requires_grad or p["w"].requires_grad or p["b"].requires_grad))
+
+
 def vgg19_features(params, x: torch.Tensor,
                    gen: Optional[torch.Generator] = None,
                    deterministic: bool = True,
                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """x: NHWC normalized image -> [B, fc_dim] feature."""
-    conv_i = 0
-    for v in VGG19_CFG:
+    convs = iter(params["features"])
+    pooled = False  # the last epilogue took the "M" that follows it
+    for i, v in enumerate(VGG19_CFG):
         if v == "M":
-            x = C.max_pool(x, 2, 2)
-        else:
-            x = torch.relu(C.conv2d(params["features"][conv_i], x, stride=1,
-                                    padding=1, dtype=dtype))
-            conv_i += 1
+            if not pooled:
+                x = C.max_pool(x, 2, 2)
+            pooled = False
+            continue
+        p = next(convs)
+        if not epilogue_route(p, x, dtype):
+            x = torch.relu(C.conv2d(p, x, stride=1, padding=1, dtype=dtype))
+            continue
+        # the raw convolution in the compute dtype; an output that feeds a
+        # convolution in it, the last one in fp32 (the adaptive pool
+        # averages what it is given)
+        pooled = VGG19_CFG[i + 1:i + 2] == ("M",)
+        last = i + 1 + pooled == len(VGG19_CFG)
+        y = C.conv2d({"w": p["w"]}, x, stride=1, padding=1, dtype=dtype,
+                     out_dtype=dtype)
+        x = cuda_vgg.vgg_epilogue(y.contiguous(), p["b"], pooled,
+                                  torch.float32 if last or dtype is None
+                                  else dtype)
     x = C.adaptive_avg_pool(x, 7)
     # torch flattens NCHW (channel-major): keep that element order so
     # torchvision's fc6 weights line up

@@ -197,6 +197,11 @@ def second_order():
         _SECOND_ORDER.reset(tok)
 
 
+def in_second_order() -> bool:
+    """Whether a `second_order` scope is open."""
+    return _SECOND_ORDER.get()
+
+
 class _SecondOrderAgain:
     """The `second_order` scope a forward ran in, entered again (or not)
     at each recomputation of it."""

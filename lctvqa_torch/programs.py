@@ -61,7 +61,7 @@ import torch
 
 from lctvqa_torch import convert
 from lctvqa_torch.ops import (  # noqa: F401 (registers the operators)
-    cuda_bn, cuda_generate, cuda_mixedop)
+    cuda_bn, cuda_generate, cuda_mixedop, cuda_vgg)
 from lctvqa_torch.ops import nn as N
 from lctvqa_torch.ops.conv import _no_tf32
 from lctvqa_torch.ops.cuda_lstm import cell_weights

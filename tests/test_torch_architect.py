@@ -35,7 +35,7 @@ from lctvqa.optim.architect_lct import make_lct_arch_grad as j_lct_arch_grad
 from lctvqa_torch import convert
 from lctvqa_torch.config import small_test_config
 from lctvqa_torch.ops import (conv as t_conv, cuda_bn, cuda_generate,
-                              cuda_lstm, cuda_mixedop, nn as t_nn)
+                              cuda_lstm, cuda_mixedop, cuda_vgg, nn as t_nn)
 from lctvqa_torch.optim import architect_lct as t_lct
 from lctvqa_torch.optim.architect import make_darts_arch_grad
 from lctvqa_torch.optim.optimizers import sgd_step, tree_leaves
@@ -259,7 +259,8 @@ def test_architects_never_reach_a_kernel(monkeypatch):
                       (cuda_lstm, "lstm_seq"),
                       (cuda_generate, "greedy_generate"),
                       (cuda_mixedop, "mixed_node"),
-                      (cuda_bn, "batchnorm_fwd")):
+                      (cuda_bn, "batchnorm_fwd"),
+                      (cuda_vgg, "vgg_epilogue")):
         monkeypatch.setattr(mod, name, boom)
     monkeypatch.setattr(t_conv, "USE_PALLAS_BN", True)
     flags = dict(use_pallas_lstm=True, pallas_seq_lstm=True,

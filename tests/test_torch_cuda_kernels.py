@@ -1245,6 +1245,89 @@ def test_operator_matches_plain_on_the_card(cuda, name, dtype):
                                        atol=1e-5)
 
 
+# (N, H, W, C) of the VGG epilogue: odd sizes (floor-mode pools), the
+# fewest channels the kernel takes, a count of lanes that does not divide
+# its 256 threads, the most channels
+VGG_SHAPES = [(3, 7, 5, 8), (2, 9, 10, 24), (2, 33, 31, 64), (1, 4, 6, 2048)]
+VGG_DTYPES = [(torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32),
+              (torch.float32, torch.float32)]
+
+
+@pytest.mark.parametrize("pool", [False, True], ids=["relu", "pool"])
+@pytest.mark.parametrize("dtypes", VGG_DTYPES, ids=lambda d: "-".join(
+    str(t).replace("torch.", "") for t in d))
+@pytest.mark.parametrize("shape", VGG_SHAPES,
+                         ids=lambda s: "x".join(map(str, s)))
+def test_vgg_epilogue_matches_plain(cuda, shape, dtypes, pool):
+    """The operator on the card launches the kernel once and equals its
+    plain version bit for bit, in the output's dtype and shape."""
+    from lctvqa_torch.ops import cuda_vgg
+
+    in_dtype, out_dtype = dtypes
+    gen = torch.Generator().manual_seed(sum(shape))
+    y = torch.randn(*shape, generator=gen).to(cuda, in_dtype)
+    b = (0.5 * torch.randn(shape[-1], generator=gen)).to(cuda)
+    before = _build.launch_counts()["vgg_epilogue"]
+    got = cuda_vgg.vgg_epilogue(y, b, pool, out_dtype)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["vgg_epilogue"] == before + 1
+    want = cuda_vgg.vgg_epilogue_plain(y, b, pool, out_dtype)
+    assert got.dtype == want.dtype == out_dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+def test_vgg_epilogue_refuses_what_it_does_not_take(cuda):
+    """C not a multiple of 8, a non-contiguous or unaligned y, fp16, a
+    bias off the card, a pool of a single row, an fp32 y to bf16:
+    ValueError, no launch."""
+    from lctvqa_torch.ops import cuda_vgg
+
+    y = torch.randn(2, 6, 6, 16, device=cuda)
+    b = torch.randn(16, device=cuda)
+    before = _build.launch_counts()["vgg_epilogue"]
+    for args in ((torch.randn(2, 6, 6, 12, device=cuda), b[:12]),
+                 (y.transpose(1, 2), b), (y.half(), b), (y, b.cpu()),
+                 (y[:, :1], b)):
+        with pytest.raises(ValueError, match="vgg_epilogue"):
+            cuda_vgg.vgg_epilogue_cuda(*args, args[0].shape[1] == 1,
+                                       torch.float32)
+    unaligned = y.flatten()[2:2 + 2 * 6 * 6 * 8].view(2, 6, 6, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        cuda_vgg.vgg_epilogue_cuda(unaligned, b[:8], False, torch.float32)
+    with pytest.raises(ValueError, match="dtype or fp32"):
+        cuda_vgg.vgg_epilogue_cuda(y, b, False, torch.bfloat16)
+    assert _build.launch_counts()["vgg_epilogue"] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_vgg_features_take_the_epilogue_on_the_card(cuda, dtype):
+    """A no-grad VGG19 forward at the small test config launches 16
+    epilogues and equals the composition (the same call with an image
+    that needs a gradient, which keeps it) bit for bit."""
+    from lctvqa_torch.models import vgg
+
+    params = vgg.vgg19_init(torch.Generator().manual_seed(12), 0.125,
+                            fc_dim=32)
+    params = {"features": [{k: t.to(cuda) for k, t in p.items()}
+                           for p in params["features"]],
+              **{k: {kk: t.to(cuda) for kk, t in params[k].items()}
+                 for k in ("fc6", "fc7")}}
+    x = torch.randn(3, 40, 40, 3, generator=torch.Generator().manual_seed(
+        13)).to(cuda)
+    dt = None if dtype == torch.float32 else dtype
+    before = _build.launch_counts()["vgg_epilogue"]
+    with torch.no_grad():
+        got = vgg.vgg19_features(params, x, dtype=dt)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["vgg_epilogue"] == before + 16
+    want = vgg.vgg19_features(params, x.clone().requires_grad_(), dtype=dt)
+    torch.cuda.synchronize()
+    assert _build.launch_counts()["vgg_epilogue"] == before + 16
+    assert torch.equal(got, want.detach())
+
+
 @pytest.mark.parametrize("kn", [(75, 13), (512, 1024)],
                          ids=lambda s: "x".join(map(str, s)))
 @pytest.mark.parametrize("m", [1, 16, 17, 64 * 49])

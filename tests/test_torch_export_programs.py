@@ -63,14 +63,15 @@ CASES = {
                 KERNEL_FLAGS, True),
 }
 # the operators each program's graph holds, counted at these sizes (T = 8
-# steps; the cut supernet's two cells: 20 affine-free batch-statistics
-# BatchNorms and one node of stride-1 edges each; the derived net's two
-# pool BatchNorms)
+# steps; VGG19's 16 convolution epilogues; the cut supernet's two cells: 20
+# affine-free batch-statistics BatchNorms and one node of stride-1 edges
+# each; the derived net's two pool BatchNorms)
 GRAPH_OPS = {
-    ("w", "answer_logits"): {"lstm_cell": 8},
-    ("w_kernels", "answer_logits"): {"lstm_seq_final": 1},
-    ("ef", "answer_logits"): {"lstm_cell": 8},
-    ("ef", "generate"): {"lstm_cell": 16},
+    ("w", "answer_logits"): {"lstm_cell": 8, "vgg_epilogue": 16},
+    ("w_kernels", "answer_logits"): {"lstm_seq_final": 1,
+                                     "vgg_epilogue": 16},
+    ("ef", "answer_logits"): {"lstm_cell": 8, "vgg_epilogue": 16},
+    ("ef", "generate"): {"lstm_cell": 16, "vgg_epilogue": 16},
     ("darts", "answer_logits"): {"batchnorm": 20, "mixed_node": 2,
                                  "lstm_seq": 1},
     ("darts", "generate"): {"batchnorm": 20, "mixed_node": 2, "lstm_seq": 1,
@@ -78,7 +79,7 @@ GRAPH_OPS = {
     ("derived", "answer_logits"): {"batchnorm": 2, "lstm_seq": 1},
     ("derived", "generate"): {"batchnorm": 2, "lstm_seq": 1,
                               "greedy_generate": 1},
-    ("unified", "generate"): {"greedy_generate": 1},
+    ("unified", "generate"): {"greedy_generate": 1, "vgg_epilogue": 16},
 }
 
 

@@ -30,7 +30,7 @@ from lctvqa.ops import pallas_mixedop as PM
 from lctvqa_torch import convert
 from lctvqa_torch.models import search as t_search
 from lctvqa_torch.ops import (_build, conv as t_conv, cuda_bn, cuda_generate,
-                              cuda_lstm, cuda_mixedop)
+                              cuda_lstm, cuda_mixedop, cuda_vgg)  # noqa: F401
 from test_torch_train import one_cpu_thread  # noqa: F401 (autouse)
 
 MCFG = small_test_config().model
@@ -198,7 +198,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                            "bn_bwd_apply", "mixed_node_fwd_sync_a",
                            "mixed_node_fwd_sync_b", "mixed_node_fwd_sync_z",
                            "mixed_node_bwd_sync_r", "mixed_node_bwd_sync_s",
-                           "mixed_node_bwd_sync_x"}
+                           "mixed_node_bwd_sync_x", "vgg_epilogue"}
 
 
 def test_non_cpu_non_cuda_tensors_raise():
