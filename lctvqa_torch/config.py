@@ -33,6 +33,11 @@ class ModelConfig:
     # the Genotype (models/genotypes.py) of arch_type='derived': a preset
     # or a search result (genotype.py::resolve_genotype)
     genotype: object = None
+    # the derived network's skeleton: 'search' (the search network's stem
+    # and channel plan, a BatchNorm after each pool) or 'imagenet' (DARTS's
+    # NetworkImageNet: three stride-2 stem convolutions, pools without
+    # BatchNorm); a field of the port alone (train/checkpoint.py)
+    derived_skeleton: str = "search"
     pretrained_enc: bool = True
     # test-only shrink knobs for the VGG19 trunk (production: 1.0 / 4096)
     vgg_width_mult: float = 1.0

@@ -175,7 +175,7 @@ def _evaluate_on(args, data: Optional[dict],
         show("genotype:", search.genotype(arch, mcfg.darts_steps,
                                           mcfg.darts_multiplier))
     elif mcfg.arch_type == "derived":
-        show("genotype:", mcfg.genotype)
+        show("genotype:", mcfg.genotype, "skeleton:", mcfg.derived_skeleton)
     rows = {}
     if grid is not None:
         ef_params = tp_lib.shard_params(ef_params, grid)

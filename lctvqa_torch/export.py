@@ -257,7 +257,9 @@ def _shapes(tree, path=""):
 
 def _derived_dims(params, genotype: Genotype) -> Dict[str, Any]:
     """A derived network's dims from its param shapes (JAX layout) and its
-    genotype, which must build a network of exactly those shapes."""
+    genotype, which must build a network of exactly those shapes. The
+    skeleton is told by the tree: the ImageNet one has `stem0` and
+    `stem1` where the search one has `stem_conv`."""
     tree = params["derived"]
     cells = tree["cells"]
     n_cells = len(cells)
@@ -266,10 +268,13 @@ def _derived_dims(params, genotype: Genotype) -> Dict[str, Any]:
     init_ch = c_first // 2 if first_reduces else c_first
     dims = dict(arch_type="derived", genotype=genotype, darts_layers=n_cells,
                 darts_init_ch=init_ch,
-                darts_stem_multiplier=_w(tree["stem_conv"]).shape[3]
-                // init_ch,
                 darts_steps=len(genotype.normal) // 2,
                 darts_multiplier=len(genotype.normal_concat))
+    if "stem0" in tree:
+        dims["derived_skeleton"] = "imagenet"
+    else:
+        dims["darts_stem_multiplier"] = (_w(tree["stem_conv"]).shape[3]
+                                         // init_ch)
     got = dict(_shapes(tree))
     want = dict(_shapes(convert.to_jax(derived.derived_network_init(
         torch.Generator(), dataclasses.replace(ModelConfig(), **dims),

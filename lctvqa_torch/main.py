@@ -7,7 +7,12 @@ update, `--architect_mode`, unless `--skip_stage3`), stage 1 and stage 2
 on the EF and W models, then validation; `--device cpu` runs the same
 loop on the CPU, for a check. `--arch_type derived --genotype G`
 retrains the network of a searched (or preset) genotype instead: stages
-1 and 2 and validation, as a derived net has no arch to update.
+1 and 2 and validation, as a derived net has no arch to update;
+`--derived_skeleton imagenet` builds it as DARTS's ImageNet network, and
+`--darts_init_ch` and `--darts_layers` set the trunk's width and cells
+(PC-DARTS's ImageNet network: `--genotype PC_DARTS_image
+--derived_skeleton imagenet --darts_init_ch 48 --darts_layers 14
+--img_size 224`).
 `--use_old_dataloader` feeds the loop from the npy records instead of
 the h5 files. `--package darts` runs the 2-stage DARTS loop
 (train/experiment_darts.py; `--qst_only` drops the answer loss) and
@@ -113,6 +118,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "(e.g. PC_DARTS_cifar, DARTS_V2), a search "
                         "checkpoint path (arch decoded on the spot), or a "
                         "text file with a Genotype(...) repr")
+    p.add_argument("--derived_skeleton", type=str, default="search",
+                   choices=["search", "imagenet"],
+                   help="the derived network's skeleton: the search "
+                        "network's, or DARTS's NetworkImageNet (three "
+                        "stride-2 stem convolutions, pools without BN)")
+    p.add_argument("--darts_init_ch", type=int, default=None,
+                   help="the EF trunk's initial channels C (default "
+                        "ModelConfig's, or --tiny's)")
+    p.add_argument("--darts_layers", type=int, default=None,
+                   help="the EF trunk's cells (default ModelConfig's, or "
+                        "--tiny's)")
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'; nothing falls back")
     p.add_argument("--use_old_dataloader", action="store_true",
@@ -137,6 +153,7 @@ def config_from_args(args) -> Config:
                         img_size=args.img_size,
                         compute_dtype=args.compute_dtype,
                         genotype=genotype,
+                        derived_skeleton=args.derived_skeleton,
                         bn_eval_stats=args.bn_eval_stats,
                         fuse_mixed_ops=args.fuse_mixed_ops,
                         fold_bn_mixture=not args.no_fold_bn,
@@ -151,6 +168,10 @@ def config_from_args(args) -> Config:
             lstm_hidden_size=16, max_qst_len=8, darts_init_ch=4,
             darts_layers=1, darts_steps=2, darts_multiplier=2,
             vgg_width_mult=1 / 16, vgg_fc_dim=32)
+    widths = {k: getattr(args, k) for k in ("darts_init_ch", "darts_layers")
+              if getattr(args, k) is not None}
+    if widths:
+        model = dataclasses.replace(model, **widths)
     if genotype is not None:
         # the cell's shape is the genotype's
         model = dataclasses.replace(

@@ -97,11 +97,15 @@ def _answer_head(params, cfg: ModelConfig, img_feature, qst_feature, gen,
 
 def ef_forward(params, arch, cfg: ModelConfig, img: torch.Tensor,
                qst: torch.Tensor, gen: Optional[torch.Generator] = None,
-               deterministic: bool = True) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
-    """-> (answer logits [B, A], question logits [B, T, V])."""
+               deterministic: bool = True,
+               img_feature: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (answer logits [B, A], question logits [B, T, V]).
+    `img_feature`: `ef_img_encode`'s of `img`, where the caller has it."""
     dt = N.torch_dtype(cfg.compute_dtype)
-    img_feature = ef_img_encode(params, arch, cfg, img, gen, deterministic)
+    if img_feature is None:
+        img_feature = ef_img_encode(params, arch, cfg, img, gen,
+                                    deterministic)
     qst_feature, qst_logits = ef_qst_encoder(
         params["qst"], qst, img_feature, dtype=dt,
         use_kernel=cfg.use_pallas_lstm, use_seq_kernel=cfg.pallas_seq_lstm)
@@ -115,14 +119,18 @@ def ef_generate(params, arch, cfg: ModelConfig, img: torch.Tensor,
                 deterministic: bool = True,
                 sample_deterministic: bool = True,
                 sample_gen: Optional[torch.Generator] = None,
-                temperature: float = 0.1) -> Tuple[torch.Tensor,
-                                                   torch.Tensor]:
+                temperature: float = 0.1,
+                img_feature: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generate a question, then answer it. `deterministic` gates dropout
     (training generates with dropout on); `sample_deterministic` picks the
-    greedy token or a sample at `temperature` from `sample_gen`.
+    greedy token or a sample at `temperature` from `sample_gen`;
+    `img_feature` as in `ef_forward`.
     Returns (question int32 [B, T], answer logits [B, A])."""
     dt = N.torch_dtype(cfg.compute_dtype)
-    img_feature = ef_img_encode(params, arch, cfg, img, gen, deterministic)
+    if img_feature is None:
+        img_feature = ef_img_encode(params, arch, cfg, img, gen,
+                                    deterministic)
     qst = ef_qst_generate(params["qst"], img_feature, cfg.max_qst_len,
                           dtype=dt, use_kernel=cfg.use_pallas_lstm,
                           use_generate_kernel=cfg.pallas_generate,

@@ -41,6 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from lctvqa_torch import trace
 from lctvqa_torch.ops import cuda_bn, int8
 from lctvqa_torch.parallel import distributed
 
@@ -398,9 +399,12 @@ def _batchnorm_ctx(ctx: _BNCtx, params, x, eps, out_dtype):
 def batchnorm(params, x: torch.Tensor, eps: float = 1e-5,
               out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Batch-statistics BN over (N, H, W) per channel (the DARTS search
-    space runs its BN layers in train mode during search and eval)."""
+    space runs its BN layers in train mode during search and eval). Each
+    call adds one to its route's count in `trace.TABLE`: `bn.kernel`,
+    `bn.plain_affine` or `bn.plain`."""
     ctx = _BN_CTX.get()
     if ctx is not None:
+        trace.count("bn.plain_affine" if "scale" in params else "bn.plain")
         return _batchnorm_ctx(ctx, params, x, eps, out_dtype)
     if (USE_PALLAS_BN and not params and x.dim() == 4 and eps == 1e-5
             and not _SECOND_ORDER.get() and (
@@ -410,7 +414,9 @@ def batchnorm(params, x: torch.Tensor, eps: float = 1e-5,
         # a CPU tensor only where the plain version runs as the operator:
         # one that needs a gradient, or under a process group, takes the
         # plain route below, with autograd, as it always has
+        trace.count("bn.kernel")
         return cuda_bn.batchnorm_fwd(x, out_dtype=out_dtype)
+    trace.count("bn.plain_affine" if "scale" in params else "bn.plain")
     return batchnorm_plain(params, x, eps, out_dtype)
 
 

@@ -17,6 +17,10 @@ ran under it, where a reader of device operations would count it as an
 operation and its whole extent as busy. A span on the host alone leaves
 every reading of the device as it was.
 
+`count(name)` adds one to a name's count with no time (the BatchNorm
+routes of `ops/conv.py::batchnorm`), and not while `torch.compile` or
+`torch.export` traces. The TIMING line prints such a name's count alone.
+
 A span neither synchronizes the device nor records an event: its times
 are the host's enqueue, plus whatever waiting fell inside it. No span
 is opened inside a function that `export.export_programs` traces: there
@@ -52,13 +56,19 @@ class SpanTable:
             self.totals[name] += seconds
             self.counts[name] += 1
 
+    def count(self, name: str) -> None:
+        with self._lock:
+            self.counts[name] += 1
+
     def summary(self) -> str:
-        """One line: each span's host total, count and mean, and the wall
-        time since the last reset."""
+        """One line: each span's host total, count and mean, each counted
+        name's count, and the wall time since the last reset."""
         with self._lock:
             parts = [f"{name}: {tot:.2f}s/{self.counts[name]} "
                      f"({1000 * tot / max(self.counts[name], 1):.1f}ms avg)"
                      for name, tot in sorted(self.totals.items())]
+            parts += [f"{name}: {n}" for name, n in sorted(
+                self.counts.items()) if name not in self.totals]
         parts.append(f"wall: {time.perf_counter() - self._t0:.2f}s")
         return "host enqueue times: " + " | ".join(parts)
 
@@ -70,6 +80,13 @@ class SpanTable:
 
 
 TABLE = SpanTable()
+
+
+def count(name: str) -> None:
+    """One more of `name` in `TABLE` (no time); nothing while a graph is
+    traced."""
+    if not torch.compiler.is_compiling():
+        TABLE.count(name)
 
 
 class span:

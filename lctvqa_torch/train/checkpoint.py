@@ -6,7 +6,9 @@ scalars and arrays, and tags its config dataclasses and its `Genotype`
 with the JAX package's names for them (`lctvqa.config` / `Config` and so
 on, `lctvqa.models.genotypes` / `Genotype`; strings only, nothing is
 imported), so the JAX package's loader rebuilds them as its own classes:
-the port's config fields are a subset of that package's. The port's
+the port's config fields are a subset of that package's, but for those
+of `PORT_ONLY`, written only where they differ from their default (a
+model that package cannot build then fails to load there). The port's
 loader reads the files of either package: a namedtuple node (an optax
 optimizer state, a Genotype) becomes a `NamedTupleNode` that keeps its
 class name and values, a dataclass node (a Config) a dict of its fields.
@@ -39,6 +41,10 @@ class NamedTupleNode(NamedTuple):
     values: tuple
 
 
+# config fields the JAX package does not have, and their defaults
+PORT_ONLY = {"derived_skeleton": "search"}
+
+
 def _jax_module(mod: str) -> str:
     """The JAX package's module of the same name: lctvqa_torch.x ->
     lctvqa.x."""
@@ -69,7 +75,9 @@ def _encode(obj: Any, leaves: list):
         return {"dc": {"mod": _jax_module(cls.__module__),
                        "name": cls.__qualname__,
                        "f": {f.name: _encode(getattr(obj, f.name), leaves)
-                             for f in dataclasses.fields(obj)}}}
+                             for f in dataclasses.fields(obj)
+                             if f.name not in PORT_ONLY
+                             or getattr(obj, f.name) != PORT_ONLY[f.name]}}}
     if isinstance(obj, torch.Tensor):
         obj = obj.detach().cpu().numpy()
     leaves.append(np.asarray(obj))

@@ -21,7 +21,8 @@ returns are the global batch's. With one rank these are no-ops.
 Stages 1 and 2 name their phases with spans (`trace.py`):
 `stage1.forward`, `.backward`, `.optimizer` (the update and the
 step's statistics), and `stage2.generate`, `.forward`, `.backward`,
-`.optimizer`.
+`.optimizer`; a derived EF's image encoder runs inside `stage1.forward`
+and `stage2.generate` under `ef.trunk`.
 """
 
 from __future__ import annotations
@@ -63,6 +64,13 @@ def make_lct_steps(cfg: Config, unk_idx: int, device):
         mc = batch["answer_multi_choice"]
         return num_correct(pred, mc), num_correct(mask_unk(pred, unk_idx), mc)
 
+    def _trunk_span():
+        """The derived EF's image encoder (its trunk and the embedding
+        after it) under a span of its own; the other encoders' run in
+        their phase's span alone."""
+        return (span("ef.trunk") if mcfg.arch_type == "derived"
+                else contextlib.nullcontext())
+
     # ---------------- STAGE 1: EF weight update
     def stage1(ef_params, arch, ef_opt_state, batch, gen):
         with span("stage1.forward"):
@@ -70,8 +78,12 @@ def make_lct_steps(cfg: Config, unk_idx: int, device):
             p = with_grad(ef_params)
             with (C.bn_capture() if mcfg.bn_eval_stats
                   else contextlib.nullcontext()) as cap:
+                with _trunk_span():
+                    feat = vqa_ef.ef_img_encode(p, arch, mcfg, img, gen,
+                                                deterministic=False)
                 ans_logits, qst_logits = vqa_ef.ef_forward(
-                    p, arch, mcfg, img, qst, gen=gen, deterministic=False)
+                    p, arch, mcfg, img, qst, gen=gen, deterministic=False,
+                    img_feature=feat)
             loss = (cross_entropy(ans_logits, batch["answer_label"])
                     + sequence_teacher_forcing_ce(qst_logits, qst))
         with span("stage1.backward"):
@@ -96,10 +108,13 @@ def make_lct_steps(cfg: Config, unk_idx: int, device):
         with span("stage2.generate"), torch.no_grad():
             img, qst = _img(batch), batch["question"]
             labels = batch["answer_label"]
+            with _trunk_span():
+                feat = vqa_ef.ef_img_encode(ef_params, arch, mcfg, img, gen,
+                                            deterministic=False)
             pseudo_qst, pseudo_logits = vqa_ef.ef_generate(
                 ef_params, arch, mcfg, img, gen=gen, deterministic=False,
                 sample_deterministic=False, sample_gen=sample_gen,
-                temperature=tcfg.temperature)
+                temperature=tcfg.temperature, img_feature=feat)
             # stage 2 softens WITHOUT temperature, unlike stage 3
             pseudo_ans = torch.softmax(pseudo_logits, dim=-1)
         with span("stage2.forward"):

@@ -27,7 +27,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from lctvqa_torch import export, trace
 from lctvqa_torch.config import small_test_config
 from lctvqa_torch.data import pipeline, synthetic
-from lctvqa_torch.models import vqa_w
+from lctvqa_torch.models import genotypes, vqa_w
 from lctvqa_torch.train.experiment import Experiment
 
 REPO = Path(__file__).resolve().parents[1]
@@ -193,6 +193,122 @@ def test_a_program_exported_under_a_profiler_holds_no_profiler_op(w_model):
     targets = _targets(recorded["answer_logits"])
     assert targets == _targets(plain["answer_logits"])
     assert targets and not [t for t in targets if "profiler" in t]
+
+
+# ---------------------------------------------------------------------------
+# the derived EF's trunk span and the BatchNorm routes' counts
+# ---------------------------------------------------------------------------
+
+def _derived_experiment(tmp_path, skeleton="imagenet", name="PC_DARTS_image"):
+    """A derived EF of `name` on `skeleton`, two cells (the second a
+    reduction), 32 px."""
+    exp = _experiment(tmp_path)
+    g = getattr(genotypes, name)
+    cfg = exp.cfg.replace(model=dataclasses.replace(
+        exp.cfg.model, arch_type="derived", genotype=g,
+        derived_skeleton=skeleton, darts_init_ch=4, darts_layers=2,
+        darts_steps=len(g.normal) // 2,
+        darts_multiplier=len(g.normal_concat), compute_dtype="float32"),
+        exp_name=f"derived_{skeleton}")
+    arrays = synthetic.make_arrays(num_images=8, num_questions=16,
+                                   img_size=32, n_answers=16)
+    return Experiment(cfg, device="cpu",
+                      data=pipeline.loader_from_arrays(arrays))
+
+
+def test_ef_trunk_opens_once_a_trunk_forward(tmp_path, monkeypatch):
+    """Stage 1's forward and stage 2's generation: one `ef.trunk` each,
+    and one trunk forward inside each."""
+    from lctvqa_torch.models import derived
+    exp = _derived_experiment(tmp_path)
+    plain, calls = derived.derived_network_apply, []
+
+    def counted(*a, **k):
+        calls.append(trace.TABLE.counts["ef.trunk"])
+        return plain(*a, **k)
+
+    monkeypatch.setattr(derived, "derived_network_apply", counted)
+    batch = next(exp._batches("train"))
+    trace.TABLE.reset()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        exp.train_step(batch)
+    assert trace.TABLE.counts["ef.trunk"] == len(calls) == 2
+    # each forward ran inside its span: the count rises as the span ends
+    assert calls == [0, 1]
+    spans = _program(prof.events())
+    (s1a, s1b, _, _), = spans["lctvqa.stage1.forward"]
+    (s2a, s2b, _, _), = spans["lctvqa.stage2.generate"]
+    first, second = sorted(spans["lctvqa.ef.trunk"])
+    assert s1a <= first[0] < first[1] <= s1b
+    assert s2a <= second[0] < second[1] <= s2b
+
+
+def test_no_span_or_count_lands_while_a_program_is_exported(tmp_path):
+    exp = _derived_experiment(tmp_path)
+    artifact = export.export_state({"ef_params": exp.ef_params},
+                                   exp.cfg.model)
+    model = export.ServingModel(artifact, "cpu", genotypes.PC_DARTS_image,
+                                compute_dtype="float32")
+    trace.TABLE.reset()
+    export.export_programs(model, max_batch=2)
+    assert dict(trace.TABLE.counts) == {}
+    assert dict(trace.TABLE.totals) == {}
+
+
+def test_the_bn_routes_add_up_to_the_batchnorm_calls_of_a_step(
+        tmp_path, monkeypatch):
+    """A derived EF on the search skeleton, whose pools' BatchNorms are
+    affine-free, with the BatchNorm kernel's switch on: stage 1's take
+    the plain route (a gradient on the CPU), stage 2's generation the
+    operator (`bn.kernel`), every affine one `bn.plain_affine`."""
+    from lctvqa_torch.ops import conv
+    exp = _derived_experiment(tmp_path, "search", "PC_DARTS_cifar")
+    monkeypatch.setattr(conv, "USE_PALLAS_BN", True)
+    plain, calls = conv.batchnorm, []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    monkeypatch.setattr(conv, "batchnorm", counted)
+    batch = next(exp._batches("train"))
+    trace.TABLE.reset()
+    exp.train_step(batch)
+    routes = {r: trace.TABLE.counts[r]
+              for r in ("bn.kernel", "bn.plain", "bn.plain_affine")}
+    assert all(routes.values()), routes
+    assert sum(routes.values()) == len(calls)
+    assert "bn.plain_affine: " in trace.TABLE.summary()
+
+
+def test_a_span_and_a_count_leave_the_operators_as_they_were(
+        tmp_path, monkeypatch):
+    """The same step's operators on the calling thread, and the harness's
+    kernel count, with the program's spans and counts and with both made
+    no-ops: nothing but the `lctvqa.` host operators differs."""
+    import collections
+    import contextlib
+
+    from portbench.harness import Profile
+    from lctvqa_torch.train import steps
+
+    def operators(exp):
+        batch = next(exp._batches("train"))
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            with record_function("test.caller"):
+                exp.train_step(batch)
+        events = prof.events()
+        thread = _caller_thread(events)
+        names = collections.Counter(
+            e.name for e in events if e.thread == thread
+            and not e.name.startswith(trace.PREFIX))
+        return names, Profile(events, [], units=1).kernels
+
+    with_spans = operators(_derived_experiment(tmp_path / "a"))
+    monkeypatch.setattr(steps, "span", lambda name: contextlib.nullcontext())
+    monkeypatch.setattr(trace, "count", lambda name: None)
+    without = operators(_derived_experiment(tmp_path / "b"))
+    assert with_spans == without
 
 
 # ---------------------------------------------------------------------------
